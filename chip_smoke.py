@@ -6,25 +6,34 @@
 Phases; any failure exits non-zero, and nothing falls back to the CPU:
 
 1. The card (nvidia-smi name and power limit), and the build of the CUDA
-   kernels from ``spmv_tpu_torch/kernels/csrc/`` with nvcc's register and
-   spill lines.
-2. Each kernel against its plain PyTorch version on the card, on the edge
-   cases, a 1024-row band matrix, the cant-scale matrix and two 524,288-row
-   power-law matrices (``bench.py``'s ``pl_big``, and the same without its
-   column band: about 12.6M nnz, above L2), per row within
-   ``1e-5 + fp32_rel_tol(max_row_nnz)·Σ|v||x|``; each kernel twice, with
-   bitwise-equal output.
-3. The main path: ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}``
-   (in process) on ``databases/cant.mtx``, synthesized at n = 62,451 when
-   the file is absent, each validated against the fp64 oracle; then CSR on
-   the two power-law matrices and on the 512-row matrix of
-   ``__graft_entry__.entry()``.
-4. The launch counters show that phase 3 went through the kernels.
-5. Times of each kernel and of its plain version at cant scale and on
-   the power-law matrices, and of the two-dispatch and fused paths from 512
-   rows up (the fused threshold): per call (CUDA events around one call,
-   median of 30 after warm-up; host launch work included) and on the
-   device (``torch.profiler``, the card's own kernel and memset time).
+   kernels from ``spmv_tpu_torch/kernels/csrc/`` (one nvcc per source, all
+   at once) with nvcc's register and spill lines.
+2. Each kernel against its plain PyTorch version on the card, per row
+   within ``1e-5 + fp32_rel_tol(max_row_nnz)·Σ|v||x|``, each kernel twice
+   with bitwise-equal output. The segmented engine (K1-K3) on the edge
+   cases, a 1024-row band matrix, the cant-scale matrix (``bench.py``'s
+   ``synthetic_cant(n=62464, avg_nnz_per_row=64, bandwidth=350, seed=0)``)
+   and two 524,288-row power-law matrices (``bench.py``'s ``pl_big``, and
+   the same without its column band: 12,373,741 nnz, above L2). The panel
+   engine (K4-K7) on the edge cases, the band matrix, cant (pure ELL, and
+   SELL-C-σ as the split builds it) and ``bench.py``'s 32k-row power-law
+   matrix (SELL and ELL without the split, and SELL as the split builds it).
+3. The main path, one run per slice with the launch counters from zero:
+   ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
+   on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
+   file is absent, then CSR on the two power-law matrices and the 512-row
+   matrix of ``__graft_entry__.entry()``; then ``run --format
+   {ell,sell,hyb}`` on cant, SELL and HYB at ``pl_big`` (``bench.py:211-215``),
+   bench.py's pure-panel ``ell_pure``/``sell_pure`` builds of the 32k
+   power-law matrix, and SELL on the 512-row matrix. Each is validated
+   against the fp64 oracle.
+4. The launch counters show that each run went through its kernels.
+5. Times per call (CUDA events around one call, median of 30 after warm-up;
+   host launch work included) and on the device (``torch.profiler``, the
+   card's own kernel and memset time): each kernel and its plain version
+   at cant scale and on the power-law matrices, the two-dispatch and fused
+   shapes of both engines from 512 rows up (the fused threshold), and every
+   format's ``matvec`` beside CSR's on the main and power-law suites.
 6. One JSON line with the kernels, then the result line.
 """
 
@@ -41,12 +50,20 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "spmv_tpu_torch/kernels/csrc/seg_spmv.cu"
-REPLACES = {
-    "seg_spmv_tiles": "spmv_tpu/kernels/engines.py:414",
-    "carry_fixup": "spmv_tpu/kernels/engines.py:171",
-    "csr_spmv_fused": "spmv_tpu/kernels/engines.py:430",
+CSRC = "spmv_tpu_torch/kernels/csrc/"
+# kernel → (source, the TPU kernel it replaces)
+KERNELS = {
+    "seg_spmv_tiles": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:414"),
+    "carry_fixup": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:171"),
+    "csr_spmv_fused": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:430"),
+    "panel_spmv_tiles": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:269"),
+    "panel_fixup": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:171"),
+    "panel_spmv_fused": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:283"),
+    "inverse_permute": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:719"),
 }
+SEG = ("seg_spmv_tiles", "carry_fixup", "csr_spmv_fused")
+PANEL = ("panel_spmv_tiles", "panel_fixup", "panel_spmv_fused", "inverse_permute")
+CANT_N = 62_464  # bench.py:84-85
 REPS = 30
 
 
@@ -100,13 +117,26 @@ def fmt_ms(ms: float | None) -> str:
 
 
 def slot_rows(dev) -> np.ndarray:
-    """Row that owns each carry slot (-1 for slots no row uses)."""
+    """Row that owns each K1 carry slot (-1 for slots no row uses)."""
     ptr = dev.ptr.cpu().numpy().astype(np.int64)
     owner = np.full(2 * dev.ntiles, -1, np.int64)
     for r in dev.carry_rows.cpu().numpy():
         ta, tb = ptr[r] // dev.tile, (ptr[r + 1] - 1) // dev.tile
         owner[2 * ta + 1] = r
         owner[2 * np.arange(ta + 1, tb + 1)] = r
+    return owner
+
+
+def part_rows(dev) -> np.ndarray:
+    """Row (in the plan's row space) that owns each K4 partial, as
+    (2·ntiles, 32); -1 for partials no row uses."""
+    scol = dev.slice_ptr.cpu().numpy().astype(np.int64) // 32
+    owner = np.full((2 * dev.ntiles, 32), -1, np.int64)
+    lanes = np.arange(32)
+    for s in dev.split_slices.cpu().numpy():
+        ta, tb = scol[s] // dev.tile, (scol[s + 1] - 1) // dev.tile
+        owner[[2 * ta + 1, *(2 * np.arange(ta + 1, tb + 1))]] = s * 32 + lanes
+    owner[owner >= dev.nrows] = -1
     return owner
 
 
@@ -119,7 +149,7 @@ def within(name: str, got: torch.Tensor, want: torch.Tensor,
     err = (got.double() - want.double()).abs().cpu().numpy()
     bad = err > KERNEL_TOL_ABS + tol_rel * scale
     if bad.any():
-        i = int(np.argmax(bad))
+        i = np.unravel_index(int(np.argmax(bad)), bad.shape)
         raise AssertionError(f"{name}: entry {i} differs by {err[i]:.3e} "
                              f"(got {float(got[i])}, plain {float(want[i])})")
     return float(err.max()) if err.size else 0.0
@@ -134,12 +164,24 @@ def same_bits(name: str, fn) -> torch.Tensor:
     return a
 
 
+def check_oracle(label: str, trip, y: torch.Tensor, xh: np.ndarray) -> None:
+    from spmv_tpu_torch.oracle import golden_spmv, kernel_check, row_scale
+
+    info, rows, cols, vals = trip
+    v32 = vals.astype(np.float32)
+    k = int(np.bincount(rows, minlength=max(info.nrows, 1)).max()) if rows.size else 1
+    rep = kernel_check(golden_spmv(info.nrows, rows, cols, v32, xh),
+                       y.cpu().numpy(), row_scale(info.nrows, rows, cols, v32, xh), k)
+    if not rep.ok:
+        raise AssertionError(f"{label} vs fp64 oracle: {rep}")
+
+
 def check_kernels(label: str, trip, seed: int) -> dict:
-    """Phase 2 on one matrix: each kernel against its plain version and
-    against itself. Returns the max abs error per kernel."""
+    """Phase 2, segmented engine, on one matrix: K1-K3 against their plain
+    versions and against themselves. Returns the max abs error per kernel."""
     from spmv_tpu_torch import CSRMatrix
     from spmv_tpu_torch.kernels import engines as E
-    from spmv_tpu_torch.oracle import fp32_rel_tol, golden_spmv, kernel_check, row_scale
+    from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
 
     info, rows, cols, vals = trip
     a = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals, device="cuda")
@@ -161,11 +203,8 @@ def check_kernels(label: str, trip, seed: int) -> dict:
     y3 = same_bits("csr_spmv_fused", lambda: E.segmented_spmv_fused(dev, x))
     y3r = E.segmented_spmv_fused_reference(dev, x)
     e3 = within(f"{label} csr_spmv_fused", y3, y3r, scale, tol)
-    expected = golden_spmv(info.nrows, rows, cols, vals.astype(np.float32), xh)
     for name, y in (("K1+K2", y2), ("K3", y3)):
-        rep = kernel_check(expected, y.cpu().numpy(), scale, dev.max_row_nnz)
-        if not rep.ok:
-            raise AssertionError(f"{label} {name} vs fp64 oracle: {rep}")
+        check_oracle(f"{label} {name}", trip, y, xh)
     print(f"  {label}: {info.nrows}x{info.ncols} nnz {rows.size} tiles "
           f"{dev.ntiles} split rows {dev.ncarry}: max |kernel - plain| "
           f"K1 {e1:.3e}  K2 {e2:.3e}  K3 {e3:.3e}; K1+K2 and K3 pass the "
@@ -173,12 +212,88 @@ def check_kernels(label: str, trip, seed: int) -> dict:
     return {"seg_spmv_tiles": e1, "carry_fixup": e2, "csr_spmv_fused": e3}
 
 
+def build(fmt: str, trip, **kwargs):
+    import spmv_tpu_torch
+
+    info, rows, cols, vals = trip
+    return spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, rows, cols,
+                                   vals, device="cuda", **kwargs)
+
+
+def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dict:
+    """Phase 2, panel engine, on one matrix's ELL or SELL build: K4-K7
+    against their plain versions and against themselves, and the
+    container's y against the fp64 oracle. Returns the max abs error per
+    kernel."""
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
+
+    info, rows, cols, vals = trip
+    a = build(fmt, trip, **kwargs)
+    dev = a.dev
+    perm = getattr(a, "perm", np.arange(dev.nrows))
+    xh = np.random.default_rng(seed).standard_normal(info.ncols).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    scale = np.zeros(dev.nrows)  # in the plan's (sorted) row space
+    real = perm < info.nrows
+    scale[real] = row_scale(info.nrows, rows, cols, vals.astype(np.float32), xh)[perm[real]]
+    tol = fp32_rel_tol(max(dev.max_width, 1))
+
+    y4, p4 = same_bits("panel_spmv_tiles", lambda: P.panel_spmv_partials(dev, x))
+    y4r, p4r = P.panel_spmv_partials_reference(dev, x)
+    owner = part_rows(dev)
+    pscale = np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
+    e4 = max(within(f"{label} panel_spmv_tiles y", y4, y4r, scale, tol),
+             within(f"{label} panel_spmv_tiles part", p4, p4r, pscale, tol))
+    y5 = same_bits("panel_fixup", lambda: P.panel_fixup(dev, y4.clone(), p4))
+    e5 = within(f"{label} panel_fixup", y5,
+                P.panel_fixup_reference(dev, y4.clone(), p4), scale, tol)
+    y6 = same_bits("panel_spmv_fused", lambda: P.panel_spmv_fused(dev, x))
+    e6 = within(f"{label} panel_spmv_fused", y6,
+                P.panel_spmv_fused_reference(dev, x), scale, tol)
+    errs = {"panel_spmv_tiles": e4, "panel_fixup": e5, "panel_spmv_fused": e6}
+    if getattr(a, "sorted_rows", False):
+        y7 = same_bits("inverse_permute",
+                       lambda: P.inverse_permute(a.invperm_dev, y6, info.nrows))
+        errs["inverse_permute"] = within(
+            f"{label} inverse_permute", y7,
+            P.inverse_permute_reference(a.invperm_dev, y6, info.nrows),
+            np.zeros(info.nrows), 0.0)
+    check_oracle(f"{label} {fmt} matvec", trip, a.matvec(x), xh)
+    print(f"  {label} {fmt}{kwargs or ''}: shape {a.shape}, sorted "
+          f"{getattr(a, 'sorted_rows', False)}, panel nnz {a.panel_nnz} in "
+          f"{dev.nslots} slots ({dev.nslots / max(a.panel_nnz, 1):.3f}x), spill "
+          f"nnz {a.spill_nnz}, tiles {dev.ntiles}, split slices {dev.nsplit}: "
+          f"max |kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + "; matvec passes the fp64 oracle; two runs bitwise equal")
+    return errs
+
+
+def timed(label: str, fns: dict, card: str, nnz: int, nbytes: int) -> dict:
+    """``{name: (call_ms, device_ms)}`` for each function, printed with its
+    rates; the device time split by kernel for all but the plain versions."""
+    gb = nbytes / 1e9
+    t = {}
+    for k, fn in fns.items():
+        call = time_ms(fn)
+        dms, by_name = device_ms(fn)
+        t[k] = (call, dms)
+        line = (f"    {k:24s} call {call:9.4f} ms  {nnz / call / 1e6:8.2f} "
+                f"Gnnz/s  {gb / call * 1e3:8.1f} GB/s | device {fmt_ms(dms)}")
+        if dms:
+            line += (f"  {nnz / dms / 1e6:8.2f} Gnnz/s  "
+                     f"{gb / dms * 1e3:8.1f} GB/s")
+        print(f"{line}  [{card}]")
+        if not k.endswith("_plain"):
+            for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+                print(f"        {ms:9.4f} ms  {name[:70]}")
+    return t
+
+
 def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
-    """Phase 5 on one matrix: ``{name: (call_ms, device_ms)}`` for each
-    kernel, its plain version (with ``plain``) and the K1+K2 path, and the
-    plan's bytes under ``plan_bytes``.
-    call_ms is what a caller waits per call, host launch work included;
-    device_ms is the card's own time (kernels and memsets)."""
+    """Phase 5, segmented engine: K1-K3, their plain versions (with
+    ``plain``) and the K1+K2 path on one matrix, and the plan's bytes
+    under ``plan_bytes``."""
     from spmv_tpu_torch import CSRMatrix
     from spmv_tpu_torch.kernels import engines as E
 
@@ -200,25 +315,70 @@ def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
             "carry_fixup_plain": lambda: E.carry_fixup_reference(dev, y, carry),
             "csr_spmv_fused_plain": lambda: E.segmented_spmv_fused_reference(dev, x),
         })
-    gb = dev.stream_bytes / 1e9
-    print(f"  {label}: {info.nrows} rows, nnz {dev.nnz}, plan "
+    print(f"  {label} csr: {info.nrows} rows, nnz {dev.nnz}, plan "
           f"{dev.stream_bytes} B, tiles {dev.ntiles}, split rows {dev.ncarry}, "
           f"K3 lanes/row {E.fused_lanes(dev)}  [{card}]")
-    t = {"plan_bytes": dev.stream_bytes}
-    for k, fn in fns.items():
-        call = time_ms(fn)
-        dms, by_name = device_ms(fn)
-        t[k] = (call, dms)
-        line = (f"    {k:22s} call {call:9.4f} ms  {dev.nnz / call / 1e6:8.2f} "
-                f"Gnnz/s  {gb / call * 1e3:8.1f} GB/s | device {fmt_ms(dms)}")
-        if dms:
-            line += (f"  {dev.nnz / dms / 1e6:8.2f} Gnnz/s  "
-                     f"{gb / dms * 1e3:8.1f} GB/s")
-        print(f"{line}  [{card}]")
-        if not k.endswith("_plain"):
-            for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
-                print(f"        {ms:9.4f} ms  {name[:70]}")
+    t = timed(label, fns, card, dev.nnz, dev.stream_bytes)
+    t["plan_bytes"] = dev.stream_bytes
     return t
+
+
+def time_panel(label: str, a, card: str, plain: bool = True) -> dict:
+    """Phase 5, panel engine: K4-K7, their plain versions (with
+    ``plain``) and the K4+K5 path on one container's panel, and the panel's
+    bytes under ``plan_bytes``."""
+    from spmv_tpu_torch.kernels import panel as P
+
+    dev = a.dev
+    sorted_ = getattr(a, "sorted_rows", False)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        a.ncols).astype(np.float32)).cuda()
+    y, part = P.panel_spmv_partials(dev, x)
+    y6 = P.panel_spmv_fused(dev, x)
+    fns = {
+        "panel_spmv_tiles": lambda: P.panel_spmv_partials(dev, x),
+        "panel_fixup": lambda: P.panel_fixup(dev, y, part),
+        "panel_spmv_fused": lambda: P.panel_spmv_fused(dev, x),
+        "path K4+K5": lambda: P.panel_fixup(dev, *P.panel_spmv_partials(dev, x)),
+    }
+    if sorted_:
+        fns["inverse_permute"] = lambda: P.inverse_permute(a.invperm_dev, y6, a.nrows)
+    if plain:
+        fns.update({
+            "panel_spmv_tiles_plain": lambda: P.panel_spmv_partials_reference(dev, x),
+            "panel_fixup_plain": lambda: P.panel_fixup_reference(dev, y, part),
+            "panel_spmv_fused_plain": lambda: P.panel_spmv_fused_reference(dev, x),
+        })
+        if sorted_:
+            fns["inverse_permute_plain"] = lambda: P.inverse_permute_reference(
+                a.invperm_dev, y6, a.nrows)
+    print(f"  {label}: {a.nrows} rows, panel nnz {a.panel_nnz} in {dev.nslots} "
+          f"slots ({dev.nslots / max(a.panel_nnz, 1):.3f}x), panel "
+          f"{dev.stream_bytes} B, tiles {dev.ntiles}, split slices "
+          f"{dev.nsplit}, max width {dev.max_width}, sorted {sorted_}  [{card}]")
+    t = timed(label, fns, card, a.panel_nnz, dev.stream_bytes)
+    t["plan_bytes"] = dev.stream_bytes
+    return t
+
+
+def time_formats(label: str, trip, builds: dict, card: str) -> dict:
+    """Phase 5, formats: each container's ``matvec`` (x already on the
+    card) beside CSR's on one matrix."""
+    info = trip[0]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        info.ncols).astype(np.float32)).cuda()
+    print(f"  {label}: matvec per format (split shape, panel/spill nnz, "
+          f"padding of the panel, plan bytes)")
+    out = {}
+    for name, a in builds.items():
+        extra = (f" shape {a.shape} sorted {getattr(a, 'sorted_rows', '-')} "
+                 f"panel {a.panel_nnz} spill {a.spill_nnz} pad "
+                 f"{a.dev.nslots / max(a.panel_nnz, 1):.3f}x"
+                 if hasattr(a, "parts") else "")
+        print(f"   {name}:{extra} plan {a.stream_bytes} B")
+        out[name] = timed(label, {f"{name} matvec": lambda a=a: a.matvec(x)},
+                          card, trip[1].size, a.stream_bytes)[f"{name} matvec"]
+    return out
 
 
 def main() -> int:
@@ -231,6 +391,7 @@ def main() -> int:
     from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
 
+    t_start = time.perf_counter()
     # 1. the card and the build
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -239,37 +400,52 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     built = _build.library()
-    print(f"build: {built.path.name}, nvcc {built.seconds:.1f} s, load "
-          f"{time.perf_counter() - t0:.1f} s in all")
+    print(f"build: {', '.join(p.name for p in built.paths)}, nvcc "
+          f"{built.seconds:.1f} s, load {time.perf_counter() - t0:.1f} s in all")
     for line in built.log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     # 2. kernels against their plain versions
     print("phase 2: kernels against plain PyTorch versions")
-    for name in sorted(synth.EDGE_CASES):
-        check_kernels(name, synth.edge_case(name), seed=1)
-    check_kernels("band-1024", synth.synthetic_cant(
-        n=1024, avg_nnz_per_row=16, bandwidth=60, seed=5), seed=2)
-    cant = synth.synthetic_cant()
-    errs = check_kernels("cant-62451", cant, seed=3)
+    band = synth.synthetic_cant(n=1024, avg_nnz_per_row=16, bandwidth=60, seed=5)
+    cant = synth.synthetic_cant(n=CANT_N, avg_nnz_per_row=64, bandwidth=350, seed=0)
     # bench.py's pl_big, and the same generator without the column band:
-    # about 12.6M nnz, a plan above the 50 MB L2, hub rows over many tiles
+    # 12,373,741 nnz, a plan above the 50 MB L2, hub rows over many tiles
     pl_big = synth.power_law(n=524_288, avg_nnz_per_row=24, bandwidth=512, seed=0)
     pl_wide = synth.power_law(n=524_288, avg_nnz_per_row=24, seed=0)
-    check_kernels("pl_big-524288", pl_big, seed=4)
-    check_kernels("pl_wide-524288", pl_wide, seed=5)
-    torch.cuda.synchronize()
+    pl = synth.power_law(n=32768, avg_nnz_per_row=24, bandwidth=512, seed=0)  # bench.py:164
+    errs = {k: 0.0 for k in KERNELS}
 
-    # 3. the main path, with the launch counters from zero
+    def keep_max(e: dict) -> None:
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+
+    for name in sorted(synth.EDGE_CASES):
+        keep_max(check_kernels(name, synth.edge_case(name), seed=1))
+        keep_max(check_panel(name, synth.edge_case(name), seed=1, split=False))
+    keep_max(check_kernels("band-1024", band, seed=2))
+    keep_max(check_panel("band-1024", band, seed=2, split=False))
+    keep_max(check_kernels(f"cant-{CANT_N}", cant, seed=3))
+    keep_max(check_panel(f"cant-{CANT_N}", cant, seed=3, fmt="ell", split=False))
+    keep_max(check_panel(f"cant-{CANT_N}", cant, seed=3))
+    keep_max(check_kernels("pl_big-524288", pl_big, seed=4))
+    keep_max(check_kernels("pl_wide-524288", pl_wide, seed=5))
+    keep_max(check_panel("pl-32768", pl, seed=6, split=False))
+    keep_max(check_panel("pl-32768", pl, seed=6, fmt="ell", split=False))
+    keep_max(check_panel("pl-32768", pl, seed=6))
+    torch.cuda.synchronize()
+    print(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 3. the main path, one run per slice, each with the counters from zero
     print("phase 3: main path")
+    cant_args = ["--matrix", os.path.join(ROOT, "databases", "cant.mtx"),
+                 "--synth-n", str(CANT_N)]
     entry = synth.synthetic_cant(n=512, avg_nnz_per_row=8, bandwidth=40, seed=0)
     E.reset_launches()
     for fmt in ("csr", "coo", "cmrs"):
-        rc = cli.main(["run", "--format", fmt, "--matrix",
-                       os.path.join(ROOT, "databases", "cant.mtx")])
-        if rc != 0:
-            raise SystemExit(f"run --format {fmt} on cant returned {rc}")
+        if cli.main(["run", "--format", fmt, *cant_args]) != 0:
+            raise SystemExit(f"run --format {fmt} on cant failed")
     after_cant = dict(E.LAUNCHES)
     for label, trip in (("pl_big", pl_big), ("pl_wide", pl_wide)):
         if cli.run_spmv("csr", *trip, device="cuda") != 0:
@@ -277,48 +453,115 @@ def main() -> int:
     if cli.run_spmv("csr", *entry, x_mode="random", seed=1, device="cuda") != 0:
         raise SystemExit("run on the 512-row entry() matrix failed")
     torch.cuda.synchronize()
-    launches = dict(E.LAUNCHES)
+    seg_launches = dict(E.LAUNCHES)
 
-    # 4. the path went through the kernels
-    print(f"phase 4: launches after the cant runs {after_cant}, in all {launches}")
+    E.reset_launches()
+    for fmt in ("ell", "sell", "hyb"):
+        if cli.main(["run", "--format", fmt, *cant_args]) != 0:
+            raise SystemExit(f"run --format {fmt} on cant failed")
+    for fmt in ("sell", "hyb"):
+        if cli.run_spmv(fmt, *pl_big, device="cuda") != 0:
+            raise SystemExit(f"run --format {fmt} on pl_big failed")
+    xh = np.random.default_rng(7).standard_normal(pl[0].ncols).astype(np.float32)
+    pure_launches = {}
+    for fmt in ("ell", "sell"):  # bench.py's ell_pure / sell_pure
+        before = dict(E.LAUNCHES)
+        y = build(fmt, pl, split=False).matvec(xh)
+        check_oracle(f"pl-32768 {fmt}_pure", pl, y, xh)
+        pure_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in PANEL}
+        print(f"{fmt}_pure on pl-32768: result is ok; launches {pure_launches[fmt]}")
+    if cli.run_spmv("sell", *entry, x_mode="random", seed=1, device="cuda") != 0:
+        raise SystemExit("sell on the 512-row entry() matrix failed")
+    torch.cuda.synchronize()
+    panel_launches = dict(E.LAUNCHES)
+
+    # 4. each run went through its kernels
+    print(f"phase 4: launches after the csr/coo/cmrs cant runs {after_cant}; "
+          f"segmented path in all {seg_launches}; panel path {panel_launches}")
     if after_cant["seg_spmv_tiles"] < 1 or after_cant["carry_fixup"] < 1:
         raise SystemExit("the cant-scale runs did not launch K1 and K2")
-    if launches["csr_spmv_fused"] < 1:
+    if seg_launches["csr_spmv_fused"] < 1:
         raise SystemExit("the 512-row run did not launch K3")
+    missing = [k for k in PANEL if panel_launches[k] < 1]
+    if missing:
+        raise SystemExit(f"the panel path did not launch {missing}")
+    if pure_launches["sell"]["inverse_permute"] < 1:
+        raise SystemExit("sell_pure on the power-law matrix did not launch K7")
+    launches = {k: seg_launches[k] + panel_launches[k] for k in KERNELS}
+    print(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. times
     print(f"phase 5: times per call (CUDA events, median of {REPS} single "
           "calls after 3 warm-up calls) and on the device (torch.profiler)")
-    tc = time_matrix("cant-62451", cant, card)
-    times = {"cant-62451": tc,
+    cl = f"cant-{CANT_N}"
+    tc = time_matrix(cl, cant, card)
+    times = {cl: tc,
              "pl_big-524288": time_matrix("pl_big-524288", pl_big, card),
              "pl_wide-524288": time_matrix("pl_wide-524288", pl_wide, card)}
-    # the fused threshold: both paths across plan sizes
-    sweep = {"entry-512": entry,
-             "band-1024": synth.synthetic_cant(n=1024, avg_nnz_per_row=16,
-                                               bandwidth=60, seed=5),
+    cant_sell = build("sell", cant)
+    tp = time_panel(f"{cl} sell", cant_sell, card)
+    ptimes = {f"{cl} sell": tp,
+              f"{cl} ell_pure": time_panel(f"{cl} ell_pure",
+                                           build("ell", cant, split=False), card),
+              "pl-32768 sell_pure": time_panel("pl-32768 sell_pure",
+                                               build("sell", pl, split=False), card),
+              "pl-32768 ell_pure": time_panel("pl-32768 ell_pure",
+                                              build("ell", pl, split=False), card),
+              "pl_big-524288 sell_pure": time_panel(
+                  "pl_big-524288 sell_pure", build("sell", pl_big, split=False),
+                  card, plain=False)}
+    # the fused threshold: both shapes of both engines across plan sizes
+    sweep = {"entry-512": entry, "band-1024": band,
              "cant-8192": synth.synthetic_cant(n=8192),
              "cant-16384": synth.synthetic_cant(n=16384),
              # bench.py's 32k-row power-law suite, and without its band
-             "pl-32768": synth.power_law(n=32768, avg_nnz_per_row=24,
-                                         bandwidth=512, seed=0),
-             "pl_wide-32768": synth.power_law(n=32768, avg_nnz_per_row=24,
-                                              seed=0)}
+             "pl-32768": pl,
+             "pl_wide-32768": synth.power_law(n=32768, avg_nnz_per_row=24, seed=0)}
     for label, trip in sweep.items():
         times[label] = time_matrix(label, trip, card, plain=False)
-    print(f"fused threshold: K1+K2 against K3, ms per call | device  [{card}]")
+        ptimes[f"{label} sell_pure"] = time_panel(
+            f"{label} sell_pure", build("sell", trip, split=False), card, plain=False)
+    print(f"fused threshold: two-dispatch against one-dispatch shape, ms per "
+          f"call | device  [{card}]")
     for label, t in times.items():
-        print(f"  {label:16s} plan {t['plan_bytes']:10d} B  K1+K2 "
+        print(f"  {label:24s} csr plan {t['plan_bytes']:10d} B  K1+K2 "
               f"{t['path K1+K2'][0]:.4f} | {fmt_ms(t['path K1+K2'][1])}  K3 "
               f"{t['csr_spmv_fused'][0]:.4f} | {fmt_ms(t['csr_spmv_fused'][1])}")
+    for label, t in ptimes.items():
+        print(f"  {label:24s} panel {t['plan_bytes']:10d} B  K4+K5 "
+              f"{t['path K4+K5'][0]:.4f} | {fmt_ms(t['path K4+K5'][1])}  K6 "
+              f"{t['panel_spmv_fused'][0]:.4f} | {fmt_ms(t['panel_spmv_fused'][1])}")
+    print(f"formats: matvec per format, ms per call | device  [{card}]")
+    suites = {
+        cl: (cant, {"csr": build("csr", cant), "coo": build("coo", cant),
+                    "cmrs": build("cmrs", cant), "ell": build("ell", cant),
+                    "sell": cant_sell, "hyb": build("hyb", cant),
+                    "ell_pure": build("ell", cant, split=False),
+                    "sell_pure": build("sell", cant, split=False)}),
+        "pl-32768": (pl, {f: build(f, pl) for f in ("csr", "ell", "sell", "hyb")}
+                     | {"ell_pure": build("ell", pl, split=False),
+                        "sell_pure": build("sell", pl, split=False)}),
+        "pl_big-524288": (pl_big, {f: build(f, pl_big) for f in ("csr", "sell", "hyb")}
+                          | {"sell_pure": build("sell", pl_big, split=False)}),
+    }
+    for label, (trip, builds) in suites.items():
+        ft = time_formats(label, trip, builds, card)
+        for name, (call, dms) in ft.items():
+            print(f"  {label:16s} {name:10s} {call:.4f} | {fmt_ms(dms)}  "
+                  f"(csr {ft['csr'][0]:.4f} | {fmt_ms(ft['csr'][1])})")
+    print(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 6. results
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": errs[k], "ms": tc[k][0],
-                "plain_ms": tc[f"{k}_plain"][0], "device_ms": tc[k][1],
-                "plain_device_ms": tc[f"{k}_plain"][1],
-                "at": "synthetic_cant n=62451"} for k in REPLACES]
+    # 6. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
+    # SELL-C-σ panel the split builds there)
+    kernels = []
+    for k, (src, replaces) in KERNELS.items():
+        t, at = (tc, f"synthetic_cant n={CANT_N} csr") if k in SEG else (
+            tp, f"synthetic_cant n={CANT_N} sell")
+        kernels.append({"name": k, "route": "cuda", "source": CSRC + src,
+                        "replaces": replaces, "launches": launches[k],
+                        "max_abs_err": errs[k], "ms": t[k][0],
+                        "plain_ms": t[f"{k}_plain"][0], "device_ms": t[k][1],
+                        "plain_device_ms": t[f"{k}_plain"][1], "at": at})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

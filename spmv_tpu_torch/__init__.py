@@ -2,9 +2,11 @@
 kernels for NVIDIA Hopper (H100), ported from the JAX package ``spmv_tpu``.
 
 This package imports ``torch`` and never ``jax`` or ``spmv_tpu``. Ported so
-far: MatrixMarket reading, the synthetic generators, the fp64 oracle, and
-the CSR, COO and CMRS containers on the segmented engine's three kernels
-(``kernels/csrc/seg_spmv.cu``). ``ROADMAP.md`` lists what is still to come.
+far: MatrixMarket reading, the synthetic generators, the fp64 oracle, the
+CSR, COO and CMRS containers on the segmented engine's three kernels
+(``kernels/csrc/seg_spmv.cu``), and the ELL, SELL-C-σ and HYB containers on
+the panel engine's four (``kernels/csrc/panel_spmv.cu``) with their CSR
+spill part. ``ROADMAP.md`` lists what is still to come.
 """
 
 from spmv_tpu_torch import device, oracle, synth
@@ -13,6 +15,9 @@ from spmv_tpu_torch.errors import ReturnCode
 from spmv_tpu_torch.formats.cmrs import CMRSMatrix
 from spmv_tpu_torch.formats.coo import COOMatrix
 from spmv_tpu_torch.formats.csr import CSRMatrix
+from spmv_tpu_torch.formats.ell import EllMatrix
+from spmv_tpu_torch.formats.hyb import HybMatrix
+from spmv_tpu_torch.formats.sell import SellMatrix
 from spmv_tpu_torch.io.mmio import read_coo
 from spmv_tpu_torch.oracle import check_result, default_x, golden_spmv
 
@@ -26,6 +31,9 @@ __all__ = [
     "COOMatrix",
     "CSRMatrix",
     "CMRSMatrix",
+    "EllMatrix",
+    "SellMatrix",
+    "HybMatrix",
     "read_coo",
     "check_result",
     "default_x",

@@ -10,6 +10,9 @@ import numpy as np
 from spmv_tpu_torch.formats.cmrs import CMRSMatrix
 from spmv_tpu_torch.formats.coo import COOMatrix
 from spmv_tpu_torch.formats.csr import CSRMatrix
+from spmv_tpu_torch.formats.ell import EllMatrix
+from spmv_tpu_torch.formats.hyb import HybMatrix
+from spmv_tpu_torch.formats.sell import SellMatrix
 
 __all__ = ["FORMATS", "NOT_PORTED", "from_coo", "load", "spmv",
            "from_reference"]
@@ -17,15 +20,22 @@ __all__ = ["FORMATS", "NOT_PORTED", "from_coo", "load", "spmv",
 FORMATS = {
     "coo": COOMatrix,
     "csr": CSRMatrix,
+    "ell": EllMatrix,
+    "sell": SellMatrix,
+    "sell_c_sigma": SellMatrix,
     "cmrs": CMRSMatrix,
+    "hyb": HybMatrix,  # ELL panel + CSR spill (the JAX framework extension)
 }
 
 # The JAX package's other formats, still to be ported (ROADMAP.md, queue A).
-NOT_PORTED = ("ell", "sell", "sell_c_sigma", "hyb", "bsr", "sym")
+NOT_PORTED = ("bsr", "sym")
 
 # JAX container class → port format name, for ``from_reference``
 _REFERENCE_CLASSES = {"COOMatrix": "coo", "CSRMatrix": "csr",
-                      "CMRSMatrix": "cmrs"}
+                      "CMRSMatrix": "cmrs", "EllMatrix": "ell",
+                      "SellMatrix": "sell", "HybMatrix": "hyb"}
+# JAX container class → the construction parameters it carries
+_REFERENCE_KWARGS = {"CMRSMatrix": ("height",), "SellMatrix": ("sigma",)}
 
 
 def _format_class(format: str):
@@ -68,13 +78,13 @@ def spmv(a, x):
 def from_reference(a, device):
     """The port's container holding the same matrix as the JAX package's
     container ``a``: its ``to_coo()`` triplets (fresh numpy copies, original
-    order for COO) go through the port's ``from_coo``. Needs no JAX import;
-    the parity tests use it."""
+    order for COO) go through the port's ``from_coo``, with the CMRS height
+    and the SELL σ. Needs no JAX import; the parity tests use it."""
     kind = type(a).__name__
     if kind not in _REFERENCE_CLASSES:
         raise NotImplementedError(
             f"{kind} has no PyTorch counterpart yet (see ROADMAP.md)")
     rows, cols, vals = a.to_coo()
-    kwargs = {"height": a.height} if kind == "CMRSMatrix" else {}
+    kwargs = {k: getattr(a, k) for k in _REFERENCE_KWARGS.get(kind, ())}
     return from_coo(_REFERENCE_CLASSES[kind], a.nrows, a.ncols, rows, cols,
                     vals, device=device, **kwargs)

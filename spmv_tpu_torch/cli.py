@@ -25,7 +25,7 @@ import torch
 
 from spmv_tpu_torch.errors import ReturnCode
 
-FORMATS = ["coo", "csr", "cmrs"]
+FORMATS = ["coo", "csr", "ell", "sell", "cmrs", "hyb"]
 
 
 def _load(args):
@@ -106,8 +106,10 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
     ran = [k for k, n in engines.LAUNCHES.items() if n > before[k]]
     where = (torch.cuda.get_device_name(a.dev.device)
              if a.dev.device.type == "cuda" else "plain PyTorch versions")
+    split = (f" (split: {a.shape}, panel {a.panel_nnz} + spill {a.spill_nnz} "
+             "nnz)" if hasattr(a, "parts") else "")
     print(f"{fmt}: {info.nrows} x {info.ncols}, nnz {rows.size}, plan "
-          f"{a.dev.stream_bytes / 1e6:.2f} MB on {a.dev.device} ({where}); "
+          f"{a.stream_bytes / 1e6:.2f} MB{split} on {a.dev.device} ({where}); "
           f"kernels: {' + '.join(ran) or 'none'}")
     rep = _validate(info, rows, cols, vals, x, y)
     print(rep)

@@ -1,10 +1,11 @@
-"""Device-resident plan and the x/y helpers.
+"""Device-resident plans and the x/y helpers.
 
-Counterpart of ``spmv_tpu/device.py:DevSeg``. The JAX container splits
-each stream into several arrays, packs u8 index planes and computes y
-window targets, all for the TPU's DMA and VMEM limits; on Hopper the plan
-is the CSR arrays and the tile schedule of ``formats.base``, held as int32
-and float32 tensors on an explicit ``torch.device``.
+Counterparts of ``spmv_tpu/device.py:DevSeg`` and ``DevPanel``. The JAX
+containers split each stream into several arrays, pack u8 index planes and
+compute y window targets, all for the TPU's DMA and VMEM limits; on Hopper
+a plan is the CSR arrays or the sliced-ELLPACK panel of ``formats.base``
+with its tile schedule, held as int32 and float32 tensors on an explicit
+``torch.device``.
 """
 
 from __future__ import annotations
@@ -14,15 +15,28 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats.base import CsrPlan
+from spmv_tpu_torch.formats.base import CsrPlan, PanelPlan
 
-__all__ = ["DevCsr", "FUSED_STREAM_BYTES_MAX", "x_to_device", "y_to_numpy"]
+__all__ = ["DevCsr", "DevPanel", "FUSED_STREAM_BYTES_MAX", "x_to_device",
+           "y_to_numpy"]
 
-# Plans of at most this many bytes run the one-dispatch kernel K3
-# (``csr_spmv_fused``); larger plans run K1 + K2. The JAX package's
-# threshold (``spmv_tpu/device.py:68``) was the starting point; PERF.md
-# records the H100 times at the shapes ``chip_smoke.py`` runs.
+# Plans of at most this many bytes run the one-dispatch kernel (K3
+# ``csr_spmv_fused``, K6 ``panel_spmv_fused``); larger plans run the
+# two-dispatch shape (K1 + K2, K4 + K5). The JAX package's threshold
+# (``spmv_tpu/device.py:68``, for both engines) was the starting point;
+# PERF.md records the H100 times at the shapes ``chip_smoke.py`` runs.
 FUSED_STREAM_BYTES_MAX = 4 * 1024 * 1024
+
+
+def _put(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def _tensor_bytes(plan) -> int:
+    """Exact bytes of a device plan's tensors."""
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(plan, f.name) for f in fields(plan))
+               if isinstance(t, torch.Tensor))
 
 
 @dataclass(frozen=True)
@@ -40,13 +54,10 @@ class DevCsr:
     @classmethod
     def from_plan(cls, plan: CsrPlan, device) -> "DevCsr":
         device = torch.device(device)
-
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        return cls(ptr=put(plan.ptr), cols=put(plan.cols), vals=put(plan.vals),
-                   tile_row0=put(plan.tile_row0),
-                   carry_rows=put(plan.carry_rows),
+        return cls(ptr=_put(plan.ptr, device), cols=_put(plan.cols, device),
+                   vals=_put(plan.vals, device),
+                   tile_row0=_put(plan.tile_row0, device),
+                   carry_rows=_put(plan.carry_rows, device),
                    nrows=plan.nrows, ncols=plan.ncols, tile=plan.tile,
                    max_row_nnz=plan.max_row_nnz)
 
@@ -69,13 +80,65 @@ class DevCsr:
     @property
     def stream_bytes(self) -> int:
         """Exact bytes of the plan's tensors on the device."""
-        return sum(t.numel() * t.element_size()
-                   for t in (getattr(self, f.name) for f in fields(self))
-                   if isinstance(t, torch.Tensor))
+        return _tensor_bytes(self)
 
     @property
     def fused(self) -> bool:
         """Small plans take the one-dispatch kernel K3."""
+        return self.stream_bytes <= FUSED_STREAM_BYTES_MAX
+
+
+@dataclass(frozen=True)
+class DevPanel:
+    slice_ptr: torch.Tensor  # (nslices+1,) int32, multiples of 32
+    vals: torch.Tensor  # (nslots,) float32, column-major within each slice
+    cols: torch.Tensor  # (nslots,) int32
+    tile_slice0: torch.Tensor  # (ntiles+1,) int32
+    split_slices: torch.Tensor  # (nsplit,) int32
+    nrows: int
+    ncols: int
+    tile: int  # slice columns per K4 tile
+    max_width: int
+
+    @classmethod
+    def from_plan(cls, plan: PanelPlan, device) -> "DevPanel":
+        device = torch.device(device)
+        return cls(slice_ptr=_put(plan.slice_ptr, device, np.int32),
+                   vals=_put(plan.vals, device), cols=_put(plan.cols, device),
+                   tile_slice0=_put(plan.tile_slice0, device),
+                   split_slices=_put(plan.split_slices, device),
+                   nrows=plan.nrows, ncols=plan.ncols, tile=plan.tile,
+                   max_width=plan.max_width)
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    @property
+    def nslices(self) -> int:
+        return self.slice_ptr.numel() - 1
+
+    @property
+    def nslots(self) -> int:
+        return self.vals.numel()
+
+    @property
+    def ntiles(self) -> int:
+        return self.tile_slice0.numel() - 1
+
+    @property
+    def nsplit(self) -> int:
+        return self.split_slices.numel()
+
+    @property
+    def stream_bytes(self) -> int:
+        """Exact bytes of the plan's tensors on the device."""
+        return _tensor_bytes(self)
+
+    @property
+    def fused(self) -> bool:
+        """Small plans take the one-dispatch kernel K6 (the predicate of
+        ``DevCsr.fused``, as the JAX engines share theirs)."""
         return self.stream_bytes <= FUSED_STREAM_BYTES_MAX
 
 

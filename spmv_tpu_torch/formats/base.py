@@ -1,4 +1,5 @@
-"""The port's host plan: CSR arrays plus an nnz-balanced tile schedule.
+"""The port's host plans: CSR arrays plus an nnz-balanced tile schedule
+(``build_csr_plan``), and the sliced-ELLPACK panel (``build_panel_plan``).
 
 Counterpart of ``spmv_tpu/formats/base.py:build_seg_plan``, but not of its
 layout. The JAX plan answers TPU limits (128-lane stripes, depth-8 x
@@ -21,6 +22,25 @@ A split row ``r`` with ``ta = ptr[r] // tile`` and
 ``tb = (ptr[r+1] - 1) // tile`` therefore reads
 ``carry[2ta+1] + carry[2(ta+1)] + … + carry[2tb]`` — a range of tiles, so a
 power-law row may span any number of them.
+
+The panel plan (counterpart of ``build_panel_plan`` there, again not of its
+128-column stripes, depth-8 x windows, u8 ``lo``/``hi`` or P-planes) is
+sliced ELLPACK. Each slice is ``SLICE_ROWS`` = 32 consecutive rows, one
+warp, the reference's own C (``sigma_c.c:48``). Slice ``s`` has width
+``K_s``, its longest row, and holds ``32·K_s`` slots stored column-major:
+element ``j`` of row ``r`` sits at ``slice_ptr[s] + r % 32 + 32·j``. Pads
+are explicit zeros with column 0. A *slice column* is 32 consecutive slots,
+one per row, so a warp reads each as one 128-byte load of values and one of
+columns.
+
+Kernel K6 (``panel_spmv_fused``) walks one slice per warp. For the
+two-dispatch shape, K4 (``panel_spmv_tiles``) cuts the stream of slice
+columns into tiles of ``tile`` columns, as K1 cuts nonzeros, so a very wide
+slice spreads over many tiles. A slice that crosses a tile boundary is
+*split*: each tile it touches leaves 32 partials (one per row) in the
+tile's head slot ``part[2t]`` (the slice began in an earlier tile) or tail
+slot ``part[2t+1]`` (it runs on into later tiles), and K5
+(``panel_fixup``) adds them in tile order, exactly as K2 does for rows.
 """
 
 from __future__ import annotations
@@ -29,11 +49,18 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["CsrPlan", "TILE_NNZ", "build_csr_plan", "csr_ptr", "cdiv"]
+__all__ = ["CsrPlan", "TILE_NNZ", "build_csr_plan", "csr_ptr", "cdiv",
+           "PanelPlan", "SLICE_ROWS", "TILE_COLS", "build_panel_plan"]
 
 # Nonzeros per K1 tile: 256 threads × 4 consecutive nonzeros each. Fixed by
 # kernels/csrc/seg_spmv.cu (kTileNnz); the CUDA wrapper refuses other tiles.
 TILE_NNZ = 1024
+
+# Rows per panel slice: one warp, one row per lane (panel_spmv.cu kC).
+SLICE_ROWS = 32
+# Slice columns per K4 tile: 32 columns of 32 slots, the 1024 slots of a
+# K1 tile (panel_spmv.cu kTileCols); the CUDA wrapper refuses other tiles.
+TILE_COLS = 32
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -132,3 +159,108 @@ def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
         carry_rows=np.flatnonzero(split).astype(np.int32),
         tile=tile,
     )
+
+
+@dataclass(frozen=True)
+class PanelPlan:
+    """Host arrays of one sliced-ELLPACK panel, ready to copy to a device."""
+
+    nrows: int
+    ncols: int
+    nnz: int  # stored elements (duplicates count); the other slots are pads
+    slice_ptr: np.ndarray  # (nslices+1,) int64 — first slot of each slice
+    widths: np.ndarray  # (nslices,) int64 — K_s, the longest row of the slice
+    vals: np.ndarray  # (nslots,) float32, column-major within each slice
+    cols: np.ndarray  # (nslots,) int32, 0 in pad slots
+    tile_slice0: np.ndarray  # (ntiles+1,) int32 — slice of each tile's first column
+    split_slices: np.ndarray  # (nsplit,) int32 — slices that cross a tile boundary
+    tile: int  # slice columns per K4 tile
+
+    @property
+    def nslices(self) -> int:
+        return int(self.widths.size)
+
+    @property
+    def nslots(self) -> int:
+        return int(self.vals.size)
+
+    @property
+    def ncolumns(self) -> int:
+        return self.nslots // SLICE_ROWS
+
+    @property
+    def ntiles(self) -> int:
+        return cdiv(self.ncolumns, self.tile)
+
+    @property
+    def max_width(self) -> int:
+        return int(self.widths.max()) if self.widths.size else 0
+
+
+def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
+                     tile: int = TILE_COLS) -> PanelPlan:
+    """Sliced-ELLPACK plan from triplets already in row order (duplicates
+    stay separate slots, as JAX counts them in ``K``). A row's elements
+    keep their input order along its slots. Rows past ``nrows`` in the
+    last slice, empty rows and ``nnz == 0`` are all-pad.
+
+    ``tile`` is the K4 tile in slice columns. The CUDA kernel takes only
+    ``TILE_COLS``; a smaller tile lets the plain versions exercise many
+    tile boundaries on a small matrix.
+    """
+    nrows, ncols, tile = int(nrows), int(ncols), int(tile)
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    if nrows < 0 or ncols < 0:
+        raise ValueError(f"negative shape {nrows}x{ncols}")
+    if tile < 1:
+        raise ValueError(f"tile must be positive, got {tile}")
+    if rows.ndim != 1 or not rows.shape == cols.shape == vals.shape:
+        raise ValueError(f"rows {rows.shape}, cols {cols.shape} and vals "
+                         f"{vals.shape} differ")
+    nnz = int(rows.size)
+    if nnz and (np.diff(rows) < 0).any():
+        raise ValueError("triplets must be in row order")
+    ptr = csr_ptr(rows, nrows)  # refuses rows out of bounds
+    if nnz and (cols.min() < 0 or cols.max() >= ncols):
+        raise ValueError("column index out of bounds")
+
+    c = SLICE_ROWS
+    nslices = cdiv(nrows, c)
+    lengths = np.zeros(nslices * c, dtype=np.int64)
+    lengths[:nrows] = np.diff(ptr)
+    widths = lengths.reshape(nslices, c).max(axis=1)
+    slice_ptr = np.zeros(nslices + 1, dtype=np.int64)
+    np.cumsum(c * widths, out=slice_ptr[1:])
+    nslots = int(slice_ptr[-1])
+    # int32 device indices, and K4's tile arithmetic stays below 2^31
+    if nslots > _INT32_MAX - c * tile or nrows > _INT32_MAX - c:
+        raise ValueError(f"{nrows} rows / {nslots} panel slots exceed int32 "
+                         "indexing")
+
+    k = np.arange(nnz, dtype=np.int64) - ptr[rows]  # rank within the row
+    pos = slice_ptr[rows // c] + rows % c + c * k
+    vals_p = np.zeros(nslots, dtype=np.float32)
+    cols_p = np.zeros(nslots, dtype=np.int32)
+    vals_p[pos] = vals
+    cols_p[pos] = cols
+
+    ncolumns = nslots // c
+    ntiles = cdiv(ncolumns, tile)
+    scol = slice_ptr // c  # first slice column of each slice
+    if ncolumns:
+        first = np.minimum(np.arange(ntiles + 1, dtype=np.int64) * tile,
+                           ncolumns - 1)
+        # the slice holding each tile's first column (the last entry: the
+        # slice of the final column), past any empty slices
+        tile_slice0 = np.searchsorted(scol, first, side="right") - 1
+    else:
+        tile_slice0 = np.zeros(1, dtype=np.int64)
+    cs, ce = scol[:-1], scol[1:]
+    split = (ce > cs) & (cs // tile != (ce - 1) // tile)
+    return PanelPlan(
+        nrows=nrows, ncols=ncols, nnz=nnz, slice_ptr=slice_ptr,
+        widths=widths, vals=vals_p, cols=cols_p,
+        tile_slice0=tile_slice0.astype(np.int32),
+        split_slices=np.flatnonzero(split).astype(np.int32), tile=tile)

@@ -74,6 +74,11 @@ class CMRSMatrix:
                    dev=DevCsr.from_plan(plan, device), plan=plan)
 
     @property
+    def stream_bytes(self) -> int:
+        """Exact bytes of the plan on the device."""
+        return self.dev.stream_bytes
+
+    @property
     def nnz(self) -> int:
         return self.cols.size
 

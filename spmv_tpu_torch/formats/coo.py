@@ -49,6 +49,11 @@ class COOMatrix:
                    dev=DevCsr.from_plan(plan, device), plan=plan)
 
     @property
+    def stream_bytes(self) -> int:
+        """Exact bytes of the plan on the device."""
+        return self.dev.stream_bytes
+
+    @property
     def nnz(self) -> int:
         return self.rows.size
 

@@ -1,11 +1,12 @@
 """Builds the port's CUDA kernels on first use and binds them with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library
-under ``spmv_tpu_torch/_build/`` (listed in ``.gitignore``). The library
-exposes plain C launchers, so the build needs no PyTorch headers and takes
-seconds. Its file name carries a hash of the sources and flags: an edited
-source builds anew, an unchanged one is loaded as it is. A failed build
-raises ``BuildError``; nothing falls back to the plain PyTorch versions.
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into a shared library
+of its own under ``spmv_tpu_torch/_build/`` (listed in ``.gitignore``), one
+``nvcc`` per source, all started together. The libraries expose plain C
+launchers, so the build needs no PyTorch headers and takes seconds. Each
+file name carries a hash of its source and the flags: an edited source
+builds anew, an unchanged one is loaded as it is. A failed build raises
+``BuildError``; nothing falls back to the plain PyTorch versions.
 
 Every pointer and the stream cross ctypes as ``c_void_p``. Without the
 declared ``argtypes`` ctypes would pass a Python int as a 32-bit C int and
@@ -23,6 +24,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from types import SimpleNamespace
 
 __all__ = ["BuildError", "Built", "library", "build", "nvcc_path",
            "NVCC_FLAGS", "CSRC", "BUILD_DIR"]
@@ -33,14 +35,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# launcher name → argument types, in the order of csrc/seg_spmv.cu
+# launcher name → argument types, in the order of its csrc/*.cu parameters
 SIGNATURES = {
+    # seg_spmv.cu
     # ptr, cols, vals, tile_row0, x, y, carry, nnz, ntiles, tile, stream
     "seg_spmv_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ptr, carry_rows, carry, y, ncarry, tile, stream
     "carry_fixup": (_P, _P, _P, _P, _I, _I, _P),
     # ptr, cols, vals, x, y, nrows, vec, stream
     "csr_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # panel_spmv.cu
+    # slice_ptr, cols, vals, tile_slice0, x, y, part, ncolumns, ntiles,
+    # tile, nrows, stream
+    "panel_spmv_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # slice_ptr, split_slices, part, y, nsplit, tile, nrows, stream
+    "panel_fixup": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # slice_ptr, cols, vals, x, y, nslices, nrows, stream
+    "panel_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # invperm, y_sorted, y, n, stream
+    "inverse_permute": (_P, _P, _P, _I, _P),
 }
 
 
@@ -50,9 +63,9 @@ class BuildError(RuntimeError):
 
 @dataclass(frozen=True)
 class Built:
-    lib: ctypes.CDLL
-    path: Path
-    seconds: float  # wall time of the nvcc run; 0.0 when an earlier build was loaded
+    lib: SimpleNamespace  # every declared launcher found, by name
+    paths: tuple  # the shared libraries, one per source
+    seconds: float  # wall time of the nvcc runs; 0.0 when all were loaded
     log: str  # nvcc's output, with the -Xptxas -v register and spill lines
 
 
@@ -70,49 +83,67 @@ def nvcc_path() -> str:
                      "the CUDA kernels cannot be built")
 
 
-def _declare(lib) -> None:
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+def _so_path(source: Path, out_dir: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.name.encode())
+    h.update(source.read_bytes())
+    return Path(out_dir) / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources, out_dir: Path, nvcc: str | None = None) -> Built:
-    """Compile ``sources`` into ``out_dir`` (or load the earlier build of
-    the same sources and flags) and declare the launchers' signatures."""
+    """Compile each of ``sources`` into ``out_dir``, all at once (or load
+    the earlier build of the same source and flags), and declare the
+    launchers' signatures."""
     sources = sorted(Path(s) for s in sources)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    so = Path(out_dir) / f"libspmv_kernels-{h.hexdigest()[:16]}.so"
-    log_path = so.with_suffix(".log")
+    targets = [(s, _so_path(s, out_dir)) for s in sources]
+    todo = [(s, so) for s, so in targets if not so.exists()]
     seconds = 0.0
-    if not so.exists():
+    if todo:
         nvcc = nvcc or nvcc_path()
-        so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
+        procs = []
         try:
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                                   *map(str, sources)],
-                                  capture_output=True, text=True, check=False)
+            for s, so in todo:
+                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                procs.append((so, tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(s)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
         except OSError as e:
+            for _, _, p in procs:
+                p.kill()
+                p.wait()
             raise BuildError(f"cannot run {nvcc}: {e}") from e
+        failed = []
+        for so, tmp, p in procs:
+            out = p.communicate()[0]
+            if p.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"{so.name}: nvcc failed ({p.returncode}):\n{out}")
+                continue
+            so.with_suffix(".log").write_text(out)
+            os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise BuildError(f"nvcc failed ({proc.returncode}):\n"
-                             f"{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    lib = ctypes.CDLL(str(so))
-    _declare(lib)
-    log = log_path.read_text() if log_path.exists() else ""
-    return Built(lib=lib, path=so, seconds=seconds, log=log)
+        if failed:
+            raise BuildError("\n".join(failed))
+    fns, log = {}, []
+    for _, so in targets:
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        log_path = so.with_suffix(".log")
+        if log_path.exists():
+            log.append(log_path.read_text())
+    return Built(lib=SimpleNamespace(**fns), paths=tuple(so for _, so in targets),
+                 seconds=seconds, log="".join(log))
 
 
 @functools.cache
 def library() -> Built:
-    """The kernels' library, built from ``csrc/`` on the first call."""
+    """The kernels' libraries, built from ``csrc/`` on the first call."""
     return build(CSRC.glob("*.cu"), BUILD_DIR)

@@ -1,0 +1,240 @@
+// Sliced-ELLPACK (SELL-C) SpMV kernels for Hopper (sm_90a): y = A·x in
+// float32, and the gather that undoes the SELL-C-σ row sort.
+//
+// Four kernels, each replacing one Pallas kernel of the JAX package's panel
+// engine (spmv_tpu/kernels/engines.py):
+//
+//   K4 panel_spmv_tiles  replaces _panel_kernel        (panel_spmv_partials)
+//   K5 panel_fixup       replaces _scatter_kernel      (_window_scatter, as
+//                        panel_spmv_partials' epilogue)
+//   K6 panel_spmv_fused  replaces _panel_kernel_fused  (panel_spmv_fused)
+//   K7 inverse_permute   replaces _perm_kernel         (inverse_permute_blocks)
+//
+// The plan (spmv_tpu_torch/formats/base.py:build_panel_plan): slices of
+// kC = 32 rows. Slice s holds 32·K_s slots from slot slice_ptr[s], stored
+// column-major: element j of row r sits at slice_ptr[s] + r % 32 + 32·j.
+// Pads are value 0 with column 0. A slice column is 32 consecutive slots.
+//
+// What bounds them on the H100: bytes. Each slot streams 8 B (a float32
+// value and an int32 column) and gathers 4 B of x, for 2 flops. Lane l of a
+// warp owns row l of its slice, so each column step of a warp is one
+// coalesced 128-byte load of values and one of columns; the lane sums its
+// row in a register, in column order, and stores it once. A pad costs its
+// 8 B and a gather of x[0], which stays in L1. The TPU layout's stripes,
+// depth-8 x windows, u8 lo/hi and P-planes answer VMEM and DMA limits that
+// this card does not have, so none of them is here.
+//
+// No kernel uses float atomics: every row is summed in an order fixed by the
+// plan, so two runs give the same bits.
+//
+// Plain C interface for ctypes, as in seg_spmv.cu: device pointers and the
+// stream as void*, launch on that stream, return cudaGetLastError(). The host
+// wrapper (spmv_tpu_torch/kernels/panel.py) checks shapes, types and devices,
+// allocates every output, and never calls a launcher with an empty grid.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kC = 32;  // rows per slice: one warp. Must equal SLICE_ROWS.
+// Slice columns per K4 tile (1024 slots). Must equal TILE_COLS in
+// spmv_tpu_torch/formats/base.py.
+constexpr int kTileCols = 32;
+// K4 and K6: 4 warps per block, each warp on its own tile or slice.
+constexpr int kWarpsPerBlock = 4;
+constexpr int kPanelThreads = kWarpsPerBlock * kC;
+// K5 and K7 block size.
+constexpr int kThreads = 256;
+
+// K6 — replaces _panel_kernel_fused (spmv_tpu/kernels/engines.py:283).
+//
+// One warp per slice, one lane per row. The lane walks its K_s slots in
+// column order and stores y[row] once, 0 for an empty row, so y needs no
+// clearing. A warp serializes its slice's width: one hub row makes its
+// whole slice as slow as itself, which is what K4 + K5 are for.
+__global__ void __launch_bounds__(kPanelThreads)
+panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
+                        const int* __restrict__ cols,
+                        const float* __restrict__ vals,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        int nslices, int nrows) {
+  const int lane = threadIdx.x & (kC - 1);
+  const int s = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
+  if (s >= nslices) return;
+  const int end = __ldg(slice_ptr + s + 1);
+  float acc = 0.f;
+#pragma unroll 4
+  for (int p = __ldg(slice_ptr + s) + lane; p < end; p += kC) {
+    acc += __ldg(vals + p) * __ldg(x + __ldg(cols + p));
+  }
+  const int row = s * kC + lane;
+  if (row < nrows) y[row] = acc;
+}
+
+// K4 — replaces _panel_kernel (spmv_tpu/kernels/engines.py:269).
+//
+// One warp per tile of kTileCols consecutive slice columns, so every warp
+// does the same work whatever the slice widths: a wide slice is cut into
+// many tiles, and a tile may hold many narrow slices. The warp starts at
+// the slice of its first column (tile_slice0, from the plan) and steps to
+// the next slice where a slice's columns end; every lane sums its own row of
+// the slice. A slice that lies wholly inside the tile goes straight to y.
+// Otherwise the tile leaves the lane's partial in its head slot (the slice
+// began in an earlier tile) or its tail slot (it runs on into later tiles),
+// 32 floats each, for K5. Rows of empty slices are never written: the
+// wrapper zeroes y.
+__global__ void __launch_bounds__(kPanelThreads)
+panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
+                        const int* __restrict__ cols,
+                        const float* __restrict__ vals,
+                        const int* __restrict__ tile_slice0,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        float* __restrict__ part, int ncolumns, int ntiles,
+                        int nrows) {
+  const int lane = threadIdx.x & (kC - 1);
+  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
+  if (t >= ntiles) return;
+  const int g0 = t * kTileCols;
+  const int g1 = min(g0 + kTileCols, ncolumns);
+
+  // Stores the tile's sum of slice s (columns [cs, ce)) for this lane.
+  auto emit = [&](int s, int cs, int ce, float v) {
+    if (cs < g0) {
+      part[(2 * t) * kC + lane] = v;
+    } else if (ce > g1) {
+      part[(2 * t + 1) * kC + lane] = v;
+    } else {
+      const int row = s * kC + lane;
+      if (row < nrows) y[row] = v;
+    }
+  };
+
+  int s = __ldg(tile_slice0 + t);
+  int cs = __ldg(slice_ptr + s) / kC;
+  int ce = __ldg(slice_ptr + s + 1) / kC;
+  float run = 0.f;
+  for (int g = g0; g < g1; ++g) {
+    if (g >= ce) {  // slice s ended at column g - 1 (the branch is warp-uniform)
+      emit(s, cs, ce, run);
+      do {  // step to the slice holding column g, past any empty slices
+        ++s;
+        cs = ce;
+        ce = __ldg(slice_ptr + s + 1) / kC;
+      } while (g >= ce);
+      run = 0.f;
+    }
+    const int p = g * kC + lane;
+    run += __ldg(vals + p) * __ldg(x + __ldg(cols + p));
+  }
+  emit(s, cs, ce, run);
+}
+
+// K5 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171) as the
+// panel path's epilogue; K2 (seg_spmv.cu) cannot take the job unchanged,
+// since its carries are one float per tile and its ranges come from a
+// nonzero row pointer.
+//
+// One thread per (split slice, row): the tail slot of the tile where the
+// slice begins, then the head slot of every later tile it reaches, in tile
+// order. 32 neighbouring threads read 32 neighbouring partials.
+__global__ void __launch_bounds__(kThreads)
+panel_fixup_kernel(const int* __restrict__ slice_ptr,
+                   const int* __restrict__ split_slices,
+                   const float* __restrict__ part, float* __restrict__ y,
+                   int nsplit, int nrows) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= nsplit * kC) return;
+  const int lane = i & (kC - 1);
+  const int s = __ldg(split_slices + i / kC);
+  const int ta = __ldg(slice_ptr + s) / kC / kTileCols;
+  const int tb = (__ldg(slice_ptr + s + 1) / kC - 1) / kTileCols;
+  float v = part[(2 * ta + 1) * kC + lane];
+  for (int t = ta + 1; t <= tb; ++t) v += part[(2 * t) * kC + lane];
+  const int row = s * kC + lane;
+  if (row < nrows) y[row] = v;
+}
+
+// K7 — replaces _perm_kernel (spmv_tpu/kernels/engines.py:719).
+//
+// y[i] = y_sorted[invperm[i]]: a gather, one thread per output row. The
+// TPU kernel's 8x128 windows and whi/idx tables bound its sublane gather
+// depth; a Hopper thread gathers from anywhere, and the sources of
+// neighbouring rows lie within one σ window (≤ 1024 rows, 4 KB), in L2.
+__global__ void __launch_bounds__(kThreads)
+inverse_permute_kernel(const int* __restrict__ invperm,
+                       const float* __restrict__ y_sorted,
+                       float* __restrict__ y, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) y[i] = __ldg(y_sorted + __ldg(invperm + i));
+}
+
+int blocks_for(int items, int per_block) {
+  return (items + per_block - 1) / per_block;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4: y[r] for the rows of every slice wholly inside one tile, and the
+// head/tail partials (32 per slot, 2 slots per tile) of the split slices.
+int panel_spmv_tiles(const void* slice_ptr, const void* cols, const void* vals,
+                     const void* tile_slice0, const void* x, void* y,
+                     void* part, int ncolumns, int ntiles, int tile, int nrows,
+                     void* stream) {
+  if (tile != kTileCols || ncolumns <= 0 || nrows <= 0 ||
+      ntiles != blocks_for(ncolumns, kTileCols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  panel_spmv_tiles_kernel<<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
+                            0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
+      static_cast<const float*>(vals), static_cast<const int*>(tile_slice0),
+      static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<float*>(part), ncolumns, ntiles, nrows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: y[r] = the sum of a split slice's partials for row r, in tile order.
+int panel_fixup(const void* slice_ptr, const void* split_slices,
+                const void* part, void* y, int nsplit, int tile, int nrows,
+                void* stream) {
+  if (tile != kTileCols || nsplit <= 0 || nrows <= 0 ||
+      nsplit > (1 << 30) / kC) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  panel_fixup_kernel<<<blocks_for(nsplit * kC, kThreads), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slice_ptr),
+      static_cast<const int*>(split_slices), static_cast<const float*>(part),
+      static_cast<float*>(y), nsplit, nrows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: y = A·x in one dispatch, one warp per slice.
+int panel_spmv_fused(const void* slice_ptr, const void* cols, const void* vals,
+                     const void* x, void* y, int nslices, int nrows,
+                     void* stream) {
+  if (nslices <= 0 || nrows <= 0 || nslices != blocks_for(nrows, kC)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  panel_spmv_fused_kernel<<<blocks_for(nslices, kWarpsPerBlock), kPanelThreads,
+                            0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
+      static_cast<const float*>(vals), static_cast<const float*>(x),
+      static_cast<float*>(y), nslices, nrows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: y[i] = y_sorted[invperm[i]] for i < n.
+int inverse_permute(const void* invperm, const void* y_sorted, void* y, int n,
+                    void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  inverse_permute_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(invperm), static_cast<const float*>(y_sorted),
+      static_cast<float*>(y), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

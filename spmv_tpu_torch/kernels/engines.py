@@ -34,8 +34,11 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
            "carry_fixup_reference", "segmented_spmv_fused_reference",
            "LAUNCHES", "reset_launches", "fused_lanes", "KernelError"]
 
-# Launch counts per kernel; the plain versions never touch them.
-LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0}
+# Launch counts per kernel, this engine's and the panel engine's
+# (``kernels.panel``); the plain versions never touch them.
+LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0,
+            "panel_spmv_tiles": 0, "panel_fixup": 0, "panel_spmv_fused": 0,
+            "inverse_permute": 0}
 
 
 class KernelError(RuntimeError):
@@ -47,9 +50,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_cuda(dev: DevCsr, *tensors: torch.Tensor) -> bool:
+def _on_cuda(dev, *tensors: torch.Tensor) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (run the plain version); raises for anything else."""
+    (run the plain version); raises for anything else. ``dev`` is a device
+    plan, or any object with a ``device`` (a tensor)."""
     for t in tensors:
         if t.device != dev.device:
             raise ValueError(f"tensor on {t.device}, plan on {dev.device}")
@@ -61,12 +65,12 @@ def _on_cuda(dev: DevCsr, *tensors: torch.Tensor) -> bool:
     return kind == "cuda"
 
 
-def _check_x(dev: DevCsr, x: torch.Tensor) -> None:
+def _check_x(dev, x: torch.Tensor) -> None:
     if x.shape != (dev.ncols,):
         raise ValueError(f"x must have shape ({dev.ncols},), got {tuple(x.shape)}")
 
 
-def _launch(name: str, dev: DevCsr, *args) -> None:
+def _launch(name: str, dev, *args) -> None:
     """Call launcher ``name`` on the current stream of the plan's device;
     tensors pass as their data pointers."""
     from spmv_tpu_torch.kernels import _build

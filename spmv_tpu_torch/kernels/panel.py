@@ -1,0 +1,224 @@
+"""The panel engine: wrappers of the four CUDA kernels of
+``csrc/panel_spmv.cu``, each with its plain PyTorch version beside it.
+
+Counterpart of ``spmv_tpu/kernels/engines.py:326-372`` and ``:735``.
+
+=====================  =====================  ===============================
+wrapper                kernel (csrc/)         replaces (spmv_tpu/kernels/)
+=====================  =====================  ===============================
+panel_spmv_partials    K4 panel_spmv_tiles    engines.py:269 ``_panel_kernel``
+panel_fixup            K5 panel_fixup         engines.py:171 ``_scatter_kernel``
+panel_spmv_fused       K6 panel_spmv_fused    engines.py:283 ``_panel_kernel_fused``
+inverse_permute        K7 inverse_permute     engines.py:719 ``_perm_kernel``
+=====================  =====================  ===============================
+
+``panel_spmv`` picks K6 for plans of at most
+``device.FUSED_STREAM_BYTES_MAX`` bytes and K4 then K5 otherwise — the JAX
+engine's fused and two-dispatch shapes, on the segmented engine's
+predicate. ``panel_and_spill_spmv`` adds a CSR spill part to the panel's y
+(the panel/spill split of ELL, SELL-C-σ and HYB).
+
+Routing, as in ``kernels.engines``: CPU tensors run the plain version
+(``*_reference``), CUDA tensors launch the kernel or raise, and each
+launch adds one to ``engines.LAUNCHES[kernel]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spmv_tpu_torch.device import DevCsr, DevPanel
+from spmv_tpu_torch.formats.base import SLICE_ROWS, TILE_COLS
+from spmv_tpu_torch.kernels.engines import (_check_x, _launch, _on_cuda,
+                                            segmented_spmv)
+
+__all__ = ["panel_spmv", "panel_spmv_partials", "panel_fixup",
+           "panel_spmv_fused", "inverse_permute", "panel_and_spill_spmv",
+           "panel_spmv_partials_reference", "panel_fixup_reference",
+           "panel_spmv_fused_reference", "inverse_permute_reference"]
+
+_C = SLICE_ROWS
+
+
+def _check_cuda_panel(dev: DevPanel, x: torch.Tensor) -> None:
+    if dev.tile != TILE_COLS:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
+    if dev.nslots and x.numel() == 0:  # pad slots read x[0]
+        raise ValueError("a panel with slots needs at least one column")
+
+
+def _slice_rows(dev: DevPanel, slices: torch.Tensor):
+    """Rows of ``slices`` as an (n, 32) index, and which of them are real
+    (the last slice may run past ``nrows``)."""
+    rows = slices[:, None] * _C + torch.arange(_C, device=slices.device)
+    return rows, rows < dev.nrows
+
+
+# ---------------------------------------------------------------- K4 + K5
+
+
+def panel_spmv_partials(dev: DevPanel, x: torch.Tensor):
+    """K4: ``(y, part)``. y holds the rows of every slice that lies wholly
+    inside one tile (0 for the rest); ``part`` (2·ntiles, 32) holds each
+    tile's head and tail partials of the split slices, for
+    ``panel_fixup``."""
+    _check_x(dev, x)
+    if not _on_cuda(dev, x):
+        return panel_spmv_partials_reference(dev, x)
+    _check_cuda_panel(dev, x)
+    y = torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
+    part = torch.zeros(2 * dev.ntiles, _C, dtype=torch.float32, device=dev.device)
+    if dev.nslots and dev.nrows:  # a zero-sized grid is refused
+        _launch("panel_spmv_tiles", dev, dev.slice_ptr, dev.cols, dev.vals,
+                dev.tile_slice0, x, y, part, dev.nslots // _C, dev.ntiles,
+                dev.tile, dev.nrows)
+    return y, part
+
+
+def panel_fixup(dev: DevPanel, y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """K5: adds each split slice's partials, in tile order, into ``y``.
+    Updates ``y`` in place and returns it."""
+    if y.shape != (dev.nrows,) or part.shape != (2 * dev.ntiles, _C):
+        raise ValueError("y or part does not match the plan")
+    if not _on_cuda(dev, y, part):
+        return panel_fixup_reference(dev, y, part)
+    if dev.tile != TILE_COLS:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
+    if dev.nsplit:  # no slice crosses a tile boundary: nothing to launch
+        _launch("panel_fixup", dev, dev.slice_ptr, dev.split_slices, part, y,
+                dev.nsplit, dev.tile, dev.nrows)
+    return y
+
+
+def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
+    """Plain K4 on the same tile schedule: a segment per (tile, slice)
+    pair of slice columns, summed row by row with ``index_add_``; whole
+    slices go to y, the head and tail partials to their slots."""
+    dv = dev.device
+    y = torch.zeros(dev.nrows, dtype=torch.float32, device=dv)
+    part = torch.zeros(2 * dev.ntiles, _C, dtype=torch.float32, device=dv)
+    ncol = dev.nslots // _C
+    if ncol == 0:
+        return y, part
+    scol = dev.slice_ptr.long() // _C
+    g = torch.arange(ncol, device=dv)
+    sl = torch.searchsorted(scol, g, right=True) - 1  # slice of each column
+    tile = g // dev.tile
+    head = torch.ones(ncol, dtype=torch.bool, device=dv)
+    head[1:] = (sl[1:] != sl[:-1]) | (tile[1:] != tile[:-1])
+    seg = torch.cumsum(head, 0) - 1
+    prod = (dev.vals * x[dev.cols.long()]).view(ncol, _C)
+    sums = torch.zeros(int(head.sum()), _C, dtype=torch.float32, device=dv)
+    sums.index_add_(0, seg, prod)
+    ss, st = sl[head], tile[head]
+    cs, ce = scol[ss], scol[ss + 1]
+    ts = st * dev.tile
+    te = torch.clamp(ts + dev.tile, max=ncol)
+    whole = (cs >= ts) & (ce <= te)
+    rows, real = _slice_rows(dev, ss[whole])
+    y[rows[real]] = sums[whole][real]
+    slot = 2 * st + (cs >= ts).long()  # head slot 2t, tail slot 2t+1
+    part[slot[~whole]] = sums[~whole]
+    return y, part
+
+
+def panel_fixup_reference(dev: DevPanel, y: torch.Tensor,
+                          part: torch.Tensor) -> torch.Tensor:
+    """Plain K5: gathers each split slice's slots and sums them in tile
+    order with ``index_add_``; updates ``y`` in place."""
+    if dev.nsplit == 0:
+        return y
+    dv = dev.device
+    s = dev.split_slices.long()
+    scol = dev.slice_ptr.long() // _C
+    ta = scol[s] // dev.tile
+    tb = (scol[s + 1] - 1) // dev.tile
+    counts = tb - ta + 1
+    owner = torch.repeat_interleave(torch.arange(dev.nsplit, device=dv), counts)
+    first = torch.cumsum(counts, 0) - counts
+    t = ta[owner] + torch.arange(owner.numel(), device=dv) - first[owner]
+    slot = 2 * t + (t == ta[owner]).long()
+    acc = torch.zeros(dev.nsplit, _C, dtype=torch.float32, device=dv)
+    acc.index_add_(0, owner, part[slot])
+    rows, real = _slice_rows(dev, s)
+    y[rows[real]] = acc[real]
+    return y
+
+
+# ---------------------------------------------------------------- K6
+
+
+def panel_spmv_fused(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
+    """K6: y = A·x in one dispatch."""
+    _check_x(dev, x)
+    if not _on_cuda(dev, x):
+        return panel_spmv_fused_reference(dev, x)
+    _check_cuda_panel(dev, x)
+    if dev.nslots == 0 or dev.nrows == 0:  # nothing to launch: y is all zeros
+        return torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
+    y = torch.empty(dev.nrows, dtype=torch.float32, device=dev.device)
+    _launch("panel_spmv_fused", dev, dev.slice_ptr, dev.cols, dev.vals, x, y,
+            dev.nslices, dev.nrows)
+    return y
+
+
+def panel_spmv_fused_reference(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
+    """Plain K6: the products as (slice column, row) rows, summed per slice
+    (``segment_reduce`` over each slice's K_s columns)."""
+    prod = (dev.vals * x[dev.cols.long()]).view(-1, _C)
+    widths = torch.diff(dev.slice_ptr.long()) // _C
+    per_slice = torch.segment_reduce(prod, "sum", lengths=widths, axis=0,
+                                     initial=0.0)
+    return per_slice.reshape(-1)[:dev.nrows].contiguous()
+
+
+# ---------------------------------------------------------------- dispatch
+
+
+def panel_spmv(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x over the panel: K6 for small plans (``dev.fused``), else K4
+    then K5."""
+    if dev.fused:
+        return panel_spmv_fused(dev, x)
+    y, part = panel_spmv_partials(dev, x)
+    return panel_fixup(dev, y, part)
+
+
+def panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
+                         x: torch.Tensor) -> torch.Tensor:
+    """y = panel part + spill part, two plans over the same rows. An empty
+    part launches nothing. The add is a torch add, in place on the panel's
+    y (JAX adds the two engines' y with an XLA add, not a Pallas kernel)."""
+    if dev_spill is None:
+        return panel_spmv(dev, x)
+    if dev.nslots == 0:  # pure spill: no dispatch for an empty panel
+        return segmented_spmv(dev_spill, x)
+    y = panel_spmv(dev, x)
+    return y.add_(segmented_spmv(dev_spill, x))
+
+
+# ---------------------------------------------------------------- K7
+
+
+def inverse_permute(invperm: torch.Tensor, y_sorted: torch.Tensor,
+                    nrows: int) -> torch.Tensor:
+    """K7: ``y[i] = y_sorted[invperm[i]]`` for ``i < nrows`` — undoes the
+    SELL-C-σ row sort (``invperm`` maps an original row to its sorted
+    position) and cuts y to ``nrows``."""
+    if invperm.dtype != torch.int32 or not invperm.is_contiguous():
+        raise ValueError(f"invperm must be contiguous int32, got {invperm.dtype}")
+    if invperm.shape != y_sorted.shape or not 0 <= nrows <= invperm.numel():
+        raise ValueError(f"invperm {tuple(invperm.shape)}, y_sorted "
+                         f"{tuple(y_sorted.shape)} and nrows {nrows} do not match")
+    if not _on_cuda(invperm, y_sorted):
+        return inverse_permute_reference(invperm, y_sorted, nrows)
+    y = torch.empty(nrows, dtype=torch.float32, device=y_sorted.device)
+    if nrows:
+        _launch("inverse_permute", invperm, invperm, y_sorted, y, nrows)
+    return y
+
+
+def inverse_permute_reference(invperm: torch.Tensor, y_sorted: torch.Tensor,
+                              nrows: int) -> torch.Tensor:
+    """Plain K7: an index gather."""
+    return y_sorted[invperm[:nrows].long()]

@@ -37,7 +37,7 @@ def test_default_device_without_a_card_stops():
     assert "result is" not in proc.stdout
 
 
-@pytest.mark.parametrize("fmt", ["coo", "cmrs"])
+@pytest.mark.parametrize("fmt", ["coo", "cmrs", "ell", "sell", "hyb"])
 @pytest.mark.parametrize("x", ["index", "random"])
 def test_run_formats_in_process(capsys, fmt, x):
     rc = cli.main(["run", "--format", fmt, "--matrix", EXAMPLE, "--x", x,

@@ -160,9 +160,15 @@ def test_launcher_signatures_match_the_cuda_source():
     """Every launcher's ctypes argtypes follow its C parameters: c_void_p
     for each pointer and the stream (a missing declaration would pass a
     64-bit pointer as a 32-bit int), c_int for each int."""
-    src = (_build.CSRC / "seg_spmv.cu").read_text()
-    block = src[src.index('extern "C" {'):]
-    found = dict(re.findall(r"^int (\w+)\(([^)]*)\)", block, flags=re.M))
+    found = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        src = path.read_text()
+        block = src[src.index('extern "C" {'):]
+        launchers = dict(re.findall(r"^int (\w+)\(([^)]*)\)", block, flags=re.M))
+        assert launchers and not set(launchers) & set(found), path.name
+        found.update(launchers)
+    assert {"seg_spmv.cu", "panel_spmv.cu"} <= {
+        p.name for p in _build.CSRC.glob("*.cu")}
     assert sorted(found) == sorted(_build.SIGNATURES)
     for name, params in found.items():
         kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int

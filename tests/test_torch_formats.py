@@ -1,6 +1,7 @@
-"""The PyTorch port's CSR, COO and CMRS containers against the JAX
-package's containers and the fp64 oracle — the slice as a whole, from
-triplets through the plan to y (the plain PyTorch versions on the CPU).
+"""The PyTorch port's format containers (CSR, COO, CMRS, ELL, SELL-C-σ,
+HYB, and ELL/SELL without the panel/spill split) against the JAX package's
+containers and the fp64 oracle — the slices as a whole, from triplets
+through the plans to y (the plain PyTorch versions on the CPU).
 
 JAX runs as the JAX tests run it (Pallas interpret mode on the CPU). Port
 and JAX agree within the sum of both tolerances (see
@@ -18,8 +19,22 @@ from spmv_tpu_torch import synth
 from spmv_tpu_torch.oracle import (KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv,
                                    kernel_check, row_scale)
 
-FORMATS = ["csr", "coo", "cmrs"]
+FORMATS = ["csr", "coo", "cmrs", "ell", "sell", "sell_c_sigma", "hyb",
+           "ell_pure", "sell_pure"]
+# bench.py's pure-panel builds: the format and its construction arguments
+VARIANTS = {"ell_pure": ("ell", {"split": False}),
+            "sell_pure": ("sell", {"split": False})}
 EDGES = sorted(ref_synth.EDGE_CASES)
+
+
+def make(fmt, nrows, ncols, r, c, v, jax=False):
+    """The port's (or with ``jax`` the JAX package's) container of ``fmt``,
+    a format name or one of ``VARIANTS``."""
+    name, kwargs = VARIANTS.get(fmt, (fmt, {}))
+    if jax:
+        return spmv_tpu.from_coo(name, nrows, ncols, r, c, v, **kwargs)
+    return spmv_tpu_torch.from_coo(name, nrows, ncols, r, c, v, device="cpu",
+                                   **kwargs)
 
 
 def max_row(nrows, r):
@@ -32,10 +47,9 @@ def run_both(fmt, info, r, c, v, x=None, seed=99):
     if x is None:
         x = np.random.default_rng(seed).standard_normal(info.ncols)
     x = np.asarray(x, np.float32)
-    a_jax = spmv_tpu.from_coo(fmt, info.nrows, info.ncols, r, c, v)
+    a_jax = make(fmt, info.nrows, info.ncols, r, c, v, jax=True)
     y_jax = np.asarray(a_jax.matvec(x))
-    a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, r, c, v,
-                                device="cpu")
+    a = make(fmt, info.nrows, info.ncols, r, c, v)
     y_t = a.matvec(x)
     assert isinstance(y_t, torch.Tensor) and y_t.device.type == "cpu"
     y = y_t.numpy()
@@ -80,9 +94,8 @@ def test_duplicates_sum(fmt):
     info, r, c, v = synth.random_coo(40, 30, 900, seed=8, allow_duplicates=True)
     assert np.unique(r * 30 + c).size < r.size  # there are duplicates
     run_both(fmt, info, r, c, v)
-    a = spmv_tpu_torch.from_coo(fmt, 3, 3, np.array([1, 1, 0]),
-                                np.array([2, 2, 0]), np.array([3.0, 4.0, 1.0]),
-                                device="cpu")
+    a = make(fmt, 3, 3, np.array([1, 1, 0]), np.array([2, 2, 0]),
+             np.array([3.0, 4.0, 1.0]))
     assert a.matvec(np.array([1.0, 1.0, 2.0])).tolist() == [1.0, 14.0, 0.0]
 
 
@@ -91,9 +104,8 @@ def test_unsorted_input_gives_the_same_bits(fmt):
     info, r, c, v = synth.random_coo(300, 200, 3000, seed=4)
     perm = np.random.default_rng(1).permutation(r.size)
     x = np.random.default_rng(2).standard_normal(info.ncols)
-    a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, r, c, v, device="cpu")
-    b = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, r[perm], c[perm],
-                                v[perm], device="cpu")
+    a = make(fmt, info.nrows, info.ncols, r, c, v)
+    b = make(fmt, info.nrows, info.ncols, r[perm], c[perm], v[perm])
     assert torch.equal(a.matvec(x), b.matvec(x))
     run_both(fmt, info, r[perm], c[perm], v[perm], x=x)
 
@@ -136,12 +148,18 @@ def test_cmrs_arrays_match_jax_and_from_cmrs_ingest():
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_from_reference_carries_a_jax_container_across(fmt):
     info, r, c, v = synth.random_coo(150, 170, 1200, seed=9, allow_duplicates=True)
-    ref = spmv_tpu.from_coo(fmt, info.nrows, info.ncols, r, c, v)
+    ref = make(fmt, info.nrows, info.ncols, r, c, v, jax=True)
     a = spmv_tpu_torch.from_reference(ref, device="cpu")
     assert type(a).__name__ == type(ref).__name__
     assert (a.nrows, a.ncols, a.nnz) == (ref.nrows, ref.ncols, ref.nnz)
-    for mine, theirs in zip(a.to_coo(), ref.to_coo()):
-        assert np.array_equal(mine, theirs)
+    mine, theirs = a.to_coo(), ref.to_coo()
+    if fmt == "hyb":  # JAX's order follows its TPU layout: compare the sets
+        mine, theirs = ([t[np.lexsort(trip[::-1])] for t in trip]
+                        for trip in (mine, theirs))
+    for m, t in zip(mine, theirs):
+        assert np.array_equal(m, t)
+    if fmt.startswith("sell"):
+        assert a.sigma == ref.sigma
     x = np.random.default_rng(4).standard_normal(info.ncols).astype(np.float32)
     y, y_jax = a.matvec(x).numpy(), np.asarray(ref.matvec(x))
     k = max_row(info.nrows, r)
@@ -153,10 +171,11 @@ def test_from_reference_carries_a_jax_container_across(fmt):
 
 def test_unported_formats_say_so():
     info, r, c, v = synth.edge_case("dense_small")
-    ell = spmv_tpu.from_coo("ell", info.nrows, info.ncols, r, c, v)
+    bsr = spmv_tpu.from_coo("bsr", info.nrows, info.ncols, r, c, v)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        spmv_tpu_torch.from_reference(ell, device="cpu")
-    for fmt in ("ell", "sell", "hyb", "bsr", "sym"):
+        spmv_tpu_torch.from_reference(bsr, device="cpu")
+    assert spmv_tpu_torch.api.NOT_PORTED == ("bsr", "sym")
+    for fmt in ("bsr", "sym"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, r, c, v,
                                     device="cpu")
@@ -177,8 +196,7 @@ def test_load_synthesizes_a_missing_file_like_jax(tmp_path):
 def test_to_coo_returns_copies():
     info, r, c, v = synth.random_coo(30, 30, 100, seed=1)
     for fmt in FORMATS:
-        a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, r, c, v,
-                                    device="cpu")
+        a = make(fmt, info.nrows, info.ncols, r, c, v)
         x = np.ones(info.ncols)
         y0 = a.matvec(x).clone()
         rows, cols, vals = a.to_coo()

@@ -9,11 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_tpu_torch import CSRMatrix, synth
-from spmv_tpu_torch.formats.base import build_csr_plan
-from spmv_tpu_torch.device import DevCsr
+from spmv_tpu_torch import CSRMatrix, EllMatrix, SellMatrix, synth
+from spmv_tpu_torch.formats.base import build_csr_plan, build_panel_plan
+from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.kernels import _build
 from spmv_tpu_torch.kernels import engines as E
+from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
 
 pytestmark = pytest.mark.gpu
@@ -60,26 +61,81 @@ def test_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
     torch.cuda.synchronize()
 
 
+def setup_panel(name, device):
+    """The pure-panel SELL build (σ-sorted where the sort shrinks the
+    panel) of a matrix: its panel plan, K7's table, x and the row bound."""
+    info, r, c, v = MATRICES[name]()
+    a = SellMatrix.from_coo(info.nrows, info.ncols, r, c, v, sigma=128,
+                            split=False, device=device)
+    xh = np.random.default_rng(6).standard_normal(info.ncols).astype(np.float32)
+    scale = row_scale(info.nrows, r, c, v.astype(np.float32), xh)
+    k = max(a.dev.max_width, 1)
+    scale_sorted = np.zeros(a.dev.nrows)
+    scale_sorted[np.argsort(a.perm)[:info.nrows]] = scale  # sorted row space
+    bound = KERNEL_TOL_ABS + fp32_rel_tol(k) * torch.from_numpy(scale_sorted).to(device)
+    return a, torch.from_numpy(xh).to(device), bound
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_panel_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
+    a, x, bound = setup_panel(name, cuda)
+    dev = a.dev
+    y4, part = P.panel_spmv_partials(dev, x)
+    y4b, partb = P.panel_spmv_partials(dev, x)
+    assert torch.equal(y4, y4b) and torch.equal(part, partb)
+    y4_plain, _ = P.panel_spmv_partials_reference(dev, x)
+    assert ((y4.double() - y4_plain.double()).abs() <= bound).all()
+    y = P.panel_fixup(dev, y4.clone(), part)
+    assert torch.equal(y, P.panel_fixup(dev, y4.clone(), part))
+    y_plain = P.panel_fixup_reference(dev, *P.panel_spmv_partials_reference(dev, x))
+    assert ((y.double() - y_plain.double()).abs() <= bound).all()
+    y6 = P.panel_spmv_fused(dev, x)
+    assert torch.equal(y6, P.panel_spmv_fused(dev, x))
+    assert ((y6.double() - P.panel_spmv_fused_reference(dev, x).double()).abs()
+            <= bound).all()
+    if a.sorted_rows:
+        y7 = P.inverse_permute(a.invperm_dev, y6, a.nrows)
+        assert torch.equal(y7, P.inverse_permute_reference(a.invperm_dev, y6, a.nrows))
+    torch.cuda.synchronize()
+
+
 def test_each_launch_counts_once(cuda):
     dev, x, _ = setup("band_1024", cuda)
+    a, xp, _ = setup_panel("power_law_32768", cuda)
+    assert a.sorted_rows
     E.reset_launches()
     y, carry = E.segmented_spmv_partials(dev, x)
     E.carry_fixup(dev, y, carry)
     E.segmented_spmv_fused(dev, x)
     E.segmented_spmv_partials_reference(dev, x)
     E.segmented_spmv_fused_reference(dev, x)
+    yp, part = P.panel_spmv_partials(a.dev, xp)
+    P.panel_fixup(a.dev, yp, part)
+    y6 = P.panel_spmv_fused(a.dev, xp)
+    P.inverse_permute(a.invperm_dev, y6, a.nrows)
+    P.panel_spmv_fused_reference(a.dev, xp)
+    P.inverse_permute_reference(a.invperm_dev, y6, a.nrows)
     assert E.LAUNCHES == {"seg_spmv_tiles": 1, "carry_fixup": 1,
-                          "csr_spmv_fused": 1}
+                          "csr_spmv_fused": 1, "panel_spmv_tiles": 1,
+                          "panel_fixup": 1, "panel_spmv_fused": 1,
+                          "inverse_permute": 1}
 
 
 def test_empty_plans_launch_nothing(cuda):
     dev, x, _ = setup("all_empty", cuda)
+    info, r, c, v = MATRICES["all_empty"]()
+    panel = EllMatrix.from_coo(info.nrows, info.ncols, r, c, v, split=False,
+                               device=cuda).dev
     E.reset_launches()
     y, carry = E.segmented_spmv_partials(dev, x)
     assert E.carry_fixup(dev, y, carry).tolist() == [0.0] * dev.nrows
     assert E.segmented_spmv_fused(dev, x).tolist() == [0.0] * dev.nrows
-    assert E.LAUNCHES == {"seg_spmv_tiles": 0, "carry_fixup": 0,
-                          "csr_spmv_fused": 0}
+    yp, part = P.panel_spmv_partials(panel, x)
+    assert P.panel_fixup(panel, yp, part).tolist() == [0.0] * dev.nrows
+    assert P.panel_spmv_fused(panel, x).tolist() == [0.0] * dev.nrows
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert P.inverse_permute(empty, torch.zeros(0, device=cuda), 0).numel() == 0
+    assert set(E.LAUNCHES.values()) == {0}
 
 
 def test_refused_launch_raises(cuda):
@@ -100,4 +156,23 @@ def test_refused_launch_raises(cuda):
                             x.data_ptr(), y.data_ptr(), carry.data_ptr(),
                             dev.nnz, dev.ntiles, dev.tile,
                             torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+def test_refused_panel_launch_raises(cuda):
+    info, r, c, v = synth.edge_case("ragged")
+    order = np.lexsort((c, r))
+    dev = DevPanel.from_plan(build_panel_plan(info.nrows, info.ncols, r[order],
+                                              c[order], v[order], tile=3), cuda)
+    x = torch.ones(info.ncols, device=cuda)
+    with pytest.raises(ValueError, match="tile"):
+        P.panel_spmv_partials(dev, x)
+    lib = _build.library().lib
+    y = torch.zeros(dev.nrows, device=cuda)
+    part = torch.zeros(2 * dev.ntiles, 32, device=cuda)
+    rc = lib.panel_spmv_tiles(dev.slice_ptr.data_ptr(), dev.cols.data_ptr(),
+                              dev.vals.data_ptr(), dev.tile_slice0.data_ptr(),
+                              x.data_ptr(), y.data_ptr(), part.data_ptr(),
+                              dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows,
+                              torch.cuda.current_stream().cuda_stream)
     assert rc != 0
