@@ -18,6 +18,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    engine (K4-K7) on the edge cases, the band matrix, cant (pure ELL, and
    SELL-C-σ as the split builds it) and ``bench.py``'s 32k-row power-law
    matrix (SELL and ELL without the split, and SELL as the split builds it).
+   The multi-RHS kernels at R = 2, 4 and 8, each column within the same
+   bound: K8 + K9 on the edge cases, the band matrix, cant and ``pl_big``;
+   K10 + K11 on the band matrix's and pl-32768's pure SELL panels,
+   pl-32768's pure ELL panel and cant's split SELL panel, with K7 gathering
+   rows of R floats where the panel is σ-sorted.
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
@@ -25,15 +30,23 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    matrix of ``__graft_entry__.entry()``; then ``run --format
    {ell,sell,hyb}`` on cant, SELL and HYB at ``pl_big`` (``bench.py:211-215``),
    bench.py's pure-panel ``ell_pure``/``sell_pure`` builds of the 32k
-   power-law matrix, and SELL on the 512-row matrix. Each is validated
-   against the fp64 oracle.
-4. The launch counters show that each run went through its kernels.
+   power-law matrix, and SELL on the 512-row matrix; then ``run --rhs 4``
+   (``spmm``) for all six formats on cant, and ``run --format bsr --rhs 32``
+   on cant. Each is validated against the fp64 oracle, every column of an
+   ``--rhs`` run included.
+4. The launch counters show that each run went through its kernels: the
+   R = 4 runs through K8-K11 (and K7 for SELL), the csr one without K1 (the
+   multi path, not a loop over columns); and BSR's Y is bitwise equal over
+   two calls.
 5. Times per call (CUDA events around one call, median of 30 after warm-up;
    host launch work included) and on the device (``torch.profiler``, the
    card's own kernel and memset time): each kernel and its plain version
    at cant scale and on the power-law matrices, the two-dispatch and fused
-   shapes of both engines from 512 rows up (the fused threshold), and every
-   format's ``matvec`` beside CSR's on the main and power-law suites.
+   shapes of both engines from 512 rows up (the fused threshold), every
+   format's ``matvec`` beside CSR's on the main and power-law suites, K8-K11
+   and their plain versions at R = 4 on cant, ``spmm`` at R = 1, 2, 4, 8, 16
+   against R ``matvec`` calls for csr and sell on cant, and BSR at R = 32 on
+   cant in Gnnz·vec/s.
 6. One JSON line with the kernels, then the result line.
 """
 
@@ -60,9 +73,15 @@ KERNELS = {
     "panel_fixup": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:171"),
     "panel_spmv_fused": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:283"),
     "inverse_permute": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:719"),
+    "seg_spmm_tiles": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:571"),
+    "carry_fixup_multi": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:537"),
+    "panel_spmm_tiles": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:623"),
+    "panel_fixup_multi": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:537"),
 }
 SEG = ("seg_spmv_tiles", "carry_fixup", "csr_spmv_fused")
 PANEL = ("panel_spmv_tiles", "panel_fixup", "panel_spmv_fused", "inverse_permute")
+MULTI = ("seg_spmm_tiles", "carry_fixup_multi", "panel_spmm_tiles", "panel_fixup_multi")
+FORMATS6 = ("csr", "coo", "cmrs", "ell", "sell", "hyb")
 CANT_N = 62_464  # bench.py:84-85
 REPS = 30
 
@@ -381,12 +400,169 @@ def time_formats(label: str, trip, builds: dict, card: str) -> dict:
     return out
 
 
+def column_scales(trip, Xh: np.ndarray) -> np.ndarray:
+    """Per-row Σ|v||x| for each column of X, as (nrows, R)."""
+    from spmv_tpu_torch.oracle import row_scale
+
+    info, rows, cols, vals = trip
+    v32 = vals.astype(np.float32)
+    return np.stack([row_scale(info.nrows, rows, cols, v32, Xh[:, j])
+                     for j in range(Xh.shape[1])], axis=1)
+
+
+def check_oracle_columns(label: str, trip, Y: torch.Tensor, Xh: np.ndarray) -> None:
+    for j in range(Xh.shape[1]):
+        check_oracle(f"{label} column {j}", trip, Y[:, j], Xh[:, j])
+
+
+def check_multi(label: str, trip, seed: int, R: int) -> dict:
+    """Phase 2, multi-RHS segmented kernels on one matrix's CSR plan: K8 and
+    K9 against their plain versions and against themselves, Y against the
+    fp64 oracle column by column. Returns the max abs error per kernel."""
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.oracle import fp32_rel_tol
+
+    info = trip[0]
+    dev = build("csr", trip).dev
+    Xh = np.random.default_rng(seed).standard_normal((info.ncols, R)).astype(np.float32)
+    X = torch.from_numpy(Xh).cuda()
+    scale = column_scales(trip, Xh)
+    tol = fp32_rel_tol(dev.max_row_nnz)
+    Y8, c8 = same_bits("seg_spmm_tiles", lambda: E.segmented_spmv_multi_partials(dev, X))
+    Y8r, c8r = E.segmented_spmv_multi_partials_reference(dev, X)
+    owner = slot_rows(dev)
+    cscale = np.where(owner[:, None] >= 0, scale[np.maximum(owner, 0)], 0.0)
+    e8 = max(within(f"{label} R={R} seg_spmm_tiles Y", Y8, Y8r, scale, tol),
+             within(f"{label} R={R} seg_spmm_tiles carry", c8, c8r, cscale, tol))
+    Y9 = same_bits("carry_fixup_multi", lambda: E.carry_fixup_multi(dev, Y8.clone(), c8))
+    e9 = within(f"{label} R={R} carry_fixup_multi", Y9,
+                E.carry_fixup_multi_reference(dev, Y8.clone(), c8), scale, tol)
+    check_oracle_columns(f"{label} R={R} K8+K9", trip, Y9, Xh)
+    # column j of K8 against K1 on X[:, j]: the same order of additions
+    same_as_k1 = all(torch.equal(Y8[:, j], E.segmented_spmv_partials(
+        dev, X[:, j].contiguous())[0]) for j in range(R))
+    print(f"  {label} R={R}: max |kernel - plain| K8 {e8:.3e}  K9 {e9:.3e}; "
+          f"passes the fp64 oracle per column; two runs bitwise equal; "
+          f"each column bitwise equal to K1's: {same_as_k1}")
+    return {"seg_spmm_tiles": e8, "carry_fixup_multi": e9}
+
+
+def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
+                      **kwargs) -> dict:
+    """Phase 2, multi-RHS panel kernels on one matrix's ELL or SELL panel:
+    K10 and K11 against their plain versions and against themselves, K7
+    over rows of R where the panel is σ-sorted, and the container's
+    ``matmat`` against the fp64 oracle column by column."""
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.oracle import fp32_rel_tol
+
+    info = trip[0]
+    a = build(fmt, trip, **kwargs)
+    dev = a.dev
+    perm = getattr(a, "perm", np.arange(dev.nrows))
+    Xh = np.random.default_rng(seed).standard_normal((info.ncols, R)).astype(np.float32)
+    X = torch.from_numpy(Xh).cuda()
+    scale = np.zeros((dev.nrows, R))  # in the plan's (sorted) row space
+    real = perm < info.nrows
+    scale[real] = column_scales(trip, Xh)[perm[real]]
+    tol = fp32_rel_tol(max(dev.max_width, 1))
+    Y10, p10 = same_bits("panel_spmm_tiles", lambda: P.panel_spmv_multi_partials(dev, X))
+    Y10r, p10r = P.panel_spmv_multi_partials_reference(dev, X)
+    owner = part_rows(dev)
+    pscale = np.where(owner[..., None] >= 0, scale[np.maximum(owner, 0)], 0.0)
+    e10 = max(within(f"{label} R={R} panel_spmm_tiles Y", Y10, Y10r, scale, tol),
+              within(f"{label} R={R} panel_spmm_tiles part", p10, p10r, pscale, tol))
+    Y11 = same_bits("panel_fixup_multi", lambda: P.panel_fixup_multi(dev, Y10.clone(), p10))
+    e11 = within(f"{label} R={R} panel_fixup_multi", Y11,
+                 P.panel_fixup_multi_reference(dev, Y10.clone(), p10), scale, tol)
+    errs = {"panel_spmm_tiles": e10, "panel_fixup_multi": e11}
+    if getattr(a, "sorted_rows", False):
+        Y7 = same_bits("inverse_permute",
+                       lambda: P.inverse_permute(a.invperm_dev, Y11, info.nrows))
+        errs["inverse_permute"] = within(
+            f"{label} R={R} inverse_permute", Y7,
+            P.inverse_permute_reference(a.invperm_dev, Y11, info.nrows),
+            np.zeros((info.nrows, R)), 0.0)
+    check_oracle_columns(f"{label} R={R} {fmt} matmat", trip, a.matmat(X), Xh)
+    same_as_k4 = all(torch.equal(Y10[:, j], P.panel_spmv_partials(
+        dev, X[:, j].contiguous())[0]) for j in range(R))
+    print(f"  {label} {fmt}{kwargs or ''} R={R}: shape {a.shape}, sorted "
+          f"{getattr(a, 'sorted_rows', False)}, split slices {dev.nsplit}: max "
+          f"|kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; matmat passes the fp64 oracle per column; two runs bitwise "
+          f"equal; each column bitwise equal to K4's: {same_as_k4}")
+    return errs
+
+
+def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
+    """Phase 5, multi-RHS kernels: K8, K9 on the CSR plan and K10, K11 on
+    the SELL panel of one matrix at R columns, their plain versions, and
+    each engine's two-kernel path."""
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.kernels import panel as P
+
+    info = trip[0]
+    dev = build("csr", trip).dev
+    pdev = a_sell.dev
+    X = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (info.ncols, R)).astype(np.float32)).cuda()
+    Y8, c8 = E.segmented_spmv_multi_partials(dev, X)
+    Y10, p10 = P.panel_spmv_multi_partials(pdev, X)
+    seg = {
+        "seg_spmm_tiles": lambda: E.segmented_spmv_multi_partials(dev, X),
+        "carry_fixup_multi": lambda: E.carry_fixup_multi(dev, Y8, c8),
+        "path K8+K9": lambda: E.segmented_spmv_multi(dev, X),
+        "seg_spmm_tiles_plain": lambda: E.segmented_spmv_multi_partials_reference(dev, X),
+        "carry_fixup_multi_plain": lambda: E.carry_fixup_multi_reference(dev, Y8, c8),
+    }
+    panel = {
+        "panel_spmm_tiles": lambda: P.panel_spmv_multi_partials(pdev, X),
+        "panel_fixup_multi": lambda: P.panel_fixup_multi(pdev, Y10, p10),
+        "path K10+K11": lambda: P.panel_spmv_multi(pdev, X),
+        "panel_spmm_tiles_plain": lambda: P.panel_spmv_multi_partials_reference(pdev, X),
+        "panel_fixup_multi_plain": lambda: P.panel_fixup_multi_reference(pdev, Y10, p10),
+    }
+    print(f"  {label} R={R} csr plan {dev.stream_bytes} B, split rows "
+          f"{dev.ncarry}; sell panel {pdev.stream_bytes} B, split slices "
+          f"{pdev.nsplit}  [{card}]")
+    t = timed(label, seg, card, dev.nnz * R, dev.stream_bytes)
+    t.update(timed(label, panel, card, a_sell.panel_nnz * R, pdev.stream_bytes))
+    return t
+
+
+def time_spmm(label: str, trip, builds: dict, card: str) -> dict:
+    """Phase 5, ``spmm`` at R = 1, 2, 4, 8, 16 against R ``matvec`` calls on
+    the same columns (X already on the card): ms per call and per vector,
+    per call and on the device."""
+    import spmv_tpu_torch
+
+    info, nnz = trip[0], trip[1].size
+    out = {}
+    print(f"  {label}: spmm against R matvec calls; ms per call | device, "
+          f"and per vector  [{card}]")
+    for name, a in builds.items():
+        for R in (1, 2, 4, 8, 16):
+            X = torch.from_numpy(np.random.default_rng(R).standard_normal(
+                (info.ncols, R)).astype(np.float32)).cuda()
+            cols = [X[:, j].contiguous() for j in range(R)]
+            fns = {f"{name} spmm R={R}": lambda a=a, X=X: spmv_tpu_torch.spmm(a, X),
+                   f"{name} {R} matvec": lambda a=a, cols=cols: [a.matvec(x) for x in cols]}
+            t = timed(label, fns, card, nnz * R, a.stream_bytes)
+            (s_call, s_dev), (m_call, m_dev) = t.values()
+            out[(name, R)] = t
+            per = (lambda ms: "not measured" if ms is None else f"{ms / R:.4f}")
+            print(f"   {name:5s} R={R:2d} per vector: spmm {s_call / R:.4f} | "
+                  f"{per(s_dev)}  matvec {m_call / R:.4f} | {per(m_dev)} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import spmv_tpu_torch
     from spmv_tpu_torch import cli, synth
     from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
@@ -434,6 +610,16 @@ def main() -> int:
     keep_max(check_panel("pl-32768", pl, seed=6, split=False))
     keep_max(check_panel("pl-32768", pl, seed=6, fmt="ell", split=False))
     keep_max(check_panel("pl-32768", pl, seed=6))
+    for R in (2, 4, 8):
+        for name in sorted(synth.EDGE_CASES):
+            keep_max(check_multi(name, synth.edge_case(name), seed=R, R=R))
+        keep_max(check_multi("band-1024", band, seed=R, R=R))
+        keep_max(check_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
+        keep_max(check_multi("pl_big-524288", pl_big, seed=R, R=R))
+        keep_max(check_panel_multi("band-1024", band, seed=R, R=R, split=False))
+        keep_max(check_panel_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
+        keep_max(check_panel_multi("pl-32768", pl, seed=R, R=R, split=False))
+        keep_max(check_panel_multi("pl-32768", pl, seed=R, R=R, fmt="ell", split=False))
     torch.cuda.synchronize()
     print(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -475,6 +661,18 @@ def main() -> int:
     torch.cuda.synchronize()
     panel_launches = dict(E.LAUNCHES)
 
+    E.reset_launches()
+    rhs_launches = {}
+    for fmt in FORMATS6:  # spmm: R = 4 columns through the multi-RHS kernels
+        before = dict(E.LAUNCHES)
+        if cli.main(["run", "--format", fmt, "--rhs", "4", *cant_args]) != 0:
+            raise SystemExit(f"run --format {fmt} --rhs 4 on cant failed")
+        rhs_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+    torch.cuda.synchronize()
+    multi_launches = dict(E.LAUNCHES)
+    if cli.main(["run", "--format", "bsr", "--rhs", "32", *cant_args]) != 0:
+        raise SystemExit("run --format bsr --rhs 32 on cant failed")
+
     # 4. each run went through its kernels
     print(f"phase 4: launches after the csr/coo/cmrs cant runs {after_cant}; "
           f"segmented path in all {seg_launches}; panel path {panel_launches}")
@@ -487,7 +685,24 @@ def main() -> int:
         raise SystemExit(f"the panel path did not launch {missing}")
     if pure_launches["sell"]["inverse_permute"] < 1:
         raise SystemExit("sell_pure on the power-law matrix did not launch K7")
-    launches = {k: seg_launches[k] + panel_launches[k] for k in KERNELS}
+    print(f"  --rhs 4 runs on cant, launches per format: {rhs_launches}")
+    missing = [k for k in MULTI if multi_launches[k] < 1]
+    if missing:
+        raise SystemExit(f"the --rhs 4 runs did not launch {missing}")
+    if rhs_launches["sell"]["inverse_permute"] < 1:
+        raise SystemExit("sell --rhs 4 on cant did not launch K7")
+    if any(rhs_launches["csr"][k] for k in SEG):
+        raise SystemExit("csr --rhs 4 launched a one-vector kernel: "
+                         f"{rhs_launches['csr']}")
+    cant_bsr = build("bsr", cant)
+    X32 = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (cant[0].ncols, 32)).astype(np.float32)).cuda()
+    same_bits("bsr matmat", lambda: spmv_tpu_torch.spmm(cant_bsr, X32))
+    print(f"  bsr R=32 on cant: Y bitwise equal over two calls (fill "
+          f"{cant_bsr.fill:.2f}x, {cant_bsr.tiles.shape[0]} tiles, "
+          f"{cant_bsr.stream_bytes} B)")
+    launches = {k: seg_launches[k] + panel_launches[k] + multi_launches[k]
+                for k in KERNELS}
     print(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. times
@@ -549,14 +764,26 @@ def main() -> int:
         for name, (call, dms) in ft.items():
             print(f"  {label:16s} {name:10s} {call:.4f} | {fmt_ms(dms)}  "
                   f"(csr {ft['csr'][0]:.4f} | {fmt_ms(ft['csr'][1])})")
+    print(f"multi-RHS kernels at R = 4 (Gnnz/s columns count nonzeros x "
+          f"vectors)  [{card}]")
+    tm = time_multi(cl, cant, cant_sell, card, 4)
+    time_spmm(cl, cant, {"csr": suites[cl][1]["csr"], "sell": cant_sell}, card)
+    print(f"bsr at R = 32 on cant  [{card}]")
+    tb = timed(cl, {"bsr spmm R=32": lambda: spmv_tpu_torch.spmm(cant_bsr, X32)},
+               card, cant[1].size * 32, cant_bsr.stream_bytes)["bsr spmm R=32"]
+    for what, ms in (("call", tb[0]), ("device", tb[1])):
+        rate = "not measured" if ms is None else f"{cant[1].size * 32 / ms / 1e6:.2f}"
+        print(f"  bsr R=32 {what}: {fmt_ms(ms)}, {rate} Gnnz·vec/s, fill "
+              f"{cant_bsr.fill:.2f}x  [{card}]")
     print(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
-    # SELL-C-σ panel the split builds there)
+    # SELL-C-σ panel the split builds there, K8-K11 on both at R = 4)
     kernels = []
     for k, (src, replaces) in KERNELS.items():
-        t, at = (tc, f"synthetic_cant n={CANT_N} csr") if k in SEG else (
-            tp, f"synthetic_cant n={CANT_N} sell")
+        t, at = ((tc, f"synthetic_cant n={CANT_N} csr") if k in SEG else
+                 (tm, f"synthetic_cant n={CANT_N} csr/sell R=4") if k in MULTI else
+                 (tp, f"synthetic_cant n={CANT_N} sell"))
         kernels.append({"name": k, "route": "cuda", "source": CSRC + src,
                         "replaces": replaces, "launches": launches[k],
                         "max_abs_err": errs[k], "ms": t[k][0],

@@ -3,15 +3,18 @@ kernels for NVIDIA Hopper (H100), ported from the JAX package ``spmv_tpu``.
 
 This package imports ``torch`` and never ``jax`` or ``spmv_tpu``. Ported so
 far: MatrixMarket reading, the synthetic generators, the fp64 oracle, the
-CSR, COO and CMRS containers on the segmented engine's three kernels
-(``kernels/csrc/seg_spmv.cu``), and the ELL, SELL-C-σ and HYB containers on
-the panel engine's four (``kernels/csrc/panel_spmv.cu``) with their CSR
-spill part. ``ROADMAP.md`` lists what is still to come.
+CSR, COO and CMRS containers on the segmented engine's kernels
+(``kernels/csrc/seg_spmv.cu``), the ELL, SELL-C-σ and HYB containers on the
+panel engine's (``kernels/csrc/panel_spmv.cu``) with their CSR spill part,
+``spmm`` (Y = A·X; R = 2..8 right-hand sides in one pass over each plan)
+and the BSR container. ``ROADMAP.md`` lists what is still to come.
 """
 
 from spmv_tpu_torch import device, oracle, synth
-from spmv_tpu_torch.api import FORMATS, from_coo, from_reference, load, spmv
+from spmv_tpu_torch.api import (FORMATS, from_coo, from_reference, load, spmm,
+                                spmv)
 from spmv_tpu_torch.errors import ReturnCode
+from spmv_tpu_torch.formats.bsr import BSRMatrix
 from spmv_tpu_torch.formats.cmrs import CMRSMatrix
 from spmv_tpu_torch.formats.coo import COOMatrix
 from spmv_tpu_torch.formats.csr import CSRMatrix
@@ -27,7 +30,9 @@ __all__ = [
     "from_reference",
     "load",
     "spmv",
+    "spmm",
     "ReturnCode",
+    "BSRMatrix",
     "COOMatrix",
     "CSRMatrix",
     "CMRSMatrix",

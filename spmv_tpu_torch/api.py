@@ -1,12 +1,15 @@
-"""High-level API: load → convert → spmv.
+"""High-level API: load → convert → spmv / spmm.
 
-Counterpart of ``spmv_tpu/api.py:23-77`` for the formats ported so far.
+Counterpart of ``spmv_tpu/api.py`` for the formats ported so far.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from spmv_tpu_torch.device import X_to_device
+from spmv_tpu_torch.formats.bsr import BSRMatrix
 from spmv_tpu_torch.formats.cmrs import CMRSMatrix
 from spmv_tpu_torch.formats.coo import COOMatrix
 from spmv_tpu_torch.formats.csr import CSRMatrix
@@ -14,7 +17,7 @@ from spmv_tpu_torch.formats.ell import EllMatrix
 from spmv_tpu_torch.formats.hyb import HybMatrix
 from spmv_tpu_torch.formats.sell import SellMatrix
 
-__all__ = ["FORMATS", "NOT_PORTED", "from_coo", "load", "spmv",
+__all__ = ["FORMATS", "NOT_PORTED", "from_coo", "load", "spmv", "spmm",
            "from_reference"]
 
 FORMATS = {
@@ -25,17 +28,20 @@ FORMATS = {
     "sell_c_sigma": SellMatrix,
     "cmrs": CMRSMatrix,
     "hyb": HybMatrix,  # ELL panel + CSR spill (the JAX framework extension)
+    "bsr": BSRMatrix,  # 128x128 block-dense SpMM (the JAX framework extension)
 }
 
 # The JAX package's other formats, still to be ported (ROADMAP.md, queue A).
-NOT_PORTED = ("bsr", "sym")
+NOT_PORTED = ("sym",)
 
 # JAX container class → port format name, for ``from_reference``
 _REFERENCE_CLASSES = {"COOMatrix": "coo", "CSRMatrix": "csr",
                       "CMRSMatrix": "cmrs", "EllMatrix": "ell",
-                      "SellMatrix": "sell", "HybMatrix": "hyb"}
+                      "SellMatrix": "sell", "HybMatrix": "hyb",
+                      "BSRMatrix": "bsr"}
 # JAX container class → the construction parameters it carries
-_REFERENCE_KWARGS = {"CMRSMatrix": ("height",), "SellMatrix": ("sigma",)}
+_REFERENCE_KWARGS = {"CMRSMatrix": ("height",), "SellMatrix": ("sigma",),
+                     "BSRMatrix": ("precision",)}
 
 
 def _format_class(format: str):
@@ -75,11 +81,33 @@ def spmv(a, x):
     return a.matvec(x)
 
 
+def spmm(a, X) -> torch.Tensor:
+    """Y = A @ X for X of shape (ncols, R), as a float32 (nrows, R) tensor
+    on the container's device.
+
+    The branches of ``spmv_tpu/api.py:145-176``: BSR runs its batched
+    matmul for any R. The engine formats run one multi-RHS pass over each
+    plan for 2 ≤ R ≤ ``MULTI_RHS_MAX`` (``matmat``: K8 + K9 on CSR plans and
+    spill parts, K10 + K11 on panels, one K7 for a σ-sorted SELL), and one
+    ``matvec`` per column for R = 1 or R > ``MULTI_RHS_MAX`` — the JAX
+    envelope, not a fallback: a kernel that fails raises."""
+    from spmv_tpu_torch.kernels.engines import MULTI_RHS_MAX
+
+    if isinstance(a, BSRMatrix):
+        return a.matmat(X)
+    X = X_to_device(X, a.ncols, a.dev.device)
+    R = X.shape[1]
+    if 2 <= R <= MULTI_RHS_MAX:
+        return a.matmat(X)
+    return torch.stack([a.matvec(X[:, j]) for j in range(R)], dim=1)
+
+
 def from_reference(a, device):
     """The port's container holding the same matrix as the JAX package's
     container ``a``: its ``to_coo()`` triplets (fresh numpy copies, original
-    order for COO) go through the port's ``from_coo``, with the CMRS height
-    and the SELL σ. Needs no JAX import; the parity tests use it."""
+    order for COO) go through the port's ``from_coo``, with the CMRS height,
+    the SELL σ and the BSR precision. Needs no JAX import; the parity tests
+    use it."""
     kind = type(a).__name__
     if kind not in _REFERENCE_CLASSES:
         raise NotImplementedError(

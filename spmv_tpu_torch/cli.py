@@ -1,13 +1,16 @@
 """Command-line interface of the PyTorch port.
 
     python -m spmv_tpu_torch run  --format csr --matrix databases/cant.mtx
+    python -m spmv_tpu_torch run  --format sell --rhs 4
     python -m spmv_tpu_torch info --matrix m.mtx
     python -m spmv_tpu_torch devices
 
 Counterpart of ``spmv_tpu/cli.py`` (``run``, ``info``, ``devices``). ``run``
 mirrors one reference driver end to end: load (or synthesize) → convert →
 SpMV on the device → fp64 golden validation → a timed host SpMV beside it,
-with the reference's ``x[i] = i`` input (``coo.c:88-92``) by default.
+with the reference's ``x[i] = i`` input (``coo.c:88-92``) by default. With
+``--rhs R`` it runs ``spmm`` on R columns (column j made with seed + j, as
+``spmv_tpu/cli.py:197`` makes them) and validates every column.
 
 ``--device`` defaults to ``cuda``: without a card ``run`` stops with an
 error and does not carry on on the CPU. ``--device cpu`` is the explicit
@@ -25,7 +28,7 @@ import torch
 
 from spmv_tpu_torch.errors import ReturnCode
 
-FORMATS = ["coo", "csr", "ell", "sell", "cmrs", "hyb"]
+FORMATS = ["coo", "csr", "ell", "sell", "cmrs", "hyb", "bsr"]
 
 
 def _load(args):
@@ -84,19 +87,27 @@ def _device_error(device: str) -> str | None:
 
 
 def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
-             seed: int = 0, device: str = "cuda") -> int:
-    """Convert, run one SpMV on ``device``, validate against the fp64
-    oracle and print the verdict; the ``run`` command after loading (which
-    has checked that ``device`` is usable)."""
+             seed: int = 0, device: str = "cuda", rhs: int = 1) -> int:
+    """Convert, run one SpMV (or with ``rhs`` > 1 one SpMM on ``rhs``
+    columns) on ``device``, validate against the fp64 oracle and print the
+    verdict; the ``run`` command after loading (which has checked that
+    ``device`` is usable)."""
     import spmv_tpu_torch
     from spmv_tpu_torch.kernels import _build, engines
 
+    rhs = max(int(rhs), 1)
     try:
         a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, rows, cols,
                                     vals, device=device)
-        x = _make_x(x_mode, info.ncols, seed)
         before = dict(engines.LAUNCHES)
-        y = spmv_tpu_torch.device.y_to_numpy(a.matvec(x), info.nrows)
+        if rhs > 1:
+            X = np.stack([_make_x(x_mode, info.ncols, seed + j)
+                          for j in range(rhs)], axis=1)
+            Y = spmv_tpu_torch.device.Y_to_numpy(spmv_tpu_torch.spmm(a, X),
+                                                 info.nrows, rhs)
+        else:
+            x = _make_x(x_mode, info.ncols, seed)
+            y = spmv_tpu_torch.device.y_to_numpy(a.matvec(x), info.nrows)
     except (_build.BuildError, engines.KernelError) as e:
         print(f"kernel error: {e}", file=sys.stderr)
         return ReturnCode.PROGRAM_ERROR
@@ -104,17 +115,32 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
         print(f"error: {e}", file=sys.stderr)
         return ReturnCode.OTHER_ERROR
     ran = [k for k, n in engines.LAUNCHES.items() if n > before[k]]
-    where = (torch.cuda.get_device_name(a.dev.device)
-             if a.dev.device.type == "cuda" else "plain PyTorch versions")
-    split = (f" (split: {a.shape}, panel {a.panel_nnz} + spill {a.spill_nnz} "
-             "nnz)" if hasattr(a, "parts") else "")
+    on = a.device if isinstance(a, spmv_tpu_torch.BSRMatrix) else a.dev.device
+    where = (torch.cuda.get_device_name(on) if on.type == "cuda"
+             else "plain PyTorch versions")
+    if hasattr(a, "parts"):
+        extra = (f" (split: {a.shape}, panel {a.panel_nnz} + spill "
+                 f"{a.spill_nnz} nnz)")
+    elif isinstance(a, spmv_tpu_torch.BSRMatrix):
+        extra = (f" ({a.tiles.shape[0]} tiles, fill {a.fill:.2f}x, precision "
+                 f"{a.precision}; batched matmul, no kernel of the port)")
+    else:
+        extra = ""
     print(f"{fmt}: {info.nrows} x {info.ncols}, nnz {rows.size}, plan "
-          f"{a.stream_bytes / 1e6:.2f} MB{split} on {a.dev.device} ({where}); "
+          f"{a.stream_bytes / 1e6:.2f} MB{extra} on {on} ({where}); "
           f"kernels: {' + '.join(ran) or 'none'}")
-    rep = _validate(info, rows, cols, vals, x, y)
-    print(rep)
-    _cpu_comparison(info, rows, cols, vals, x)
-    return ReturnCode.SUCCESS if rep.ok else ReturnCode.VALIDATION_FAILED
+    if rhs == 1:
+        rep = _validate(info, rows, cols, vals, x, y)
+        print(rep)
+        _cpu_comparison(info, rows, cols, vals, x)
+        return ReturnCode.SUCCESS if rep.ok else ReturnCode.VALIDATION_FAILED
+    reps = [_validate(info, rows, cols, vals, X[:, j], Y[:, j]) for j in range(rhs)]
+    bad = next((j for j, rep in enumerate(reps) if not rep.ok), None)
+    if bad is not None:  # the first failing column, not the last one checked
+        print(f"{reps[bad]}  [column {bad} of {rhs} right-hand sides]")
+        return ReturnCode.VALIDATION_FAILED
+    print(f"{reps[-1]}  [{rhs} right-hand sides]")
+    return ReturnCode.SUCCESS
 
 
 def cmd_run(args) -> int:
@@ -128,7 +154,7 @@ def cmd_run(args) -> int:
         print(f"error reading {args.matrix}: {e}", file=sys.stderr)
         return ReturnCode.FILE_ERROR
     return run_spmv(args.format, info, rows, cols, vals, x_mode=args.x,
-                    seed=args.seed, device=args.device)
+                    seed=args.seed, device=args.device, rhs=args.rhs)
 
 
 def cmd_info(args) -> int:
@@ -181,6 +207,8 @@ def main(argv=None) -> int:
     r.add_argument("--x", default="index", choices=["index", "random"],
                    help="input vector: reference x[i]=i or random")
     r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--rhs", type=int, default=1,
+                   help="right-hand sides: R > 1 runs spmm on an (ncols, R) X")
     r.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     r.set_defaults(fn=cmd_run)

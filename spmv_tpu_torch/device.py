@@ -18,7 +18,7 @@ import torch
 from spmv_tpu_torch.formats.base import CsrPlan, PanelPlan
 
 __all__ = ["DevCsr", "DevPanel", "FUSED_STREAM_BYTES_MAX", "x_to_device",
-           "y_to_numpy"]
+           "y_to_numpy", "X_to_device", "Y_to_numpy"]
 
 # Plans of at most this many bytes run the one-dispatch kernel (K3
 # ``csr_spmv_fused``, K6 ``panel_spmv_fused``); larger plans run the
@@ -156,9 +156,31 @@ def x_to_device(x, ncols: int, device) -> torch.Tensor:
     return xt
 
 
+def X_to_device(X, ncols: int, device) -> torch.Tensor:
+    """X (numpy or tensor, any real dtype, any strides) → contiguous
+    row-major float32 tensor of shape (ncols, R) on ``device``: the layout
+    the multi-RHS kernels read, one row of R floats per column index. A
+    transposed or sliced X is copied here, not refused by a kernel."""
+    if isinstance(X, torch.Tensor):
+        Xt = X.to(device=device, dtype=torch.float32)
+    else:
+        Xt = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(device)
+    if Xt.dim() != 2 or Xt.shape[0] != ncols:
+        raise ValueError(f"X must be ({ncols}, R), got {tuple(Xt.shape)}")
+    return Xt.contiguous()
+
+
 def y_to_numpy(y: torch.Tensor, nrows: int) -> np.ndarray:
     """Device y → host float32 array, checking its length and dtype."""
     if y.dtype != torch.float32 or y.shape != (nrows,):
         raise ValueError(f"y must be float32 of shape ({nrows},), got "
                          f"{y.dtype} {tuple(y.shape)}")
     return y.cpu().numpy()
+
+
+def Y_to_numpy(Y: torch.Tensor, nrows: int, R: int) -> np.ndarray:
+    """Device Y → host float32 (nrows, R) array, checking shape and dtype."""
+    if Y.dtype != torch.float32 or Y.shape != (nrows, R):
+        raise ValueError(f"Y must be float32 of shape ({nrows}, {R}), got "
+                         f"{Y.dtype} {tuple(Y.shape)}")
+    return Y.cpu().numpy()

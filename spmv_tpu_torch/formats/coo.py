@@ -17,9 +17,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from spmv_tpu_torch.device import DevCsr, x_to_device
+from spmv_tpu_torch.device import DevCsr, X_to_device, x_to_device
 from spmv_tpu_torch.formats.base import CsrPlan, build_csr_plan, csr_ptr
-from spmv_tpu_torch.kernels.engines import segmented_spmv
+from spmv_tpu_torch.kernels.engines import (segmented_spmv,
+                                            segmented_spmv_multi)
 
 __all__ = ["COOMatrix"]
 
@@ -67,5 +68,10 @@ class COOMatrix:
     def matvec(self, x) -> torch.Tensor:
         """y = A·x as a float32 tensor on the plan's device."""
         return segmented_spmv(self.dev, x_to_device(x, self.ncols, self.dev.device))
+
+    def matmat(self, X) -> torch.Tensor:
+        """Y = A·X for X of shape (ncols, R), 2 ≤ R ≤ ``MULTI_RHS_MAX``, in
+        one multi-RHS pass over the plan (``api.spmm`` takes any R)."""
+        return segmented_spmv_multi(self.dev, X_to_device(X, self.ncols, self.dev.device))
 
     __matmul__ = matvec

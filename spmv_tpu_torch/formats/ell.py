@@ -18,7 +18,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from spmv_tpu_torch.device import x_to_device
+from spmv_tpu_torch.device import X_to_device, x_to_device
 from spmv_tpu_torch.formats.split import (PanelSpill, PanelSpillFormat,
                                           split_triplets)
 
@@ -101,5 +101,10 @@ class EllMatrix(PanelSpillFormat):
     def matvec(self, x) -> torch.Tensor:
         """y = A·x as a float32 tensor on the plan's device."""
         return self.parts.spmv(x_to_device(x, self.ncols, self.dev.device))
+
+    def matmat(self, X) -> torch.Tensor:
+        """Y = A·X for X of shape (ncols, R), 2 ≤ R ≤ ``MULTI_RHS_MAX``, in
+        one multi-RHS pass over each part (``api.spmm`` takes any R)."""
+        return self.parts.spmm(X_to_device(X, self.ncols, self.dev.device))
 
     __matmul__ = matvec

@@ -12,8 +12,9 @@ pre-sorted file, never unpermuting y).
 * The panel/spill split (``formats.split``) runs in sorted row space, on
   ``nrows_pad`` rows; the spill adds into y′ there, and one gather, K7
   (``kernels.panel.inverse_permute``), takes y′ back to the original row
-  order and cuts it to ``nrows``. Where the sort was not applied no gather
-  is launched. Where the split spills everything, the sort is dropped
+  order and cuts it to ``nrows``; ``matmat`` does the same for Y with
+  one K7 launch over rows of R floats. Where the sort was not applied no
+  gather is launched. Where the split spills everything, the sort is dropped
   again: a pure spill has no panel widths to shrink.
 * The format's public surface — ``slice_widths``, ``sell_arrays()``,
   ``from_sell`` — keeps the JAX container's C = 128 (``SellMatrix.C``), so
@@ -28,7 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from spmv_tpu_torch.device import x_to_device
+from spmv_tpu_torch.device import X_to_device, x_to_device
 from spmv_tpu_torch.formats.base import SLICE_ROWS, cdiv
 from spmv_tpu_torch.formats.split import (PanelSpill, PanelSpillFormat,
                                           split_triplets)
@@ -212,5 +213,15 @@ class SellMatrix(PanelSpillFormat):
         if not self.sorted_rows:  # identity permutation: no gather
             return y_sorted[:self.nrows]
         return inverse_permute(self.invperm_dev, y_sorted, self.nrows)
+
+    def matmat(self, X) -> torch.Tensor:
+        """Y = A·X for X of shape (ncols, R), 2 ≤ R ≤ ``MULTI_RHS_MAX``: the
+        parts' multi-RHS passes add in sorted row space, then one K7 launch
+        gathers rows of R floats back to the original order, as ``matvec``
+        does for one vector (``api.spmm`` takes any R)."""
+        Y_sorted = self.parts.spmm(X_to_device(X, self.ncols, self.dev.device))
+        if not self.sorted_rows:  # identity permutation: no gather
+            return Y_sorted[:self.nrows]
+        return inverse_permute(self.invperm_dev, Y_sorted, self.nrows)
 
     __matmul__ = matvec

@@ -50,7 +50,8 @@ from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import (SLICE_ROWS, CsrPlan, PanelPlan,
                                          build_csr_plan, build_panel_plan,
                                          cdiv, csr_ptr)
-from spmv_tpu_torch.kernels.panel import panel_and_spill_spmv
+from spmv_tpu_torch.kernels.panel import (panel_and_spill_spmm,
+                                          panel_and_spill_spmv)
 
 __all__ = ["priced_split", "split_triplets", "modeled_seconds", "PanelSpill",
            "PanelSpillFormat", "PANEL_B", "SPILL_B"]
@@ -175,6 +176,12 @@ class PanelSpill:
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """y over the plans' ``nrows`` rows (x already on the device)."""
         return panel_and_spill_spmv(self.dev, self.dev_spill, x)
+
+    def spmm(self, X: torch.Tensor) -> torch.Tensor:
+        """Y (nrows, R) over the plans' rows for an (ncols, R) X already on
+        the device, 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``: one multi-RHS pass
+        over each part."""
+        return panel_and_spill_spmm(self.dev, self.dev_spill, X)
 
 
 class PanelSpillFormat:

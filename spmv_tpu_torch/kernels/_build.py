@@ -4,8 +4,9 @@
 of its own under ``spmv_tpu_torch/_build/`` (listed in ``.gitignore``), one
 ``nvcc`` per source, all started together. The libraries expose plain C
 launchers, so the build needs no PyTorch headers and takes seconds. Each
-file name carries a hash of its source and the flags: an edited source
-builds anew, an unchanged one is loaded as it is. A failed build raises
+file name carries a hash of its source, the ``csrc/*.cuh`` headers beside
+it and the flags: an edited source or header builds anew, an unchanged one
+is loaded as it is. A failed build raises
 ``BuildError``; nothing falls back to the plain PyTorch versions.
 
 Every pointer and the stream cross ctypes as ``c_void_p``. Without the
@@ -44,6 +45,10 @@ SIGNATURES = {
     "carry_fixup": (_P, _P, _P, _P, _I, _I, _P),
     # ptr, cols, vals, x, y, nrows, vec, stream
     "csr_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # ptr, cols, vals, tile_row0, X, Y, carry, nnz, ntiles, tile, rhs, stream
+    "seg_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ptr, carry_rows, carry, Y, ncarry, tile, rhs, stream
+    "carry_fixup_multi": (_P, _P, _P, _P, _I, _I, _I, _P),
     # panel_spmv.cu
     # slice_ptr, cols, vals, tile_slice0, x, y, part, ncolumns, ntiles,
     # tile, nrows, stream
@@ -52,8 +57,13 @@ SIGNATURES = {
     "panel_fixup": (_P, _P, _P, _P, _I, _I, _I, _P),
     # slice_ptr, cols, vals, x, y, nslices, nrows, stream
     "panel_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # invperm, y_sorted, y, n, stream
-    "inverse_permute": (_P, _P, _P, _I, _P),
+    # invperm, y_sorted, y, n, r, stream
+    "inverse_permute": (_P, _P, _P, _I, _I, _P),
+    # slice_ptr, cols, vals, tile_slice0, X, Y, part, ncolumns, ntiles,
+    # tile, nrows, rhs, stream
+    "panel_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # slice_ptr, split_slices, part, Y, nsplit, tile, nrows, rhs, stream
+    "panel_fixup_multi": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -87,6 +97,8 @@ def _so_path(source: Path, out_dir: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(source.name.encode())
     h.update(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):  # what a source may include
+        h.update(header.read_bytes())
     return Path(out_dir) / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 

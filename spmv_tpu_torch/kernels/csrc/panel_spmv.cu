@@ -1,14 +1,18 @@
 // Sliced-ELLPACK (SELL-C) SpMV kernels for Hopper (sm_90a): y = A·x in
-// float32, and the gather that undoes the SELL-C-σ row sort.
+// float32, Y = A·X for R = 2..8 right-hand sides, and the gather that
+// undoes the SELL-C-σ row sort.
 //
-// Four kernels, each replacing one Pallas kernel of the JAX package's panel
+// Six kernels, each replacing one Pallas kernel of the JAX package's panel
 // engine (spmv_tpu/kernels/engines.py):
 //
-//   K4 panel_spmv_tiles  replaces _panel_kernel        (panel_spmv_partials)
-//   K5 panel_fixup       replaces _scatter_kernel      (_window_scatter, as
-//                        panel_spmv_partials' epilogue)
-//   K6 panel_spmv_fused  replaces _panel_kernel_fused  (panel_spmv_fused)
-//   K7 inverse_permute   replaces _perm_kernel         (inverse_permute_blocks)
+//   K4 panel_spmv_tiles   replaces _panel_kernel         (panel_spmv_partials)
+//   K5 panel_fixup        replaces _scatter_kernel       (_window_scatter, as
+//                         panel_spmv_partials' epilogue)
+//   K6 panel_spmv_fused   replaces _panel_kernel_fused   (panel_spmv_fused)
+//   K7 inverse_permute    replaces _perm_kernel          (inverse_permute_blocks)
+//   K10 panel_spmm_tiles  replaces _panel_kernel_multi   (panel_spmv_multi)
+//   K11 panel_fixup_multi replaces _scatter_kernel_multi (_window_scatter_multi,
+//                         as panel_spmv_multi's epilogue)
 //
 // The plan (spmv_tpu_torch/formats/base.py:build_panel_plan): slices of
 // kC = 32 rows. Slice s holds 32·K_s slots from slot slice_ptr[s], stored
@@ -33,6 +37,10 @@
 // allocates every output, and never calls a launcher with an empty grid.
 
 #include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+#include "x_rows.cuh"
 
 namespace {
 
@@ -40,10 +48,10 @@ constexpr int kC = 32;  // rows per slice: one warp. Must equal SLICE_ROWS.
 // Slice columns per K4 tile (1024 slots). Must equal TILE_COLS in
 // spmv_tpu_torch/formats/base.py.
 constexpr int kTileCols = 32;
-// K4 and K6: 4 warps per block, each warp on its own tile or slice.
+// K4, K6 and K10: 4 warps per block, each warp on its own tile or slice.
 constexpr int kWarpsPerBlock = 4;
 constexpr int kPanelThreads = kWarpsPerBlock * kC;
-// K5 and K7 block size.
+// K5, K7 and K11 block size.
 constexpr int kThreads = 256;
 
 // K6 — replaces _panel_kernel_fused (spmv_tpu/kernels/engines.py:283).
@@ -156,20 +164,135 @@ panel_fixup_kernel(const int* __restrict__ slice_ptr,
 
 // K7 — replaces _perm_kernel (spmv_tpu/kernels/engines.py:719).
 //
-// y[i] = y_sorted[invperm[i]]: a gather, one thread per output row. The
+// y[i, :] = y_sorted[invperm[i], :] for rows of r floats (r = 1 for a
+// vector, R for the multi-RHS path): a gather, one thread per output
+// float, so neighbouring threads copy neighbouring floats of one row. The
 // TPU kernel's 8x128 windows and whi/idx tables bound its sublane gather
 // depth; a Hopper thread gathers from anywhere, and the sources of
-// neighbouring rows lie within one σ window (≤ 1024 rows, 4 KB), in L2.
+// neighbouring rows lie within one σ window (≤ 1024 rows, 4·r KB), in L2.
 __global__ void __launch_bounds__(kThreads)
 inverse_permute_kernel(const int* __restrict__ invperm,
                        const float* __restrict__ y_sorted,
-                       float* __restrict__ y, int n) {
+                       float* __restrict__ y, int n, int r) {
+  // n·r < 2^31 - kThreads (the launcher checks), so int indices hold
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) y[i] = __ldg(y_sorted + __ldg(invperm + i));
+  if (i >= n * r) return;
+  const int row = i / r;
+  y[i] = __ldg(y_sorted + static_cast<long long>(__ldg(invperm + row)) * r + (i - row * r));
+}
+
+// ---------------------------------------------------------------- R > 1
+//
+// X is row-major (ncols, R) and Y row-major (nrows, R); K10's partials are
+// (2·ntiles, 32, R). Per right-hand side a slot's 8 plan bytes are shared
+// by R columns, and each slot gathers one contiguous X row of R floats.
+
+// K10 — replaces _panel_kernel_multi (spmv_tpu/kernels/engines.py:623).
+//
+// K4 with R accumulators per lane: the same tile of kTileCols slice columns
+// per warp, the same slice steps, one row per lane. Each slot's value and
+// column are read once (one 128-byte load of each per warp and column) and
+// its X row is gathered whole; column j of K10 adds in K4's order.
+template <int R>
+__global__ void __launch_bounds__(kPanelThreads)
+panel_spmm_tiles_kernel(const int* __restrict__ slice_ptr,
+                        const int* __restrict__ cols,
+                        const float* __restrict__ vals,
+                        const int* __restrict__ tile_slice0,
+                        const float* __restrict__ X, float* __restrict__ Y,
+                        float* __restrict__ part, int ncolumns, int ntiles,
+                        int nrows, bool vec) {
+  const int lane = threadIdx.x & (kC - 1);
+  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
+  if (t >= ntiles) return;
+  const int g0 = t * kTileCols;
+  const int g1 = min(g0 + kTileCols, ncolumns);
+
+  float run[R];
+  // Stores the tile's sums of slice s (columns [cs, ce)) for this lane.
+  auto emit = [&](int s, int cs, int ce) {
+    float* out;
+    if (cs < g0) {
+      out = part + (static_cast<long long>(2 * t) * kC + lane) * R;
+    } else if (ce > g1) {
+      out = part + (static_cast<long long>(2 * t + 1) * kC + lane) * R;
+    } else {
+      const int row = s * kC + lane;
+      if (row >= nrows) return;
+      out = Y + static_cast<long long>(row) * R;
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) out[j] = run[j];
+  };
+
+  int s = __ldg(tile_slice0 + t);
+  int cs = __ldg(slice_ptr + s) / kC;
+  int ce = __ldg(slice_ptr + s + 1) / kC;
+#pragma unroll
+  for (int j = 0; j < R; ++j) run[j] = 0.f;
+  for (int g = g0; g < g1; ++g) {
+    if (g >= ce) {  // slice s ended at column g - 1 (the branch is warp-uniform)
+      emit(s, cs, ce);
+      do {
+        ++s;
+        cs = ce;
+        ce = __ldg(slice_ptr + s + 1) / kC;
+      } while (g >= ce);
+#pragma unroll
+      for (int j = 0; j < R; ++j) run[j] = 0.f;
+    }
+    const int p = g * kC + lane;
+    const float v = __ldg(vals + p);
+    float xr[R];
+    load_x_row<R>(X, __ldg(cols + p), vec, xr);
+#pragma unroll
+    for (int j = 0; j < R; ++j) run[j] += v * xr[j];
+  }
+  emit(s, cs, ce);
+}
+
+// K11 — replaces _scatter_kernel_multi (spmv_tpu/kernels/engines.py:537) as
+// the panel path's epilogue.
+//
+// K5 per column: one thread per (split slice, row, column), in that order,
+// so neighbouring threads read neighbouring partials. It adds the tail slot
+// of the tile where the slice begins, then the head slot of every later
+// tile it reaches, in tile order.
+__global__ void __launch_bounds__(kThreads)
+panel_fixup_multi_kernel(const int* __restrict__ slice_ptr,
+                         const int* __restrict__ split_slices,
+                         const float* __restrict__ part, float* __restrict__ Y,
+                         int nsplit, int nrows, int rhs) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<long long>(nsplit) * kC * rhs) return;
+  const int j = static_cast<int>(i % rhs);
+  const int lane = static_cast<int>(i / rhs) & (kC - 1);
+  const int s = __ldg(split_slices + i / rhs / kC);
+  const int ta = __ldg(slice_ptr + s) / kC / kTileCols;
+  const int tb = (__ldg(slice_ptr + s + 1) / kC - 1) / kTileCols;
+  float v = part[(static_cast<long long>(2 * ta + 1) * kC + lane) * rhs + j];
+  for (int t = ta + 1; t <= tb; ++t) {
+    v += part[(static_cast<long long>(2 * t) * kC + lane) * rhs + j];
+  }
+  const int row = s * kC + lane;
+  if (row < nrows) Y[static_cast<long long>(row) * rhs + j] = v;
 }
 
 int blocks_for(int items, int per_block) {
   return (items + per_block - 1) / per_block;
+}
+
+template <int R>
+cudaError_t launch_panel_spmm(const int* slice_ptr, const int* cols,
+                              const float* vals, const int* tile_slice0,
+                              const float* X, float* Y, float* part,
+                              int ncolumns, int ntiles, int nrows,
+                              cudaStream_t s) {
+  const bool vec = reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  panel_spmm_tiles_kernel<R><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
+                               0, s>>>(slice_ptr, cols, vals, tile_slice0, X, Y,
+                                       part, ncolumns, ntiles, nrows, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -226,14 +349,68 @@ int panel_spmv_fused(const void* slice_ptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7: y[i] = y_sorted[invperm[i]] for i < n.
+// K7: y[i, :] = y_sorted[invperm[i], :] for i < n, rows of r floats.
 int inverse_permute(const void* invperm, const void* y_sorted, void* y, int n,
-                    void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  inverse_permute_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+                    int r, void* stream) {
+  if (n <= 0 || r <= 0 || static_cast<long long>(n) * r > (1LL << 31) - kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  inverse_permute_kernel<<<blocks_for(n * r, kThreads), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(invperm), static_cast<const float*>(y_sorted),
-      static_cast<float*>(y), n);
+      static_cast<float*>(y), n, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: Y[r, :] for the rows of every slice wholly inside one tile, and the
+// head/tail partials (32 rows of R per slot, 2 slots per tile) of the split
+// slices; R = 2..8.
+int panel_spmm_tiles(const void* slice_ptr, const void* cols, const void* vals,
+                     const void* tile_slice0, const void* X, void* Y,
+                     void* part, int ncolumns, int ntiles, int tile, int nrows,
+                     int rhs, void* stream) {
+  if (tile != kTileCols || ncolumns <= 0 || nrows <= 0 ||
+      ntiles != blocks_for(ncolumns, kTileCols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* sp = static_cast<const int*>(slice_ptr);
+  const int* c = static_cast<const int*>(cols);
+  const float* v = static_cast<const float*>(vals);
+  const int* t0 = static_cast<const int*>(tile_slice0);
+  const float* xx = static_cast<const float*>(X);
+  float* yy = static_cast<float*>(Y);
+  float* pp = static_cast<float*>(part);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (rhs) {
+    case 2: err = launch_panel_spmm<2>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
+    case 3: err = launch_panel_spmm<3>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
+    case 4: err = launch_panel_spmm<4>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
+    case 5: err = launch_panel_spmm<5>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
+    case 6: err = launch_panel_spmm<6>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
+    case 7: err = launch_panel_spmm<7>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
+    case 8: err = launch_panel_spmm<8>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// K11: Y[r, j] = the sum of a split slice's partials for row r, column j,
+// in tile order.
+int panel_fixup_multi(const void* slice_ptr, const void* split_slices,
+                      const void* part, void* Y, int nsplit, int tile,
+                      int nrows, int rhs, void* stream) {
+  if (tile != kTileCols || nsplit <= 0 || nrows <= 0 || rhs <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks =
+      (static_cast<long long>(nsplit) * kC * rhs + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  panel_fixup_multi_kernel<<<static_cast<int>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slice_ptr),
+      static_cast<const int*>(split_slices), static_cast<const float*>(part),
+      static_cast<float*>(Y), nsplit, nrows, rhs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,14 @@
-// CSR SpMV kernels for Hopper (sm_90a): y = A·x in float32.
+// CSR SpMV kernels for Hopper (sm_90a): y = A·x in float32, and Y = A·X
+// for R = 2..8 right-hand sides.
 //
-// Three kernels, each replacing one Pallas kernel of the JAX package's
+// Five kernels, each replacing one Pallas kernel of the JAX package's
 // segmented engine (spmv_tpu/kernels/engines.py):
 //
-//   K1 seg_spmv_tiles  replaces _seg_kernel        (segmented_spmv_partials)
-//   K2 carry_fixup     replaces _scatter_kernel    (_window_scatter)
-//   K3 csr_spmv_fused  replaces _seg_kernel_fused  (segmented_spmv_fused)
+//   K1 seg_spmv_tiles     replaces _seg_kernel           (segmented_spmv_partials)
+//   K2 carry_fixup        replaces _scatter_kernel       (_window_scatter)
+//   K3 csr_spmv_fused     replaces _seg_kernel_fused     (segmented_spmv_fused)
+//   K8 seg_spmm_tiles     replaces _seg_kernel_multi     (segmented_spmv_multi)
+//   K9 carry_fixup_multi  replaces _scatter_kernel_multi (_window_scatter_multi)
 //
 // What bounds them on the H100: bytes. Each nonzero streams 8 B (a float32
 // value and an int32 column) and gathers 4 B of x, for 2 flops: at most
@@ -27,6 +30,9 @@
 
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstdint>
+
+#include "x_rows.cuh"
 
 namespace {
 
@@ -254,6 +260,231 @@ csr_spmv_fused_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
   if (valid && lane == 0) y[row] = s;
 }
 
+// ---------------------------------------------------------------- R > 1
+//
+// X is row-major (ncols, R), so the R values of x that one nonzero needs
+// are one contiguous row of 8-32 B, a single 32-byte sector. Y is row-major
+// (nrows, R) and carries are (2·ntiles, R). What bounds K8 on the H100 is
+// still bytes: each nonzero streams its 8 plan bytes once for all R columns
+// and gathers R·4 B of X, so per right-hand side the plan costs 8/R B
+// against K1's 8 — that is the point of the multi-RHS engine
+// (spmv_tpu/api.py:94-97).
+
+// warp_seg_scan for R values per lane: the key is shuffled once per step
+// and shared by the R value shuffles. Column j adds in the same order as
+// warp_seg_scan does for one vector.
+template <int R>
+__device__ __forceinline__ void warp_seg_scan_multi(int key, float (&val)[R]) {
+  const int lane = threadIdx.x & (kWarp - 1);
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const int k = __shfl_up_sync(kFullMask, key, d);
+    const bool take = lane >= d && k == key;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float v = __shfl_up_sync(kFullMask, val[j], d);
+      if (take) val[j] = v + val[j];
+    }
+  }
+}
+
+// emit_row for R values: Y row r, or the tile's head or tail carry row.
+template <int R>
+__device__ __forceinline__ void emit_row_multi(const int* __restrict__ ptr, int r,
+                                               const float (&v)[R], int t, int ts,
+                                               int te, float* __restrict__ Y,
+                                               float* __restrict__ carry) {
+  const int rs = __ldg(ptr + r);
+  const int re = __ldg(ptr + r + 1);
+  float* out = rs < ts   ? carry + static_cast<long long>(2 * t) * R
+               : re > te ? carry + static_cast<long long>(2 * t + 1) * R
+                         : Y + static_cast<long long>(r) * R;
+#pragma unroll
+  for (int j = 0; j < R; ++j) out[j] = v[j];
+}
+
+// K8 — replaces _seg_kernel_multi (spmv_tpu/kernels/engines.py:571).
+//
+// K1 with R running sums: the same tile of kTileNnz nonzeros per block, the
+// same binary search, the same 16-byte loads of 4 values and 4 columns per
+// thread, and per nonzero one row of X (load_x_row). Every column is summed
+// in K1's order, so column j of K8 is what K1 gives for X[:, j]. The
+// block-wide segmented scan carries R values per (key, run) pair: shared
+// memory holds 8 keys and 8·R partials. The TPU kernel's stacked x tables,
+// sub-chunk windows and b2 bank bits answer VMEM limits; none is here.
+template <int R>
+__global__ void __launch_bounds__(kTileThreads)
+seg_spmm_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
+                      const float* __restrict__ vals,
+                      const int* __restrict__ tile_row0,
+                      const float* __restrict__ X, float* __restrict__ Y,
+                      float* __restrict__ carry, int nnz, bool vec) {
+  __shared__ int s_key[kTileWarps];
+  __shared__ float s_val[kTileWarps][R];
+
+  const int t = blockIdx.x;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int ts = t * kTileNnz;
+  const int te = min(ts + kTileNnz, nnz);
+  const int e0 = ts + threadIdx.x * kTileItems;
+  const int e_end = min(e0 + kTileItems, te);
+
+  int key = -1;
+  float run[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) run[j] = 0.f;
+  int head_row = -1;
+  float head_val[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) head_val[j] = 0.f;
+  int row_end = 0;
+
+  if (e0 < te) {
+    int lo = __ldg(tile_row0 + t);
+    int hi = __ldg(tile_row0 + t + 1);
+    while (lo < hi) {  // largest r in [lo, hi] with ptr[r] <= e0
+      const int mid = (lo + hi + 1) >> 1;
+      if (__ldg(ptr + mid) <= e0) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    int r = lo;
+    row_end = __ldg(ptr + r + 1);
+
+    float v[kTileItems];
+    int c[kTileItems];
+    if (e_end - e0 == kTileItems) {
+      const float4 v4 = __ldg(reinterpret_cast<const float4*>(vals + e0));
+      const int4 c4 = __ldg(reinterpret_cast<const int4*>(cols + e0));
+      v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
+      c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kTileItems; ++k) {
+        const bool in = e0 + k < e_end;
+        v[k] = in ? __ldg(vals + e0 + k) : 0.f;
+        c[k] = in ? __ldg(cols + e0 + k) : 0;
+      }
+    }
+
+#pragma unroll
+    for (int k = 0; k < kTileItems; ++k) {
+      const int e = e0 + k;
+      if (e < e_end) {
+        if (e >= row_end) {  // the run of row r closed at e - 1
+          if (head_row < 0) {
+            head_row = r;
+#pragma unroll
+            for (int j = 0; j < R; ++j) head_val[j] = run[j];
+          } else {
+            float* out = Y + static_cast<long long>(r) * R;
+#pragma unroll
+            for (int j = 0; j < R; ++j) out[j] = run[j];
+          }
+          do {
+            ++r;
+            row_end = __ldg(ptr + r + 1);
+          } while (e >= row_end);
+#pragma unroll
+          for (int j = 0; j < R; ++j) run[j] = 0.f;
+        }
+        float xr[R];
+        load_x_row<R>(X, c[k], vec, xr);
+#pragma unroll
+        for (int j = 0; j < R; ++j) run[j] += v[k] * xr[j];
+      }
+    }
+    key = r;
+  }
+
+  // Block-wide inclusive segmented scan, as in K1, R values at a time.
+  float incl[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) incl[j] = run[j];
+  warp_seg_scan_multi<R>(key, incl);
+  if (lane == kWarp - 1) {
+    s_key[warp] = key;
+#pragma unroll
+    for (int j = 0; j < R; ++j) s_val[warp][j] = incl[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int wk = lane < kTileWarps ? s_key[lane] : -1;
+    float wv[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) wv[j] = lane < kTileWarps ? s_val[lane][j] : 0.f;
+    warp_seg_scan_multi<R>(wk, wv);
+    if (lane < kTileWarps) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) s_val[lane][j] = wv[j];
+    }
+  }
+  __syncthreads();
+  if (warp > 0 && s_key[warp - 1] == key) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) incl[j] = s_val[warp - 1][j] + incl[j];
+  }
+
+  // Exclusive value: the inclusive scan of the thread before this one.
+  int ek = __shfl_up_sync(kFullMask, key, 1);
+  float ev[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) ev[j] = __shfl_up_sync(kFullMask, incl[j], 1);
+  if (lane == 0) {
+    ek = warp > 0 ? s_key[warp - 1] : -1;
+#pragma unroll
+    for (int j = 0; j < R; ++j) ev[j] = warp > 0 ? s_val[warp - 1][j] : 0.f;
+  }
+
+  if (e0 < te) {
+    if (head_row >= 0) {
+      if (ek == head_row) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) head_val[j] = ev[j] + head_val[j];
+      }
+      emit_row_multi<R>(ptr, head_row, head_val, t, ts, te, Y, carry);
+    }
+    if (row_end == e_end || e_end == te) {
+      emit_row_multi<R>(ptr, key, incl, t, ts, te, Y, carry);
+    }
+  }
+}
+
+// K9 — replaces _scatter_kernel_multi (spmv_tpu/kernels/engines.py:537) on
+// the segmented path.
+//
+// K2 per column: one thread per (split row, column), neighbouring threads
+// on neighbouring columns of one carry row. It adds the row's partials in
+// tile order, as K2 does, and writes Y once.
+__global__ void __launch_bounds__(kThreads)
+carry_fixup_multi_kernel(const int* __restrict__ ptr,
+                         const int* __restrict__ carry_rows,
+                         const float* __restrict__ carry, float* __restrict__ Y,
+                         int ncarry, int rhs) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<long long>(ncarry) * rhs) return;
+  const int j = static_cast<int>(i % rhs);
+  const int r = __ldg(carry_rows + i / rhs);
+  const int ta = __ldg(ptr + r) / kTileNnz;
+  const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
+  float s = carry[static_cast<long long>(2 * ta + 1) * rhs + j];
+  for (int t = ta + 1; t <= tb; ++t) s += carry[static_cast<long long>(2 * t) * rhs + j];
+  Y[static_cast<long long>(r) * rhs + j] = s;
+}
+
+template <int R>
+cudaError_t launch_seg_spmm(const int* ptr, const int* cols, const float* vals,
+                            const int* tile_row0, const float* X, float* Y,
+                            float* carry, int nnz, int ntiles, cudaStream_t s) {
+  const bool vec = reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  seg_spmm_tiles_kernel<R><<<ntiles, kTileThreads, 0, s>>>(
+      ptr, cols, vals, tile_row0, X, Y, carry, nnz, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -308,6 +539,52 @@ int csr_spmv_fused(const void* ptr, const void* cols, const void* vals,
     case 32: csr_spmv_fused_kernel<32><<<g, kThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: Y[r, :] for every row wholly inside a tile, and the head/tail
+// partials of the split rows into carry (2 rows of R per tile); R = 2..8.
+int seg_spmm_tiles(const void* ptr, const void* cols, const void* vals,
+                   const void* tile_row0, const void* X, void* Y, void* carry,
+                   int nnz, int ntiles, int tile, int rhs, void* stream) {
+  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
+      ntiles != (nnz + kTileNnz - 1) / kTileNnz) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* p = static_cast<const int*>(ptr);
+  const int* c = static_cast<const int*>(cols);
+  const float* v = static_cast<const float*>(vals);
+  const int* t0 = static_cast<const int*>(tile_row0);
+  const float* xx = static_cast<const float*>(X);
+  float* yy = static_cast<float*>(Y);
+  float* cc = static_cast<float*>(carry);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (rhs) {
+    case 2: err = launch_seg_spmm<2>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
+    case 3: err = launch_seg_spmm<3>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
+    case 4: err = launch_seg_spmm<4>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
+    case 5: err = launch_seg_spmm<5>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
+    case 6: err = launch_seg_spmm<6>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
+    case 7: err = launch_seg_spmm<7>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
+    case 8: err = launch_seg_spmm<8>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// K9: Y[r, j] = the sum of split row r's partials in column j, in tile order.
+int carry_fixup_multi(const void* ptr, const void* carry_rows, const void* carry,
+                      void* Y, int ncarry, int tile, int rhs, void* stream) {
+  if (tile != kTileNnz || ncarry <= 0 || rhs <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (static_cast<long long>(ncarry) * rhs + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  carry_fixup_multi_kernel<<<static_cast<int>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(carry_rows),
+      static_cast<const float*>(carry), static_cast<float*>(Y), ncarry, rhs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,19 +1,24 @@
-"""The segmented SpMV engine: wrappers of the three CUDA kernels, each with
+"""The segmented SpMV engine: wrappers of the five CUDA kernels, each with
 its plain PyTorch version beside it.
 
-Counterpart of ``spmv_tpu/kernels/engines.py:464-531``.
+Counterpart of ``spmv_tpu/kernels/engines.py:464-531`` and ``:553-685``.
 
-=====================  ==================  =================================
-wrapper                kernel (csrc/)      replaces (spmv_tpu/kernels/)
-=====================  ==================  =================================
-segmented_spmv_partials  K1 seg_spmv_tiles  engines.py:414 ``_seg_kernel``
-carry_fixup              K2 carry_fixup     engines.py:171 ``_scatter_kernel``
-segmented_spmv_fused     K3 csr_spmv_fused  engines.py:430 ``_seg_kernel_fused``
-=====================  ==================  =================================
+=============================  =====================  ======================================
+wrapper                        kernel (csrc/)         replaces (spmv_tpu/kernels/)
+=============================  =====================  ======================================
+segmented_spmv_partials        K1 seg_spmv_tiles      engines.py:414 ``_seg_kernel``
+carry_fixup                    K2 carry_fixup         engines.py:171 ``_scatter_kernel``
+segmented_spmv_fused           K3 csr_spmv_fused      engines.py:430 ``_seg_kernel_fused``
+segmented_spmv_multi_partials  K8 seg_spmm_tiles      engines.py:571 ``_seg_kernel_multi``
+carry_fixup_multi              K9 carry_fixup_multi   engines.py:537 ``_scatter_kernel_multi``
+=============================  =====================  ======================================
 
 ``segmented_spmv`` picks K3 for plans of at most
 ``device.FUSED_STREAM_BYTES_MAX`` bytes and K1 then K2 otherwise — the
-JAX engine's fused and two-dispatch shapes.
+JAX engine's fused and two-dispatch shapes. ``segmented_spmv_multi`` is
+Y = A·X for 2 ≤ R ≤ ``MULTI_RHS_MAX`` right-hand sides in one pass over
+the plan, K8 then K9, on the same tile schedule: X is row-major
+(ncols, R), Y row-major (nrows, R), carries (2·ntiles, R).
 
 Routing: a wrapper given CPU tensors runs its plain version (``*_reference``,
 which the CPU tests use); given CUDA tensors it launches its kernel or
@@ -32,13 +37,22 @@ from spmv_tpu_torch.formats.base import TILE_NNZ
 __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
            "segmented_spmv_fused", "segmented_spmv_partials_reference",
            "carry_fixup_reference", "segmented_spmv_fused_reference",
+           "segmented_spmv_multi", "segmented_spmv_multi_partials",
+           "carry_fixup_multi", "segmented_spmv_multi_partials_reference",
+           "carry_fixup_multi_reference", "MULTI_RHS_MAX",
            "LAUNCHES", "reset_launches", "fused_lanes", "KernelError"]
 
 # Launch counts per kernel, this engine's and the panel engine's
 # (``kernels.panel``); the plain versions never touch them.
 LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0,
             "panel_spmv_tiles": 0, "panel_fixup": 0, "panel_spmv_fused": 0,
-            "inverse_permute": 0}
+            "inverse_permute": 0, "seg_spmm_tiles": 0, "carry_fixup_multi": 0,
+            "panel_spmm_tiles": 0, "panel_fixup_multi": 0}
+
+# The widest X the multi-RHS kernels take (K8 and K10 are built for R = 2..8;
+# ``spmv_tpu/kernels/engines.py:74``). ``api.spmm`` runs one ``matvec`` per
+# column outside 2 ≤ R ≤ MULTI_RHS_MAX, as the JAX package does.
+MULTI_RHS_MAX = 8
 
 
 class KernelError(RuntimeError):
@@ -68,6 +82,24 @@ def _on_cuda(dev, *tensors: torch.Tensor) -> bool:
 def _check_x(dev, x: torch.Tensor) -> None:
     if x.shape != (dev.ncols,):
         raise ValueError(f"x must have shape ({dev.ncols},), got {tuple(x.shape)}")
+
+
+def _check_X(dev, X: torch.Tensor) -> int:
+    """R of an (ncols, R) X with 2 ≤ R ≤ MULTI_RHS_MAX; raises otherwise.
+    (``_on_cuda`` checks that X is contiguous float32.)"""
+    if X.dim() != 2 or X.shape[0] != dev.ncols:
+        raise ValueError(f"X must be ({dev.ncols}, R), got {tuple(X.shape)}")
+    R = X.shape[1]
+    if not 2 <= R <= MULTI_RHS_MAX:
+        raise ValueError(f"the multi-RHS kernels take 2 ≤ R ≤ {MULTI_RHS_MAX}, "
+                         f"got R = {R}")
+    return R
+
+
+def _lead(vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``vals`` shaped to multiply ``x[cols]``: (n,) for a vector x, (n, 1)
+    for an (ncols, R) X — the plain versions take either."""
+    return vals.view(-1, *([1] * (x.dim() - 1)))
 
 
 def _launch(name: str, dev, *args) -> None:
@@ -127,10 +159,11 @@ def carry_fixup(dev: DevCsr, y: torch.Tensor, carry: torch.Tensor) -> torch.Tens
 def segmented_spmv_partials_reference(dev: DevCsr, x: torch.Tensor):
     """Plain K1 on the same tile schedule: a segment per (tile, row) pair,
     summed with ``index_add_``; whole rows go to y, the head and tail
-    partials to their carry slots."""
-    dv = dev.device
-    y = torch.zeros(dev.nrows, dtype=torch.float32, device=dv)
-    carry = torch.zeros(2 * dev.ntiles, dtype=torch.float32, device=dv)
+    partials to their carry slots. Given an (ncols, R) X it is plain K8:
+    the same with a trailing R axis on y, carry and every sum."""
+    dv, tail = dev.device, x.shape[1:]
+    y = torch.zeros((dev.nrows, *tail), dtype=torch.float32, device=dv)
+    carry = torch.zeros((2 * dev.ntiles, *tail), dtype=torch.float32, device=dv)
     if dev.nnz == 0:
         return y, carry
     ptr = dev.ptr.long()
@@ -140,8 +173,8 @@ def segmented_spmv_partials_reference(dev: DevCsr, x: torch.Tensor):
     head = torch.ones(dev.nnz, dtype=torch.bool, device=dv)
     head[1:] = (row[1:] != row[:-1]) | (tile[1:] != tile[:-1])
     seg = torch.cumsum(head, 0) - 1
-    prod = dev.vals * x[dev.cols.long()]
-    sums = torch.zeros(int(head.sum()), dtype=torch.float32, device=dv)
+    prod = _lead(dev.vals, x) * x[dev.cols.long()]
+    sums = torch.zeros((int(head.sum()), *tail), dtype=torch.float32, device=dv)
     sums.index_add_(0, seg, prod)
     srow, stile = row[head], tile[head]
     rs, re = ptr[srow], ptr[srow + 1]
@@ -157,7 +190,8 @@ def segmented_spmv_partials_reference(dev: DevCsr, x: torch.Tensor):
 def carry_fixup_reference(dev: DevCsr, y: torch.Tensor,
                           carry: torch.Tensor) -> torch.Tensor:
     """Plain K2: gathers each split row's carry slots and sums them in tile
-    order with ``index_add_``; updates ``y`` in place."""
+    order with ``index_add_``; updates ``y`` in place. Given (nrows, R) Y
+    and (2·ntiles, R) carries it is plain K9."""
     if dev.ncarry == 0:
         return y
     dv = dev.device
@@ -170,10 +204,62 @@ def carry_fixup_reference(dev: DevCsr, y: torch.Tensor,
     first = torch.cumsum(counts, 0) - counts
     t = ta[owner] + torch.arange(owner.numel(), device=dv) - first[owner]
     slot = 2 * t + (t == ta[owner]).long()
-    s = torch.zeros(dev.ncarry, dtype=torch.float32, device=dv)
+    s = torch.zeros((dev.ncarry, *y.shape[1:]), dtype=torch.float32, device=dv)
     s.index_add_(0, owner, carry[slot])
     y[r] = s
     return y
+
+
+# ---------------------------------------------------------------- K8 + K9
+
+
+def segmented_spmv_multi_partials(dev: DevCsr, X: torch.Tensor):
+    """K8: ``(Y, carry)`` for X of shape (ncols, R). Y (nrows, R) holds
+    every row that lies wholly inside one tile; ``carry`` (2·ntiles, R)
+    holds the split rows' head and tail partials, for
+    ``carry_fixup_multi``."""
+    R = _check_X(dev, X)
+    if not _on_cuda(dev, X):
+        return segmented_spmv_multi_partials_reference(dev, X)
+    if dev.tile != TILE_NNZ:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
+    for t in (dev.cols, dev.vals):  # K8 reads 4 nonzeros per 16-byte load
+        if t.data_ptr() % 16:
+            raise ValueError("plan tensors must be 16-byte aligned")
+    Y = torch.zeros(dev.nrows, R, dtype=torch.float32, device=dev.device)
+    carry = torch.zeros(2 * dev.ntiles, R, dtype=torch.float32, device=dev.device)
+    if dev.nnz:  # a zero-sized grid is refused: nothing to launch
+        _launch("seg_spmm_tiles", dev, dev.ptr, dev.cols, dev.vals,
+                dev.tile_row0, X, Y, carry, dev.nnz, dev.ntiles, dev.tile, R)
+    return Y, carry
+
+
+def carry_fixup_multi(dev: DevCsr, Y: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+    """K9: adds each split row's partials, in tile order and column by
+    column, into ``Y``. Updates ``Y`` in place and returns it."""
+    R = Y.shape[-1] if Y.dim() == 2 else 0
+    if Y.shape != (dev.nrows, R) or carry.shape != (2 * dev.ntiles, R):
+        raise ValueError("Y or carry does not match the plan")
+    if not _on_cuda(dev, Y, carry):
+        return carry_fixup_multi_reference(dev, Y, carry)
+    if dev.tile != TILE_NNZ:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
+    if dev.ncarry and R:  # no row crosses a tile boundary: nothing to launch
+        _launch("carry_fixup_multi", dev, dev.ptr, dev.carry_rows, carry, Y,
+                dev.ncarry, dev.tile, R)
+    return Y
+
+
+# Plain K8 and K9: plain K1 and K2, which take a trailing R axis.
+segmented_spmv_multi_partials_reference = segmented_spmv_partials_reference
+carry_fixup_multi_reference = carry_fixup_reference
+
+
+def segmented_spmv_multi(dev: DevCsr, X: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for X of shape (ncols, R), 2 ≤ R ≤ MULTI_RHS_MAX: one pass
+    over the plan (K8), then the carries (K9)."""
+    Y, carry = segmented_spmv_multi_partials(dev, X)
+    return carry_fixup_multi(dev, Y, carry)
 
 
 # ---------------------------------------------------------------- K3

@@ -1,22 +1,28 @@
-"""The panel engine: wrappers of the four CUDA kernels of
+"""The panel engine: wrappers of the six CUDA kernels of
 ``csrc/panel_spmv.cu``, each with its plain PyTorch version beside it.
 
-Counterpart of ``spmv_tpu/kernels/engines.py:326-372`` and ``:735``.
+Counterpart of ``spmv_tpu/kernels/engines.py:326-372``, ``:689`` and
+``:735``.
 
-=====================  =====================  ===============================
-wrapper                kernel (csrc/)         replaces (spmv_tpu/kernels/)
-=====================  =====================  ===============================
-panel_spmv_partials    K4 panel_spmv_tiles    engines.py:269 ``_panel_kernel``
-panel_fixup            K5 panel_fixup         engines.py:171 ``_scatter_kernel``
-panel_spmv_fused       K6 panel_spmv_fused    engines.py:283 ``_panel_kernel_fused``
-inverse_permute        K7 inverse_permute     engines.py:719 ``_perm_kernel``
-=====================  =====================  ===============================
+==========================  ======================  =====================================
+wrapper                     kernel (csrc/)          replaces (spmv_tpu/kernels/)
+==========================  ======================  =====================================
+panel_spmv_partials         K4 panel_spmv_tiles     engines.py:269 ``_panel_kernel``
+panel_fixup                 K5 panel_fixup          engines.py:171 ``_scatter_kernel``
+panel_spmv_fused            K6 panel_spmv_fused     engines.py:283 ``_panel_kernel_fused``
+inverse_permute             K7 inverse_permute      engines.py:719 ``_perm_kernel``
+panel_spmv_multi_partials   K10 panel_spmm_tiles    engines.py:623 ``_panel_kernel_multi``
+panel_fixup_multi           K11 panel_fixup_multi   engines.py:537 ``_scatter_kernel_multi``
+==========================  ======================  =====================================
 
 ``panel_spmv`` picks K6 for plans of at most
 ``device.FUSED_STREAM_BYTES_MAX`` bytes and K4 then K5 otherwise — the JAX
 engine's fused and two-dispatch shapes, on the segmented engine's
 predicate. ``panel_and_spill_spmv`` adds a CSR spill part to the panel's y
-(the panel/spill split of ELL, SELL-C-σ and HYB).
+(the panel/spill split of ELL, SELL-C-σ and HYB). ``panel_spmv_multi``
+(K10 then K11) and ``panel_and_spill_spmm`` are the same for X of shape
+(ncols, R), 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``; K7 gathers rows of R floats
+for them.
 
 Routing, as in ``kernels.engines``: CPU tensors run the plain version
 (``*_reference``), CUDA tensors launch the kernel or raise, and each
@@ -29,13 +35,18 @@ import torch
 
 from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import SLICE_ROWS, TILE_COLS
-from spmv_tpu_torch.kernels.engines import (_check_x, _launch, _on_cuda,
-                                            segmented_spmv)
+from spmv_tpu_torch.kernels.engines import (_check_X, _check_x, _launch, _lead,
+                                            _on_cuda, segmented_spmv,
+                                            segmented_spmv_multi)
 
 __all__ = ["panel_spmv", "panel_spmv_partials", "panel_fixup",
            "panel_spmv_fused", "inverse_permute", "panel_and_spill_spmv",
            "panel_spmv_partials_reference", "panel_fixup_reference",
-           "panel_spmv_fused_reference", "inverse_permute_reference"]
+           "panel_spmv_fused_reference", "inverse_permute_reference",
+           "panel_spmv_multi", "panel_spmv_multi_partials",
+           "panel_fixup_multi", "panel_and_spill_spmm",
+           "panel_spmv_multi_partials_reference",
+           "panel_fixup_multi_reference"]
 
 _C = SLICE_ROWS
 
@@ -93,10 +104,11 @@ def panel_fixup(dev: DevPanel, y: torch.Tensor, part: torch.Tensor) -> torch.Ten
 def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
     """Plain K4 on the same tile schedule: a segment per (tile, slice)
     pair of slice columns, summed row by row with ``index_add_``; whole
-    slices go to y, the head and tail partials to their slots."""
-    dv = dev.device
-    y = torch.zeros(dev.nrows, dtype=torch.float32, device=dv)
-    part = torch.zeros(2 * dev.ntiles, _C, dtype=torch.float32, device=dv)
+    slices go to y, the head and tail partials to their slots. Given an
+    (ncols, R) X it is plain K10: the same with a trailing R axis."""
+    dv, tail = dev.device, x.shape[1:]
+    y = torch.zeros((dev.nrows, *tail), dtype=torch.float32, device=dv)
+    part = torch.zeros((2 * dev.ntiles, _C, *tail), dtype=torch.float32, device=dv)
     ncol = dev.nslots // _C
     if ncol == 0:
         return y, part
@@ -107,8 +119,8 @@ def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
     head = torch.ones(ncol, dtype=torch.bool, device=dv)
     head[1:] = (sl[1:] != sl[:-1]) | (tile[1:] != tile[:-1])
     seg = torch.cumsum(head, 0) - 1
-    prod = (dev.vals * x[dev.cols.long()]).view(ncol, _C)
-    sums = torch.zeros(int(head.sum()), _C, dtype=torch.float32, device=dv)
+    prod = (_lead(dev.vals, x) * x[dev.cols.long()]).view(ncol, _C, *tail)
+    sums = torch.zeros((int(head.sum()), _C, *tail), dtype=torch.float32, device=dv)
     sums.index_add_(0, seg, prod)
     ss, st = sl[head], tile[head]
     cs, ce = scol[ss], scol[ss + 1]
@@ -125,7 +137,8 @@ def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
 def panel_fixup_reference(dev: DevPanel, y: torch.Tensor,
                           part: torch.Tensor) -> torch.Tensor:
     """Plain K5: gathers each split slice's slots and sums them in tile
-    order with ``index_add_``; updates ``y`` in place."""
+    order with ``index_add_``; updates ``y`` in place. Given (nrows, R) Y
+    and (2·ntiles, 32, R) partials it is plain K11."""
     if dev.nsplit == 0:
         return y
     dv = dev.device
@@ -138,7 +151,7 @@ def panel_fixup_reference(dev: DevPanel, y: torch.Tensor,
     first = torch.cumsum(counts, 0) - counts
     t = ta[owner] + torch.arange(owner.numel(), device=dv) - first[owner]
     slot = 2 * t + (t == ta[owner]).long()
-    acc = torch.zeros(dev.nsplit, _C, dtype=torch.float32, device=dv)
+    acc = torch.zeros((dev.nsplit, _C, *y.shape[1:]), dtype=torch.float32, device=dv)
     acc.index_add_(0, owner, part[slot])
     rows, real = _slice_rows(dev, s)
     y[rows[real]] = acc[real]
@@ -197,6 +210,68 @@ def panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
     return y.add_(segmented_spmv(dev_spill, x))
 
 
+# ---------------------------------------------------------------- K10 + K11
+
+
+def panel_spmv_multi_partials(dev: DevPanel, X: torch.Tensor):
+    """K10: ``(Y, part)`` for X of shape (ncols, R). Y (nrows, R) holds the
+    rows of every slice that lies wholly inside one tile; ``part``
+    (2·ntiles, 32, R) holds the split slices' head and tail partials, for
+    ``panel_fixup_multi``."""
+    R = _check_X(dev, X)
+    if not _on_cuda(dev, X):
+        return panel_spmv_multi_partials_reference(dev, X)
+    _check_cuda_panel(dev, X)
+    Y = torch.zeros(dev.nrows, R, dtype=torch.float32, device=dev.device)
+    part = torch.zeros(2 * dev.ntiles, _C, R, dtype=torch.float32, device=dev.device)
+    if dev.nslots and dev.nrows:  # a zero-sized grid is refused
+        _launch("panel_spmm_tiles", dev, dev.slice_ptr, dev.cols, dev.vals,
+                dev.tile_slice0, X, Y, part, dev.nslots // _C, dev.ntiles,
+                dev.tile, dev.nrows, R)
+    return Y, part
+
+
+def panel_fixup_multi(dev: DevPanel, Y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """K11: adds each split slice's partials, in tile order and column by
+    column, into ``Y``. Updates ``Y`` in place and returns it."""
+    R = Y.shape[-1] if Y.dim() == 2 else 0
+    if Y.shape != (dev.nrows, R) or part.shape != (2 * dev.ntiles, _C, R):
+        raise ValueError("Y or part does not match the plan")
+    if not _on_cuda(dev, Y, part):
+        return panel_fixup_multi_reference(dev, Y, part)
+    if dev.tile != TILE_COLS:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
+    if dev.nsplit and R:  # no slice crosses a tile boundary: nothing to launch
+        _launch("panel_fixup_multi", dev, dev.slice_ptr, dev.split_slices, part,
+                Y, dev.nsplit, dev.tile, dev.nrows, R)
+    return Y
+
+
+# Plain K10 and K11: plain K4 and K5, which take a trailing R axis.
+panel_spmv_multi_partials_reference = panel_spmv_partials_reference
+panel_fixup_multi_reference = panel_fixup_reference
+
+
+def panel_spmv_multi(dev: DevPanel, X: torch.Tensor) -> torch.Tensor:
+    """Y = A·X over the panel for X of shape (ncols, R), 2 ≤ R ≤
+    MULTI_RHS_MAX: K10, then K11."""
+    Y, part = panel_spmv_multi_partials(dev, X)
+    return panel_fixup_multi(dev, Y, part)
+
+
+def panel_and_spill_spmm(dev: DevPanel, dev_spill: DevCsr | None,
+                         X: torch.Tensor) -> torch.Tensor:
+    """Y = panel part + spill part for X of shape (ncols, R): one
+    multi-RHS pass over each plan (K10 + K11, K8 + K9), added with a torch
+    add, as ``panel_and_spill_spmv`` does for one vector."""
+    if dev_spill is None:
+        return panel_spmv_multi(dev, X)
+    if dev.nslots == 0:  # pure spill: no dispatch for an empty panel
+        return segmented_spmv_multi(dev_spill, X)
+    Y = panel_spmv_multi(dev, X)
+    return Y.add_(segmented_spmv_multi(dev_spill, X))
+
+
 # ---------------------------------------------------------------- K7
 
 
@@ -204,21 +279,26 @@ def inverse_permute(invperm: torch.Tensor, y_sorted: torch.Tensor,
                     nrows: int) -> torch.Tensor:
     """K7: ``y[i] = y_sorted[invperm[i]]`` for ``i < nrows`` — undoes the
     SELL-C-σ row sort (``invperm`` maps an original row to its sorted
-    position) and cuts y to ``nrows``."""
+    position) and cuts y to ``nrows``. ``y_sorted`` is a vector, or an
+    (nrows_pad, R) Y whose rows of R floats the one launch gathers."""
     if invperm.dtype != torch.int32 or not invperm.is_contiguous():
         raise ValueError(f"invperm must be contiguous int32, got {invperm.dtype}")
-    if invperm.shape != y_sorted.shape or not 0 <= nrows <= invperm.numel():
+    if (invperm.dim() != 1 or y_sorted.dim() not in (1, 2)
+            or y_sorted.shape[0] != invperm.numel()
+            or not 0 <= nrows <= invperm.numel()):
         raise ValueError(f"invperm {tuple(invperm.shape)}, y_sorted "
                          f"{tuple(y_sorted.shape)} and nrows {nrows} do not match")
     if not _on_cuda(invperm, y_sorted):
         return inverse_permute_reference(invperm, y_sorted, nrows)
-    y = torch.empty(nrows, dtype=torch.float32, device=y_sorted.device)
-    if nrows:
-        _launch("inverse_permute", invperm, invperm, y_sorted, y, nrows)
+    y = torch.empty((nrows, *y_sorted.shape[1:]), dtype=torch.float32,
+                    device=y_sorted.device)
+    if y.numel():
+        _launch("inverse_permute", invperm, invperm, y_sorted, y, nrows,
+                y.numel() // nrows)
     return y
 
 
 def inverse_permute_reference(invperm: torch.Tensor, y_sorted: torch.Tensor,
                               nrows: int) -> torch.Tensor:
-    """Plain K7: an index gather."""
+    """Plain K7: an index gather (of rows, for an (nrows_pad, R) Y)."""
     return y_sorted[invperm[:nrows].long()]

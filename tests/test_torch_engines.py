@@ -176,6 +176,19 @@ def test_launcher_signatures_match_the_cuda_source():
         assert list(_build.SIGNATURES[name]) == kinds, name
 
 
+def test_a_library_name_follows_its_source_and_the_headers(tmp_path):
+    """An edited header gives every source a new library name, so the
+    build that includes it cannot be loaded stale."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build._so_path(src, tmp_path)
+    assert _build._so_path(src, tmp_path) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._so_path(src, tmp_path) != first
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"x_rows.cuh"}
+
+
 def test_build_failures_raise(tmp_path, monkeypatch):
     src = tmp_path / "k.cu"
     src.write_text("int main() { return 0; }\n")

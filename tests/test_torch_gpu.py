@@ -115,10 +115,18 @@ def test_each_launch_counts_once(cuda):
     P.inverse_permute(a.invperm_dev, y6, a.nrows)
     P.panel_spmv_fused_reference(a.dev, xp)
     P.inverse_permute_reference(a.invperm_dev, y6, a.nrows)
+    X = torch.stack([x, x], dim=1)
+    Xp = torch.stack([xp, xp], dim=1)
+    E.segmented_spmv_multi(dev, X)
+    E.carry_fixup_multi_reference(dev, *E.segmented_spmv_multi_partials_reference(dev, X))
+    P.panel_spmv_multi(a.dev, Xp)
+    P.panel_fixup_multi_reference(a.dev, *P.panel_spmv_multi_partials_reference(a.dev, Xp))
     assert E.LAUNCHES == {"seg_spmv_tiles": 1, "carry_fixup": 1,
                           "csr_spmv_fused": 1, "panel_spmv_tiles": 1,
                           "panel_fixup": 1, "panel_spmv_fused": 1,
-                          "inverse_permute": 1}
+                          "inverse_permute": 1, "seg_spmm_tiles": 1,
+                          "carry_fixup_multi": 1, "panel_spmm_tiles": 1,
+                          "panel_fixup_multi": 1}
 
 
 def test_empty_plans_launch_nothing(cuda):
@@ -135,6 +143,10 @@ def test_empty_plans_launch_nothing(cuda):
     assert P.panel_spmv_fused(panel, x).tolist() == [0.0] * dev.nrows
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     assert P.inverse_permute(empty, torch.zeros(0, device=cuda), 0).numel() == 0
+    assert P.inverse_permute(empty, torch.zeros(0, 4, device=cuda), 0).shape == (0, 4)
+    X = torch.ones(dev.ncols, 4, device=cuda)
+    assert not E.segmented_spmv_multi(dev, X).any()
+    assert not P.panel_spmv_multi(panel, X).any()
     assert set(E.LAUNCHES.values()) == {0}
 
 
@@ -157,6 +169,17 @@ def test_refused_launch_raises(cuda):
                             dev.nnz, dev.ntiles, dev.tile,
                             torch.cuda.current_stream().cuda_stream)
     assert rc != 0
+    # K8 is built for R = 2..8 only
+    good = CSRMatrix.from_coo(info.nrows, info.ncols, r, c, v, device=cuda).dev
+    X = torch.ones(good.ncols, 9, device=cuda)
+    Y = torch.zeros(good.nrows, 9, device=cuda)
+    carry = torch.zeros(2 * good.ntiles, 9, device=cuda)
+    rc = lib.seg_spmm_tiles(good.ptr.data_ptr(), good.cols.data_ptr(),
+                            good.vals.data_ptr(), good.tile_row0.data_ptr(),
+                            X.data_ptr(), Y.data_ptr(), carry.data_ptr(),
+                            good.nnz, good.ntiles, good.tile, 9,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 def test_refused_panel_launch_raises(cuda):
@@ -176,3 +199,98 @@ def test_refused_panel_launch_raises(cuda):
                               dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows,
                               torch.cuda.current_stream().cuda_stream)
     assert rc != 0
+
+
+# ---------------------------------------------------------------- R > 1
+
+
+def columns_bound(info, r, c, v, Xh, max_nnz, perm=None, nrows_plan=None):
+    """Per-entry bound of an (nrows, R) result: each column's row scale,
+    moved to the plan's sorted row space when ``perm`` is given."""
+    scale = np.stack([row_scale(info.nrows, r, c, v.astype(np.float32), Xh[:, j])
+                      for j in range(Xh.shape[1])], axis=1)
+    if perm is not None:
+        sorted_scale = np.zeros((nrows_plan, Xh.shape[1]))
+        sorted_scale[np.argsort(perm)[:info.nrows]] = scale
+        scale = sorted_scale
+    return KERNEL_TOL_ABS + fp32_rel_tol(max(max_nnz, 1)) * torch.from_numpy(scale)
+
+
+def unaligned_copy(X):
+    """X at an address 4 bytes past a 16-byte boundary: K8 and K10 then
+    load its rows with scalar loads."""
+    buf = torch.empty(X.numel() + 1, device=X.device)
+    Xu = buf[1:].view(X.shape)
+    Xu.copy_(X)
+    assert Xu.is_contiguous() and Xu.data_ptr() % 16 == 4
+    return Xu
+
+
+@pytest.mark.parametrize("R", [2, 3, 4, 8])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_multi_kernels_match_plain_versions_and_repeat_bitwise(cuda, name, R):
+    """K8 + K9 on the CSR plan, K10 + K11 on the pure SELL panel, and K7
+    over rows of R: against their plain versions, twice with the same
+    bits, and column j against the one-vector kernels on X[:, j]."""
+    info, r, c, v = MATRICES[name]()
+    Xh = np.random.default_rng(R).standard_normal((info.ncols, R)).astype(np.float32)
+    X = torch.from_numpy(Xh).to(cuda)
+    dev = CSRMatrix.from_coo(info.nrows, info.ncols, r, c, v, device=cuda).dev
+    bound = columns_bound(info, r, c, v, Xh, dev.max_row_nnz).to(cuda)
+    Y8, c8 = E.segmented_spmv_multi_partials(dev, X)
+    Y8b, c8b = E.segmented_spmv_multi_partials(dev, X)
+    assert torch.equal(Y8, Y8b) and torch.equal(c8, c8b)
+    Y = E.carry_fixup_multi(dev, Y8.clone(), c8)
+    assert torch.equal(Y, E.carry_fixup_multi(dev, Y8.clone(), c8))
+    Y_plain = E.carry_fixup_multi_reference(
+        dev, *E.segmented_spmv_multi_partials_reference(dev, X))
+    assert ((Y.double() - Y_plain.double()).abs() <= bound).all()
+    assert torch.equal(E.segmented_spmv_multi(dev, unaligned_copy(X)), Y)
+    for j in range(R):
+        y1, c1 = E.segmented_spmv_partials(dev, X[:, j].contiguous())
+        assert torch.equal(Y8[:, j], y1) and torch.equal(c8[:, j], c1)
+
+    a = SellMatrix.from_coo(info.nrows, info.ncols, r, c, v, sigma=128,
+                            split=False, device=cuda)
+    pdev = a.dev
+    pbound = columns_bound(info, r, c, v, Xh, pdev.max_width, a.perm,
+                           pdev.nrows).to(cuda)
+    Y10, p10 = P.panel_spmv_multi_partials(pdev, X)
+    Y10b, p10b = P.panel_spmv_multi_partials(pdev, X)
+    assert torch.equal(Y10, Y10b) and torch.equal(p10, p10b)
+    Ys = P.panel_fixup_multi(pdev, Y10.clone(), p10)
+    assert torch.equal(Ys, P.panel_fixup_multi(pdev, Y10.clone(), p10))
+    Ys_plain = P.panel_fixup_multi_reference(
+        pdev, *P.panel_spmv_multi_partials_reference(pdev, X))
+    assert ((Ys.double() - Ys_plain.double()).abs() <= pbound).all()
+    assert torch.equal(P.panel_spmv_multi(pdev, unaligned_copy(X)), Ys)
+    for j in range(R):
+        y4, p4 = P.panel_spmv_partials(pdev, X[:, j].contiguous())
+        assert torch.equal(Y10[:, j], y4) and torch.equal(p10[..., j], p4)
+    if a.sorted_rows:
+        Y7 = P.inverse_permute(a.invperm_dev, Ys, a.nrows)
+        assert Y7.shape == (a.nrows, R)
+        assert torch.equal(Y7, P.inverse_permute_reference(a.invperm_dev, Ys, a.nrows))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("fmt", ["csr", "ell", "sell", "hyb", "bsr"])
+def test_spmm_on_the_card_passes_the_oracle(cuda, fmt):
+    """``spmm`` end to end at R = 4 (and BSR at R = 32, twice with the same
+    bits) on the 8192-row cant-like matrix."""
+    import spmv_tpu_torch
+    from spmv_tpu_torch.oracle import golden_spmv, kernel_check
+
+    info, r, c, v = MATRICES["cant_8192"]()
+    R = 32 if fmt == "bsr" else 4
+    Xh = np.random.default_rng(1).standard_normal((info.ncols, R)).astype(np.float32)
+    a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, r, c, v, device=cuda)
+    Y = spmv_tpu_torch.spmm(a, Xh)
+    assert Y.device.type == "cuda" and Y.shape == (info.nrows, R)
+    if fmt == "bsr":
+        assert torch.equal(Y, spmv_tpu_torch.spmm(a, Xh))
+    k = int(np.bincount(r, minlength=info.nrows).max())
+    for j in range(R):
+        rep = kernel_check(golden_spmv(info.nrows, r, c, v, Xh[:, j]), Y[:, j].cpu().numpy(),
+                           row_scale(info.nrows, r, c, v, Xh[:, j]), k)
+        assert rep.ok, (j, rep)
