@@ -22,7 +22,13 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    bound: K8 + K9 on the edge cases, the band matrix, cant and ``pl_big``;
    K10 + K11 on the band matrix's and pl-32768's pure SELL panels,
    pl-32768's pure ELL panel and cant's split SELL panel, with K7 gathering
-   rows of R floats where the panel is σ-sorted.
+   rows of R floats where the panel is σ-sorted. The fp64-grade kernels,
+   each twice with the same bits and per row within k·2⁻⁵⁰·Σ|v||x| of its
+   plain version (k the longest row), the x2 ``matvec`` against the fp64
+   oracle by ``x2_check``: K12 + K13 on the edge cases, band-1024, cant and
+   ``pl_big``; K14 + K15 on band-1024's and pl-32768's pure SELL and ELL
+   panels and cant's split SELL panel; K7 on an fp64 y against its index
+   gather, bit for bit.
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
@@ -33,11 +39,16 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    power-law matrix, and SELL on the 512-row matrix; then ``run --rhs 4``
    (``spmm``) for all six formats on cant, and ``run --format bsr --rhs 32``
    on cant. Each is validated against the fp64 oracle, every column of an
-   ``--rhs`` run included.
+   ``--rhs`` run included. Then ``run --dtype f32x2`` for all six formats
+   on cant, csr with ``--x random``, csr and sell with ``--rhs 4``, hyb at
+   ``pl_big``, each held to ``x2_check``; and ``--format bsr --dtype
+   f32x2``, which must return 2.
 4. The launch counters show that each run went through its kernels: the
    R = 4 runs through K8-K11 (and K7 for SELL), the csr one without K1 (the
    multi path, not a loop over columns); and BSR's Y is bitwise equal over
-   two calls.
+   two calls. The f32x2 runs through K12 + K13 (segmented formats), K14 +
+   K15 (panel formats) and K7 (sorted SELL), and through no float32 tile
+   kernel (K1, K3, K4, K6, K8, K10).
 5. Times per call (CUDA events around one call, median of 30 after warm-up;
    host launch work included) and on the device (``torch.profiler``, the
    card's own kernel and memset time): each kernel and its plain version
@@ -45,8 +56,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    shapes of both engines from 512 rows up (the fused threshold), every
    format's ``matvec`` beside CSR's on the main and power-law suites, K8-K11
    and their plain versions at R = 4 on cant, ``spmm`` at R = 1, 2, 4, 8, 16
-   against R ``matvec`` calls for csr and sell on cant, and BSR at R = 32 on
-   cant in Gnnz·vec/s.
+   against R ``matvec`` calls for csr and sell on cant, BSR at R = 32 on
+   cant in Gnnz·vec/s, K12-K15 and their plain versions at cant, the x2
+   ``matvec`` of all six formats beside the f32 one on cant, and K12 + K13
+   at ``pl_big``.
 6. One JSON line with the kernels, then the result line.
 """
 
@@ -77,10 +90,19 @@ KERNELS = {
     "carry_fixup_multi": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:537"),
     "panel_spmm_tiles": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:623"),
     "panel_fixup_multi": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:537"),
+    "seg_spmv_tiles_x2": ("seg_spmv.cu", "spmv_tpu/kernels/engines_x2.py:267"),
+    "carry_fixup_x2": ("seg_spmv.cu", "spmv_tpu/kernels/engines_x2.py:267"),
+    "panel_spmv_tiles_x2": ("panel_spmv.cu", "spmv_tpu/kernels/engines_x2.py:205"),
+    "panel_fixup_x2": ("panel_spmv.cu", "spmv_tpu/kernels/engines_x2.py:205"),
 }
 SEG = ("seg_spmv_tiles", "carry_fixup", "csr_spmv_fused")
 PANEL = ("panel_spmv_tiles", "panel_fixup", "panel_spmv_fused", "inverse_permute")
 MULTI = ("seg_spmm_tiles", "carry_fixup_multi", "panel_spmm_tiles", "panel_fixup_multi")
+X2_SEG = ("seg_spmv_tiles_x2", "carry_fixup_x2")
+X2_PANEL = ("panel_spmv_tiles_x2", "panel_fixup_x2")
+# the float32 tile kernels: an f32x2 run must launch none of them
+F32_TILES = ("seg_spmv_tiles", "csr_spmv_fused", "panel_spmv_tiles",
+             "panel_spmv_fused", "seg_spmm_tiles", "panel_spmm_tiles")
 FORMATS6 = ("csr", "coo", "cmrs", "ell", "sell", "hyb")
 CANT_N = 62_464  # bench.py:84-85
 REPS = 30
@@ -556,6 +578,168 @@ def time_spmm(label: str, trip, builds: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- fp64 (x2)
+
+
+def within_x2(name: str, got: torch.Tensor, want: torch.Tensor,
+              scale: np.ndarray, k: int) -> float:
+    """Max |got - want|; raises unless every entry is within
+    k·2⁻⁵⁰·scale: kernel and plain version both sum a row of at most k
+    terms in fp64, each within about k·2⁻⁵³·Σ|v||x| of the exact sum."""
+    err = (got - want).abs().cpu().numpy()
+    bad = err > max(k, 1) * 2.0 ** -50 * scale
+    if bad.any():
+        i = np.unravel_index(int(np.argmax(bad)), bad.shape)
+        raise AssertionError(f"{name}: entry {i} differs by {err[i]:.3e} "
+                             f"(got {float(got[i])!r}, plain {float(want[i])!r})")
+    return float(err.max()) if err.size else 0.0
+
+
+def x2_inputs(trip, seed: int):
+    """fp64 values and x with content below f32's mantissa (as
+    ``tests/test_x2.py:18`` makes them), and the per-row Σ|v||x|."""
+    from spmv_tpu_torch.oracle import row_scale
+
+    info, rows, cols, vals = trip
+    v = np.asarray(vals, np.float64) * (1 + 1e-9 * np.arange(vals.size) / max(vals.size, 1))
+    xh = np.random.default_rng(seed).standard_normal(info.ncols)
+    return v, xh, row_scale(info.nrows, rows, cols, v, xh)
+
+
+def check_oracle_x2(label: str, trip, v, y: torch.Tensor, xh, scale) -> None:
+    from spmv_tpu_torch.oracle import golden_spmv, x2_check
+
+    info, rows, cols, _ = trip
+    rep = x2_check(golden_spmv(info.nrows, rows, cols, v, xh), y.cpu().numpy(), scale)
+    if y.dtype != torch.float64 or not rep.ok:
+        raise AssertionError(f"{label} vs fp64 oracle ({y.dtype}): {rep}")
+
+
+def check_x2_seg(label: str, trip, seed: int) -> dict:
+    """Phase 2, K12 + K13 on one matrix's fp64 CSR plan: against their plain
+    versions and against themselves, and the csr x2 ``matvec`` against the
+    fp64 oracle."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+
+    info, rows, cols, _ = trip
+    v, xh, scale = x2_inputs(trip, seed)
+    a = X2Matrix.from_coo("csr", info.nrows, info.ncols, rows, cols, v, device="cuda")
+    dev = a.dev
+    x = torch.from_numpy(xh).cuda()
+    k = dev.max_row_nnz
+    y12, c12 = same_bits("seg_spmv_tiles_x2", lambda: X2.segmented_spmv_x2_partials(dev, x))
+    y12r, c12r = X2.segmented_spmv_x2_partials_reference(dev, x)
+    owner = slot_rows(dev)
+    cscale = np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
+    e12 = max(within_x2(f"{label} seg_spmv_tiles_x2 y", y12, y12r, scale, k),
+              within_x2(f"{label} seg_spmv_tiles_x2 carry", c12, c12r, cscale, k))
+    y13 = same_bits("carry_fixup_x2", lambda: X2.carry_fixup_x2(dev, y12.clone(), c12))
+    e13 = within_x2(f"{label} carry_fixup_x2", y13,
+                    X2.carry_fixup_x2_reference(dev, y12.clone(), c12), scale, k)
+    check_oracle_x2(f"{label} x2 csr matvec", trip, v, a.matvec(xh), xh, scale)
+    print(f"  {label} x2: fp64 plan {dev.stream_bytes} B, tiles {dev.ntiles}, "
+          f"split rows {dev.ncarry}: max |kernel - plain| K12 {e12:.3e}  K13 "
+          f"{e13:.3e}; matvec passes x2_check; two runs bitwise equal")
+    return {"seg_spmv_tiles_x2": e12, "carry_fixup_x2": e13}
+
+
+def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dict:
+    """Phase 2, K14 + K15 on one matrix's fp64 ELL or SELL panel: against
+    their plain versions and against themselves; K7 on the fp64 y against
+    its index gather, bit for bit, where the panel is σ-sorted; the x2
+    ``matvec`` against the fp64 oracle."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+
+    info, rows, cols, _ = trip
+    v, xh, scale = x2_inputs(trip, seed)
+    a = X2Matrix.from_coo(fmt, info.nrows, info.ncols, rows, cols, v,
+                          device="cuda", **kwargs)
+    dev = a.dev
+    x = torch.from_numpy(xh).cuda()
+    sscale = np.zeros(dev.nrows)  # in the plan's (sorted) row space
+    where = (a.invperm_dev[:info.nrows].cpu().numpy() if a.sorted_rows
+             else np.arange(info.nrows))
+    sscale[where] = scale
+    k = max(dev.max_width, 1)
+    y14, p14 = same_bits("panel_spmv_tiles_x2", lambda: X2.panel_spmv_x2_partials(dev, x))
+    y14r, p14r = X2.panel_spmv_x2_partials_reference(dev, x)
+    owner = part_rows(dev)
+    pscale = np.where(owner >= 0, sscale[np.maximum(owner, 0)], 0.0)
+    e14 = max(within_x2(f"{label} panel_spmv_tiles_x2 y", y14, y14r, sscale, k),
+              within_x2(f"{label} panel_spmv_tiles_x2 part", p14, p14r, pscale, k))
+    y15 = same_bits("panel_fixup_x2", lambda: X2.panel_fixup_x2(dev, y14.clone(), p14))
+    e15 = within_x2(f"{label} panel_fixup_x2", y15,
+                    X2.panel_fixup_x2_reference(dev, y14.clone(), p14), sscale, k)
+    errs = {"panel_spmv_tiles_x2": e14, "panel_fixup_x2": e15}
+    if a.sorted_rows:
+        y7 = same_bits("inverse_permute x2",
+                       lambda: X2.inverse_permute_x2(a.invperm_dev, y15, info.nrows))
+        want = y15[a.invperm_dev[:info.nrows].long()]
+        plain = X2.inverse_permute_x2_reference(a.invperm_dev, y15, info.nrows)
+        if not (torch.equal(y7, want) and torch.equal(y7, plain)):
+            raise AssertionError(f"{label}: the fp64 K7 gather is not a bit copy")
+        errs["inverse_permute"] = 0.0
+    check_oracle_x2(f"{label} x2 {fmt} matvec", trip, v, a.matvec(xh), xh, scale)
+    print(f"  {label} x2 {fmt}{kwargs or ''}: shape {a.shape}, sorted "
+          f"{a.sorted_rows}, fp64 panel {dev.stream_bytes} B, tiles {dev.ntiles}, "
+          f"split slices {dev.nsplit}: max |kernel - plain| "
+          + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + "; matvec passes x2_check; two runs bitwise equal"
+          + ("; fp64 K7 gather bitwise the index gather" if a.sorted_rows else ""))
+    return errs
+
+
+def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
+    """Phase 5, fp64-grade kernels at one matrix: K12, K13 on the fp64 CSR
+    plan and (with ``panel``) K14, K15 on the fp64 SELL panel the split
+    builds there, their plain versions and each engine's two-kernel
+    path."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+
+    info, rows, cols, vals = trip
+    xh = np.random.default_rng(3).standard_normal(info.ncols)
+    x = torch.from_numpy(xh).cuda()
+    dev = X2Matrix.from_coo("csr", info.nrows, info.ncols, rows, cols, vals,
+                            device="cuda").dev
+    y, carry = X2.segmented_spmv_x2_partials(dev, x)
+    seg = {
+        "seg_spmv_tiles_x2": lambda: X2.segmented_spmv_x2_partials(dev, x),
+        "carry_fixup_x2": lambda: X2.carry_fixup_x2(dev, y, carry),
+        "path K12+K13": lambda: X2.segmented_spmv_x2(dev, x),
+        "seg_spmv_tiles_x2_plain": lambda: X2.segmented_spmv_x2_partials_reference(dev, x),
+        "carry_fixup_x2_plain": lambda: X2.carry_fixup_x2_reference(dev, y, carry),
+    }
+    print(f"  {label} x2: csr fp64 plan {dev.stream_bytes} B, split rows "
+          f"{dev.ncarry}  [{card}]")
+    t = timed(label, seg, card, dev.nnz, dev.stream_bytes)
+    t["plan_bytes"] = dev.stream_bytes
+    if not panel:
+        return t
+    sell = X2Matrix.from_coo("sell", info.nrows, info.ncols, rows, cols, vals,
+                             device="cuda")
+    pdev = sell.dev
+    yp, part = X2.panel_spmv_x2_partials(pdev, x)
+    panel_fns = {
+        "panel_spmv_tiles_x2": lambda: X2.panel_spmv_x2_partials(pdev, x),
+        "panel_fixup_x2": lambda: X2.panel_fixup_x2(pdev, yp, part),
+        "path K14+K15": lambda: X2.panel_spmv_x2(pdev, x),
+        "panel_spmv_tiles_x2_plain": lambda: X2.panel_spmv_x2_partials_reference(pdev, x),
+        "panel_fixup_x2_plain": lambda: X2.panel_fixup_x2_reference(pdev, yp, part),
+    }
+    if sell.sorted_rows:
+        y15 = X2.panel_spmv_x2(pdev, x)
+        panel_fns["inverse_permute x2"] = lambda: X2.inverse_permute_x2(
+            sell.invperm_dev, y15, info.nrows)
+    print(f"  {label} x2: sell fp64 panel {pdev.stream_bytes} B (shape "
+          f"{sell.shape}, sorted {sell.sorted_rows}), split slices "
+          f"{pdev.nsplit}  [{card}]")
+    t.update(timed(label, panel_fns, card, sell.panel_nnz, pdev.stream_bytes))
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -620,6 +804,16 @@ def main() -> int:
         keep_max(check_panel_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
         keep_max(check_panel_multi("pl-32768", pl, seed=R, R=R, split=False))
         keep_max(check_panel_multi("pl-32768", pl, seed=R, R=R, fmt="ell", split=False))
+    # the fp64-grade kernels (K12-K15, and K7 on an fp64 y)
+    for name in sorted(synth.EDGE_CASES):
+        keep_max(check_x2_seg(name, synth.edge_case(name), seed=11))
+    keep_max(check_x2_seg("band-1024", band, seed=12))
+    keep_max(check_x2_seg(f"cant-{CANT_N}", cant, seed=13))
+    keep_max(check_x2_seg("pl_big-524288", pl_big, seed=14))
+    for trip, name in ((band, "band-1024"), (pl, "pl-32768")):
+        keep_max(check_x2_panel(name, trip, seed=15, split=False))
+        keep_max(check_x2_panel(name, trip, seed=15, fmt="ell", split=False))
+    keep_max(check_x2_panel(f"cant-{CANT_N}", cant, seed=16))
     torch.cuda.synchronize()
     print(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -673,6 +867,29 @@ def main() -> int:
     if cli.main(["run", "--format", "bsr", "--rhs", "32", *cant_args]) != 0:
         raise SystemExit("run --format bsr --rhs 32 on cant failed")
 
+    # the fp64-grade mode: each run with the counters from zero
+    x2_launches = {}
+
+    def run_x2(key, argv=None, trip=None, fmt=None):
+        E.reset_launches()
+        rc = (cli.main(["run", "--dtype", "f32x2", *argv]) if argv is not None
+              else cli.run_spmv(fmt, *trip, device="cuda", dtype="f32x2"))
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise SystemExit(f"f32x2 run {key} failed ({rc})")
+        x2_launches[key] = {k: n for k, n in E.LAUNCHES.items() if n}
+
+    for fmt in FORMATS6:
+        run_x2(fmt, ["--format", fmt, *cant_args])
+    run_x2("csr --x random", ["--format", "csr", "--x", "random", *cant_args])
+    for fmt in ("csr", "sell"):
+        run_x2(f"{fmt} --rhs 4", ["--format", fmt, "--rhs", "4", *cant_args])
+    run_x2("hyb pl_big", trip=pl_big, fmt="hyb")
+    E.reset_launches()
+    rc = cli.main(["run", "--format", "bsr", "--dtype", "f32x2", *cant_args])
+    if rc != 2 or any(E.LAUNCHES.values()):
+        raise SystemExit(f"run --format bsr --dtype f32x2 returned {rc}, not 2")
+
     # 4. each run went through its kernels
     print(f"phase 4: launches after the csr/coo/cmrs cant runs {after_cant}; "
           f"segmented path in all {seg_launches}; panel path {panel_launches}")
@@ -701,8 +918,20 @@ def main() -> int:
     print(f"  bsr R=32 on cant: Y bitwise equal over two calls (fill "
           f"{cant_bsr.fill:.2f}x, {cant_bsr.tiles.shape[0]} tiles, "
           f"{cant_bsr.stream_bytes} B)")
+    print(f"  f32x2 runs, launches per run: {x2_launches}")
+    for key, ran in x2_launches.items():
+        wrong = [k for k in F32_TILES if k in ran]
+        if wrong:
+            raise SystemExit(f"f32x2 {key} launched float32 kernels {wrong}")
+    for fmt in ("csr", "coo", "cmrs", "csr --x random", "csr --rhs 4"):
+        if any(k not in x2_launches[fmt] for k in X2_SEG):
+            raise SystemExit(f"f32x2 {fmt} did not launch K12 and K13")
+    for key in ("sell", "sell --rhs 4"):
+        if any(k not in x2_launches[key] for k in (*X2_PANEL, "inverse_permute")):
+            raise SystemExit(f"f32x2 {key} did not launch K14, K15 and K7")
+    x2_total = {k: sum(r.get(k, 0) for r in x2_launches.values()) for k in KERNELS}
     launches = {k: seg_launches[k] + panel_launches[k] + multi_launches[k]
-                for k in KERNELS}
+                + x2_total[k] for k in KERNELS}
     print(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. times
@@ -775,6 +1004,25 @@ def main() -> int:
         rate = "not measured" if ms is None else f"{cant[1].size * 32 / ms / 1e6:.2f}"
         print(f"  bsr R=32 {what}: {fmt_ms(ms)}, {rate} Gnnz·vec/s, fill "
               f"{cant_bsr.fill:.2f}x  [{card}]")
+    print(f"fp64-grade kernels at cant and K12 + K13 at pl_big  [{card}]")
+    tx = time_x2(cl, cant, card)
+    time_x2("pl_big-524288", pl_big, card, panel=False)
+    print(f"f32x2 against f32 matvec per format at cant, ms per call | "
+          f"device  [{card}]")
+    xh64 = np.random.default_rng(3).standard_normal(cant[0].ncols)
+    x64 = torch.from_numpy(xh64).cuda()
+    x32 = x64.float()
+    for fmt in FORMATS6:
+        a32 = suites[cl][1][fmt]
+        a64 = spmv_tpu_torch.X2Matrix.from_coo(fmt, cant[0].nrows, cant[0].ncols,
+                                               *cant[1:], device="cuda")
+        t = timed(cl, {f"{fmt} f32 matvec": lambda a=a32: a.matvec(x32),
+                       f"{fmt} x2 matvec": lambda a=a64: a.matvec(x64)},
+                  card, cant[1].size, a64.stream_bytes)
+        (c32, d32), (c64, d64) = t.values()
+        print(f"  {fmt:5s} f32 plan {a32.stream_bytes} B: {c32:.4f} | {fmt_ms(d32)}"
+              f"   x2 plan {a64.stream_bytes} B (shape {a64.shape}, sorted "
+              f"{a64.sorted_rows}): {c64:.4f} | {fmt_ms(d64)}  [{card}]")
     print(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
@@ -783,6 +1031,8 @@ def main() -> int:
     for k, (src, replaces) in KERNELS.items():
         t, at = ((tc, f"synthetic_cant n={CANT_N} csr") if k in SEG else
                  (tm, f"synthetic_cant n={CANT_N} csr/sell R=4") if k in MULTI else
+                 (tx, f"synthetic_cant n={CANT_N} csr/sell fp64")
+                 if k in X2_SEG + X2_PANEL else
                  (tp, f"synthetic_cant n={CANT_N} sell"))
         kernels.append({"name": k, "route": "cuda", "source": CSRC + src,
                         "replaces": replaces, "launches": launches[k],

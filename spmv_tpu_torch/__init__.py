@@ -6,8 +6,10 @@ far: MatrixMarket reading, the synthetic generators, the fp64 oracle, the
 CSR, COO and CMRS containers on the segmented engine's kernels
 (``kernels/csrc/seg_spmv.cu``), the ELL, SELL-C-σ and HYB containers on the
 panel engine's (``kernels/csrc/panel_spmv.cu``) with their CSR spill part,
-``spmm`` (Y = A·X; R = 2..8 right-hand sides in one pass over each plan)
-and the BSR container. ``ROADMAP.md`` lists what is still to come.
+``spmm`` (Y = A·X; R = 2..8 right-hand sides in one pass over each plan),
+the BSR container, and the fp64-grade mode (``X2Matrix``: fp64 plans on
+the fp64 kernels of both engines, for csr, coo, cmrs, ell, sell and hyb).
+``ROADMAP.md`` lists what is still to come.
 """
 
 from spmv_tpu_torch import device, oracle, synth
@@ -23,6 +25,7 @@ from spmv_tpu_torch.formats.hyb import HybMatrix
 from spmv_tpu_torch.formats.sell import SellMatrix
 from spmv_tpu_torch.io.mmio import read_coo
 from spmv_tpu_torch.oracle import check_result, default_x, golden_spmv
+from spmv_tpu_torch.x2 import X2_FORMATS, X2Matrix
 
 __all__ = [
     "FORMATS",
@@ -39,6 +42,8 @@ __all__ = [
     "EllMatrix",
     "SellMatrix",
     "HybMatrix",
+    "X2Matrix",
+    "X2_FORMATS",
     "read_coo",
     "check_result",
     "default_x",

@@ -83,18 +83,24 @@ def spmv(a, x):
 
 def spmm(a, X) -> torch.Tensor:
     """Y = A @ X for X of shape (ncols, R), as a float32 (nrows, R) tensor
-    on the container's device.
+    on the container's device (float64 for an ``X2Matrix``).
 
     The branches of ``spmv_tpu/api.py:145-176``: BSR runs its batched
     matmul for any R. The engine formats run one multi-RHS pass over each
     plan for 2 ≤ R ≤ ``MULTI_RHS_MAX`` (``matmat``: K8 + K9 on CSR plans and
     spill parts, K10 + K11 on panels, one K7 for a σ-sorted SELL), and one
     ``matvec`` per column for R = 1 or R > ``MULTI_RHS_MAX`` — the JAX
-    envelope, not a fallback: a kernel that fails raises."""
+    envelope, not a fallback: a kernel that fails raises. An ``X2Matrix``
+    keeps X in float64 and runs one fp64 ``matvec`` per column, as
+    ``spmv_tpu/api.py:161-169`` does: the float32 multi-RHS kernels would
+    drop it to fp32 grade."""
     from spmv_tpu_torch.kernels.engines import MULTI_RHS_MAX
 
     if isinstance(a, BSRMatrix):
         return a.matmat(X)
+    if getattr(a, "x2", False):  # before any float32 cast of X
+        X = X_to_device(X, a.ncols, a.dev.device, dtype=torch.float64)
+        return torch.stack([a.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)
     X = X_to_device(X, a.ncols, a.dev.device)
     R = X.shape[1]
     if 2 <= R <= MULTI_RHS_MAX:
@@ -109,6 +115,10 @@ def from_reference(a, device):
     the SELL σ and the BSR precision. Needs no JAX import; the parity tests
     use it."""
     kind = type(a).__name__
+    if kind == "X2Matrix":
+        raise NotImplementedError(
+            "the JAX X2Matrix keeps no triplets (it has no to_coo): build "
+            "spmv_tpu_torch.X2Matrix.from_coo from the same triplets instead")
     if kind not in _REFERENCE_CLASSES:
         raise NotImplementedError(
             f"{kind} has no PyTorch counterpart yet (see ROADMAP.md)")

@@ -2,6 +2,7 @@
 
     python -m spmv_tpu_torch run  --format csr --matrix databases/cant.mtx
     python -m spmv_tpu_torch run  --format sell --rhs 4
+    python -m spmv_tpu_torch run  --format csr --dtype f32x2
     python -m spmv_tpu_torch info --matrix m.mtx
     python -m spmv_tpu_torch devices
 
@@ -10,7 +11,10 @@ mirrors one reference driver end to end: load (or synthesize) → convert →
 SpMV on the device → fp64 golden validation → a timed host SpMV beside it,
 with the reference's ``x[i] = i`` input (``coo.c:88-92``) by default. With
 ``--rhs R`` it runs ``spmm`` on R columns (column j made with seed + j, as
-``spmv_tpu/cli.py:197`` makes them) and validates every column.
+``spmv_tpu/cli.py:197`` makes them) and validates every column. With
+``--dtype f32x2`` it runs the fp64-grade mode (``x2.X2Matrix``; the port
+computes it in fp64) and validates at JAX's x2 criterion (``x2_check``),
+as ``spmv_tpu/cli.py:117-177`` does.
 
 ``--device`` defaults to ``cuda``: without a card ``run`` stops with an
 error and does not carry on on the CPU. ``--device cpu`` is the explicit
@@ -86,39 +90,59 @@ def _device_error(device: str) -> str | None:
     return None
 
 
+def _validate_x2(info, rows, cols, vals, x, y):
+    """JAX's f32x2 verdict (``spmv_tpu/cli.py:145-151``)."""
+    from spmv_tpu_torch.oracle import golden_spmv, row_scale, x2_check
+
+    return x2_check(golden_spmv(info.nrows, rows, cols, vals, x), y,
+                    row_scale(info.nrows, rows, cols, vals, x))
+
+
 def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
-             seed: int = 0, device: str = "cuda", rhs: int = 1) -> int:
+             seed: int = 0, device: str = "cuda", rhs: int = 1,
+             dtype: str = "f32") -> int:
     """Convert, run one SpMV (or with ``rhs`` > 1 one SpMM on ``rhs``
     columns) on ``device``, validate against the fp64 oracle and print the
     verdict; the ``run`` command after loading (which has checked that
-    ``device`` is usable)."""
+    ``device`` is usable). ``dtype="f32x2"`` runs the fp64-grade mode:
+    ``X2Matrix``, an fp64 x (column j from seed + j), fp64 y, every column
+    held to ``x2_check``."""
     import spmv_tpu_torch
     from spmv_tpu_torch.kernels import _build, engines
 
     rhs = max(int(rhs), 1)
+    x2 = dtype == "f32x2"
+    out_dtype = torch.float64 if x2 else torch.float32
+    x_type = np.float64 if x2 else np.float32  # JAX's _run_x2 casts x so
     try:
-        a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, rows, cols,
-                                    vals, device=device)
+        if x2:
+            a = spmv_tpu_torch.X2Matrix.from_coo(fmt, info.nrows, info.ncols,
+                                                 rows, cols, vals, device=device)
+        else:
+            a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, rows, cols,
+                                        vals, device=device)
         before = dict(engines.LAUNCHES)
         if rhs > 1:
-            X = np.stack([_make_x(x_mode, info.ncols, seed + j)
+            X = np.stack([_make_x(x_mode, info.ncols, seed + j).astype(x_type)
                           for j in range(rhs)], axis=1)
             Y = spmv_tpu_torch.device.Y_to_numpy(spmv_tpu_torch.spmm(a, X),
-                                                 info.nrows, rhs)
+                                                 info.nrows, rhs, out_dtype)
         else:
-            x = _make_x(x_mode, info.ncols, seed)
-            y = spmv_tpu_torch.device.y_to_numpy(a.matvec(x), info.nrows)
+            x = _make_x(x_mode, info.ncols, seed).astype(x_type)
+            y = spmv_tpu_torch.device.y_to_numpy(a.matvec(x), info.nrows, out_dtype)
     except (_build.BuildError, engines.KernelError) as e:
         print(f"kernel error: {e}", file=sys.stderr)
         return ReturnCode.PROGRAM_ERROR
     except (ValueError, NotImplementedError) as e:
+        # a matrix the format refuses: PROGRAM_ERROR, as
+        # spmv_tpu/cli.py:138-140 and :203-205 return
         print(f"error: {e}", file=sys.stderr)
-        return ReturnCode.OTHER_ERROR
+        return ReturnCode.PROGRAM_ERROR
     ran = [k for k, n in engines.LAUNCHES.items() if n > before[k]]
     on = a.device if isinstance(a, spmv_tpu_torch.BSRMatrix) else a.dev.device
     where = (torch.cuda.get_device_name(on) if on.type == "cuda"
              else "plain PyTorch versions")
-    if hasattr(a, "parts"):
+    if getattr(a, "parts", None) is not None:
         extra = (f" (split: {a.shape}, panel {a.panel_nnz} + spill "
                  f"{a.spill_nnz} nnz)")
     elif isinstance(a, spmv_tpu_torch.BSRMatrix):
@@ -126,20 +150,24 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
                  f"{a.precision}; batched matmul, no kernel of the port)")
     else:
         extra = ""
+    if x2:
+        extra += " [f32x2: fp64 values, x and y]"
     print(f"{fmt}: {info.nrows} x {info.ncols}, nnz {rows.size}, plan "
           f"{a.stream_bytes / 1e6:.2f} MB{extra} on {on} ({where}); "
           f"kernels: {' + '.join(ran) or 'none'}")
+    check = _validate_x2 if x2 else _validate
+    tag = "f32x2, " if x2 else ""
     if rhs == 1:
-        rep = _validate(info, rows, cols, vals, x, y)
-        print(rep)
+        rep = check(info, rows, cols, vals, x, y)
+        print(f"{rep}  [f32x2]" if x2 else rep)
         _cpu_comparison(info, rows, cols, vals, x)
         return ReturnCode.SUCCESS if rep.ok else ReturnCode.VALIDATION_FAILED
-    reps = [_validate(info, rows, cols, vals, X[:, j], Y[:, j]) for j in range(rhs)]
+    reps = [check(info, rows, cols, vals, X[:, j], Y[:, j]) for j in range(rhs)]
     bad = next((j for j, rep in enumerate(reps) if not rep.ok), None)
     if bad is not None:  # the first failing column, not the last one checked
-        print(f"{reps[bad]}  [column {bad} of {rhs} right-hand sides]")
+        print(f"{reps[bad]}  [{tag}column {bad} of {rhs} right-hand sides]")
         return ReturnCode.VALIDATION_FAILED
-    print(f"{reps[-1]}  [{rhs} right-hand sides]")
+    print(f"{reps[-1]}  [{tag}{rhs} right-hand sides]")
     return ReturnCode.SUCCESS
 
 
@@ -154,7 +182,8 @@ def cmd_run(args) -> int:
         print(f"error reading {args.matrix}: {e}", file=sys.stderr)
         return ReturnCode.FILE_ERROR
     return run_spmv(args.format, info, rows, cols, vals, x_mode=args.x,
-                    seed=args.seed, device=args.device, rhs=args.rhs)
+                    seed=args.seed, device=args.device, rhs=args.rhs,
+                    dtype=args.dtype)
 
 
 def cmd_info(args) -> int:
@@ -209,6 +238,9 @@ def main(argv=None) -> int:
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--rhs", type=int, default=1,
                    help="right-hand sides: R > 1 runs spmm on an (ncols, R) X")
+    r.add_argument("--dtype", default="f32", choices=["f32", "f32x2"],
+                   help="f32, or f32x2: the fp64-grade mode (computed in "
+                        "fp64 here), validated at the reference's 1e-6")
     r.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     r.set_defaults(fn=cmd_run)

@@ -4,8 +4,8 @@ Counterparts of ``spmv_tpu/device.py:DevSeg`` and ``DevPanel``. The JAX
 containers split each stream into several arrays, pack u8 index planes and
 compute y window targets, all for the TPU's DMA and VMEM limits; on Hopper
 a plan is the CSR arrays or the sliced-ELLPACK panel of ``formats.base``
-with its tile schedule, held as int32 and float32 tensors on an explicit
-``torch.device``.
+with its tile schedule, held as int32 tensors and float32 values (float64
+for the fp64-grade mode, ``x2.X2Matrix``) on an explicit ``torch.device``.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def _tensor_bytes(plan) -> int:
 class DevCsr:
     ptr: torch.Tensor  # (nrows+1,) int32
     cols: torch.Tensor  # (nnz,) int32
-    vals: torch.Tensor  # (nnz,) float32
+    vals: torch.Tensor  # (nnz,) float32, or float64 (the plan's dtype)
     tile_row0: torch.Tensor  # (ntiles+1,) int32
     carry_rows: torch.Tensor  # (ncarry,) int32
     nrows: int
@@ -91,7 +91,7 @@ class DevCsr:
 @dataclass(frozen=True)
 class DevPanel:
     slice_ptr: torch.Tensor  # (nslices+1,) int32, multiples of 32
-    vals: torch.Tensor  # (nslots,) float32, column-major within each slice
+    vals: torch.Tensor  # (nslots,) float32 or float64, column-major per slice
     cols: torch.Tensor  # (nslots,) int32
     tile_slice0: torch.Tensor  # (ntiles+1,) int32
     split_slices: torch.Tensor  # (nsplit,) int32
@@ -142,45 +142,53 @@ class DevPanel:
         return self.stream_bytes <= FUSED_STREAM_BYTES_MAX
 
 
-def x_to_device(x, ncols: int, device) -> torch.Tensor:
-    """x (numpy, list or tensor, any real dtype) → contiguous float32
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def x_to_device(x, ncols: int, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (numpy, list or tensor, any real dtype) → contiguous ``dtype``
     tensor of length ``ncols`` on ``device`` (the counterpart of
-    ``spmv_tpu/device.py:x_to_table``, without the TPU table padding)."""
+    ``spmv_tpu/device.py:x_to_table``, without the TPU table padding).
+    float64 is the fp64-grade mode's x, which replaces JAX's hi∥lo table
+    (``x_to_table_x2``): the kernels read it whole."""
     if isinstance(x, torch.Tensor):
-        xt = x.to(device=device, dtype=torch.float32)
+        xt = x.to(device=device, dtype=dtype)
     else:
-        xt = torch.from_numpy(np.asarray(x, dtype=np.float32)).to(device)
+        xt = torch.from_numpy(np.asarray(x, dtype=_np_dtype(dtype))).to(device)
     xt = xt.reshape(-1).contiguous()
     if xt.numel() != ncols:
         raise ValueError(f"x has {xt.numel()} entries, matrix has {ncols} columns")
     return xt
 
 
-def X_to_device(X, ncols: int, device) -> torch.Tensor:
+def X_to_device(X, ncols: int, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """X (numpy or tensor, any real dtype, any strides) → contiguous
-    row-major float32 tensor of shape (ncols, R) on ``device``: the layout
+    row-major ``dtype`` tensor of shape (ncols, R) on ``device``: the layout
     the multi-RHS kernels read, one row of R floats per column index. A
     transposed or sliced X is copied here, not refused by a kernel."""
     if isinstance(X, torch.Tensor):
-        Xt = X.to(device=device, dtype=torch.float32)
+        Xt = X.to(device=device, dtype=dtype)
     else:
-        Xt = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(device)
+        Xt = torch.from_numpy(np.ascontiguousarray(X, dtype=_np_dtype(dtype))).to(device)
     if Xt.dim() != 2 or Xt.shape[0] != ncols:
         raise ValueError(f"X must be ({ncols}, R), got {tuple(Xt.shape)}")
     return Xt.contiguous()
 
 
-def y_to_numpy(y: torch.Tensor, nrows: int) -> np.ndarray:
-    """Device y → host float32 array, checking its length and dtype."""
-    if y.dtype != torch.float32 or y.shape != (nrows,):
-        raise ValueError(f"y must be float32 of shape ({nrows},), got "
+def y_to_numpy(y: torch.Tensor, nrows: int,
+               dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Device y → host array, checking its length and dtype."""
+    if y.dtype != dtype or y.shape != (nrows,):
+        raise ValueError(f"y must be {dtype} of shape ({nrows},), got "
                          f"{y.dtype} {tuple(y.shape)}")
     return y.cpu().numpy()
 
 
-def Y_to_numpy(Y: torch.Tensor, nrows: int, R: int) -> np.ndarray:
-    """Device Y → host float32 (nrows, R) array, checking shape and dtype."""
-    if Y.dtype != torch.float32 or Y.shape != (nrows, R):
-        raise ValueError(f"Y must be float32 of shape ({nrows}, {R}), got "
+def Y_to_numpy(Y: torch.Tensor, nrows: int, R: int,
+               dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Device Y → host (nrows, R) array, checking shape and dtype."""
+    if Y.dtype != dtype or Y.shape != (nrows, R):
+        raise ValueError(f"Y must be {dtype} of shape ({nrows}, {R}), got "
                          f"{Y.dtype} {tuple(Y.shape)}")
     return Y.cpu().numpy()

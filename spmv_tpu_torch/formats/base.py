@@ -77,7 +77,7 @@ class CsrPlan:
     ncols: int
     ptr: np.ndarray  # (nrows+1,) int32 — row starts in the nonzero stream
     cols: np.ndarray  # (nnz,) int32, row-major
-    vals: np.ndarray  # (nnz,) float32, row-major
+    vals: np.ndarray  # (nnz,) float32 (float64 for the fp64-grade mode), row-major
     tile_row0: np.ndarray  # (ntiles+1,) int32 — row of each tile's first nonzero
     carry_rows: np.ndarray  # (ncarry,) int32 — rows that cross a tile boundary
     tile: int
@@ -108,14 +108,16 @@ def csr_ptr(rows_sorted: np.ndarray, nrows: int) -> np.ndarray:
 
 
 def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
-                   tile: int = TILE_NNZ) -> CsrPlan:
+                   tile: int = TILE_NNZ, dtype=np.float32) -> CsrPlan:
     """Plan from CSR arrays (rows already in order; duplicate entries stay
     separate nonzeros and sum in the kernels). Empty rows, ``nnz == 0`` and
     rectangular shapes need no special case.
 
     ``tile`` is the K1 tile size. The CUDA kernel takes only ``TILE_NNZ``;
     a smaller tile lets the plain versions exercise many tile boundaries
-    on a small matrix.
+    on a small matrix. ``dtype`` is the values' type: float32, or float64
+    for the fp64-grade mode (``x2.X2Matrix``); the pattern arrays do not
+    depend on it.
     """
     nrows, ncols, tile = int(nrows), int(ncols), int(tile)
     ptr = np.asarray(ptr, dtype=np.int64)
@@ -154,7 +156,7 @@ def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
         nrows=nrows, ncols=ncols,
         ptr=ptr.astype(np.int32),
         cols=np.ascontiguousarray(cols, dtype=np.int32),
-        vals=np.ascontiguousarray(vals, dtype=np.float32),
+        vals=np.ascontiguousarray(vals, dtype=dtype),
         tile_row0=tile_row0.astype(np.int32),
         carry_rows=np.flatnonzero(split).astype(np.int32),
         tile=tile,
@@ -170,7 +172,7 @@ class PanelPlan:
     nnz: int  # stored elements (duplicates count); the other slots are pads
     slice_ptr: np.ndarray  # (nslices+1,) int64 — first slot of each slice
     widths: np.ndarray  # (nslices,) int64 — K_s, the longest row of the slice
-    vals: np.ndarray  # (nslots,) float32, column-major within each slice
+    vals: np.ndarray  # (nslots,) float32 (or float64), column-major within each slice
     cols: np.ndarray  # (nslots,) int32, 0 in pad slots
     tile_slice0: np.ndarray  # (ntiles+1,) int32 — slice of each tile's first column
     split_slices: np.ndarray  # (nsplit,) int32 — slices that cross a tile boundary
@@ -198,7 +200,7 @@ class PanelPlan:
 
 
 def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
-                     tile: int = TILE_COLS) -> PanelPlan:
+                     tile: int = TILE_COLS, dtype=np.float32) -> PanelPlan:
     """Sliced-ELLPACK plan from triplets already in row order (duplicates
     stay separate slots, as JAX counts them in ``K``). A row's elements
     keep their input order along its slots. Rows past ``nrows`` in the
@@ -206,7 +208,8 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
 
     ``tile`` is the K4 tile in slice columns. The CUDA kernel takes only
     ``TILE_COLS``; a smaller tile lets the plain versions exercise many
-    tile boundaries on a small matrix.
+    tile boundaries on a small matrix. ``dtype`` is the values' type, as
+    in ``build_csr_plan``.
     """
     nrows, ncols, tile = int(nrows), int(ncols), int(tile)
     rows = np.asarray(rows, dtype=np.int64)
@@ -241,7 +244,7 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
 
     k = np.arange(nnz, dtype=np.int64) - ptr[rows]  # rank within the row
     pos = slice_ptr[rows // c] + rows % c + c * k
-    vals_p = np.zeros(nslots, dtype=np.float32)
+    vals_p = np.zeros(nslots, dtype=dtype)
     cols_p = np.zeros(nslots, dtype=np.int32)
     vals_p[pos] = vals
     cols_p[pos] = cols

@@ -35,7 +35,7 @@ from spmv_tpu_torch.formats.split import (PanelSpill, PanelSpillFormat,
                                           split_triplets)
 from spmv_tpu_torch.kernels.panel import inverse_permute
 
-__all__ = ["SellMatrix", "DEFAULT_SIGMA", "sigma_sort_tables"]
+__all__ = ["SellMatrix", "DEFAULT_SIGMA", "sigma_sort_tables", "sort_and_split"]
 
 DEFAULT_SIGMA = 1024  # rows per sorting window (spmv_tpu/formats/sell.py:37)
 _LANES = 128  # the JAX container's slice height C, for the format arrays
@@ -73,6 +73,30 @@ def sigma_sort_tables(rows, nrows: int, sigma: int = DEFAULT_SIGMA, *,
     return rows, False, ident, ident, nrows_pad
 
 
+def sort_and_split(rows, cols, vals, nrows: int, sigma: int = DEFAULT_SIGMA,
+                   split: bool = True):
+    """The σ-sort and the panel/spill split in sorted row space, as
+    ``SellMatrix`` and the fp64-grade SELL (``x2.X2Matrix``) build them:
+    ``(rows_sorted, sorted_, perm, invperm, nrows_pad, (r, c, v, keep,
+    shape))``, the last five from ``split_triplets`` over ``nrows_pad``
+    rows. Both depend only on the pattern; the values ride along."""
+    if sigma % _LANES or sigma <= 0 or sigma > 1024:
+        raise ValueError("sigma must be a positive multiple of 128, ≤ 1024")
+    rows = np.asarray(rows, dtype=np.int64)
+    rows_sorted, sorted_, perm, invperm, nrows_pad = sigma_sort_tables(
+        rows, nrows, sigma)
+    # the split runs in sorted row space, so the spill's y' adds to the
+    # panel's before the one unpermute
+    parts = split_triplets(rows_sorted, cols, vals, nrows_pad, split)
+    if sorted_ and parts[4] == "spill":
+        # everything spilled: no panel widths to shrink, and the sort
+        # would only scatter the CSR stream and add the gather
+        rows_sorted, sorted_, perm, invperm, nrows_pad = sigma_sort_tables(
+            rows, nrows, sigma, force_identity=True)
+        parts = split_triplets(rows_sorted, cols, vals, nrows_pad, split)
+    return rows_sorted, sorted_, perm, invperm, nrows_pad, parts
+
+
 @dataclass
 class SellMatrix(PanelSpillFormat):
     nrows: int
@@ -96,26 +120,12 @@ class SellMatrix(PanelSpillFormat):
     def from_coo(cls, nrows: int, ncols: int, rows, cols, vals, *,
                  sigma: int = DEFAULT_SIGMA, split: bool = True,
                  device) -> "SellMatrix":
-        if sigma % _LANES or sigma <= 0 or sigma > 1024:
-            raise ValueError("sigma must be a positive multiple of 128, ≤ 1024")
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols)
         vals = np.asarray(vals)
-
-        rows_sorted, sorted_, perm, invperm, nrows_pad = sigma_sort_tables(
-            rows, nrows, sigma)
-        # the split runs in sorted row space, so the spill's y' adds to the
-        # panel's before the one unpermute
-        r, c, v, keep, shape = split_triplets(rows_sorted, cols, vals,
-                                              nrows_pad, split)
-        if sorted_ and shape == "spill":
-            # everything spilled: no panel widths to shrink, and the sort
-            # would only scatter the CSR stream and add the gather
-            rows_sorted, sorted_, perm, invperm, nrows_pad = \
-                sigma_sort_tables(rows, nrows, sigma, force_identity=True)
-            r, c, v, keep, shape = split_triplets(rows_sorted, cols, vals,
-                                                  nrows_pad, split)
-        parts = PanelSpill.from_split(nrows_pad, ncols, r, c, v, keep, shape,
+        rows_sorted, sorted_, perm, invperm, nrows_pad, split_out = \
+            sort_and_split(rows, cols, vals, nrows, sigma, split)
+        parts = PanelSpill.from_split(nrows_pad, ncols, *split_out,
                                       device=device)
 
         # per 128-row slice padded width of the sorted lengths: the

@@ -156,13 +156,15 @@ class PanelSpill:
 
     @classmethod
     def from_split(cls, nrows: int, ncols: int, r, c, v, keep, shape: str, *,
-                   device) -> "PanelSpill":
-        """Plans from ``split_triplets``' output (row-ordered triplets)."""
-        plan = build_panel_plan(nrows, ncols, r[keep], c[keep], v[keep])
+                   device, dtype=np.float32) -> "PanelSpill":
+        """Plans from ``split_triplets``' output (row-ordered triplets),
+        with ``dtype`` values (float64 for ``x2.X2Matrix``)."""
+        plan = build_panel_plan(nrows, ncols, r[keep], c[keep], v[keep],
+                                dtype=dtype)
         spill_plan = dev_spill = None
         if (~keep).any():
             spill_plan = build_csr_plan(nrows, ncols, csr_ptr(r[~keep], nrows),
-                                        c[~keep], v[~keep])
+                                        c[~keep], v[~keep], dtype=dtype)
             dev_spill = DevCsr.from_plan(spill_plan, device)
         return cls(plan=plan, dev=DevPanel.from_plan(plan, device),
                    spill_plan=spill_plan, dev_spill=dev_spill, shape=shape)

@@ -49,6 +49,9 @@ SIGNATURES = {
     "seg_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # ptr, carry_rows, carry, Y, ncarry, tile, rhs, stream
     "carry_fixup_multi": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # K1 and K2 in float64: the arguments of seg_spmv_tiles and carry_fixup
+    "seg_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "carry_fixup_x2": (_P, _P, _P, _P, _I, _I, _P),
     # panel_spmv.cu
     # slice_ptr, cols, vals, tile_slice0, x, y, part, ncolumns, ntiles,
     # tile, nrows, stream
@@ -64,6 +67,9 @@ SIGNATURES = {
     "panel_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # slice_ptr, split_slices, part, Y, nsplit, tile, nrows, rhs, stream
     "panel_fixup_multi": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # K4 and K5 in float64: the arguments of panel_spmv_tiles and panel_fixup
+    "panel_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "panel_fixup_x2": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

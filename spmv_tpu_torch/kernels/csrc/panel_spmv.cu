@@ -1,9 +1,9 @@
 // Sliced-ELLPACK (SELL-C) SpMV kernels for Hopper (sm_90a): y = A·x in
-// float32, Y = A·X for R = 2..8 right-hand sides, and the gather that
-// undoes the SELL-C-σ row sort.
+// float32, Y = A·X for R = 2..8 right-hand sides, y = A·x in float64 (the
+// fp64-grade mode), and the gather that undoes the SELL-C-σ row sort.
 //
-// Six kernels, each replacing one Pallas kernel of the JAX package's panel
-// engine (spmv_tpu/kernels/engines.py):
+// Eight kernels, each replacing one Pallas kernel of the JAX package's
+// panel engine (spmv_tpu/kernels/engines.py, engines_x2.py):
 //
 //   K4 panel_spmv_tiles   replaces _panel_kernel         (panel_spmv_partials)
 //   K5 panel_fixup        replaces _scatter_kernel       (_window_scatter, as
@@ -13,6 +13,16 @@
 //   K10 panel_spmm_tiles  replaces _panel_kernel_multi   (panel_spmv_multi)
 //   K11 panel_fixup_multi replaces _scatter_kernel_multi (_window_scatter_multi,
 //                         as panel_spmv_multi's epilogue)
+//   K14 panel_spmv_tiles_x2  replaces _panel_kernel_x2    (panel_spmv_x2),
+//   K15 panel_fixup_x2       with its epilogue folded in there
+//
+// K14 and K15 are K4 and K5 instantiated for double (both are templates on
+// the value type), so the tile and slot rules stay in one place. B11's hi
+// and lo f32 planes and its TwoSum chains answer the TPU's missing FMA;
+// Hopper has native fp64 FMA, so K14 reads fp64 values and x and sums each
+// row in fp64. A slot then streams 12 B and gathers 8 B of x: bytes still
+// bound it. The sorted SELL's gather of an fp64 y is K7 on rows of 2
+// floats (the wrapper views y so), an exact bit copy.
 //
 // The plan (spmv_tpu_torch/formats/base.py:build_panel_plan): slices of
 // kC = 32 rows. Slice s holds 32·K_s slots from slot slice_ptr[s], stored
@@ -79,7 +89,8 @@ panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
   if (row < nrows) y[row] = acc;
 }
 
-// K4 — replaces _panel_kernel (spmv_tpu/kernels/engines.py:269).
+// K4 — replaces _panel_kernel (spmv_tpu/kernels/engines.py:269); K14 (T =
+// double) replaces _panel_kernel_x2 (spmv_tpu/kernels/engines_x2.py:205).
 //
 // One warp per tile of kTileCols consecutive slice columns, so every warp
 // does the same work whatever the slice widths: a wide slice is cut into
@@ -89,15 +100,16 @@ panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
 // the slice. A slice that lies wholly inside the tile goes straight to y.
 // Otherwise the tile leaves the lane's partial in its head slot (the slice
 // began in an earlier tile) or its tail slot (it runs on into later tiles),
-// 32 floats each, for K5. Rows of empty slices are never written: the
+// 32 values each, for K5. Rows of empty slices are never written: the
 // wrapper zeroes y.
+template <typename T>
 __global__ void __launch_bounds__(kPanelThreads)
 panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
                         const int* __restrict__ cols,
-                        const float* __restrict__ vals,
+                        const T* __restrict__ vals,
                         const int* __restrict__ tile_slice0,
-                        const float* __restrict__ x, float* __restrict__ y,
-                        float* __restrict__ part, int ncolumns, int ntiles,
+                        const T* __restrict__ x, T* __restrict__ y,
+                        T* __restrict__ part, int ncolumns, int ntiles,
                         int nrows) {
   const int lane = threadIdx.x & (kC - 1);
   const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
@@ -106,7 +118,7 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
   const int g1 = min(g0 + kTileCols, ncolumns);
 
   // Stores the tile's sum of slice s (columns [cs, ce)) for this lane.
-  auto emit = [&](int s, int cs, int ce, float v) {
+  auto emit = [&](int s, int cs, int ce, T v) {
     if (cs < g0) {
       part[(2 * t) * kC + lane] = v;
     } else if (ce > g1) {
@@ -120,7 +132,7 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
   int s = __ldg(tile_slice0 + t);
   int cs = __ldg(slice_ptr + s) / kC;
   int ce = __ldg(slice_ptr + s + 1) / kC;
-  float run = 0.f;
+  T run = T(0);
   for (int g = g0; g < g1; ++g) {
     if (g >= ce) {  // slice s ended at column g - 1 (the branch is warp-uniform)
       emit(s, cs, ce, run);
@@ -129,7 +141,7 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
         cs = ce;
         ce = __ldg(slice_ptr + s + 1) / kC;
       } while (g >= ce);
-      run = 0.f;
+      run = T(0);
     }
     const int p = g * kC + lane;
     run += __ldg(vals + p) * __ldg(x + __ldg(cols + p));
@@ -140,15 +152,17 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
 // K5 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171) as the
 // panel path's epilogue; K2 (seg_spmv.cu) cannot take the job unchanged,
 // since its carries are one float per tile and its ranges come from a
-// nonzero row pointer.
+// nonzero row pointer. K15 (T = double) is the epilogue of _panel_kernel_x2
+// (engines_x2.py:205), which the TPU kernel folds into its one dispatch.
 //
 // One thread per (split slice, row): the tail slot of the tile where the
 // slice begins, then the head slot of every later tile it reaches, in tile
 // order. 32 neighbouring threads read 32 neighbouring partials.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 panel_fixup_kernel(const int* __restrict__ slice_ptr,
                    const int* __restrict__ split_slices,
-                   const float* __restrict__ part, float* __restrict__ y,
+                   const T* __restrict__ part, T* __restrict__ y,
                    int nsplit, int nrows) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= nsplit * kC) return;
@@ -156,7 +170,7 @@ panel_fixup_kernel(const int* __restrict__ slice_ptr,
   const int s = __ldg(split_slices + i / kC);
   const int ta = __ldg(slice_ptr + s) / kC / kTileCols;
   const int tb = (__ldg(slice_ptr + s + 1) / kC - 1) / kTileCols;
-  float v = part[(2 * ta + 1) * kC + lane];
+  T v = part[(2 * ta + 1) * kC + lane];
   for (int t = ta + 1; t <= tb; ++t) v += part[(2 * t) * kC + lane];
   const int row = s * kC + lane;
   if (row < nrows) y[row] = v;
@@ -282,6 +296,40 @@ int blocks_for(int items, int per_block) {
   return (items + per_block - 1) / per_block;
 }
 
+template <typename T>
+int launch_panel_spmv_tiles(const void* slice_ptr, const void* cols,
+                            const void* vals, const void* tile_slice0,
+                            const void* x, void* y, void* part, int ncolumns,
+                            int ntiles, int tile, int nrows, void* stream) {
+  if (tile != kTileCols || ncolumns <= 0 || nrows <= 0 ||
+      ntiles != blocks_for(ncolumns, kTileCols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  panel_spmv_tiles_kernel<T><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
+                               0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
+      static_cast<const T*>(vals), static_cast<const int*>(tile_slice0),
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<T*>(part),
+      ncolumns, ntiles, nrows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_panel_fixup(const void* slice_ptr, const void* split_slices,
+                       const void* part, void* y, int nsplit, int tile,
+                       int nrows, void* stream) {
+  if (tile != kTileCols || nsplit <= 0 || nrows <= 0 ||
+      nsplit > (1 << 30) / kC) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  panel_fixup_kernel<T><<<blocks_for(nsplit * kC, kThreads), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slice_ptr),
+      static_cast<const int*>(split_slices), static_cast<const T*>(part),
+      static_cast<T*>(y), nsplit, nrows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int R>
 cudaError_t launch_panel_spmm(const int* slice_ptr, const int* cols,
                               const float* vals, const int* tile_slice0,
@@ -305,33 +353,33 @@ int panel_spmv_tiles(const void* slice_ptr, const void* cols, const void* vals,
                      const void* tile_slice0, const void* x, void* y,
                      void* part, int ncolumns, int ntiles, int tile, int nrows,
                      void* stream) {
-  if (tile != kTileCols || ncolumns <= 0 || nrows <= 0 ||
-      ntiles != blocks_for(ncolumns, kTileCols)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  panel_spmv_tiles_kernel<<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
-                            0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
-      static_cast<const float*>(vals), static_cast<const int*>(tile_slice0),
-      static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<float*>(part), ncolumns, ntiles, nrows);
-  return static_cast<int>(cudaGetLastError());
+  return launch_panel_spmv_tiles<float>(slice_ptr, cols, vals, tile_slice0, x, y,
+                                        part, ncolumns, ntiles, tile, nrows, stream);
 }
 
 // K5: y[r] = the sum of a split slice's partials for row r, in tile order.
 int panel_fixup(const void* slice_ptr, const void* split_slices,
                 const void* part, void* y, int nsplit, int tile, int nrows,
                 void* stream) {
-  if (tile != kTileCols || nsplit <= 0 || nrows <= 0 ||
-      nsplit > (1 << 30) / kC) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  panel_fixup_kernel<<<blocks_for(nsplit * kC, kThreads), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(slice_ptr),
-      static_cast<const int*>(split_slices), static_cast<const float*>(part),
-      static_cast<float*>(y), nsplit, nrows);
-  return static_cast<int>(cudaGetLastError());
+  return launch_panel_fixup<float>(slice_ptr, split_slices, part, y, nsplit, tile,
+                                   nrows, stream);
+}
+
+// K14: K4 in float64 — fp64 vals, x, y and partials.
+int panel_spmv_tiles_x2(const void* slice_ptr, const void* cols, const void* vals,
+                        const void* tile_slice0, const void* x, void* y,
+                        void* part, int ncolumns, int ntiles, int tile,
+                        int nrows, void* stream) {
+  return launch_panel_spmv_tiles<double>(slice_ptr, cols, vals, tile_slice0, x, y,
+                                         part, ncolumns, ntiles, tile, nrows, stream);
+}
+
+// K15: K5 in float64.
+int panel_fixup_x2(const void* slice_ptr, const void* split_slices,
+                   const void* part, void* y, int nsplit, int tile, int nrows,
+                   void* stream) {
+  return launch_panel_fixup<double>(slice_ptr, split_slices, part, y, nsplit, tile,
+                                    nrows, stream);
 }
 
 // K6: y = A·x in one dispatch, one warp per slice.

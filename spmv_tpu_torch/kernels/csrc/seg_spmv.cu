@@ -1,14 +1,25 @@
-// CSR SpMV kernels for Hopper (sm_90a): y = A·x in float32, and Y = A·X
-// for R = 2..8 right-hand sides.
+// CSR SpMV kernels for Hopper (sm_90a): y = A·x in float32, Y = A·X for
+// R = 2..8 right-hand sides, and y = A·x in float64 (the fp64-grade mode).
 //
-// Five kernels, each replacing one Pallas kernel of the JAX package's
-// segmented engine (spmv_tpu/kernels/engines.py):
+// Seven kernels, each replacing one Pallas kernel of the JAX package's
+// segmented engine (spmv_tpu/kernels/engines.py, engines_x2.py):
 //
 //   K1 seg_spmv_tiles     replaces _seg_kernel           (segmented_spmv_partials)
 //   K2 carry_fixup        replaces _scatter_kernel       (_window_scatter)
 //   K3 csr_spmv_fused     replaces _seg_kernel_fused     (segmented_spmv_fused)
 //   K8 seg_spmm_tiles     replaces _seg_kernel_multi     (segmented_spmv_multi)
 //   K9 carry_fixup_multi  replaces _scatter_kernel_multi (_window_scatter_multi)
+//   K12 seg_spmv_tiles_x2 replaces _seg_kernel_x2        (segmented_spmv_x2),
+//   K13 carry_fixup_x2    with its epilogue folded in there
+//
+// K12 and K13 are K1 and K2 instantiated for double (the kernels are
+// templates on the value type), so the tile bounds and carry-slot rules
+// stay in one place. The TPU kernel B10 carries hi and lo f32 planes,
+// Dekker splits and TwoSum chains because its VPU has no FMA and its MXU
+// takes bf16; Hopper has native fp64 FMA, so K12 reads fp64 values and x,
+// multiplies and adds in fp64 and writes fp64 y and carries. It streams
+// 12 B per nonzero (an 8-byte value, a 4-byte column) and gathers 8 B of
+// x for 2 flops: still bytes, not fp64 flops, bound it.
 //
 // What bounds them on the H100: bytes. Each nonzero streams 8 B (a float32
 // value and an int32 column) and gathers 4 B of x, for 2 flops: at most
@@ -52,25 +63,40 @@ constexpr int kThreads = 256;
 // Inclusive segmented scan across a warp. Keys (rows) are nondecreasing
 // along the lanes; a lane adds its neighbour's running sum only while the
 // two keys agree, so every partial stays inside one row, and the order of
-// the additions is fixed by the lane positions.
-__device__ __forceinline__ float warp_seg_scan(int key, float val) {
+// the additions is fixed by the lane positions. T is float or double
+// (__shfl_up_sync takes both).
+template <typename T>
+__device__ __forceinline__ T warp_seg_scan(int key, T val) {
   const int lane = threadIdx.x & (kWarp - 1);
 #pragma unroll
   for (int d = 1; d < kWarp; d <<= 1) {
     const int k = __shfl_up_sync(kFullMask, key, d);
-    const float v = __shfl_up_sync(kFullMask, val, d);
+    const T v = __shfl_up_sync(kFullMask, val, d);
     if (lane >= d && k == key) val = v + val;
   }
   return val;
 }
 
+// 4 consecutive values from a 16-byte-aligned address: one 16-byte load of
+// floats, two of doubles.
+__device__ __forceinline__ void load4(const float* __restrict__ p, float (&v)[4]) {
+  const float4 v4 = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
+}
+__device__ __forceinline__ void load4(const double* __restrict__ p, double (&v)[4]) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
 // Writes the tile's total for row r: straight to y when the whole row lies
 // in this tile [ts, te), else to the tile's head slot (the row began in an
 // earlier tile) or tail slot (the row runs on into later tiles).
+template <typename T>
 __device__ __forceinline__ void emit_row(const int* __restrict__ ptr, int r,
-                                         float v, int t, int ts, int te,
-                                         float* __restrict__ y,
-                                         float* __restrict__ carry) {
+                                         T v, int t, int ts, int te,
+                                         T* __restrict__ y,
+                                         T* __restrict__ carry) {
   const int rs = __ldg(ptr + r);
   const int re = __ldg(ptr + r + 1);
   if (rs < ts) {
@@ -82,7 +108,8 @@ __device__ __forceinline__ void emit_row(const int* __restrict__ ptr, int r,
   }
 }
 
-// K1 — replaces _seg_kernel (spmv_tpu/kernels/engines.py:414).
+// K1 — replaces _seg_kernel (spmv_tpu/kernels/engines.py:414); K12 (T =
+// double) replaces _seg_kernel_x2 (spmv_tpu/kernels/engines_x2.py:267).
 //
 // One block per tile of kTileNnz consecutive nonzeros, so every block does
 // the same work whatever the row lengths (a power-law hub row is cut into
@@ -95,15 +122,17 @@ __device__ __forceinline__ void emit_row(const int* __restrict__ ptr, int r,
 // threads; a block-wide segmented scan (warp shuffles, then one warp over
 // the 8 warp totals in shared memory) joins them. The thread where a row's
 // run ends in the tile writes it through emit_row. Rows with no nonzeros
-// are never written: the wrapper zeroes y.
+// are never written: the wrapper zeroes y. For doubles the 4 values are
+// two 16-byte loads.
+template <typename T>
 __global__ void __launch_bounds__(kTileThreads)
 seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-                      const float* __restrict__ vals,
+                      const T* __restrict__ vals,
                       const int* __restrict__ tile_row0,
-                      const float* __restrict__ x, float* __restrict__ y,
-                      float* __restrict__ carry, int nnz) {
+                      const T* __restrict__ x, T* __restrict__ y,
+                      T* __restrict__ carry, int nnz) {
   __shared__ int s_key[kTileWarps];
-  __shared__ float s_val[kTileWarps];
+  __shared__ T s_val[kTileWarps];
 
   const int t = blockIdx.x;
   const int lane = threadIdx.x & (kWarp - 1);
@@ -114,9 +143,9 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
   const int e_end = min(e0 + kTileItems, te);  // one past this thread's last
 
   int key = -1;          // row of this thread's last run; -1 = no nonzeros
-  float run = 0.f;       // that run's partial sum
+  T run = T(0);          // that run's partial sum
   int head_row = -1;     // row of the first run, if it closed in this thread
-  float head_val = 0.f;  // and its partial sum
+  T head_val = T(0);     // and its partial sum
   int row_end = 0;       // ptr[key + 1]
 
   if (e0 < te) {
@@ -133,20 +162,19 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
     int r = lo;
     row_end = __ldg(ptr + r + 1);
 
-    float v[kTileItems];
+    T v[kTileItems];
     int c[kTileItems];
     if (e_end - e0 == kTileItems) {
       // 16-byte aligned: e0 is a multiple of 4 and the wrapper checks the
       // base pointers.
-      const float4 v4 = __ldg(reinterpret_cast<const float4*>(vals + e0));
+      load4(vals + e0, v);
       const int4 c4 = __ldg(reinterpret_cast<const int4*>(cols + e0));
-      v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
       c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
     } else {
 #pragma unroll
       for (int k = 0; k < kTileItems; ++k) {
         const bool in = e0 + k < e_end;
-        v[k] = in ? __ldg(vals + e0 + k) : 0.f;
+        v[k] = in ? __ldg(vals + e0 + k) : T(0);
         c[k] = in ? __ldg(cols + e0 + k) : 0;
       }
     }
@@ -166,7 +194,7 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
             ++r;
             row_end = __ldg(ptr + r + 1);
           } while (e >= row_end);
-          run = 0.f;
+          run = T(0);
         }
         run += v[k] * __ldg(x + c[k]);
       }
@@ -177,7 +205,7 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
   // Block-wide inclusive segmented scan of the (key, run) pairs. Threads
   // with no nonzeros sit at the end of the block with key -1 and add
   // nothing to anyone before them.
-  float incl = warp_seg_scan(key, run);
+  T incl = warp_seg_scan(key, run);
   if (lane == kWarp - 1) {
     s_key[warp] = key;
     s_val[warp] = incl;
@@ -185,7 +213,7 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
   __syncthreads();
   if (warp == 0) {
     const int wk = lane < kTileWarps ? s_key[lane] : -1;
-    const float wv = warp_seg_scan(wk, lane < kTileWarps ? s_val[lane] : 0.f);
+    const T wv = warp_seg_scan(wk, lane < kTileWarps ? s_val[lane] : T(0));
     if (lane < kTileWarps) s_val[lane] = wv;  // inclusive over warps 0..lane
   }
   __syncthreads();
@@ -193,10 +221,10 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 
   // Exclusive value: the inclusive scan of the thread before this one.
   int ek = __shfl_up_sync(kFullMask, key, 1);
-  float ev = __shfl_up_sync(kFullMask, incl, 1);
+  T ev = __shfl_up_sync(kFullMask, incl, 1);
   if (lane == 0) {
     ek = warp > 0 ? s_key[warp - 1] : -1;
-    ev = warp > 0 ? s_val[warp - 1] : 0.f;
+    ev = warp > 0 ? s_val[warp - 1] : T(0);
   }
 
   if (e0 < te) {
@@ -211,24 +239,27 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
   }
 }
 
-// K2 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171).
+// K2 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171); K13 (T =
+// double) is the epilogue of _seg_kernel_x2 (engines_x2.py:267), which the
+// TPU kernel folds into its one dispatch.
 //
 // One thread per split row (a row that crosses a tile boundary). It adds
 // the row's partials in tile order: the tail slot of the tile where the row
-// begins, then the head slot of every later tile it reaches. Reads 4 B per
-// carry and writes y once; a few KB at cant scale, so launch latency is its
-// cost.
+// begins, then the head slot of every later tile it reaches. Reads 4 B (8 B
+// for doubles) per carry and writes y once; a few KB at cant scale, so
+// launch latency is its cost.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 carry_fixup_kernel(const int* __restrict__ ptr,
                    const int* __restrict__ carry_rows,
-                   const float* __restrict__ carry, float* __restrict__ y,
+                   const T* __restrict__ carry, T* __restrict__ y,
                    int ncarry) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= ncarry) return;
   const int r = __ldg(carry_rows + j);
   const int ta = __ldg(ptr + r) / kTileNnz;
   const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
-  float s = carry[2 * ta + 1];
+  T s = carry[2 * ta + 1];
   for (int t = ta + 1; t <= tb; ++t) s += carry[2 * t];
   y[r] = s;
 }
@@ -475,6 +506,35 @@ carry_fixup_multi_kernel(const int* __restrict__ ptr,
   Y[static_cast<long long>(r) * rhs + j] = s;
 }
 
+template <typename T>
+int launch_seg_spmv_tiles(const void* ptr, const void* cols, const void* vals,
+                          const void* tile_row0, const void* x, void* y,
+                          void* carry, int nnz, int ntiles, int tile,
+                          void* stream) {
+  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
+      ntiles != (nnz + kTileNnz - 1) / kTileNnz) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  seg_spmv_tiles_kernel<T><<<ntiles, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(cols),
+      static_cast<const T*>(vals), static_cast<const int*>(tile_row0),
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<T*>(carry), nnz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
+                       void* y, int ncarry, int tile, void* stream) {
+  if (tile != kTileNnz || ncarry <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (ncarry + kThreads - 1) / kThreads;
+  carry_fixup_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(carry_rows),
+      static_cast<const T*>(carry), static_cast<T*>(y), ncarry);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int R>
 cudaError_t launch_seg_spmm(const int* ptr, const int* cols, const float* vals,
                             const int* tile_row0, const float* X, float* Y,
@@ -494,29 +554,28 @@ extern "C" {
 int seg_spmv_tiles(const void* ptr, const void* cols, const void* vals,
                    const void* tile_row0, const void* x, void* y, void* carry,
                    int nnz, int ntiles, int tile, void* stream) {
-  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
-      ntiles != (nnz + kTileNnz - 1) / kTileNnz) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  seg_spmv_tiles_kernel<<<ntiles, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ptr), static_cast<const int*>(cols),
-      static_cast<const float*>(vals), static_cast<const int*>(tile_row0),
-      static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<float*>(carry), nnz);
-  return static_cast<int>(cudaGetLastError());
+  return launch_seg_spmv_tiles<float>(ptr, cols, vals, tile_row0, x, y, carry,
+                                      nnz, ntiles, tile, stream);
 }
 
 // K2: y[r] = the sum of a split row's partials, in tile order.
 int carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
                 void* y, int ncarry, int tile, void* stream) {
-  if (tile != kTileNnz || ncarry <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int blocks = (ncarry + kThreads - 1) / kThreads;
-  carry_fixup_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ptr), static_cast<const int*>(carry_rows),
-      static_cast<const float*>(carry), static_cast<float*>(y), ncarry);
-  return static_cast<int>(cudaGetLastError());
+  return launch_carry_fixup<float>(ptr, carry_rows, carry, y, ncarry, tile, stream);
+}
+
+// K12: K1 in float64 — fp64 vals, x, y and carry.
+int seg_spmv_tiles_x2(const void* ptr, const void* cols, const void* vals,
+                      const void* tile_row0, const void* x, void* y, void* carry,
+                      int nnz, int ntiles, int tile, void* stream) {
+  return launch_seg_spmv_tiles<double>(ptr, cols, vals, tile_row0, x, y, carry,
+                                       nnz, ntiles, tile, stream);
+}
+
+// K13: K2 in float64.
+int carry_fixup_x2(const void* ptr, const void* carry_rows, const void* carry,
+                   void* y, int ncarry, int tile, void* stream) {
+  return launch_carry_fixup<double>(ptr, carry_rows, carry, y, ncarry, tile, stream);
 }
 
 // K3: y = A·x in one dispatch, vec lanes per row (4, 8, 16 or 32).

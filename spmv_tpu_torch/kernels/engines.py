@@ -42,12 +42,15 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
            "carry_fixup_multi_reference", "MULTI_RHS_MAX",
            "LAUNCHES", "reset_launches", "fused_lanes", "KernelError"]
 
-# Launch counts per kernel, this engine's and the panel engine's
-# (``kernels.panel``); the plain versions never touch them.
+# Launch counts per kernel, this engine's, the panel engine's
+# (``kernels.panel``) and the fp64-grade ones (``kernels.engines_x2``); the
+# plain versions never touch them.
 LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0,
             "panel_spmv_tiles": 0, "panel_fixup": 0, "panel_spmv_fused": 0,
             "inverse_permute": 0, "seg_spmm_tiles": 0, "carry_fixup_multi": 0,
-            "panel_spmm_tiles": 0, "panel_fixup_multi": 0}
+            "panel_spmm_tiles": 0, "panel_fixup_multi": 0,
+            "seg_spmv_tiles_x2": 0, "carry_fixup_x2": 0,
+            "panel_spmv_tiles_x2": 0, "panel_fixup_x2": 0}
 
 # The widest X the multi-RHS kernels take (K8 and K10 are built for R = 2..8;
 # ``spmv_tpu/kernels/engines.py:74``). ``api.spmm`` runs one ``matvec`` per
@@ -64,15 +67,22 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_cuda(dev, *tensors: torch.Tensor) -> bool:
+def _on_cuda(dev, *tensors: torch.Tensor, dtype: torch.dtype = torch.float32) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
     (run the plain version); raises for anything else. ``dev`` is a device
-    plan, or any object with a ``device`` (a tensor)."""
+    plan, or any object with a ``device`` (a tensor). A plan's values and
+    every tensor must be ``dtype``, the type the kernel reads: a float64
+    plan handed to a float32 kernel (or the reverse) is refused here, on
+    either device, before anything is launched."""
+    vals = getattr(dev, "vals", None)
+    if vals is not None and vals.dtype != dtype:
+        raise ValueError(f"the plan holds {vals.dtype} values; this kernel "
+                         f"takes {dtype}")
     for t in tensors:
         if t.device != dev.device:
             raise ValueError(f"tensor on {t.device}, plan on {dev.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"expected contiguous float32, got {t.dtype}")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"expected contiguous {dtype}, got {t.dtype}")
     kind = dev.device.type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev.device}")
@@ -120,50 +130,63 @@ def _launch(name: str, dev, *args) -> None:
 # ---------------------------------------------------------------- K1 + K2
 
 
+def _seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Tensor):
+    """K1 (float32) or K12 (float64, ``engines_x2``): the wrapper both
+    share, so their tile bounds and carry slots cannot drift apart."""
+    _check_x(dev, x)
+    if not _on_cuda(dev, x, dtype=dtype):
+        return segmented_spmv_partials_reference(dev, x)
+    if dev.tile != TILE_NNZ:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
+    for t in (dev.cols, dev.vals):  # 4 nonzeros per step, in 16-byte loads
+        if t.data_ptr() % 16:
+            raise ValueError("plan tensors must be 16-byte aligned")
+    y = torch.zeros(dev.nrows, dtype=dtype, device=dev.device)
+    carry = torch.zeros(2 * dev.ntiles, dtype=dtype, device=dev.device)
+    if dev.nnz:  # a zero-sized grid is refused: nothing to launch
+        _launch(kernel, dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0, x, y,
+                carry, dev.nnz, dev.ntiles, dev.tile)
+    return y, carry
+
+
+def _seg_fixup(kernel: str, dtype: torch.dtype, dev: DevCsr, y: torch.Tensor,
+               carry: torch.Tensor) -> torch.Tensor:
+    """K2 (float32) or K13 (float64): the wrapper both share."""
+    if y.shape != (dev.nrows,) or carry.shape != (2 * dev.ntiles,):
+        raise ValueError("y or carry does not match the plan")
+    if not _on_cuda(dev, y, carry, dtype=dtype):
+        return carry_fixup_reference(dev, y, carry)
+    if dev.tile != TILE_NNZ:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
+    if dev.ncarry:  # no row crosses a tile boundary: nothing to launch
+        _launch(kernel, dev, dev.ptr, dev.carry_rows, carry, y, dev.ncarry,
+                dev.tile)
+    return y
+
+
 def segmented_spmv_partials(dev: DevCsr, x: torch.Tensor):
     """K1: ``(y, carry)``. y holds every row that lies wholly inside one
     tile (and 0 for empty rows); ``carry`` (2 slots per tile, see
     ``formats.base``) holds the partials of the rows that cross a tile
     boundary, for ``carry_fixup``."""
-    _check_x(dev, x)
-    if not _on_cuda(dev, x):
-        return segmented_spmv_partials_reference(dev, x)
-    if dev.tile != TILE_NNZ:
-        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
-    for t in (dev.cols, dev.vals):  # K1 reads 4 nonzeros per 16-byte load
-        if t.data_ptr() % 16:
-            raise ValueError("plan tensors must be 16-byte aligned")
-    y = torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
-    carry = torch.zeros(2 * dev.ntiles, dtype=torch.float32, device=dev.device)
-    if dev.nnz:  # a zero-sized grid is refused: nothing to launch
-        _launch("seg_spmv_tiles", dev, dev.ptr, dev.cols, dev.vals,
-                dev.tile_row0, x, y, carry, dev.nnz, dev.ntiles, dev.tile)
-    return y, carry
+    return _seg_tiles("seg_spmv_tiles", torch.float32, dev, x)
 
 
 def carry_fixup(dev: DevCsr, y: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
     """K2: adds each split row's partials, in tile order, into ``y``.
     Updates ``y`` in place (no second y buffer) and returns it."""
-    if y.shape != (dev.nrows,) or carry.shape != (2 * dev.ntiles,):
-        raise ValueError("y or carry does not match the plan")
-    if not _on_cuda(dev, y, carry):
-        return carry_fixup_reference(dev, y, carry)
-    if dev.tile != TILE_NNZ:
-        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
-    if dev.ncarry:  # no row crosses a tile boundary: nothing to launch
-        _launch("carry_fixup", dev, dev.ptr, dev.carry_rows, carry, y,
-                dev.ncarry, dev.tile)
-    return y
+    return _seg_fixup("carry_fixup", torch.float32, dev, y, carry)
 
 
 def segmented_spmv_partials_reference(dev: DevCsr, x: torch.Tensor):
     """Plain K1 on the same tile schedule: a segment per (tile, row) pair,
     summed with ``index_add_``; whole rows go to y, the head and tail
     partials to their carry slots. Given an (ncols, R) X it is plain K8:
-    the same with a trailing R axis on y, carry and every sum."""
-    dv, tail = dev.device, x.shape[1:]
-    y = torch.zeros((dev.nrows, *tail), dtype=torch.float32, device=dv)
-    carry = torch.zeros((2 * dev.ntiles, *tail), dtype=torch.float32, device=dv)
+    the same with a trailing R axis on y, carry and every sum. Sums are in
+    the plan's dtype, so a float64 plan makes it plain K12."""
+    dv, dt, tail = dev.device, dev.vals.dtype, x.shape[1:]
+    y = torch.zeros((dev.nrows, *tail), dtype=dt, device=dv)
+    carry = torch.zeros((2 * dev.ntiles, *tail), dtype=dt, device=dv)
     if dev.nnz == 0:
         return y, carry
     ptr = dev.ptr.long()
@@ -174,7 +197,7 @@ def segmented_spmv_partials_reference(dev: DevCsr, x: torch.Tensor):
     head[1:] = (row[1:] != row[:-1]) | (tile[1:] != tile[:-1])
     seg = torch.cumsum(head, 0) - 1
     prod = _lead(dev.vals, x) * x[dev.cols.long()]
-    sums = torch.zeros((int(head.sum()), *tail), dtype=torch.float32, device=dv)
+    sums = torch.zeros((int(head.sum()), *tail), dtype=dt, device=dv)
     sums.index_add_(0, seg, prod)
     srow, stile = row[head], tile[head]
     rs, re = ptr[srow], ptr[srow + 1]
@@ -191,7 +214,7 @@ def carry_fixup_reference(dev: DevCsr, y: torch.Tensor,
                           carry: torch.Tensor) -> torch.Tensor:
     """Plain K2: gathers each split row's carry slots and sums them in tile
     order with ``index_add_``; updates ``y`` in place. Given (nrows, R) Y
-    and (2·ntiles, R) carries it is plain K9."""
+    and (2·ntiles, R) carries it is plain K9; in float64, plain K13."""
     if dev.ncarry == 0:
         return y
     dv = dev.device
@@ -204,7 +227,7 @@ def carry_fixup_reference(dev: DevCsr, y: torch.Tensor,
     first = torch.cumsum(counts, 0) - counts
     t = ta[owner] + torch.arange(owner.numel(), device=dv) - first[owner]
     slot = 2 * t + (t == ta[owner]).long()
-    s = torch.zeros((dev.ncarry, *y.shape[1:]), dtype=torch.float32, device=dv)
+    s = torch.zeros((dev.ncarry, *y.shape[1:]), dtype=y.dtype, device=dv)
     s.index_add_(0, owner, carry[slot])
     y[r] = s
     return y

@@ -68,47 +68,59 @@ def _slice_rows(dev: DevPanel, slices: torch.Tensor):
 # ---------------------------------------------------------------- K4 + K5
 
 
+def _panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel, x: torch.Tensor):
+    """K4 (float32) or K14 (float64, ``engines_x2``): the wrapper both
+    share, so their tile bounds and partial slots cannot drift apart."""
+    _check_x(dev, x)
+    if not _on_cuda(dev, x, dtype=dtype):
+        return panel_spmv_partials_reference(dev, x)
+    _check_cuda_panel(dev, x)
+    y = torch.zeros(dev.nrows, dtype=dtype, device=dev.device)
+    part = torch.zeros(2 * dev.ntiles, _C, dtype=dtype, device=dev.device)
+    if dev.nslots and dev.nrows:  # a zero-sized grid is refused
+        _launch(kernel, dev, dev.slice_ptr, dev.cols, dev.vals, dev.tile_slice0,
+                x, y, part, dev.nslots // _C, dev.ntiles, dev.tile, dev.nrows)
+    return y, part
+
+
+def _panel_fixup(kernel: str, dtype: torch.dtype, dev: DevPanel,
+                 y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """K5 (float32) or K15 (float64): the wrapper both share."""
+    if y.shape != (dev.nrows,) or part.shape != (2 * dev.ntiles, _C):
+        raise ValueError("y or part does not match the plan")
+    if not _on_cuda(dev, y, part, dtype=dtype):
+        return panel_fixup_reference(dev, y, part)
+    if dev.tile != TILE_COLS:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
+    if dev.nsplit:  # no slice crosses a tile boundary: nothing to launch
+        _launch(kernel, dev, dev.slice_ptr, dev.split_slices, part, y,
+                dev.nsplit, dev.tile, dev.nrows)
+    return y
+
+
 def panel_spmv_partials(dev: DevPanel, x: torch.Tensor):
     """K4: ``(y, part)``. y holds the rows of every slice that lies wholly
     inside one tile (0 for the rest); ``part`` (2·ntiles, 32) holds each
     tile's head and tail partials of the split slices, for
     ``panel_fixup``."""
-    _check_x(dev, x)
-    if not _on_cuda(dev, x):
-        return panel_spmv_partials_reference(dev, x)
-    _check_cuda_panel(dev, x)
-    y = torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
-    part = torch.zeros(2 * dev.ntiles, _C, dtype=torch.float32, device=dev.device)
-    if dev.nslots and dev.nrows:  # a zero-sized grid is refused
-        _launch("panel_spmv_tiles", dev, dev.slice_ptr, dev.cols, dev.vals,
-                dev.tile_slice0, x, y, part, dev.nslots // _C, dev.ntiles,
-                dev.tile, dev.nrows)
-    return y, part
+    return _panel_tiles("panel_spmv_tiles", torch.float32, dev, x)
 
 
 def panel_fixup(dev: DevPanel, y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
     """K5: adds each split slice's partials, in tile order, into ``y``.
     Updates ``y`` in place and returns it."""
-    if y.shape != (dev.nrows,) or part.shape != (2 * dev.ntiles, _C):
-        raise ValueError("y or part does not match the plan")
-    if not _on_cuda(dev, y, part):
-        return panel_fixup_reference(dev, y, part)
-    if dev.tile != TILE_COLS:
-        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
-    if dev.nsplit:  # no slice crosses a tile boundary: nothing to launch
-        _launch("panel_fixup", dev, dev.slice_ptr, dev.split_slices, part, y,
-                dev.nsplit, dev.tile, dev.nrows)
-    return y
+    return _panel_fixup("panel_fixup", torch.float32, dev, y, part)
 
 
 def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
     """Plain K4 on the same tile schedule: a segment per (tile, slice)
     pair of slice columns, summed row by row with ``index_add_``; whole
     slices go to y, the head and tail partials to their slots. Given an
-    (ncols, R) X it is plain K10: the same with a trailing R axis."""
-    dv, tail = dev.device, x.shape[1:]
-    y = torch.zeros((dev.nrows, *tail), dtype=torch.float32, device=dv)
-    part = torch.zeros((2 * dev.ntiles, _C, *tail), dtype=torch.float32, device=dv)
+    (ncols, R) X it is plain K10: the same with a trailing R axis. Sums
+    are in the plan's dtype, so a float64 panel makes it plain K14."""
+    dv, dt, tail = dev.device, dev.vals.dtype, x.shape[1:]
+    y = torch.zeros((dev.nrows, *tail), dtype=dt, device=dv)
+    part = torch.zeros((2 * dev.ntiles, _C, *tail), dtype=dt, device=dv)
     ncol = dev.nslots // _C
     if ncol == 0:
         return y, part
@@ -120,7 +132,7 @@ def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
     head[1:] = (sl[1:] != sl[:-1]) | (tile[1:] != tile[:-1])
     seg = torch.cumsum(head, 0) - 1
     prod = (_lead(dev.vals, x) * x[dev.cols.long()]).view(ncol, _C, *tail)
-    sums = torch.zeros((int(head.sum()), _C, *tail), dtype=torch.float32, device=dv)
+    sums = torch.zeros((int(head.sum()), _C, *tail), dtype=dt, device=dv)
     sums.index_add_(0, seg, prod)
     ss, st = sl[head], tile[head]
     cs, ce = scol[ss], scol[ss + 1]
@@ -138,7 +150,8 @@ def panel_fixup_reference(dev: DevPanel, y: torch.Tensor,
                           part: torch.Tensor) -> torch.Tensor:
     """Plain K5: gathers each split slice's slots and sums them in tile
     order with ``index_add_``; updates ``y`` in place. Given (nrows, R) Y
-    and (2·ntiles, 32, R) partials it is plain K11."""
+    and (2·ntiles, 32, R) partials it is plain K11; in float64, plain
+    K15."""
     if dev.nsplit == 0:
         return y
     dv = dev.device
@@ -151,7 +164,7 @@ def panel_fixup_reference(dev: DevPanel, y: torch.Tensor,
     first = torch.cumsum(counts, 0) - counts
     t = ta[owner] + torch.arange(owner.numel(), device=dv) - first[owner]
     slot = 2 * t + (t == ta[owner]).long()
-    acc = torch.zeros((dev.nsplit, _C, *y.shape[1:]), dtype=torch.float32, device=dv)
+    acc = torch.zeros((dev.nsplit, _C, *y.shape[1:]), dtype=y.dtype, device=dv)
     acc.index_add_(0, owner, part[slot])
     rows, real = _slice_rows(dev, s)
     y[rows[real]] = acc[real]

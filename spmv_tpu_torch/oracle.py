@@ -20,12 +20,17 @@ import numpy as np
 
 __all__ = ["golden_spmv", "check_result", "CheckReport", "default_x",
            "EPSILON", "fp32_rel_tol", "KERNEL_TOL_ABS", "row_scale",
-           "kernel_check"]
+           "kernel_check", "X2_TOL_REL", "x2_check"]
 
 # Reference absolute tolerance (helper_functions.h:11) — valid for its fp64
 # path.  The port computes in fp32, so ``check_result`` also supports a
 # mixed abs+rel criterion scaled by the accumulation length.
 EPSILON = 1e-6
+
+# Relative tolerance of the fp64-grade check (``x2_check``), per unit of
+# the row's Σ|v||x|: the JAX package's ``_run_x2`` criterion
+# (``spmv_tpu/cli.py:145-151``).
+X2_TOL_REL = 1e-9
 
 # Absolute floor of the fp32 kernel check (the JAX package's validator uses
 # the same, ``spmv_tpu/cli.py:87``).
@@ -137,3 +142,12 @@ def kernel_check(expected, actual, scale, max_row_nnz: int) -> CheckReport:
     and usually √k·eps·Σ|v||x|; ``fp32_rel_tol`` allows 32·√k·eps."""
     return check_result(expected, actual, tol_abs=KERNEL_TOL_ABS,
                         tol_rel=fp32_rel_tol(max_row_nnz), scale=scale)
+
+
+def x2_check(expected, actual, scale) -> CheckReport:
+    """The fp64-grade mode's criterion, JAX's verbatim
+    (``spmv_tpu/cli.py:145-151``): per row ``|Δ| ≤ 1e-6 + 1e-9 · Σ|v||x|``,
+    the reference's absolute EPSILON with a relative term far above the
+    double-single (and the port's fp64) rounding."""
+    return check_result(expected, actual, tol_abs=EPSILON, tol_rel=X2_TOL_REL,
+                        scale=scale)

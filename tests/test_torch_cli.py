@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,3 +79,23 @@ def test_devices(capsys):
     else:
         assert rc == ReturnCode.DEVICE_ERROR
         assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_a_conversion_error_returns_jaxs_code(capsys, tmp_path):
+    """``run --format bsr`` on a matrix past the BSR fill guard (a 40,000-row
+    diagonal: 313 tiles of 64 KB, 20.5 MB at 128x fill) fails while
+    converting, before any kernel; the port returns PROGRAM_ERROR as the
+    JAX package does (``spmv_tpu/cli.py:203-205``), with its message."""
+    import spmv_tpu.cli
+
+    n = 40_000
+    path = tmp_path / "diag.mtx"
+    i = np.arange(1, n + 1)
+    path.write_text("%%MatrixMarket matrix coordinate real general\n"
+                    f"{n} {n} {n}\n"
+                    + "\n".join(f"{k} {k} 1.5" for k in i) + "\n")
+    rc = cli.main(["run", "--format", "bsr", "--matrix", str(path),
+                   "--device", "cpu"])
+    assert "error:" in capsys.readouterr().err
+    rc_jax = spmv_tpu.cli.main(["run", "--format", "bsr", "--matrix", str(path)])
+    assert rc == rc_jax == ReturnCode.PROGRAM_ERROR == 2

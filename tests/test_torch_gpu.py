@@ -10,10 +10,11 @@ import pytest
 import torch
 
 from spmv_tpu_torch import CSRMatrix, EllMatrix, SellMatrix, synth
-from spmv_tpu_torch.formats.base import build_csr_plan, build_panel_plan
+from spmv_tpu_torch.formats.base import build_csr_plan, build_panel_plan, csr_ptr
 from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.kernels import _build
 from spmv_tpu_torch.kernels import engines as E
+from spmv_tpu_torch.kernels import engines_x2 as X2
 from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
 
@@ -121,12 +122,19 @@ def test_each_launch_counts_once(cuda):
     E.carry_fixup_multi_reference(dev, *E.segmented_spmv_multi_partials_reference(dev, X))
     P.panel_spmv_multi(a.dev, Xp)
     P.panel_fixup_multi_reference(a.dev, *P.panel_spmv_multi_partials_reference(a.dev, Xp))
+    dev64, pdev64, x64 = setup_x2("band_1024", cuda)
+    X2.segmented_spmv_x2(dev64, x64)
+    X2.carry_fixup_x2_reference(dev64, *X2.segmented_spmv_x2_partials_reference(dev64, x64))
+    X2.panel_spmv_x2(pdev64, x64)
+    X2.panel_fixup_x2_reference(pdev64, *X2.panel_spmv_x2_partials_reference(pdev64, x64))
     assert E.LAUNCHES == {"seg_spmv_tiles": 1, "carry_fixup": 1,
                           "csr_spmv_fused": 1, "panel_spmv_tiles": 1,
                           "panel_fixup": 1, "panel_spmv_fused": 1,
                           "inverse_permute": 1, "seg_spmm_tiles": 1,
                           "carry_fixup_multi": 1, "panel_spmm_tiles": 1,
-                          "panel_fixup_multi": 1}
+                          "panel_fixup_multi": 1, "seg_spmv_tiles_x2": 1,
+                          "carry_fixup_x2": 1, "panel_spmv_tiles_x2": 1,
+                          "panel_fixup_x2": 1}
 
 
 def test_empty_plans_launch_nothing(cuda):
@@ -147,6 +155,11 @@ def test_empty_plans_launch_nothing(cuda):
     X = torch.ones(dev.ncols, 4, device=cuda)
     assert not E.segmented_spmv_multi(dev, X).any()
     assert not P.panel_spmv_multi(panel, X).any()
+    dev64, pdev64, x64 = setup_x2("all_empty", cuda)
+    assert X2.segmented_spmv_x2(dev64, x64).tolist() == [0.0] * dev.nrows
+    assert X2.panel_spmv_x2(pdev64, x64).tolist() == [0.0] * dev.nrows
+    assert X2.inverse_permute_x2(empty, torch.zeros(0, dtype=torch.float64,
+                                                    device=cuda), 0).numel() == 0
     assert set(E.LAUNCHES.values()) == {0}
 
 
@@ -294,3 +307,152 @@ def test_spmm_on_the_card_passes_the_oracle(cuda, fmt):
         rep = kernel_check(golden_spmv(info.nrows, r, c, v, Xh[:, j]), Y[:, j].cpu().numpy(),
                            row_scale(info.nrows, r, c, v, Xh[:, j]), k)
         assert rep.ok, (j, rep)
+
+
+# ---------------------------------------------------------------- fp64 (x2)
+
+
+def setup_x2(name, device):
+    """A matrix's fp64 CSR plan and fp64 panel (row order, no split), and
+    an fp64 x with content below f32's mantissa."""
+    info, r, c, v = MATRICES[name]()
+    order = np.lexsort((c, r))
+    r, c = r[order], c[order]
+    v = np.asarray(v, np.float64)[order] * (1 + 1e-9 * np.arange(r.size))
+    dev = DevCsr.from_plan(build_csr_plan(info.nrows, info.ncols, csr_ptr(r, info.nrows),
+                                          c, v, dtype=np.float64), device)
+    pdev = DevPanel.from_plan(build_panel_plan(info.nrows, info.ncols, r, c, v,
+                                               dtype=np.float64), device)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(info.ncols)).to(device)
+    return dev, pdev, x
+
+
+def x2_bound(dev, x, k):
+    """``k·2⁻⁵⁰·Σ|v||x|`` per row of a plan: the kernel and its plain
+    version both sum each row in fp64, in different orders."""
+    ref = E.carry_fixup_reference(
+        dev, *E.segmented_spmv_partials_reference(
+            DevCsr(dev.ptr, dev.cols, dev.vals.abs(), dev.tile_row0,
+                   dev.carry_rows, dev.nrows, dev.ncols, dev.tile,
+                   dev.max_row_nnz), x.abs()))
+    return max(k, 1) * 2.0 ** -50 * ref
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_x2_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
+    """K12 + K13 on the fp64 CSR plan and K14 + K15 on the fp64 panel:
+    twice with the same bits, and within k·2⁻⁵⁰·Σ|v||x| of the plain
+    versions."""
+    dev, pdev, x = setup_x2(name, cuda)
+    bound = x2_bound(dev, x, dev.max_row_nnz)
+    y12, c12 = X2.segmented_spmv_x2_partials(dev, x)
+    y12b, c12b = X2.segmented_spmv_x2_partials(dev, x)
+    assert y12.dtype == c12.dtype == torch.float64
+    assert torch.equal(y12, y12b) and torch.equal(c12, c12b)
+    y = X2.carry_fixup_x2(dev, y12.clone(), c12)
+    assert torch.equal(y, X2.carry_fixup_x2(dev, y12.clone(), c12))
+    y_plain = X2.carry_fixup_x2_reference(
+        dev, *X2.segmented_spmv_x2_partials_reference(dev, x))
+    assert ((y - y_plain).abs() <= bound).all()
+    y14, p14 = X2.panel_spmv_x2_partials(pdev, x)
+    y14b, p14b = X2.panel_spmv_x2_partials(pdev, x)
+    assert torch.equal(y14, y14b) and torch.equal(p14, p14b)
+    yp = X2.panel_fixup_x2(pdev, y14.clone(), p14)
+    assert torch.equal(yp, X2.panel_fixup_x2(pdev, y14.clone(), p14))
+    yp_plain = X2.panel_fixup_x2_reference(
+        pdev, *X2.panel_spmv_x2_partials_reference(pdev, x))
+    pbound = x2_bound(dev, x, max(pdev.max_width, 1))
+    assert ((yp - yp_plain).abs() <= pbound).all()
+    assert ((yp - y).abs() <= pbound).all()  # both engines, the same rows
+    torch.cuda.synchronize()
+
+
+def test_x2_gather_is_a_bit_copy(cuda):
+    import spmv_tpu_torch
+
+    info, r, c, v = MATRICES["band_1024"]()
+    a = spmv_tpu_torch.X2Matrix.from_coo("sell", info.nrows, info.ncols, r, c, v,
+                                         device=cuda)
+    assert a.sorted_rows
+    rng = np.random.default_rng(5)
+    yh = rng.standard_normal(a.dev.nrows) * 2.0 ** rng.integers(-1070, 1000, a.dev.nrows)
+    y_sorted = torch.from_numpy(yh).to(cuda)
+    E.reset_launches()
+    got = X2.inverse_permute_x2(a.invperm_dev, y_sorted, a.nrows)
+    assert E.LAUNCHES["inverse_permute"] == 1
+    want = y_sorted[a.invperm_dev[:a.nrows].long()]
+    assert got.dtype == torch.float64
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+    ref = X2.inverse_permute_x2_reference(a.invperm_dev, y_sorted, a.nrows)
+    assert got.cpu().numpy().tobytes() == ref.cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("fmt", ["csr", "coo", "cmrs", "ell", "sell", "hyb"])
+def test_x2_matvec_on_the_card(cuda, fmt):
+    """``X2Matrix.matvec`` on the 8192-row cant-like matrix: fp64 y within
+    the fp64 bound of the oracle, through the fp64 kernels only."""
+    import spmv_tpu_torch
+    from spmv_tpu_torch.oracle import golden_spmv, x2_check
+
+    info, r, c, v = MATRICES["cant_8192"]()
+    v = np.asarray(v, np.float64) * (1 + 1e-9 * np.arange(r.size))
+    xh = np.random.default_rng(8).standard_normal(info.ncols)
+    a = spmv_tpu_torch.X2Matrix.from_coo(fmt, info.nrows, info.ncols, r, c, v,
+                                         device=cuda)
+    E.reset_launches()
+    y = a.matvec(xh)
+    assert y.dtype == torch.float64 and y.device.type == "cuda"
+    ran = {k for k, n in E.LAUNCHES.items() if n}
+    assert ran and ran <= {"seg_spmv_tiles_x2", "carry_fixup_x2",
+                           "panel_spmv_tiles_x2", "panel_fixup_x2",
+                           "inverse_permute"}, ran
+    scale = row_scale(info.nrows, r, c, v, xh)
+    k = int(np.bincount(r, minlength=info.nrows).max())
+    err = np.abs(y.cpu().numpy() - golden_spmv(info.nrows, r, c, v, xh))
+    assert (err <= k * 2.0 ** -50 * scale).all()
+    assert x2_check(golden_spmv(info.nrows, r, c, v, xh), y.cpu().numpy(), scale).ok
+    Y = spmv_tpu_torch.spmm(a, np.stack([xh, -xh], axis=1))
+    assert Y.dtype == torch.float64 and torch.equal(Y[:, 0], y)
+
+
+def test_refused_x2_launch_raises(cuda):
+    info, r, c, v = synth.edge_case("ragged")
+    order = np.lexsort((c, r))
+    a = CSRMatrix.from_coo(info.nrows, info.ncols, r, c, v, device="cpu")
+    dev = DevCsr.from_plan(build_csr_plan(info.nrows, info.ncols, a.ptr, c[order],
+                                          v[order], tile=16, dtype=np.float64), cuda)
+    x = torch.ones(info.ncols, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="tile"):
+        X2.segmented_spmv_x2_partials(dev, x)
+    lib = _build.library().lib
+    y = torch.zeros(dev.nrows, dtype=torch.float64, device=cuda)
+    carry = torch.zeros(2 * dev.ntiles, dtype=torch.float64, device=cuda)
+    rc = lib.seg_spmv_tiles_x2(dev.ptr.data_ptr(), dev.cols.data_ptr(),
+                               dev.vals.data_ptr(), dev.tile_row0.data_ptr(),
+                               x.data_ptr(), y.data_ptr(), carry.data_ptr(),
+                               dev.nnz, dev.ntiles, dev.tile,
+                               torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    pdev = DevPanel.from_plan(build_panel_plan(info.nrows, info.ncols, r[order],
+                                               c[order], v[order], tile=3,
+                                               dtype=np.float64), cuda)
+    with pytest.raises(ValueError, match="tile"):
+        X2.panel_spmv_x2_partials(pdev, x)
+
+
+def test_a_conversion_error_returns_program_error_on_the_card(cuda, tmp_path, capsys):
+    """The CLI's code for a matrix the format refuses, on the CUDA route:
+    the BSR fill guard on a 40,000-row diagonal (``test_torch_cli.py``)."""
+    from spmv_tpu_torch import cli
+    from spmv_tpu_torch.errors import ReturnCode
+
+    n = 40_000
+    path = tmp_path / "diag.mtx"
+    path.write_text("%%MatrixMarket matrix coordinate real general\n"
+                    f"{n} {n} {n}\n"
+                    + "\n".join(f"{k} {k} 1.5" for k in range(1, n + 1)) + "\n")
+    assert cli.main(["run", "--format", "bsr", "--matrix", str(path)]) == \
+        ReturnCode.PROGRAM_ERROR
+    assert cli.main(["run", "--format", "bsr", "--dtype", "f32x2", "--matrix",
+                     str(path)]) == ReturnCode.PROGRAM_ERROR
+    assert "error:" in capsys.readouterr().err
