@@ -50,8 +50,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    K15 (panel formats) and K7 (sorted SELL), and through no float32 tile
    kernel (K1, K3, K4, K6, K8, K10).
 5. Times per call (CUDA events around one call, median of 30 after warm-up;
-   host launch work included) and on the device (``torch.profiler``, the
-   card's own kernel and memset time): each kernel and its plain version
+   host launch work included) and on the device (CUDA events around a CUDA
+   graph of 20 calls for the kernels, the kernel paths and the library
+   calls; ``torch.profiler``'s kernel and memset time for the containers'
+   calls; the plain versions, which sync with the host, per call only):
+   each kernel and its plain version
    at cant scale and on the power-law matrices, the two-dispatch and fused
    shapes of both engines from 512 rows up (the fused threshold), every
    format's ``matvec`` beside CSR's on the main and power-law suites, K8-K11
@@ -59,8 +62,23 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    against R ``matvec`` calls for csr and sell on cant, BSR at R = 32 on
    cant in Gnnz·vec/s, K12-K15 and their plain versions at cant, the x2
    ``matvec`` of all six formats beside the f32 one on cant, and K12 + K13
-   at ``pl_big``.
-6. One JSON line with the kernels, then the result line.
+   at ``pl_big``. Beside each kernel: its library yardstick (one PyTorch
+   call that computes the same y: ``torch.sparse_csr_tensor @ x``, cuSPARSE;
+   ``index_select`` for K7), timed as the kernel is and used nowhere in
+   the port.
+6. The probes (``spmv_tpu_torch.probes``, the B12 counterparts): each
+   probe kernel against its plain version on band-1024 and cant, twice
+   with the same bits, with uint16 columns, nogather and x32 bit for bit
+   the production kernel on the same x, and their times at cant as in
+   phase 5; then, with the counters from zero, every probe on cant
+   (ablate, x2, pack, accum, spmm), x2 on band-1024 and ablate and x2 on
+   ``pl_big``, each checked and timed warm and cold against the co-sampled
+   ceiling; the counters must show every probe kernel.
+7. One line per kernel with its time, bound and library time; one JSON
+   line with the kernels (each with ``bound_ms``, from the bytes and
+   operations of this run's inputs at the H100's published peaks, and
+   ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``);
+   then the result line.
 """
 
 from __future__ import annotations
@@ -68,7 +86,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -94,6 +111,37 @@ KERNELS = {
     "carry_fixup_x2": ("seg_spmv.cu", "spmv_tpu/kernels/engines_x2.py:267"),
     "panel_spmv_tiles_x2": ("panel_spmv.cu", "spmv_tpu/kernels/engines_x2.py:205"),
     "panel_fixup_x2": ("panel_spmv.cu", "spmv_tpu/kernels/engines_x2.py:205"),
+    # the probes' kernels (phase 6): each replaces a B12 probe
+    "seg_spmv_tiles_u16": ("probe_spmv.cu", "scripts/probe_pack.py:147"),
+    "seg_spmv_tiles_u16_x2": ("probe_spmv.cu", "scripts/probe_pack.py:147"),
+    "seg_spmv_tiles_t128": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
+    "seg_spmv_tiles_t512": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
+    "seg_spmv_tiles_t2048": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
+    "carry_fixup_t128": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
+    "carry_fixup_t512": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
+    "carry_fixup_t2048": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
+    "seg_ablate_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
+    "seg_ablate_noseg": ("probe_spmv.cu", "scripts/probe_ablate2.py:175"),
+    "seg_ablate_dma": ("probe_spmv.cu", "scripts/probe_ablate3.py:211"),
+    "seg_ablate_x2_nogather": ("probe_spmv.cu", "scripts/probe_x2.py:241"),
+    "seg_ablate_x2_noseg": ("probe_spmv.cu", "scripts/probe_x2.py:241"),
+    "seg_ablate_x2_dma": ("probe_spmv.cu", "scripts/probe_x2.py:241"),
+    "seg_ablate_x2_x32": ("probe_spmv.cu", "scripts/probe_x2.py:241"),
+}
+# seg_ablate's modes cut the stages that all three TPU ablation probes cut
+ABLATE_ALSO = ("scripts/probe_ablate.py:152, scripts/probe_ablate2.py:175, "
+               "scripts/probe_ablate3.py:211 and :218")
+PROBE_KERNELS = tuple(k for k, (src, _) in KERNELS.items() if src == "probe_spmv.cu")
+# kernels that no single PyTorch call computes alone: the fix-ups, and the
+# stage cuts that reduce per tile
+NO_LIBRARY = {
+    **dict.fromkeys(("carry_fixup", "panel_fixup", "carry_fixup_multi",
+                     "panel_fixup_multi", "carry_fixup_x2", "panel_fixup_x2",
+                     "carry_fixup_t128", "carry_fixup_t512", "carry_fixup_t2048"),
+                    "none: no single call computes the carry fix-up alone"),
+    **dict.fromkeys(("seg_ablate_noseg", "seg_ablate_dma", "seg_ablate_x2_noseg",
+                     "seg_ablate_x2_dma"),
+                    "none: no single call sums a stream per 1024-nonzero tile"),
 }
 SEG = ("seg_spmv_tiles", "carry_fixup", "csr_spmv_fused")
 PANEL = ("panel_spmv_tiles", "panel_fixup", "panel_spmv_fused", "inverse_permute")
@@ -106,13 +154,7 @@ F32_TILES = ("seg_spmv_tiles", "csr_spmv_fused", "panel_spmv_tiles",
 FORMATS6 = ("csr", "coo", "cmrs", "ell", "sell", "hyb")
 CANT_N = 62_464  # bench.py:84-85
 REPS = 30
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+PROBE_ROUNDS = 3  # interleaved rounds of each probe in phase 6
 
 
 def time_ms(fn) -> float:
@@ -136,25 +178,78 @@ def time_ms(fn) -> float:
 def device_ms(fn, calls: int = 20) -> tuple[float | None, dict]:
     """Device time per call of ``fn`` from ``torch.profiler``: the summed
     durations of the kernels and memsets it ran on the card over ``calls``
-    calls, in ms, and the same split by kernel name. None when the profiler
-    saw no device activity."""
+    calls, in ms, and the same split by kernel name. The profiler on the
+    card's machine now and then records only part of a session's device
+    activity, so a session counts only when each kernel it saw ran at least
+    ``calls`` times; up to five are taken, and None (not measured) when
+    none was whole."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if seen and min(e.count for e in seen) >= calls:
+            by_name = {e.key: e.self_device_time_total / calls / 1e3 for e in seen}
+            return sum(by_name.values()), by_name
+    return None, {}
+
+
+def events_ms(fn, calls: int = 20, rounds: int = 5) -> float:
+    """ms per call of ``fn``: the median over ``rounds`` of CUDA events
+    around ``calls`` back-to-back calls, after one call. Host launch work
+    counts where it is slower than the card."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         for _ in range(calls):
             fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+# how each function's device time was taken, by its key in ``timed``
+DEVICE_TIMING: dict[str, str] = {}
+
+
+def graph_device_ms(k: str, fn) -> float:
+    """Device ms per call by CUDA-graph replay (``timing.graph_ms``: CUDA
+    events around a graph of 20 calls, launches and zero fills, no host
+    work). A library call that will not capture is timed by ``events_ms``
+    instead, and ``DEVICE_TIMING`` says so."""
+    from spmv_tpu_torch.probes.timing import graph_ms
+
+    try:
+        ms, how = graph_ms(fn), "CUDA graph replay"
+    except RuntimeError as e:
+        if not k.startswith("library"):
+            raise
         torch.cuda.synchronize()
-    by_name = {e.key: e.self_device_time_total / calls / 1e3
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
-    total = sum(by_name.values())
-    return (total if total > 0 else None), by_name
+        why = str(e).splitlines()[0][:100]
+        ms, how = events_ms(fn), f"CUDA events around 20 calls (no graph: {why})"
+    DEVICE_TIMING[k] = how
+    return ms
 
 
 def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def library_csr(dev) -> torch.Tensor:
+    """The plan's matrix as ``torch.sparse_csr_tensor`` (cuSPARSE): the
+    yardstick of ``library_ms``, timed here and used nowhere in the port."""
+    return torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals, (dev.nrows, dev.ncols))
 
 
 def slot_rows(dev) -> np.ndarray:
@@ -310,33 +405,51 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
     return errs
 
 
+def by_graph(k: str) -> bool:
+    """Whether ``timed`` takes ``k``'s device time by CUDA-graph replay:
+    the kernels, the kernel paths and the library yardsticks, so that those
+    compare by one method. The rest sync with the host inside a call: the
+    containers' ``matvec`` and ``spmm`` go to the profiler, and a plain
+    version (``*_plain``) is timed per call only."""
+    return k in KERNELS or k.startswith(("path ", "library "))
+
+
 def timed(label: str, fns: dict, card: str, nnz: int, nbytes: int) -> dict:
     """``{name: (call_ms, device_ms)}`` for each function, printed with its
-    rates; the device time split by kernel for all but the plain versions."""
+    rates. The device time is ``graph_device_ms``'s where ``by_graph``,
+    none for a plain version, else the profiler's, split by kernel ("not
+    measured" when no session was whole: ``device_ms``)."""
     gb = nbytes / 1e9
     t = {}
     for k, fn in fns.items():
         call = time_ms(fn)
-        dms, by_name = device_ms(fn)
+        if by_graph(k):
+            dms, by_name = graph_device_ms(k, fn), {}
+            how = DEVICE_TIMING[k]
+        elif k.endswith("_plain"):
+            dms, by_name, how = None, {}, "per call only"
+        else:
+            (dms, by_name), how = device_ms(fn), "profiler"
         t[k] = (call, dms)
         line = (f"    {k:24s} call {call:9.4f} ms  {nnz / call / 1e6:8.2f} "
                 f"Gnnz/s  {gb / call * 1e3:8.1f} GB/s | device {fmt_ms(dms)}")
         if dms:
             line += (f"  {nnz / dms / 1e6:8.2f} Gnnz/s  "
                      f"{gb / dms * 1e3:8.1f} GB/s")
-        print(f"{line}  [{card}]")
-        if not k.endswith("_plain"):
-            for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
-                print(f"        {ms:9.4f} ms  {name[:70]}")
+        print(f"{line} ({how})  [{card}]")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+            print(f"        {ms:9.4f} ms  {name[:70]}")
     return t
 
 
 def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
-    """Phase 5, segmented engine: K1-K3, their plain versions (with
-    ``plain``) and the K1+K2 path on one matrix, and the plan's bytes
-    under ``plan_bytes``."""
+    """Phase 5, segmented engine: K1-K3, their plain versions and the
+    library yardstick (with ``plain``) and the K1+K2 path on one matrix;
+    the plan's bytes under ``plan_bytes``, each kernel's bytes and
+    operations under ``bytes`` and ``flops``."""
     from spmv_tpu_torch import CSRMatrix
     from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.probes import bounds as B
 
     info, rows, cols, vals = trip
     dev = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals,
@@ -356,19 +469,29 @@ def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
             "carry_fixup_plain": lambda: E.carry_fixup_reference(dev, y, carry),
             "csr_spmv_fused_plain": lambda: E.segmented_spmv_fused_reference(dev, x),
         })
+        A = library_csr(dev)
+        fns["library csr@x"] = lambda: A @ x
     print(f"  {label} csr: {info.nrows} rows, nnz {dev.nnz}, plan "
           f"{dev.stream_bytes} B, tiles {dev.ntiles}, split rows {dev.ncarry}, "
           f"K3 lanes/row {E.fused_lanes(dev)}  [{card}]")
     t = timed(label, fns, card, dev.nnz, dev.stream_bytes)
     t["plan_bytes"] = dev.stream_bytes
+    t["bytes"] = {"seg_spmv_tiles": B.seg_tiles_bytes(dev), "carry_fixup": B.fixup_bytes(dev),
+                  "csr_spmv_fused": B.fused_bytes(dev)}
+    t["flops"] = {"seg_spmv_tiles": 2 * dev.nnz, "carry_fixup": 0,
+                  "csr_spmv_fused": 2 * dev.nnz}
     return t
 
 
-def time_panel(label: str, a, card: str, plain: bool = True) -> dict:
+def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
     """Phase 5, panel engine: K4-K7, their plain versions (with
-    ``plain``) and the K4+K5 path on one container's panel, and the panel's
-    bytes under ``plan_bytes``."""
+    ``plain``) and the K4+K5 path on one container's panel; with ``csr``
+    (the same matrix's CSR plan) the library yardsticks of the panel's y
+    (cuSPARSE on that plan) and of K7 (an index gather). The panel's bytes
+    under ``plan_bytes``, each kernel's bytes and operations under
+    ``bytes`` and ``flops``."""
     from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.probes import bounds as B
 
     dev = a.dev
     sorted_ = getattr(a, "sorted_rows", False)
@@ -393,12 +516,24 @@ def time_panel(label: str, a, card: str, plain: bool = True) -> dict:
         if sorted_:
             fns["inverse_permute_plain"] = lambda: P.inverse_permute_reference(
                 a.invperm_dev, y6, a.nrows)
+    if csr is not None:
+        A = library_csr(csr)
+        fns["library csr@x"] = lambda: A @ x
+        if sorted_:
+            perm = a.invperm_dev[:a.nrows].long()
+            fns["library index_select"] = lambda: y6.index_select(0, perm)
     print(f"  {label}: {a.nrows} rows, panel nnz {a.panel_nnz} in {dev.nslots} "
           f"slots ({dev.nslots / max(a.panel_nnz, 1):.3f}x), panel "
           f"{dev.stream_bytes} B, tiles {dev.ntiles}, split slices "
           f"{dev.nsplit}, max width {dev.max_width}, sorted {sorted_}  [{card}]")
     t = timed(label, fns, card, a.panel_nnz, dev.stream_bytes)
     t["plan_bytes"] = dev.stream_bytes
+    t["bytes"] = {"panel_spmv_tiles": B.panel_tiles_bytes(dev),
+                  "panel_fixup": B.panel_fixup_bytes(dev),
+                  "panel_spmv_fused": B.panel_fused_bytes(dev),
+                  "inverse_permute": B.permute_bytes(a.nrows, 4)}
+    t["flops"] = {"panel_spmv_tiles": 2 * a.panel_nnz, "panel_fixup": 0,
+                  "panel_spmv_fused": 2 * a.panel_nnz, "inverse_permute": 0}
     return t
 
 
@@ -522,6 +657,7 @@ def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
     each engine's two-kernel path."""
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.probes import bounds as B
 
     info = trip[0]
     dev = build("csr", trip).dev
@@ -530,12 +666,14 @@ def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
         (info.ncols, R)).astype(np.float32)).cuda()
     Y8, c8 = E.segmented_spmv_multi_partials(dev, X)
     Y10, p10 = P.panel_spmv_multi_partials(pdev, X)
+    A = library_csr(dev)
     seg = {
         "seg_spmm_tiles": lambda: E.segmented_spmv_multi_partials(dev, X),
         "carry_fixup_multi": lambda: E.carry_fixup_multi(dev, Y8, c8),
         "path K8+K9": lambda: E.segmented_spmv_multi(dev, X),
         "seg_spmm_tiles_plain": lambda: E.segmented_spmv_multi_partials_reference(dev, X),
         "carry_fixup_multi_plain": lambda: E.carry_fixup_multi_reference(dev, Y8, c8),
+        "library csr@X": lambda: A @ X,
     }
     panel = {
         "panel_spmm_tiles": lambda: P.panel_spmv_multi_partials(pdev, X),
@@ -549,6 +687,12 @@ def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
           f"{pdev.nsplit}  [{card}]")
     t = timed(label, seg, card, dev.nnz * R, dev.stream_bytes)
     t.update(timed(label, panel, card, a_sell.panel_nnz * R, pdev.stream_bytes))
+    t["bytes"] = {"seg_spmm_tiles": B.seg_tiles_bytes(dev, R),
+                  "carry_fixup_multi": B.fixup_bytes(dev, R),
+                  "panel_spmm_tiles": B.panel_tiles_bytes(pdev, R),
+                  "panel_fixup_multi": B.panel_fixup_bytes(pdev, R)}
+    t["flops"] = {"seg_spmm_tiles": 2 * dev.nnz * R, "carry_fixup_multi": 0,
+                  "panel_spmm_tiles": 2 * a_sell.panel_nnz * R, "panel_fixup_multi": 0}
     return t
 
 
@@ -698,6 +842,7 @@ def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
     path."""
     from spmv_tpu_torch import X2Matrix
     from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.probes import bounds as B
 
     info, rows, cols, vals = trip
     xh = np.random.default_rng(3).standard_normal(info.ncols)
@@ -705,17 +850,22 @@ def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
     dev = X2Matrix.from_coo("csr", info.nrows, info.ncols, rows, cols, vals,
                             device="cuda").dev
     y, carry = X2.segmented_spmv_x2_partials(dev, x)
+    A = library_csr(dev)
     seg = {
         "seg_spmv_tiles_x2": lambda: X2.segmented_spmv_x2_partials(dev, x),
         "carry_fixup_x2": lambda: X2.carry_fixup_x2(dev, y, carry),
         "path K12+K13": lambda: X2.segmented_spmv_x2(dev, x),
         "seg_spmv_tiles_x2_plain": lambda: X2.segmented_spmv_x2_partials_reference(dev, x),
         "carry_fixup_x2_plain": lambda: X2.carry_fixup_x2_reference(dev, y, carry),
+        "library csr@x": lambda: A @ x,
     }
     print(f"  {label} x2: csr fp64 plan {dev.stream_bytes} B, split rows "
           f"{dev.ncarry}  [{card}]")
     t = timed(label, seg, card, dev.nnz, dev.stream_bytes)
     t["plan_bytes"] = dev.stream_bytes
+    t["bytes"] = {"seg_spmv_tiles_x2": B.seg_tiles_bytes(dev),
+                  "carry_fixup_x2": B.fixup_bytes(dev)}
+    t["flops"] = {"seg_spmv_tiles_x2": 2 * dev.nnz, "carry_fixup_x2": 0}
     if not panel:
         return t
     sell = X2Matrix.from_coo("sell", info.nrows, info.ncols, rows, cols, vals,
@@ -737,7 +887,225 @@ def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
           f"{sell.shape}, sorted {sell.sorted_rows}), split slices "
           f"{pdev.nsplit}  [{card}]")
     t.update(timed(label, panel_fns, card, sell.panel_nnz, pdev.stream_bytes))
+    t["bytes"].update(panel_spmv_tiles_x2=B.panel_tiles_bytes(pdev),
+                      panel_fixup_x2=B.panel_fixup_bytes(pdev))
+    t["flops"].update(panel_spmv_tiles_x2=2 * sell.panel_nnz, panel_fixup_x2=0)
     return t
+
+
+# ---------------------------------------------------------------- probes
+
+
+def within_tiles(name: str, got: torch.Tensor, want: torch.Tensor, vals, cols,
+                 x=None) -> float:
+    """A noseg or dma result against its plain version: per tile within
+    ``probes.common.tile_sum_bound`` (both sum 1024 terms in other
+    orders). Returns the max |got - want|."""
+    from spmv_tpu_torch.probes.common import tile_sum_bound
+
+    err = (got.double() - want.double()).abs().cpu().numpy()
+    bad = err > tile_sum_bound(vals, cols, x)
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise AssertionError(f"{name}: tile {i} differs by {err[i]:.3e} "
+                             f"(got {float(got[i])!r}, plain {float(want[i])!r})")
+    return float(err.max()) if err.size else 0.0
+
+
+def check_probes(label: str, trip, seed: int) -> dict:
+    """Phase 6, the probe kernels on one matrix: each against its plain
+    version and twice with the same bits; uint16 columns, nogather and x32
+    against the production kernel on the same x, bit for bit; the tile
+    variants' y against the fp64 oracle. Returns the max abs error per
+    kernel."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import probes as KP
+    from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
+
+    info, rows, cols, vals = trip
+    dev = build("csr", trip).dev
+    dev64 = X2Matrix.from_coo("csr", info.nrows, info.ncols, rows, cols, vals,
+                              device="cuda").dev
+    xh = np.random.default_rng(seed).standard_normal(info.ncols)
+    x, x64 = torch.from_numpy(xh.astype(np.float32)).cuda(), torch.from_numpy(xh).cuda()
+    v32, v64 = vals.astype(np.float32), np.asarray(vals, np.float64)
+    tol, k = fp32_rel_tol(dev.max_row_nnz), dev.max_row_nnz
+
+    def carry_scale(d, scale):
+        owner = slot_rows(d)
+        return np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
+
+    def bitwise(name, got, want):
+        if not all(torch.equal(a, b) for a, b in zip(got, want, strict=True)):
+            raise AssertionError(f"{label} {name}: not bit for bit the production kernel")
+
+    def f32_partials(name, got, plain, scale, d=dev):
+        return max(within(f"{label} {name} y", got[0], plain[0], scale, tol),
+                   within(f"{label} {name} carry", got[1], plain[1],
+                          carry_scale(d, scale), tol))
+
+    def f64_partials(name, got, plain, scale):
+        return max(within_x2(f"{label} {name} y", got[0], plain[0], scale, k),
+                   within_x2(f"{label} {name} carry", got[1], plain[1],
+                             carry_scale(dev64, scale), k))
+
+    errs = {}
+    s32, s64 = row_scale(info.nrows, rows, cols, v32, xh), row_scale(info.nrows, rows, cols, v64, xh)
+    c16 = KP.cols16(dev)
+    got = same_bits("seg_spmv_tiles_u16", lambda: KP.segmented_spmv_partials_u16(dev, c16, x))
+    bitwise("seg_spmv_tiles_u16", got, E.segmented_spmv_partials(dev, x))
+    errs["seg_spmv_tiles_u16"] = f32_partials(
+        "seg_spmv_tiles_u16", got, KP.segmented_spmv_partials_u16_reference(dev, c16, x), s32)
+    got = same_bits("seg_spmv_tiles_u16_x2",
+                    lambda: KP.segmented_spmv_partials_u16(dev64, c16, x64))
+    bitwise("seg_spmv_tiles_u16_x2", got, X2.segmented_spmv_x2_partials(dev64, x64))
+    errs["seg_spmv_tiles_u16_x2"] = f64_partials(
+        "seg_spmv_tiles_u16_x2", got,
+        KP.segmented_spmv_partials_u16_reference(dev64, c16, x64), s64)
+    for tile in KP.PROBE_TILES:
+        dt = KP.retile(dev, tile)
+        name = f"seg_spmv_tiles_t{tile}"
+        ya, ca = same_bits(name, lambda: KP.segmented_spmv_partials_at(dt, x))
+        errs[name] = f32_partials(name, (ya, ca),
+                                  KP.segmented_spmv_partials_at_reference(dt, x), s32, dt)
+        name = f"carry_fixup_t{tile}"
+        y = same_bits(name, lambda: KP.carry_fixup_at(dt, ya.clone(), ca))
+        errs[name] = within(f"{label} {name}", y,
+                            KP.carry_fixup_at_reference(dt, ya.clone(), ca), s32, tol)
+        check_oracle(f"{label} tile {tile} K1+K2", trip, y, xh.astype(np.float32))
+    xt = KP.xtilde(info.ncols, torch.float32, "cuda")
+    st = row_scale(info.nrows, rows, cols, v32, xt.cpu().numpy())
+    got = same_bits("seg_ablate_nogather", lambda: KP.ablate_nogather(dev))
+    bitwise("seg_ablate_nogather", got, E.segmented_spmv_partials(dev, xt))
+    errs["seg_ablate_nogather"] = f32_partials("seg_ablate_nogather", got,
+                                               KP.ablate_nogather_reference(dev), st)
+    xt64 = KP.xtilde(info.ncols, torch.float64, "cuda")
+    got = same_bits("seg_ablate_x2_nogather", lambda: KP.ablate_nogather(dev64))
+    bitwise("seg_ablate_x2_nogather", got, X2.segmented_spmv_x2_partials(dev64, xt64))
+    errs["seg_ablate_x2_nogather"] = f64_partials(
+        "seg_ablate_x2_nogather", got, KP.ablate_nogather_reference(dev64),
+        row_scale(info.nrows, rows, cols, v64, xt64.cpu().numpy()))
+    x32 = x64.float()
+    got = same_bits("seg_ablate_x2_x32", lambda: KP.ablate_x32(dev64, x32))
+    bitwise("seg_ablate_x2_x32", got, X2.segmented_spmv_x2_partials(dev64, x32.double()))
+    errs["seg_ablate_x2_x32"] = f64_partials(
+        "seg_ablate_x2_x32", got, KP.ablate_x32_reference(dev64, x32),
+        row_scale(info.nrows, rows, cols, v64, x32.double().cpu().numpy()))
+    for d, xx, sfx in ((dev, x, ""), (dev64, x64, "_x2")):
+        name = f"seg_ablate{sfx}_noseg"
+        out = same_bits(name, lambda: KP.ablate_noseg(d.vals, d.cols, xx))
+        errs[name] = within_tiles(f"{label} {name}", out,
+                                  KP.ablate_noseg_reference(d.vals, d.cols, xx),
+                                  d.vals, d.cols, xx)
+        name = f"seg_ablate{sfx}_dma"
+        out = same_bits(name, lambda: KP.ablate_dma(d.vals, d.cols))
+        errs[name] = within_tiles(f"{label} {name}", out,
+                                  KP.ablate_dma_reference(d.vals, d.cols), d.vals, d.cols)
+    torch.cuda.synchronize()
+    print(f"  {label}: probe kernels against their plain versions, max |kernel - "
+          f"plain| " + "  ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + "; two runs bitwise equal; uint16 columns, nogather on x̃ and x32 on "
+          "the widened x bit for bit K1's / K12's; tile variants pass the fp64 oracle")
+    return errs
+
+
+def time_probes(label: str, trip, card: str) -> dict:
+    """Phase 6, the probe kernels and their plain versions on one matrix,
+    per call and on the device, with each kernel's bytes and operations."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import probes as KP
+    from spmv_tpu_torch.probes import bounds as B
+
+    info, rows, cols, vals = trip
+    dev = build("csr", trip).dev
+    dev64 = X2Matrix.from_coo("csr", info.nrows, info.ncols, rows, cols, vals,
+                              device="cuda").dev
+    x64 = torch.from_numpy(np.random.default_rng(3).standard_normal(info.ncols)).cuda()
+    x = x64.float()  # the float32 x of K1, and x32's gathered copy
+    c16 = KP.cols16(dev)
+    fns, nbytes, flops = {}, {}, {}
+
+    def add(name, fn, plain, nb, fl=2 * dev.nnz):
+        fns[name], fns[f"{name}_plain"] = fn, plain
+        nbytes[name], flops[name] = nb, fl
+
+    add("seg_spmv_tiles_u16", lambda: KP.segmented_spmv_partials_u16(dev, c16, x),
+        lambda: KP.segmented_spmv_partials_u16_reference(dev, c16, x),
+        B.seg_tiles_bytes(dev, cols=c16))
+    add("seg_spmv_tiles_u16_x2", lambda: KP.segmented_spmv_partials_u16(dev64, c16, x64),
+        lambda: KP.segmented_spmv_partials_u16_reference(dev64, c16, x64),
+        B.seg_tiles_bytes(dev64, cols=c16))
+    for tile in KP.PROBE_TILES:
+        dt = KP.retile(dev, tile)
+        y, carry = KP.segmented_spmv_partials_at(dt, x)
+        add(f"seg_spmv_tiles_t{tile}", lambda dt=dt: KP.segmented_spmv_partials_at(dt, x),
+            lambda dt=dt: KP.segmented_spmv_partials_at_reference(dt, x),
+            B.seg_tiles_bytes(dt))
+        add(f"carry_fixup_t{tile}", lambda dt=dt, y=y, c=carry: KP.carry_fixup_at(dt, y, c),
+            lambda dt=dt, y=y, c=carry: KP.carry_fixup_at_reference(dt, y.clone(), c),
+            B.fixup_bytes(dt), 0)
+    for d, xx, sfx in ((dev, x, ""), (dev64, x64, "_x2")):
+        add(f"seg_ablate{sfx}_nogather", lambda d=d: KP.ablate_nogather(d),
+            lambda d=d: KP.ablate_nogather_reference(d), B.seg_tiles_bytes(d, x_itemsize=0))
+        add(f"seg_ablate{sfx}_noseg", lambda d=d, xx=xx: KP.ablate_noseg(d.vals, d.cols, xx),
+            lambda d=d, xx=xx: KP.ablate_noseg_reference(d.vals, d.cols, xx),
+            B.stream_bytes(d.vals, d.cols, xx))
+        add(f"seg_ablate{sfx}_dma", lambda d=d: KP.ablate_dma(d.vals, d.cols),
+            lambda d=d: KP.ablate_dma_reference(d.vals, d.cols),
+            B.stream_bytes(d.vals, d.cols), 3 * dev.nnz)
+    add("seg_ablate_x2_x32", lambda: KP.ablate_x32(dev64, x),
+        lambda: KP.ablate_x32_reference(dev64, x), B.seg_tiles_bytes(dev64, x_itemsize=4))
+    print(f"  {label} probe kernels: float32 plan {dev.stream_bytes} B, float64 "
+          f"plan {dev64.stream_bytes} B  [{card}]")
+    t = timed(label, fns, card, dev.nnz, dev.stream_bytes)
+    t["bytes"], t["flops"] = nbytes, flops
+    return t
+
+
+# the library yardstick of each kernel row: the key its timing is under,
+# and what it computes
+LIBRARY_CALLS = {
+    **dict.fromkeys(("seg_spmv_tiles", "csr_spmv_fused"), (
+        "library csr@x", "torch.sparse_csr_tensor(ptr, cols, vals) @ x (cuSPARSE), "
+        "float32: the y of K1 + K2 and of K3")),
+    **dict.fromkeys(("panel_spmv_tiles", "panel_spmv_fused"), (
+        "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE) on the same "
+        "matrix's CSR plan, float32: the y of K4 + K5 and of K6")),
+    "inverse_permute": ("library index_select", "y_sorted.index_select(0, perm)"),
+    **dict.fromkeys(("seg_spmm_tiles", "panel_spmm_tiles"), (
+        "library csr@X", "torch.sparse_csr_tensor @ X (cuSPARSE), float32, R = 4")),
+    **dict.fromkeys(("seg_spmv_tiles_x2", "panel_spmv_tiles_x2"), (
+        "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE), float64")),
+    **dict.fromkeys(("seg_spmv_tiles_u16", "seg_spmv_tiles_t128", "seg_spmv_tiles_t512",
+                     "seg_spmv_tiles_t2048", "seg_ablate_nogather"), (
+        "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE), float32, at "
+        "the same shapes (K1's row)")),
+    **dict.fromkeys(("seg_spmv_tiles_u16_x2", "seg_ablate_x2_nogather",
+                     "seg_ablate_x2_x32"), (
+        "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE), float64, at "
+        "the same shapes (K12's row)")),
+}
+
+
+def bound_fields(k: str, t: dict) -> dict:
+    """bound_ms and what bounds it, from the bytes and operations this
+    run's inputs give kernel ``k``."""
+    from spmv_tpu_torch.probes.bounds import bound_ms
+
+    dtype = torch.float64 if "_x2" in k else torch.float32
+    ms, by = bound_ms(t["bytes"][k], t["flops"][k], dtype)
+    return {"bound_ms": ms, "bound_by": by, "bytes": t["bytes"][k]}
+
+
+def library_fields(k: str, t: dict) -> dict:
+    if k in NO_LIBRARY:
+        return {"library_ms": None, "library_device_ms": None,
+                "library_call": NO_LIBRARY[k]}
+    key, what = LIBRARY_CALLS[k]
+    return {"library_ms": t[key][0], "library_device_ms": t[key][1],
+            "library_device_timing": DEVICE_TIMING[key], "library_call": what}
 
 
 def main() -> int:
@@ -750,6 +1118,8 @@ def main() -> int:
     from spmv_tpu_torch import cli, synth
     from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.probes import run_probe
+    from spmv_tpu_torch.probes.timing import card_line
 
     t_start = time.perf_counter()
     # 1. the card and the build
@@ -936,14 +1306,16 @@ def main() -> int:
 
     # 5. times
     print(f"phase 5: times per call (CUDA events, median of {REPS} single "
-          "calls after 3 warm-up calls) and on the device (torch.profiler)")
+          "calls after 3 warm-up calls) and on the device (CUDA-graph replay "
+          "for kernels, paths and library calls, torch.profiler otherwise)")
     cl = f"cant-{CANT_N}"
     tc = time_matrix(cl, cant, card)
-    times = {cl: tc,
-             "pl_big-524288": time_matrix("pl_big-524288", pl_big, card),
+    tc_dev = build("csr", cant).dev
+    tc_big = time_matrix("pl_big-524288", pl_big, card)
+    times = {cl: tc, "pl_big-524288": tc_big,
              "pl_wide-524288": time_matrix("pl_wide-524288", pl_wide, card)}
     cant_sell = build("sell", cant)
-    tp = time_panel(f"{cl} sell", cant_sell, card)
+    tp = time_panel(f"{cl} sell", cant_sell, card, csr=tc_dev)
     ptimes = {f"{cl} sell": tp,
               f"{cl} ell_pure": time_panel(f"{cl} ell_pure",
                                            build("ell", cant, split=False), card),
@@ -1006,7 +1378,7 @@ def main() -> int:
               f"{cant_bsr.fill:.2f}x  [{card}]")
     print(f"fp64-grade kernels at cant and K12 + K13 at pl_big  [{card}]")
     tx = time_x2(cl, cant, card)
-    time_x2("pl_big-524288", pl_big, card, panel=False)
+    tx_big = time_x2("pl_big-524288", pl_big, card, panel=False)
     print(f"f32x2 against f32 matvec per format at cant, ms per call | "
           f"device  [{card}]")
     xh64 = np.random.default_rng(3).standard_normal(cant[0].ncols)
@@ -1025,20 +1397,71 @@ def main() -> int:
               f"{a64.sorted_rows}): {c64:.4f} | {fmt_ms(d64)}  [{card}]")
     print(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 6. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
-    # SELL-C-σ panel the split builds there, K8-K11 on both at R = 4)
+    # 6. the probes: their kernels against their plain versions and their
+    # times at cant, then every probe on cant (x2 on band-1024, ablate and
+    # x2 on pl_big too) with the counters from zero
+    print("phase 6: probes")
+    perrs = {k: 0.0 for k in PROBE_KERNELS}
+    for label, trip, seed in (("band-1024", band, 21), (f"cant-{CANT_N}", cant, 22)):
+        for k, e in check_probes(label, trip, seed).items():
+            perrs[k] = max(perrs[k], e)
+    tq = time_probes(cl, cant, card)
+    E.reset_launches()
+    for name in ("ablate", "x2", "pack", "accum", "spmm"):
+        run_probe(name, "cant", trip=cant, rounds=PROBE_ROUNDS)
+    run_probe("x2", "band", trip=band, rounds=PROBE_ROUNDS)
+    for name in ("ablate", "x2"):
+        run_probe(name, "pl_big", trip=pl_big, rounds=PROBE_ROUNDS)
+    torch.cuda.synchronize()
+    probe_launches = dict(E.LAUNCHES)
+    missing = [k for k in PROBE_KERNELS if probe_launches[k] < 1]
+    if missing:
+        raise SystemExit(f"the probe runs did not launch {missing}")
+    print(f"  probe runs, launches: { {k: probe_launches[k] for k in PROBE_KERNELS} }")
+    launches.update({k: probe_launches[k] for k in PROBE_KERNELS})
+    print(f"  phase 6 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 7. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
+    # SELL-C-σ panel the split builds there, K8-K11 on both at R = 4, the
+    # probe kernels on the CSR plans), K1 and K12 at pl_big too
+    errs.update(perrs)
+    lib_f32 = {k: tc for k in ("seg_spmv_tiles_u16", "seg_spmv_tiles_t128",
+                               "seg_spmv_tiles_t512", "seg_spmv_tiles_t2048",
+                               "seg_ablate_nogather")}
+    lib_f64 = dict.fromkeys(("seg_spmv_tiles_u16_x2", "seg_ablate_x2_nogather",
+                             "seg_ablate_x2_x32"), tx)
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         t, at = ((tc, f"synthetic_cant n={CANT_N} csr") if k in SEG else
                  (tm, f"synthetic_cant n={CANT_N} csr/sell R=4") if k in MULTI else
                  (tx, f"synthetic_cant n={CANT_N} csr/sell fp64")
                  if k in X2_SEG + X2_PANEL else
+                 (tq, f"synthetic_cant n={CANT_N} csr probes")
+                 if k in PROBE_KERNELS else
                  (tp, f"synthetic_cant n={CANT_N} sell"))
-        kernels.append({"name": k, "route": "cuda", "source": CSRC + src,
-                        "replaces": replaces, "launches": launches[k],
-                        "max_abs_err": errs[k], "ms": t[k][0],
-                        "plain_ms": t[f"{k}_plain"][0], "device_ms": t[k][1],
-                        "plain_device_ms": t[f"{k}_plain"][1], "at": at})
+        row = {"name": k, "route": "cuda", "source": CSRC + src,
+               "replaces": replaces, "launches": launches[k],
+               "max_abs_err": errs[k], "ms": t[k][0],
+               "plain_ms": t[f"{k}_plain"][0], "device_ms": t[k][1],
+               "device_timing": DEVICE_TIMING[k], "at": at}
+        row.update(bound_fields(k, t))
+        row.update(library_fields(k, {**lib_f32, **lib_f64}.get(k, t)))
+        if k.startswith("seg_ablate_") and "_x2_" not in k:
+            row["also_replaces"] = ABLATE_ALSO
+        if k in ("seg_spmv_tiles", "seg_spmv_tiles_x2"):
+            big = tc_big if k == "seg_spmv_tiles" else tx_big
+            row["pl_big"] = {"ms": big[k][0], "device_ms": big[k][1],
+                             "plain_ms": big[f"{k}_plain"][0],
+                             **bound_fields(k, big), **library_fields(k, big)}
+        kernels.append(row)
+    for row in kernels:  # ms per call | on the device, the bound in µs
+        lib = row["library_ms"]
+        lib = "—" if lib is None else f"{lib:.4f} | {fmt_ms(row['library_device_ms'])}"
+        print(f"  {row['name']:24s} {row['at']}: {row['ms']:.4f} | "
+              f"{fmt_ms(row['device_ms'])} against its bound "
+              f"{row['bound_ms'] * 1e3:.3f} µs (by {row['bound_by']}), plain "
+              f"{row['plain_ms']:.4f}, library {lib} ({row['library_call']}); "
+              f"{row['launches']} launches  [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

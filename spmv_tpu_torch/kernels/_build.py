@@ -70,6 +70,16 @@ SIGNATURES = {
     # K4 and K5 in float64: the arguments of panel_spmv_tiles and panel_fixup
     "panel_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "panel_fixup_x2": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # probe_spmv.cu
+    # K1 and K12 with uint16 columns, and K1 at another tile: the arguments
+    # of seg_spmv_tiles; K2 at another tile: those of carry_fixup
+    "seg_spmv_tiles_u16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "seg_spmv_tiles_u16_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "seg_spmv_tiles_at": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "carry_fixup_at": (_P, _P, _P, _P, _I, _I, _P),
+    # ptr, cols, vals, tile_row0, x, y, carry, out, nnz, ntiles, mode, stream
+    "seg_ablate": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "seg_ablate_x2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

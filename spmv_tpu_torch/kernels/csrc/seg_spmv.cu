@@ -12,9 +12,10 @@
 //   K12 seg_spmv_tiles_x2 replaces _seg_kernel_x2        (segmented_spmv_x2),
 //   K13 carry_fixup_x2    with its epilogue folded in there
 //
-// K12 and K13 are K1 and K2 instantiated for double (the kernels are
-// templates on the value type), so the tile bounds and carry-slot rules
-// stay in one place. The TPU kernel B10 carries hi and lo f32 planes,
+// K1, K2, K12 and K13 are instantiations of the tile kernel and its fix-up
+// in seg_tile.cuh (templates on the value type, the column type, the block
+// size and the x read), which probe_spmv.cu instantiates too, so the tile
+// bounds and carry-slot rules stay in one place. The TPU kernel B10 carries hi and lo f32 planes,
 // Dekker splits and TwoSum chains because its VPU has no FMA and its MXU
 // takes bf16; Hopper has native fp64 FMA, so K12 reads fp64 values and x,
 // multiplies and adds in fp64 and writes fp64 y and carries. It streams
@@ -43,226 +44,21 @@
 #include <climits>
 #include <cstdint>
 
+#include "seg_tile.cuh"
 #include "x_rows.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr unsigned kFullMask = 0xffffffffu;
-
 // K1's tile: 256 threads, each taking 4 consecutive nonzeros. Must equal
-// TILE_NNZ in spmv_tpu_torch/formats/base.py.
+// TILE_NNZ in spmv_tpu_torch/formats/base.py. K8 and K9 share it. K1, K2,
+// K12 and K13 are the <float|double, int32_t, 256> instantiations of the
+// tile kernel and fix-up in seg_tile.cuh.
 constexpr int kTileThreads = 256;
-constexpr int kTileItems = 4;
 constexpr int kTileNnz = kTileThreads * kTileItems;
 constexpr int kTileWarps = kTileThreads / kWarp;
 
-// K2 and K3 block size.
+// K3 and K9 block size.
 constexpr int kThreads = 256;
-
-// Inclusive segmented scan across a warp. Keys (rows) are nondecreasing
-// along the lanes; a lane adds its neighbour's running sum only while the
-// two keys agree, so every partial stays inside one row, and the order of
-// the additions is fixed by the lane positions. T is float or double
-// (__shfl_up_sync takes both).
-template <typename T>
-__device__ __forceinline__ T warp_seg_scan(int key, T val) {
-  const int lane = threadIdx.x & (kWarp - 1);
-#pragma unroll
-  for (int d = 1; d < kWarp; d <<= 1) {
-    const int k = __shfl_up_sync(kFullMask, key, d);
-    const T v = __shfl_up_sync(kFullMask, val, d);
-    if (lane >= d && k == key) val = v + val;
-  }
-  return val;
-}
-
-// 4 consecutive values from a 16-byte-aligned address: one 16-byte load of
-// floats, two of doubles.
-__device__ __forceinline__ void load4(const float* __restrict__ p, float (&v)[4]) {
-  const float4 v4 = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
-}
-__device__ __forceinline__ void load4(const double* __restrict__ p, double (&v)[4]) {
-  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
-  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-// Writes the tile's total for row r: straight to y when the whole row lies
-// in this tile [ts, te), else to the tile's head slot (the row began in an
-// earlier tile) or tail slot (the row runs on into later tiles).
-template <typename T>
-__device__ __forceinline__ void emit_row(const int* __restrict__ ptr, int r,
-                                         T v, int t, int ts, int te,
-                                         T* __restrict__ y,
-                                         T* __restrict__ carry) {
-  const int rs = __ldg(ptr + r);
-  const int re = __ldg(ptr + r + 1);
-  if (rs < ts) {
-    carry[2 * t] = v;
-  } else if (re > te) {
-    carry[2 * t + 1] = v;
-  } else {
-    y[r] = v;
-  }
-}
-
-// K1 — replaces _seg_kernel (spmv_tpu/kernels/engines.py:414); K12 (T =
-// double) replaces _seg_kernel_x2 (spmv_tpu/kernels/engines_x2.py:267).
-//
-// One block per tile of kTileNnz consecutive nonzeros, so every block does
-// the same work whatever the row lengths (a power-law hub row is cut into
-// many tiles; a tile may hold hundreds of short rows). Each thread loads 4
-// consecutive values and columns as one 16-byte load each, finds the row
-// of its first nonzero by binary search in ptr between the plan's
-// tile_row0 bounds, and sums its runs sequentially. A run that closes
-// inside the thread and did not start it is a whole row: it goes straight
-// to y. The thread's first and last runs may continue in the neighbouring
-// threads; a block-wide segmented scan (warp shuffles, then one warp over
-// the 8 warp totals in shared memory) joins them. The thread where a row's
-// run ends in the tile writes it through emit_row. Rows with no nonzeros
-// are never written: the wrapper zeroes y. For doubles the 4 values are
-// two 16-byte loads.
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-seg_spmv_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-                      const T* __restrict__ vals,
-                      const int* __restrict__ tile_row0,
-                      const T* __restrict__ x, T* __restrict__ y,
-                      T* __restrict__ carry, int nnz) {
-  __shared__ int s_key[kTileWarps];
-  __shared__ T s_val[kTileWarps];
-
-  const int t = blockIdx.x;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = threadIdx.x / kWarp;
-  const int ts = t * kTileNnz;
-  const int te = min(ts + kTileNnz, nnz);
-  const int e0 = ts + threadIdx.x * kTileItems;
-  const int e_end = min(e0 + kTileItems, te);  // one past this thread's last
-
-  int key = -1;          // row of this thread's last run; -1 = no nonzeros
-  T run = T(0);          // that run's partial sum
-  int head_row = -1;     // row of the first run, if it closed in this thread
-  T head_val = T(0);     // and its partial sum
-  int row_end = 0;       // ptr[key + 1]
-
-  if (e0 < te) {
-    int lo = __ldg(tile_row0 + t);
-    int hi = __ldg(tile_row0 + t + 1);
-    while (lo < hi) {  // largest r in [lo, hi] with ptr[r] <= e0
-      const int mid = (lo + hi + 1) >> 1;
-      if (__ldg(ptr + mid) <= e0) {
-        lo = mid;
-      } else {
-        hi = mid - 1;
-      }
-    }
-    int r = lo;
-    row_end = __ldg(ptr + r + 1);
-
-    T v[kTileItems];
-    int c[kTileItems];
-    if (e_end - e0 == kTileItems) {
-      // 16-byte aligned: e0 is a multiple of 4 and the wrapper checks the
-      // base pointers.
-      load4(vals + e0, v);
-      const int4 c4 = __ldg(reinterpret_cast<const int4*>(cols + e0));
-      c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
-    } else {
-#pragma unroll
-      for (int k = 0; k < kTileItems; ++k) {
-        const bool in = e0 + k < e_end;
-        v[k] = in ? __ldg(vals + e0 + k) : T(0);
-        c[k] = in ? __ldg(cols + e0 + k) : 0;
-      }
-    }
-
-#pragma unroll
-    for (int k = 0; k < kTileItems; ++k) {
-      const int e = e0 + k;
-      if (e < e_end) {
-        if (e >= row_end) {  // the run of row r closed at e - 1
-          if (head_row < 0) {
-            head_row = r;
-            head_val = run;
-          } else {
-            y[r] = run;  // began and ended inside this thread
-          }
-          do {  // step to the row holding e, past any empty rows
-            ++r;
-            row_end = __ldg(ptr + r + 1);
-          } while (e >= row_end);
-          run = T(0);
-        }
-        run += v[k] * __ldg(x + c[k]);
-      }
-    }
-    key = r;
-  }
-
-  // Block-wide inclusive segmented scan of the (key, run) pairs. Threads
-  // with no nonzeros sit at the end of the block with key -1 and add
-  // nothing to anyone before them.
-  T incl = warp_seg_scan(key, run);
-  if (lane == kWarp - 1) {
-    s_key[warp] = key;
-    s_val[warp] = incl;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int wk = lane < kTileWarps ? s_key[lane] : -1;
-    const T wv = warp_seg_scan(wk, lane < kTileWarps ? s_val[lane] : T(0));
-    if (lane < kTileWarps) s_val[lane] = wv;  // inclusive over warps 0..lane
-  }
-  __syncthreads();
-  if (warp > 0 && s_key[warp - 1] == key) incl = s_val[warp - 1] + incl;
-
-  // Exclusive value: the inclusive scan of the thread before this one.
-  int ek = __shfl_up_sync(kFullMask, key, 1);
-  T ev = __shfl_up_sync(kFullMask, incl, 1);
-  if (lane == 0) {
-    ek = warp > 0 ? s_key[warp - 1] : -1;
-    ev = warp > 0 ? s_val[warp - 1] : T(0);
-  }
-
-  if (e0 < te) {
-    if (head_row >= 0) {
-      emit_row(ptr, head_row, ek == head_row ? ev + head_val : head_val, t, ts,
-               te, y, carry);
-    }
-    // The last run ends here if its row ends at e_end or the tile does.
-    if (row_end == e_end || e_end == te) {
-      emit_row(ptr, key, incl, t, ts, te, y, carry);
-    }
-  }
-}
-
-// K2 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171); K13 (T =
-// double) is the epilogue of _seg_kernel_x2 (engines_x2.py:267), which the
-// TPU kernel folds into its one dispatch.
-//
-// One thread per split row (a row that crosses a tile boundary). It adds
-// the row's partials in tile order: the tail slot of the tile where the row
-// begins, then the head slot of every later tile it reaches. Reads 4 B (8 B
-// for doubles) per carry and writes y once; a few KB at cant scale, so
-// launch latency is its cost.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-carry_fixup_kernel(const int* __restrict__ ptr,
-                   const int* __restrict__ carry_rows,
-                   const T* __restrict__ carry, T* __restrict__ y,
-                   int ncarry) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= ncarry) return;
-  const int r = __ldg(carry_rows + j);
-  const int ta = __ldg(ptr + r) / kTileNnz;
-  const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
-  T s = carry[2 * ta + 1];
-  for (int t = ta + 1; t <= tb; ++t) s += carry[2 * t];
-  y[r] = s;
-}
 
 // K3 — replaces _seg_kernel_fused (spmv_tpu/kernels/engines.py:430).
 //
@@ -506,35 +302,6 @@ carry_fixup_multi_kernel(const int* __restrict__ ptr,
   Y[static_cast<long long>(r) * rhs + j] = s;
 }
 
-template <typename T>
-int launch_seg_spmv_tiles(const void* ptr, const void* cols, const void* vals,
-                          const void* tile_row0, const void* x, void* y,
-                          void* carry, int nnz, int ntiles, int tile,
-                          void* stream) {
-  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
-      ntiles != (nnz + kTileNnz - 1) / kTileNnz) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  seg_spmv_tiles_kernel<T><<<ntiles, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ptr), static_cast<const int*>(cols),
-      static_cast<const T*>(vals), static_cast<const int*>(tile_row0),
-      static_cast<const T*>(x), static_cast<T*>(y), static_cast<T*>(carry), nnz);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
-                       void* y, int ncarry, int tile, void* stream) {
-  if (tile != kTileNnz || ncarry <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int blocks = (ncarry + kThreads - 1) / kThreads;
-  carry_fixup_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ptr), static_cast<const int*>(carry_rows),
-      static_cast<const T*>(carry), static_cast<T*>(y), ncarry);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int R>
 cudaError_t launch_seg_spmm(const int* ptr, const int* cols, const float* vals,
                             const int* tile_row0, const float* X, float* Y,
@@ -554,28 +321,30 @@ extern "C" {
 int seg_spmv_tiles(const void* ptr, const void* cols, const void* vals,
                    const void* tile_row0, const void* x, void* y, void* carry,
                    int nnz, int ntiles, int tile, void* stream) {
-  return launch_seg_spmv_tiles<float>(ptr, cols, vals, tile_row0, x, y, carry,
-                                      nnz, ntiles, tile, stream);
+  return launch_seg_tiles<float, int32_t, kTileThreads>(
+      ptr, cols, vals, tile_row0, x, y, carry, nnz, ntiles, tile, stream);
 }
 
 // K2: y[r] = the sum of a split row's partials, in tile order.
 int carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
                 void* y, int ncarry, int tile, void* stream) {
-  return launch_carry_fixup<float>(ptr, carry_rows, carry, y, ncarry, tile, stream);
+  return launch_carry_fixup<float, kTileNnz>(ptr, carry_rows, carry, y, ncarry,
+                                             tile, stream);
 }
 
 // K12: K1 in float64 — fp64 vals, x, y and carry.
 int seg_spmv_tiles_x2(const void* ptr, const void* cols, const void* vals,
                       const void* tile_row0, const void* x, void* y, void* carry,
                       int nnz, int ntiles, int tile, void* stream) {
-  return launch_seg_spmv_tiles<double>(ptr, cols, vals, tile_row0, x, y, carry,
-                                       nnz, ntiles, tile, stream);
+  return launch_seg_tiles<double, int32_t, kTileThreads>(
+      ptr, cols, vals, tile_row0, x, y, carry, nnz, ntiles, tile, stream);
 }
 
 // K13: K2 in float64.
 int carry_fixup_x2(const void* ptr, const void* carry_rows, const void* carry,
                    void* y, int ncarry, int tile, void* stream) {
-  return launch_carry_fixup<double>(ptr, carry_rows, carry, y, ncarry, tile, stream);
+  return launch_carry_fixup<double, kTileNnz>(ptr, carry_rows, carry, y, ncarry,
+                                              tile, stream);
 }
 
 // K3: y = A·x in one dispatch, vec lanes per row (4, 8, 16 or 32).

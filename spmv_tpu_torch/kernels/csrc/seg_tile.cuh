@@ -1,0 +1,323 @@
+// The segmented tile kernel and its fix-up, shared by seg_spmv.cu (K1, K2,
+// K12, K13) and probe_spmv.cu (the probes' instantiations of the same
+// code: 16-bit columns, other tile sizes, a synthesized or float32 x).
+//
+// seg_spmv_tiles_kernel<T, ColT, kBlockThreads, kX, XT> is K1's body:
+//
+//   T             value, x and y type: float (K1) or double (K12)
+//   ColT          column type: int32_t (the plan's) or uint16_t (4 columns
+//                 in one 8-byte load; the probe of bytes per nonzero)
+//   kBlockThreads threads per block, 4 nonzeros each: 256 is the
+//                 production tile of 1024 nonzeros; 32, 128 and 512 give
+//                 tiles of 128, 512 and 2048. At 32 the block is one warp,
+//                 and the shared-memory stage of the scan is not compiled.
+//   kX, XT        how x(c) is read: gathered from an XT array (XT = T in
+//                 production, float under double values for the probe of
+//                 the 8-byte gather), or synthesized from the column in
+//                 registers, x(c) = (c & 1023)·2⁻¹⁰ (the probe without the
+//                 gather; it still loads every column).
+//
+// Every instantiation sums each row in the same order as K1, so a probe
+// variant gives K1's bits on the same x. The host wrapper checks shapes,
+// types, alignment and devices, allocates every output and never launches
+// an empty grid.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Consecutive nonzeros per thread of a tile kernel.
+constexpr int kTileItems = 4;
+// K2's block size.
+constexpr int kFixupThreads = 256;
+
+// How a tile kernel gets x(c).
+constexpr int kXGather = 0;  // x[c], read from the XT array
+constexpr int kXSynth = 1;   // (c & 1023)·2⁻¹⁰, no x read at all
+
+// Inclusive segmented scan across a warp. Keys (rows) are nondecreasing
+// along the lanes; a lane adds its neighbour's running sum only while the
+// two keys agree, so every partial stays inside one row, and the order of
+// the additions is fixed by the lane positions. T is float or double
+// (__shfl_up_sync takes both).
+template <typename T>
+__device__ __forceinline__ T warp_seg_scan(int key, T val) {
+  const int lane = threadIdx.x & (kWarp - 1);
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const int k = __shfl_up_sync(kFullMask, key, d);
+    const T v = __shfl_up_sync(kFullMask, val, d);
+    if (lane >= d && k == key) val = v + val;
+  }
+  return val;
+}
+
+// 4 consecutive values from a 16-byte-aligned address: one 16-byte load of
+// floats, two of doubles.
+__device__ __forceinline__ void load4(const float* __restrict__ p, float (&v)[4]) {
+  const float4 v4 = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
+}
+__device__ __forceinline__ void load4(const double* __restrict__ p, double (&v)[4]) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// 4 consecutive columns: one 16-byte load of int32 (16-byte aligned), one
+// 8-byte load of uint16 (8-byte aligned; little-endian halves).
+__device__ __forceinline__ void load_cols4(const int* __restrict__ p, int (&c)[4]) {
+  const int4 c4 = __ldg(reinterpret_cast<const int4*>(p));
+  c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
+}
+__device__ __forceinline__ void load_cols4(const uint16_t* __restrict__ p, int (&c)[4]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  c[0] = static_cast<int>(u.x & 0xffffu);
+  c[1] = static_cast<int>(u.x >> 16);
+  c[2] = static_cast<int>(u.y & 0xffffu);
+  c[3] = static_cast<int>(u.y >> 16);
+}
+
+// x(c) as the tile kernel multiplies it.
+template <int kX, typename T, typename XT>
+__device__ __forceinline__ T x_at(const XT* __restrict__ x, int c) {
+  if constexpr (kX == kXSynth) {
+    return static_cast<T>(c & 1023) * static_cast<T>(0.0009765625);
+  } else {
+    return static_cast<T>(__ldg(x + c));
+  }
+}
+
+// Writes the tile's total for row r: straight to y when the whole row lies
+// in this tile [ts, te), else to the tile's head slot (the row began in an
+// earlier tile) or tail slot (the row runs on into later tiles).
+template <typename T>
+__device__ __forceinline__ void emit_row(const int* __restrict__ ptr, int r,
+                                         T v, int t, int ts, int te,
+                                         T* __restrict__ y,
+                                         T* __restrict__ carry) {
+  const int rs = __ldg(ptr + r);
+  const int re = __ldg(ptr + r + 1);
+  if (rs < ts) {
+    carry[2 * t] = v;
+  } else if (re > te) {
+    carry[2 * t + 1] = v;
+  } else {
+    y[r] = v;
+  }
+}
+
+// K1 — replaces _seg_kernel (spmv_tpu/kernels/engines.py:414); K12 (T =
+// double) replaces _seg_kernel_x2 (spmv_tpu/kernels/engines_x2.py:267).
+//
+// One block per tile of 4·kBlockThreads consecutive nonzeros, so every
+// block does the same work whatever the row lengths (a power-law hub row
+// is cut into many tiles; a tile may hold hundreds of short rows). Each
+// thread loads 4 consecutive values and columns (one 16-byte load each for
+// float values and int32 columns), finds the row of its first nonzero by
+// binary search in ptr between the plan's tile_row0 bounds, and sums its
+// runs sequentially. A run that closes inside the thread and did not start
+// it is a whole row: it goes straight to y. The thread's first and last
+// runs may continue in the neighbouring threads; a block-wide segmented
+// scan (warp shuffles, then one warp over the warp totals in shared
+// memory) joins them. The thread where a row's run ends in the tile writes
+// it through emit_row. Rows with no nonzeros are never written: the
+// wrapper zeroes y.
+template <typename T, typename ColT, int kBlockThreads, int kX = kXGather,
+          typename XT = T>
+__global__ void __launch_bounds__(kBlockThreads)
+seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols,
+                      const T* __restrict__ vals,
+                      const int* __restrict__ tile_row0,
+                      const XT* __restrict__ x, T* __restrict__ y,
+                      T* __restrict__ carry, int nnz) {
+  constexpr int kTileNnz = kBlockThreads * kTileItems;
+  constexpr int kWarps = kBlockThreads / kWarp;
+  static_assert(kBlockThreads % kWarp == 0 && kWarps <= kWarp,
+                "a tile block is 1 to 32 whole warps");
+
+  const int t = blockIdx.x;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int ts = t * kTileNnz;
+  const int te = min(ts + kTileNnz, nnz);
+  const int e0 = ts + threadIdx.x * kTileItems;
+  const int e_end = min(e0 + kTileItems, te);  // one past this thread's last
+
+  int key = -1;          // row of this thread's last run; -1 = no nonzeros
+  T run = T(0);          // that run's partial sum
+  int head_row = -1;     // row of the first run, if it closed in this thread
+  T head_val = T(0);     // and its partial sum
+  int row_end = 0;       // ptr[key + 1]
+
+  if (e0 < te) {
+    int lo = __ldg(tile_row0 + t);
+    int hi = __ldg(tile_row0 + t + 1);
+    while (lo < hi) {  // largest r in [lo, hi] with ptr[r] <= e0
+      const int mid = (lo + hi + 1) >> 1;
+      if (__ldg(ptr + mid) <= e0) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    int r = lo;
+    row_end = __ldg(ptr + r + 1);
+
+    T v[kTileItems];
+    int c[kTileItems];
+    if (e_end - e0 == kTileItems) {
+      // aligned: e0 is a multiple of 4 and the wrapper checks the base
+      // pointers (16 bytes; 8 for uint16 columns)
+      load4(vals + e0, v);
+      load_cols4(cols + e0, c);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kTileItems; ++k) {
+        const bool in = e0 + k < e_end;
+        v[k] = in ? __ldg(vals + e0 + k) : T(0);
+        c[k] = in ? static_cast<int>(__ldg(cols + e0 + k)) : 0;
+      }
+    }
+
+#pragma unroll
+    for (int k = 0; k < kTileItems; ++k) {
+      const int e = e0 + k;
+      if (e < e_end) {
+        if (e >= row_end) {  // the run of row r closed at e - 1
+          if (head_row < 0) {
+            head_row = r;
+            head_val = run;
+          } else {
+            y[r] = run;  // began and ended inside this thread
+          }
+          do {  // step to the row holding e, past any empty rows
+            ++r;
+            row_end = __ldg(ptr + r + 1);
+          } while (e >= row_end);
+          run = T(0);
+        }
+        run += v[k] * x_at<kX, T>(x, c[k]);
+      }
+    }
+    key = r;
+  }
+
+  // Block-wide inclusive segmented scan of the (key, run) pairs. Threads
+  // with no nonzeros sit at the end of the block with key -1 and add
+  // nothing to anyone before them. (ek, ev) is the exclusive value: the
+  // inclusive scan of the thread before this one.
+  T incl = warp_seg_scan(key, run);
+  int ek;
+  T ev;
+  if constexpr (kWarps > 1) {
+    __shared__ int s_key[kWarps];
+    __shared__ T s_val[kWarps];
+    const int warp = threadIdx.x / kWarp;
+    if (lane == kWarp - 1) {
+      s_key[warp] = key;
+      s_val[warp] = incl;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int wk = lane < kWarps ? s_key[lane] : -1;
+      const T wv = warp_seg_scan(wk, lane < kWarps ? s_val[lane] : T(0));
+      if (lane < kWarps) s_val[lane] = wv;  // inclusive over warps 0..lane
+    }
+    __syncthreads();
+    if (warp > 0 && s_key[warp - 1] == key) incl = s_val[warp - 1] + incl;
+    ek = __shfl_up_sync(kFullMask, key, 1);
+    ev = __shfl_up_sync(kFullMask, incl, 1);
+    if (lane == 0) {
+      ek = warp > 0 ? s_key[warp - 1] : -1;
+      ev = warp > 0 ? s_val[warp - 1] : T(0);
+    }
+  } else {  // one warp: its scan is the block's, and lane 0 starts the tile
+    ek = __shfl_up_sync(kFullMask, key, 1);
+    ev = __shfl_up_sync(kFullMask, incl, 1);
+    if (lane == 0) {
+      ek = -1;
+      ev = T(0);
+    }
+  }
+
+  if (e0 < te) {
+    if (head_row >= 0) {
+      emit_row(ptr, head_row, ek == head_row ? ev + head_val : head_val, t, ts,
+               te, y, carry);
+    }
+    // The last run ends here if its row ends at e_end or the tile does.
+    if (row_end == e_end || e_end == te) {
+      emit_row(ptr, key, incl, t, ts, te, y, carry);
+    }
+  }
+}
+
+// K2 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171); K13 (T =
+// double) is the epilogue of _seg_kernel_x2 (engines_x2.py:267), which the
+// TPU kernel folds into its one dispatch.
+//
+// One thread per split row (a row that crosses a tile boundary of
+// kTileNnz nonzeros). It adds the row's partials in tile order: the tail
+// slot of the tile where the row begins, then the head slot of every later
+// tile it reaches. Reads 4 B (8 B for doubles) per carry and writes y
+// once; a few KB at cant scale, so launch latency is its cost.
+template <typename T, int kTileNnz>
+__global__ void __launch_bounds__(kFixupThreads)
+carry_fixup_kernel(const int* __restrict__ ptr,
+                   const int* __restrict__ carry_rows,
+                   const T* __restrict__ carry, T* __restrict__ y,
+                   int ncarry) {
+  const int j = blockIdx.x * kFixupThreads + threadIdx.x;
+  if (j >= ncarry) return;
+  const int r = __ldg(carry_rows + j);
+  const int ta = __ldg(ptr + r) / kTileNnz;
+  const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
+  T s = carry[2 * ta + 1];
+  for (int t = ta + 1; t <= tb; ++t) s += carry[2 * t];
+  y[r] = s;
+}
+
+// Launches one tile kernel instantiation on the plan's schedule; refuses
+// (cudaErrorInvalidValue, nothing launched) a tile it was not built for or
+// a schedule that does not cover nnz.
+template <typename T, typename ColT, int kBlockThreads, int kX = kXGather,
+          typename XT = T>
+int launch_seg_tiles(const void* ptr, const void* cols, const void* vals,
+                     const void* tile_row0, const void* x, void* y, void* carry,
+                     int nnz, int ntiles, int tile, void* stream) {
+  constexpr int kTileNnz = kBlockThreads * kTileItems;
+  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
+      ntiles != (nnz + kTileNnz - 1) / kTileNnz) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  seg_spmv_tiles_kernel<T, ColT, kBlockThreads, kX, XT>
+      <<<ntiles, kBlockThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(ptr), static_cast<const ColT*>(cols),
+          static_cast<const T*>(vals), static_cast<const int*>(tile_row0),
+          static_cast<const XT*>(x), static_cast<T*>(y), static_cast<T*>(carry),
+          nnz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kTileNnz>
+int launch_carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
+                       void* y, int ncarry, int tile, void* stream) {
+  if (tile != kTileNnz || ncarry <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (ncarry + kFixupThreads - 1) / kFixupThreads;
+  carry_fixup_kernel<T, kTileNnz>
+      <<<blocks, kFixupThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(ptr), static_cast<const int*>(carry_rows),
+          static_cast<const T*>(carry), static_cast<T*>(y), ncarry);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

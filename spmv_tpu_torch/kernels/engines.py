@@ -44,7 +44,8 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
 
 # Launch counts per kernel, this engine's, the panel engine's
 # (``kernels.panel``) and the fp64-grade ones (``kernels.engines_x2``); the
-# plain versions never touch them.
+# probes' kernels (``kernels.probes``) add their own keys. The plain
+# versions never touch them.
 LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0,
             "panel_spmv_tiles": 0, "panel_fixup": 0, "panel_spmv_fused": 0,
             "inverse_permute": 0, "seg_spmm_tiles": 0, "carry_fixup_multi": 0,
@@ -112,9 +113,10 @@ def _lead(vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return vals.view(-1, *([1] * (x.dim() - 1)))
 
 
-def _launch(name: str, dev, *args) -> None:
+def _launch(name: str, dev, *args, key: str | None = None) -> None:
     """Call launcher ``name`` on the current stream of the plan's device;
-    tensors pass as their data pointers."""
+    tensors pass as their data pointers, None as a null pointer. The launch
+    counts under ``key`` (default ``name``)."""
     from spmv_tpu_torch.kernels import _build
 
     lib = _build.library().lib
@@ -124,7 +126,7 @@ def _launch(name: str, dev, *args) -> None:
         rc = getattr(lib, name)(*cargs, stream)
     if rc != 0:
         raise KernelError(f"{name}: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[key or name] += 1
 
 
 # ---------------------------------------------------------------- K1 + K2

@@ -1,0 +1,122 @@
+"""What the probes share: the matrices they run on, the checks that hold
+each member's result to an independent definition, and the two ceiling
+members every probe co-samples."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spmv_tpu_torch import synth
+from spmv_tpu_torch.formats.base import TILE_NNZ
+from spmv_tpu_torch.kernels import probes as KP
+from spmv_tpu_torch.oracle import (KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv,
+                                   kernel_check, row_scale, x2_check)
+from spmv_tpu_torch.probes.bounds import stream_bytes
+from spmv_tpu_torch.probes.timing import Member, l2_bytes, synthetic_stream
+
+__all__ = ["MATRICES", "HBM_STREAM_L2S", "vector", "spmv_check", "tile_sum_bound",
+           "tile_sums_check", "ceiling_members"]
+
+# The HBM ceiling's stream, in L2 sizes: 250 MiB on the H100's 50 MiB L2.
+HBM_STREAM_L2S = 5
+
+# bench.py's main-suite matrix (bench.py:84-85), its 524k-row power-law
+# matrix (bench.py:211) and the 1024-row band matrix of the parity tests
+MATRICES = {
+    "cant": lambda: synth.synthetic_cant(n=62464, avg_nnz_per_row=64,
+                                         bandwidth=350, seed=0),
+    "pl_big": lambda: synth.power_law(n=524_288, avg_nnz_per_row=24,
+                                      bandwidth=512, seed=0),
+    "band": lambda: synth.synthetic_cant(n=1024, avg_nnz_per_row=16,
+                                         bandwidth=60, seed=5),
+}
+
+
+def vector(n: int, dtype: torch.dtype, device, seed: int = 3, R: int | None = None):
+    """A standard-normal x (or (n, R) X) from ``seed``, made with numpy."""
+    shape = (n,) if R is None else (n, R)
+    xh = np.random.default_rng(seed).standard_normal(shape)
+    return torch.from_numpy(xh).to(dtype).to(device).contiguous()
+
+
+def spmv_check(trip, x: torch.Tensor, *, fixup=None, x2: bool = False):
+    """A check of y = A·x (or Y = A·X, column by column) against the fp64
+    oracle: per row within ``1e-5 + fp32_rel_tol(k)·Σ|v||x|`` in float32,
+    JAX's ``x2_check`` for a float64 plan. ``fixup`` turns a member's
+    result into y (the plain K2 for a tile kernel's ``(y, carry)``)."""
+    info, rows, cols, vals = trip
+    v = np.asarray(vals, np.float64 if x2 else np.float32)
+    X = x.cpu().double().numpy()
+    X = X[:, None] if X.ndim == 1 else X
+    want = [golden_spmv(info.nrows, rows, cols, v, X[:, j]) for j in range(X.shape[1])]
+    scale = [row_scale(info.nrows, rows, cols, v, X[:, j]) for j in range(X.shape[1])]
+    k = int(np.bincount(rows, minlength=max(info.nrows, 1)).max()) if rows.size else 1
+
+    def check(out) -> str:
+        y = (fixup(out) if fixup else out).cpu().double().numpy()
+        y = y[:, None] if y.ndim == 1 else y
+        worst = 0.0
+        for j in range(y.shape[1]):
+            rep = (x2_check(want[j], y[:, j], scale[j]) if x2
+                   else kernel_check(want[j], y[:, j], scale[j], k))
+            if not rep.ok:
+                raise AssertionError(f"column {j} against the fp64 oracle: {rep}")
+            worst = max(worst, rep.max_abs_err)
+        return f"max abs err {worst:.3e} against the fp64 oracle"
+    return check
+
+
+def _tile_sums(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor | None):
+    """numpy's fp64 sums over each 1024 nonzeros of the terms ``noseg``
+    (with x: v·x[c]) or ``dma`` (without: v + x̃(c), x̃(c) = (c & 1023)·
+    2⁻¹⁰) adds, and of their magnitudes."""
+    v = vals.cpu().double().numpy()
+    c = cols.cpu().numpy()
+    terms = v * x.cpu().double().numpy()[c] if x is not None else v + (c & 1023) * 2.0 ** -10
+    if not terms.size:
+        return np.zeros(0), np.zeros(0)
+    starts = np.arange(0, terms.size, TILE_NNZ)
+    return np.add.reduceat(terms, starts), np.add.reduceat(np.abs(terms), starts)
+
+
+def tile_sum_bound(vals: torch.Tensor, cols: torch.Tensor,
+                   x: torch.Tensor | None = None) -> np.ndarray:
+    """How far apart two sums of one tile of ``noseg`` (with x) or ``dma``
+    may lie when they add its 1024 terms in other orders: ``1e-5 +
+    fp32_rel_tol(1024)·Σ|term|`` in float32, ``1024·2⁻⁵⁰·Σ|term|`` in
+    float64."""
+    scale = _tile_sums(vals, cols, x)[1]
+    if vals.dtype == torch.float32:
+        return KERNEL_TOL_ABS + fp32_rel_tol(TILE_NNZ) * scale
+    return TILE_NNZ * 2.0 ** -50 * scale
+
+
+def tile_sums_check(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor | None = None):
+    """A check of per-tile sums (``noseg`` with x, ``dma`` without)
+    against numpy's fp64 ``add.reduceat`` of the same terms, within
+    ``tile_sum_bound``."""
+    want = _tile_sums(vals, cols, x)[0]
+    bound = tile_sum_bound(vals, cols, x)
+
+    def check(out) -> str:
+        err = np.abs(out.cpu().double().numpy() - want)
+        if err.shape != want.shape or (err > bound).any():
+            raise AssertionError(f"tile sums: max error {err.max():.3e} over "
+                                 f"{want.size} tiles")
+        return f"max abs err {err.max() if err.size else 0.0:.3e} against numpy's tile sums"
+    return check
+
+
+def ceiling_members(vals: torch.Tensor, cols: torch.Tensor, device) -> list[Member]:
+    """``dma`` over the plan's values and columns, and ``hbm``: ``dma`` over
+    a synthetic float32 stream of ``HBM_STREAM_L2S`` times the card's L2
+    (on the CPU, where nothing is timed, one tile of it)."""
+    device = torch.device(device)
+    size = HBM_STREAM_L2S * l2_bytes(device) if device.type == "cuda" else 0
+    hv, hc = synthetic_stream(size, torch.float32, device)
+    # x̃'s multiply and the two adds per nonzero
+    return [Member("dma", lambda: KP.ablate_dma(vals, cols), stream_bytes(vals, cols),
+                   3 * vals.numel(), vals.dtype, tile_sums_check(vals, cols)),
+            Member("hbm", lambda: KP.ablate_dma(hv, hc), stream_bytes(hv, hc),
+                   3 * hv.numel(), torch.float32, tile_sums_check(hv, hc))]

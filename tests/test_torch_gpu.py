@@ -16,7 +16,9 @@ from spmv_tpu_torch.kernels import _build
 from spmv_tpu_torch.kernels import engines as E
 from spmv_tpu_torch.kernels import engines_x2 as X2
 from spmv_tpu_torch.kernels import panel as P
+from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
+from spmv_tpu_torch.probes.common import tile_sum_bound
 
 pytestmark = pytest.mark.gpu
 
@@ -127,14 +129,30 @@ def test_each_launch_counts_once(cuda):
     X2.carry_fixup_x2_reference(dev64, *X2.segmented_spmv_x2_partials_reference(dev64, x64))
     X2.panel_spmv_x2(pdev64, x64)
     X2.panel_fixup_x2_reference(pdev64, *X2.panel_spmv_x2_partials_reference(pdev64, x64))
-    assert E.LAUNCHES == {"seg_spmv_tiles": 1, "carry_fixup": 1,
-                          "csr_spmv_fused": 1, "panel_spmv_tiles": 1,
-                          "panel_fixup": 1, "panel_spmv_fused": 1,
-                          "inverse_permute": 1, "seg_spmm_tiles": 1,
-                          "carry_fixup_multi": 1, "panel_spmm_tiles": 1,
-                          "panel_fixup_multi": 1, "seg_spmv_tiles_x2": 1,
-                          "carry_fixup_x2": 1, "panel_spmv_tiles_x2": 1,
-                          "panel_fixup_x2": 1}
+    c16 = KP.cols16(dev)
+    KP.segmented_spmv_partials_u16(dev, c16, x)
+    KP.segmented_spmv_partials_u16(dev64, c16, x64)
+    KP.segmented_spmv_partials_u16_reference(dev, c16, x)
+    for tile in KP.PROBE_TILES:
+        dt = KP.retile(dev, tile)
+        KP.carry_fixup_at(dt, *KP.segmented_spmv_partials_at(dt, x))
+    for d, xx in ((dev, x), (dev64, x64)):
+        KP.ablate_nogather(d)
+        KP.ablate_noseg(d.vals, d.cols, xx)
+        KP.ablate_dma(d.vals, d.cols)
+        KP.ablate_dma_reference(d.vals, d.cols)
+    KP.ablate_x32(dev64, x64.float())
+    assert E.LAUNCHES == {k: 1 for k in (
+        "seg_spmv_tiles", "carry_fixup", "csr_spmv_fused", "panel_spmv_tiles",
+        "panel_fixup", "panel_spmv_fused", "inverse_permute", "seg_spmm_tiles",
+        "carry_fixup_multi", "panel_spmm_tiles", "panel_fixup_multi",
+        "seg_spmv_tiles_x2", "carry_fixup_x2", "panel_spmv_tiles_x2",
+        "panel_fixup_x2", "seg_spmv_tiles_u16", "seg_spmv_tiles_u16_x2",
+        "seg_spmv_tiles_t128", "seg_spmv_tiles_t512", "seg_spmv_tiles_t2048",
+        "carry_fixup_t128", "carry_fixup_t512", "carry_fixup_t2048",
+        "seg_ablate_nogather", "seg_ablate_noseg", "seg_ablate_dma",
+        "seg_ablate_x2_nogather", "seg_ablate_x2_noseg", "seg_ablate_x2_dma",
+        "seg_ablate_x2_x32")}
 
 
 def test_empty_plans_launch_nothing(cuda):
@@ -456,3 +474,93 @@ def test_a_conversion_error_returns_program_error_on_the_card(cuda, tmp_path, ca
     assert cli.main(["run", "--format", "bsr", "--dtype", "f32x2", "--matrix",
                      str(path)]) == ReturnCode.PROGRAM_ERROR
     assert "error:" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------- probes
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_probe_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
+    """The probe launchers: each twice with the same bits and against its
+    plain version; u16 columns, nogather and x32 against the production
+    kernel on the same x, bit for bit."""
+    dev, x, bound = setup(name, cuda)
+    dev64, _, x64 = setup_x2(name, cuda)
+    y1, c1 = E.segmented_spmv_partials(dev, x)
+    c16 = KP.cols16(dev)
+    yu, cu = KP.segmented_spmv_partials_u16(dev, c16, x)
+    assert torch.equal(yu, y1) and torch.equal(cu, c1)
+    # the plain versions' index_add_ sums in no fixed order on the card
+    y_plain = E.carry_fixup_reference(
+        dev, *KP.segmented_spmv_partials_u16_reference(dev, c16, x))
+    y = E.carry_fixup(dev, yu.clone(), cu)
+    assert ((y.double() - y_plain.double()).abs() <= bound).all()
+    y12 = X2.segmented_spmv_x2_partials(dev64, x64)
+    assert all(map(torch.equal, KP.segmented_spmv_partials_u16(dev64, c16, x64), y12))
+    for tile in KP.PROBE_TILES:
+        dt = KP.retile(dev, tile)
+        ya, ca = KP.segmented_spmv_partials_at(dt, x)
+        yb, cb = KP.segmented_spmv_partials_at(dt, x)
+        assert torch.equal(ya, yb) and torch.equal(ca, cb)
+        y = KP.carry_fixup_at(dt, ya.clone(), ca)
+        assert torch.equal(y, KP.carry_fixup_at(dt, ya.clone(), ca))
+        y_plain = E.carry_fixup_reference(dt, *E.segmented_spmv_partials_reference(dt, x))
+        assert ((y.double() - y_plain.double()).abs() <= bound).all(), tile
+    xt = KP.xtilde(dev.ncols, torch.float32, cuda)
+    yn, cn = KP.ablate_nogather(dev)
+    assert all(map(torch.equal, (yn, cn), E.segmented_spmv_partials(dev, xt)))
+    assert all(map(torch.equal, (yn, cn), KP.ablate_nogather(dev)))
+    xt64 = KP.xtilde(dev.ncols, torch.float64, cuda)
+    assert all(map(torch.equal, KP.ablate_nogather(dev64),
+                   X2.segmented_spmv_x2_partials(dev64, xt64)))
+    x32 = x64.float()
+    assert all(map(torch.equal, KP.ablate_x32(dev64, x32),
+                   X2.segmented_spmv_x2_partials(dev64, x32.double())))
+    for d, xx in ((dev, x), (dev64, x64)):
+        for fn, ref, args in ((KP.ablate_noseg, KP.ablate_noseg_reference, (xx,)),
+                              (KP.ablate_dma, KP.ablate_dma_reference, ())):
+            out = fn(d.vals, d.cols, *args)
+            assert torch.equal(out, fn(d.vals, d.cols, *args))
+            err = (out - ref(d.vals, d.cols, *args)).abs().double().cpu().numpy()
+            assert (err <= tile_sum_bound(d.vals, d.cols, *args)).all(), fn.__name__
+    torch.cuda.synchronize()
+
+
+def test_probe_launchers_refuse(cuda):
+    dev, x, _ = setup("band_1024", cuda)
+    c16 = KP.cols16(dev)
+    shifted = torch.empty(dev.nnz + 1, dtype=torch.int16, device=cuda)[1:]
+    shifted.copy_(c16)
+    with pytest.raises(ValueError, match="aligned"):
+        KP.segmented_spmv_partials_u16(dev, shifted, x)
+    with pytest.raises(ValueError, match="tile"):
+        KP.segmented_spmv_partials_at(dev, x)  # the production tile: K1's own
+    lib = _build.library().lib
+    y = torch.zeros(dev.nrows, device=cuda)
+    carry = torch.zeros(2 * dev.ntiles, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.seg_spmv_tiles_at(dev.ptr.data_ptr(), dev.cols.data_ptr(),
+                                 dev.vals.data_ptr(), dev.tile_row0.data_ptr(),
+                                 x.data_ptr(), y.data_ptr(), carry.data_ptr(),
+                                 dev.nnz, dev.ntiles, dev.tile, stream) != 0
+    out = torch.zeros(dev.ntiles, device=cuda)
+    # x32 is a float64 mode; mode 4 does not exist
+    for mode in (3, 4):
+        assert lib.seg_ablate(dev.ptr.data_ptr(), dev.cols.data_ptr(),
+                              dev.vals.data_ptr(), dev.tile_row0.data_ptr(),
+                              x.data_ptr(), y.data_ptr(), carry.data_ptr(),
+                              out.data_ptr(), dev.nnz, dev.ntiles, mode, stream) != 0
+
+
+def test_probe_timing_on_the_card(cuda):
+    """One probe end to end: every member checked, then timed (warm and
+    cold, positive), with the card named."""
+    from spmv_tpu_torch.probes import run_probe
+
+    lines = []
+    res = run_probe("ablate", trip=MATRICES["band_1024"](), rounds=1, device=cuda,
+                    out=lines.append)
+    assert set(res["members"]) == {"full", "noscat", "nogather", "noseg", "dma", "hbm"}
+    for m in res["members"].values():
+        assert m["warm_ms"] > 0 and m["cold_ms"] > 0 and m["bound_ms"] > 0
+    assert res["card"] and all(res["card"] in ln for ln in lines if " warm " in ln)

@@ -163,6 +163,8 @@ def test_import_loads_neither_jax_nor_spmv_tpu():
         "import spmv_tpu_torch, spmv_tpu_torch.cli, spmv_tpu_torch.api\n"
         "import spmv_tpu_torch.kernels.engines, spmv_tpu_torch.kernels._build\n"
         "import spmv_tpu_torch.kernels.panel, spmv_tpu_torch.formats.split\n"
+        "import spmv_tpu_torch.kernels.probes, spmv_tpu_torch.probes\n"
+        "import spmv_tpu_torch.probes.__main__\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'spmv_tpu'))\n"
         "print(bad)\n"
