@@ -13,8 +13,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    with bitwise-equal output. The segmented engine (K1-K3) on the edge
    cases, a 1024-row band matrix, the cant-scale matrix (``bench.py``'s
    ``synthetic_cant(n=62464, avg_nnz_per_row=64, bandwidth=350, seed=0)``)
-   and two 524,288-row power-law matrices (``bench.py``'s ``pl_big``, and
-   the same without its column band: 12,373,741 nnz, above L2). The panel
+   two 524,288-row power-law matrices (``bench.py``'s ``pl_big``, and
+   the same without its column band: 12,373,741 nnz, above L2) and the
+   extremes of K1's row-offset stage (``probes.common.TILE_SHAPES``: a
+   tile of 1024 one-nonzero rows, tiles over the stage's cap through runs
+   of empty rows, a hub row over six tiles). The panel
    engine (K4-K7) on the edge cases, the band matrix, cant (pure ELL, and
    SELL-C-σ as the split builds it) and ``bench.py``'s 32k-row power-law
    matrix (SELL and ELL without the split, and SELL as the split builds it).
@@ -25,10 +28,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    rows of R floats where the panel is σ-sorted. The fp64-grade kernels,
    each twice with the same bits and per row within k·2⁻⁵⁰·Σ|v||x| of its
    plain version (k the longest row), the x2 ``matvec`` against the fp64
-   oracle by ``x2_check``: K12 + K13 on the edge cases, band-1024, cant and
-   ``pl_big``; K14 + K15 on band-1024's and pl-32768's pure SELL and ELL
-   panels and cant's split SELL panel; K7 on an fp64 y against its index
-   gather, bit for bit.
+   oracle by ``x2_check``: K12 + K13 on the edge cases, band-1024, cant,
+   ``pl_big`` and the three stage extremes; K14 + K15 on band-1024's and
+   pl-32768's pure SELL and ELL panels and cant's split SELL panel; K7 on
+   an fp64 y against its index gather, bit for bit.
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
@@ -67,8 +70,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``index_select`` for K7), timed as the kernel is and used nowhere in
    the port.
 6. The probes (``spmv_tpu_torch.probes``, the B12 counterparts): each
-   probe kernel against its plain version on band-1024 and cant, twice
-   with the same bits, with uint16 columns, nogather and x32 bit for bit
+   probe kernel against its plain version on band-1024, cant and the
+   tile shape with runs of empty rows, twice with the same bits, with uint16 columns, nogather and x32 bit for bit
    the production kernel on the same x, and their times at cant as in
    phase 5; then, with the counters from zero, every probe on cant
    (ablate, x2, pack, accum, spmm), x2 on band-1024 and ablate and x2 on
@@ -77,7 +80,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 7. One line per kernel with its time, bound and library time; one JSON
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
-   ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``);
+   ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``, K1
+   at ``pl_wide``);
    then the result line.
 """
 
@@ -316,6 +320,7 @@ def check_kernels(label: str, trip, seed: int) -> dict:
     """Phase 2, segmented engine, on one matrix: K1-K3 against their plain
     versions and against themselves. Returns the max abs error per kernel."""
     from spmv_tpu_torch import CSRMatrix
+    from spmv_tpu_torch.formats.base import ROW_STAGE, row_spans
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
 
@@ -341,8 +346,10 @@ def check_kernels(label: str, trip, seed: int) -> dict:
     e3 = within(f"{label} csr_spmv_fused", y3, y3r, scale, tol)
     for name, y in (("K1+K2", y2), ("K3", y3)):
         check_oracle(f"{label} {name}", trip, y, xh)
+    over = int((row_spans(dev.tile_row0.cpu().numpy()) > ROW_STAGE).sum())
     print(f"  {label}: {info.nrows}x{info.ncols} nnz {rows.size} tiles "
-          f"{dev.ntiles} split rows {dev.ncarry}: max |kernel - plain| "
+          f"{dev.ntiles} ({over} over the row-offset stage) split rows "
+          f"{dev.ncarry}: max |kernel - plain| "
           f"K1 {e1:.3e}  K2 {e2:.3e}  K3 {e3:.3e}; K1+K2 and K3 pass the "
           f"fp64 oracle; two runs bitwise equal")
     return {"seg_spmv_tiles": e1, "carry_fixup": e2, "csr_spmv_fused": e3}
@@ -1119,6 +1126,7 @@ def main() -> int:
     from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.probes import run_probe
+    from spmv_tpu_torch.probes.common import TILE_SHAPES
     from spmv_tpu_torch.probes.timing import card_line
 
     t_start = time.perf_counter()
@@ -1145,6 +1153,9 @@ def main() -> int:
     pl_big = synth.power_law(n=524_288, avg_nnz_per_row=24, bandwidth=512, seed=0)
     pl_wide = synth.power_law(n=524_288, avg_nnz_per_row=24, seed=0)
     pl = synth.power_law(n=32768, avg_nnz_per_row=24, bandwidth=512, seed=0)  # bench.py:164
+    # the extremes of K1's and K12's row-offset stage: a tile of 1024
+    # one-nonzero rows, tiles over its cap (runs of empty rows), a hub row
+    tile_shapes = {name: build_shape() for name, build_shape in TILE_SHAPES.items()}
     errs = {k: 0.0 for k in KERNELS}
 
     def keep_max(e: dict) -> None:
@@ -1161,6 +1172,8 @@ def main() -> int:
     keep_max(check_panel(f"cant-{CANT_N}", cant, seed=3))
     keep_max(check_kernels("pl_big-524288", pl_big, seed=4))
     keep_max(check_kernels("pl_wide-524288", pl_wide, seed=5))
+    for name, shape in tile_shapes.items():
+        keep_max(check_kernels(name, shape, seed=7))
     keep_max(check_panel("pl-32768", pl, seed=6, split=False))
     keep_max(check_panel("pl-32768", pl, seed=6, fmt="ell", split=False))
     keep_max(check_panel("pl-32768", pl, seed=6))
@@ -1180,6 +1193,8 @@ def main() -> int:
     keep_max(check_x2_seg("band-1024", band, seed=12))
     keep_max(check_x2_seg(f"cant-{CANT_N}", cant, seed=13))
     keep_max(check_x2_seg("pl_big-524288", pl_big, seed=14))
+    for name, shape in tile_shapes.items():
+        keep_max(check_x2_seg(name, shape, seed=17))
     for trip, name in ((band, "band-1024"), (pl, "pl-32768")):
         keep_max(check_x2_panel(name, trip, seed=15, split=False))
         keep_max(check_x2_panel(name, trip, seed=15, fmt="ell", split=False))
@@ -1402,7 +1417,8 @@ def main() -> int:
     # x2 on pl_big too) with the counters from zero
     print("phase 6: probes")
     perrs = {k: 0.0 for k in PROBE_KERNELS}
-    for label, trip, seed in (("band-1024", band, 21), (f"cant-{CANT_N}", cant, 22)):
+    for label, trip, seed in (("band-1024", band, 21), (f"cant-{CANT_N}", cant, 22),
+                              ("empty_row_gaps", tile_shapes["empty_row_gaps"], 23)):
         for k, e in check_probes(label, trip, seed).items():
             perrs[k] = max(perrs[k], e)
     tq = time_probes(cl, cant, card)
@@ -1449,10 +1465,12 @@ def main() -> int:
         if k.startswith("seg_ablate_") and "_x2_" not in k:
             row["also_replaces"] = ABLATE_ALSO
         if k in ("seg_spmv_tiles", "seg_spmv_tiles_x2"):
-            big = tc_big if k == "seg_spmv_tiles" else tx_big
-            row["pl_big"] = {"ms": big[k][0], "device_ms": big[k][1],
-                             "plain_ms": big[f"{k}_plain"][0],
-                             **bound_fields(k, big), **library_fields(k, big)}
+            more = ({"pl_big": tc_big, "pl_wide": times["pl_wide-524288"]}
+                    if k == "seg_spmv_tiles" else {"pl_big": tx_big})
+            for where, big in more.items():
+                row[where] = {"ms": big[k][0], "device_ms": big[k][1],
+                              "plain_ms": big[f"{k}_plain"][0],
+                              **bound_fields(k, big), **library_fields(k, big)}
         kernels.append(row)
     for row in kernels:  # ms per call | on the device, the bound in µs
         lib = row["library_ms"]
@@ -1462,6 +1480,13 @@ def main() -> int:
               f"{row['bound_ms'] * 1e3:.3f} µs (by {row['bound_by']}), plain "
               f"{row['plain_ms']:.4f}, library {lib} ({row['library_call']}); "
               f"{row['launches']} launches  [{card}]")
+        for where in ("pl_big", "pl_wide"):
+            if where in row:
+                w = row[where]
+                print(f"  {row['name']:24s} {where}: {w['ms']:.4f} | "
+                      f"{fmt_ms(w['device_ms'])} against its bound "
+                      f"{w['bound_ms'] * 1e3:.3f} µs, library {w['library_ms']:.4f} | "
+                      f"{fmt_ms(w['library_device_ms'])}  [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -108,7 +108,7 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
     ``X2Matrix``, an fp64 x (column j from seed + j), fp64 y, every column
     held to ``x2_check``."""
     import spmv_tpu_torch
-    from spmv_tpu_torch.kernels import _build, engines
+    from spmv_tpu_torch.kernels import engines
 
     rhs = max(int(rhs), 1)
     x2 = dtype == "f32x2"
@@ -130,13 +130,14 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
         else:
             x = _make_x(x_mode, info.ncols, seed).astype(x_type)
             y = spmv_tpu_torch.device.y_to_numpy(a.matvec(x), info.nrows, out_dtype)
-    except (_build.BuildError, engines.KernelError) as e:
-        print(f"kernel error: {e}", file=sys.stderr)
-        return ReturnCode.PROGRAM_ERROR
-    except (ValueError, NotImplementedError) as e:
-        # a matrix the format refuses: PROGRAM_ERROR, as
-        # spmv_tpu/cli.py:138-140 and :203-205 return
+    except (ValueError, NotImplementedError) as e:  # a matrix the format refuses
         print(f"error: {e}", file=sys.stderr)
+        return ReturnCode.PROGRAM_ERROR
+    except Exception as e:
+        # any other failure while converting or multiplying (a build error,
+        # a CUDA error, out of memory) is PROGRAM_ERROR too, as
+        # spmv_tpu/cli.py:141-143 and :203-205 return
+        print(f"kernel error: {type(e).__name__}: {e}", file=sys.stderr)
         return ReturnCode.PROGRAM_ERROR
     ran = [k for k, n in engines.LAUNCHES.items() if n > before[k]]
     on = a.device if isinstance(a, spmv_tpu_torch.BSRMatrix) else a.dev.device
@@ -155,6 +156,10 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
     print(f"{fmt}: {info.nrows} x {info.ncols}, nnz {rows.size}, plan "
           f"{a.stream_bytes / 1e6:.2f} MB{extra} on {on} ({where}); "
           f"kernels: {' + '.join(ran) or 'none'}")
+    if fmt == "ell" and not x2:  # parity with ell.c:103-104, spmv_tpu/cli.py:207-210
+        st = a.row_length_stats
+        print(f"row length: average {st['average']:.2f}, "
+              f"shortest {st['shortest']}, longest {st['longest']}")
     check = _validate_x2 if x2 else _validate
     tag = "f32x2, " if x2 else ""
     if rhs == 1:
@@ -178,7 +183,7 @@ def cmd_run(args) -> int:
         return ReturnCode.DEVICE_ERROR
     try:
         info, rows, cols, vals = _load(args)
-    except (OSError, ValueError) as e:
+    except Exception as e:  # any failure to read is FILE_ERROR, as in JAX
         print(f"error reading {args.matrix}: {e}", file=sys.stderr)
         return ReturnCode.FILE_ERROR
     return run_spmv(args.format, info, rows, cols, vals, x_mode=args.x,
@@ -189,7 +194,7 @@ def cmd_run(args) -> int:
 def cmd_info(args) -> int:
     try:
         info, rows, cols, vals = _load(args)
-    except (OSError, ValueError) as e:
+    except Exception as e:  # any failure to read is FILE_ERROR, as in JAX
         print(f"error reading {args.matrix}: {e}", file=sys.stderr)
         return ReturnCode.FILE_ERROR
     lengths = (np.bincount(rows, minlength=max(info.nrows, 1)) if rows.size

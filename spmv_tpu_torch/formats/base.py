@@ -49,12 +49,19 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["CsrPlan", "TILE_NNZ", "build_csr_plan", "csr_ptr", "cdiv",
-           "PanelPlan", "SLICE_ROWS", "TILE_COLS", "build_panel_plan"]
+__all__ = ["CsrPlan", "TILE_NNZ", "ROW_STAGE", "build_csr_plan", "csr_ptr",
+           "cdiv", "row_spans", "PanelPlan", "SLICE_ROWS", "TILE_COLS",
+           "build_panel_plan"]
 
 # Nonzeros per K1 tile: 256 threads × 4 consecutive nonzeros each. Fixed by
 # kernels/csrc/seg_spmv.cu (kTileNnz); the CUDA wrapper refuses other tiles.
 TILE_NNZ = 1024
+
+# Row offsets K1 and K12 stage in shared memory per tile (row_stage_cap in
+# kernels/csrc/seg_tile.cuh): a tile without empty rows spans at most
+# TILE_NNZ + 1 rows, so TILE_NNZ + 2 offsets. A tile whose span (``row_spans``)
+# is longer, which only runs of empty rows make, reads them from global memory.
+ROW_STAGE = TILE_NNZ + 2
 
 # Rows per panel slice: one warp, one row per lane (panel_spmv.cu kC).
 SLICE_ROWS = 32
@@ -93,6 +100,14 @@ class CsrPlan:
     @property
     def max_row_nnz(self) -> int:
         return int(np.diff(self.ptr).max()) if self.nrows else 0
+
+
+def row_spans(tile_row0) -> np.ndarray:
+    """Row offsets each tile of a plan reads: ``ptr[tile_row0[t] ..
+    tile_row0[t + 1] + 1]``, so ``tile_row0[t + 1] - tile_row0[t] + 2``; the
+    kernel stages them in shared memory where this is at most ``ROW_STAGE``."""
+    t0 = np.asarray(tile_row0, dtype=np.int64)
+    return np.diff(t0) + 2
 
 
 def csr_ptr(rows_sorted: np.ndarray, nrows: int) -> np.ndarray:

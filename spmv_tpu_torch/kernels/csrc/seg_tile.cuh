@@ -9,8 +9,9 @@
 //                 in one 8-byte load; the probe of bytes per nonzero)
 //   kBlockThreads threads per block, 4 nonzeros each: 256 is the
 //                 production tile of 1024 nonzeros; 32, 128 and 512 give
-//                 tiles of 128, 512 and 2048. At 32 the block is one warp,
-//                 and the shared-memory stage of the scan is not compiled.
+//                 tiles of 128, 512 and 2048. At 32 the block is one warp:
+//                 its row-offset stage needs only a warp barrier, and the
+//                 warp-totals stage of the scan is not compiled.
 //   kX, XT        how x(c) is read: gathered from an XT array (XT = T in
 //                 production, float under double values for the probe of
 //                 the 8-byte gather), or synthesized from the column in
@@ -42,19 +43,28 @@ constexpr int kFixupThreads = 256;
 constexpr int kXGather = 0;  // x[c], read from the XT array
 constexpr int kXSynth = 1;   // (c & 1023)·2⁻¹⁰, no x read at all
 
-// Inclusive segmented scan across a warp. Keys (rows) are nondecreasing
-// along the lanes; a lane adds its neighbour's running sum only while the
-// two keys agree, so every partial stays inside one row, and the order of
-// the additions is fixed by the lane positions. T is float or double
-// (__shfl_up_sync takes both).
-template <typename T>
-__device__ __forceinline__ T warp_seg_scan(int key, T val) {
+// Inclusive segmented scan across a warp, driven by head flags. Keys (rows)
+// are nondecreasing along the lanes, and lanes with no nonzeros (key -1)
+// come last, so "the lane d back holds my key" is the same as "no run
+// starts in the d lanes up to mine": one ballot of the run starts gives
+// every lane the distance back to its run's first lane, and each level
+// shuffles only the value (one shuffle of a float, two of a double, where
+// the scan that compared keys shuffled the key beside it at every level).
+// A lane adds its neighbour's running sum at the same levels and in the
+// same order as that scan did, so the bits are the same. `prev_key` is
+// the key of the lane before (any value on lane 0). kLanes: the lanes
+// whose sums are wanted; levels past them are not run.
+template <typename T, int kLanes = kWarp>
+__device__ __forceinline__ T warp_seg_scan(int key, int prev_key, T val) {
   const int lane = threadIdx.x & (kWarp - 1);
+  const unsigned starts = __ballot_sync(kFullMask, lane == 0 || prev_key != key);
+  // lanes back to the start of my run: lane 0 always starts one
+  const int reach =
+      lane - (31 - __clz(static_cast<int>(starts & (kFullMask >> (31 - lane)))));
 #pragma unroll
-  for (int d = 1; d < kWarp; d <<= 1) {
-    const int k = __shfl_up_sync(kFullMask, key, d);
+  for (int d = 1; d < kLanes; d <<= 1) {
     const T v = __shfl_up_sync(kFullMask, val, d);
-    if (lane >= d && k == key) val = v + val;
+    if (d <= reach) val = v + val;
   }
   return val;
 }
@@ -95,23 +105,146 @@ __device__ __forceinline__ T x_at(const XT* __restrict__ x, int c) {
   }
 }
 
+// A tile's row offsets ptr[r] for r in [tile_row0[t], tile_row0[t + 1] + 1],
+// where the thread of a tile kernel finds, walks and closes its rows.
+// StagedOffsets reads the copy the block staged in shared memory;
+// GlobalOffsets reads ptr in global memory, for a tile whose span is over
+// the stage's cap.
+struct StagedOffsets {
+  const int* s;  // shared memory: s[i] = ptr[r0 + i]
+  int r0;
+  __device__ __forceinline__ int operator()(int r) const { return s[r - r0]; }
+};
+struct GlobalOffsets {
+  const int* __restrict__ ptr;
+  __device__ __forceinline__ int operator()(int r) const { return __ldg(ptr + r); }
+};
+
 // Writes the tile's total for row r: straight to y when the whole row lies
 // in this tile [ts, te), else to the tile's head slot (the row began in an
 // earlier tile) or tail slot (the row runs on into later tiles).
-template <typename T>
-__device__ __forceinline__ void emit_row(const int* __restrict__ ptr, int r,
-                                         T v, int t, int ts, int te,
-                                         T* __restrict__ y,
+template <typename T, typename Offsets>
+__device__ __forceinline__ void emit_row(Offsets off, int r, T v, int t, int ts,
+                                         int te, T* __restrict__ y,
                                          T* __restrict__ carry) {
-  const int rs = __ldg(ptr + r);
-  const int re = __ldg(ptr + r + 1);
-  if (rs < ts) {
+  if (off(r) < ts) {
     carry[2 * t] = v;
-  } else if (re > te) {
+  } else if (off(r + 1) > te) {
     carry[2 * t + 1] = v;
   } else {
     y[r] = v;
   }
+}
+
+// Everything of a tile kernel after the loads: the row search, the runs,
+// the block-wide scan and the emit, on the tile's row offsets `off`. `v`
+// and `xv` are this thread's values and x(c) (0 past e_end).
+template <typename T, int kBlockThreads, typename Offsets>
+__device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
+                                          int ts, int te, int e0, int e_end,
+                                          const T (&v)[kTileItems],
+                                          const T (&xv)[kTileItems],
+                                          T* __restrict__ y,
+                                          T* __restrict__ carry) {
+  constexpr int kWarps = kBlockThreads / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+
+  int key = -1;          // row of this thread's last run; -1 = no nonzeros
+  T run = T(0);          // that run's partial sum
+  int head_row = -1;     // row of the first run, if it closed in this thread
+  T head_val = T(0);     // and its partial sum
+  int row_end = 0;       // ptr[key + 1]
+
+  if (e0 < te) {
+    while (lo < hi) {  // largest r in [lo, hi] with ptr[r] <= e0
+      const int mid = (lo + hi + 1) >> 1;
+      if (off(mid) <= e0) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    int r = lo;
+    row_end = off(r + 1);
+#pragma unroll
+    for (int k = 0; k < kTileItems; ++k) {
+      const int e = e0 + k;
+      if (e < e_end) {
+        if (e >= row_end) {  // the run of row r closed at e - 1
+          if (head_row < 0) {
+            head_row = r;
+            head_val = run;
+          } else {
+            y[r] = run;  // began and ended inside this thread
+          }
+          do {  // step to the row holding e, past any empty rows
+            ++r;
+            row_end = off(r + 1);
+          } while (e >= row_end);
+          run = T(0);
+        }
+        run += v[k] * xv[k];
+      }
+    }
+    key = r;
+  }
+
+  // Block-wide inclusive segmented scan of the (key, run) pairs. Threads
+  // with no nonzeros sit at the end of the block with key -1 and add
+  // nothing to anyone before them. (ek, ev) is the exclusive value: the
+  // inclusive scan of the thread before this one.
+  int ek = __shfl_up_sync(kFullMask, key, 1);
+  T incl = warp_seg_scan(key, ek, run);
+  int before_key = -1;  // lane 31's key in the warp before this one
+  T before = T(0);      // and the inclusive scan over the warps before
+  if constexpr (kWarps > 1) {
+    // One barrier: each warp's last lane posts (key, total), then every
+    // warp scans the kWarps totals itself, in the order one warp would,
+    // and takes the sum over the warps before it by a shuffle.
+    __shared__ int s_key[kWarps];
+    __shared__ T s_val[kWarps];
+    const int warp = threadIdx.x / kWarp;
+    if (lane == kWarp - 1) {
+      s_key[warp] = key;
+      s_val[warp] = incl;
+    }
+    __syncthreads();
+    const int wk = lane < kWarps ? s_key[lane] : -1;
+    const T wv = warp_seg_scan<T, kWarps>(
+        wk, __shfl_up_sync(kFullMask, wk, 1), lane < kWarps ? s_val[lane] : T(0));
+    const T w = __shfl_sync(kFullMask, wv, warp > 0 ? warp - 1 : 0);
+    if (warp > 0) {
+      before_key = s_key[warp - 1];
+      before = w;
+      if (before_key == key) incl = before + incl;
+    }
+  }
+  T ev = __shfl_up_sync(kFullMask, incl, 1);
+  if (lane == 0) {  // lane 0 continues the warp before, or starts the tile
+    ek = before_key;
+    ev = before;
+  }
+
+  if (e0 < te) {
+    if (head_row >= 0) {
+      emit_row(off, head_row, ek == head_row ? ev + head_val : head_val, t, ts,
+               te, y, carry);
+    }
+    // The last run ends here if its row ends at e_end or the tile does.
+    if (row_end == e_end || e_end == te) {
+      emit_row(off, key, incl, t, ts, te, y, carry);
+    }
+  }
+}
+
+// Row offsets a block of kBlockThreads threads stages: ptr[r0 .. r1 + 1]
+// for r0 = tile_row0[t], r1 = tile_row0[t + 1]. Every row between r0 and r1
+// holds one of the tile's nonzeros or is empty, so a tile with no empty
+// rows spans r1 - r0 <= kTileNnz rows and fits; only runs of empty rows
+// can push a tile over (then it reads ptr in global memory).
+template <int kBlockThreads>
+__host__ __device__ constexpr int row_stage_cap() {
+  return kBlockThreads * kTileItems + 2;
 }
 
 // K1 — replaces _seg_kernel (spmv_tpu/kernels/engines.py:414); K12 (T =
@@ -121,15 +254,36 @@ __device__ __forceinline__ void emit_row(const int* __restrict__ ptr, int r,
 // block does the same work whatever the row lengths (a power-law hub row
 // is cut into many tiles; a tile may hold hundreds of short rows). Each
 // thread loads 4 consecutive values and columns (one 16-byte load each for
-// float values and int32 columns), finds the row of its first nonzero by
-// binary search in ptr between the plan's tile_row0 bounds, and sums its
+// float values and int32 columns) and gathers their x, finds the row of its
+// first nonzero by binary search in the tile's row offsets, and sums its
 // runs sequentially. A run that closes inside the thread and did not start
 // it is a whole row: it goes straight to y. The thread's first and last
 // runs may continue in the neighbouring threads; a block-wide segmented
-// scan (warp shuffles, then one warp over the warp totals in shared
-// memory) joins them. The thread where a row's run ends in the tile writes
-// it through emit_row. Rows with no nonzeros are never written: the
-// wrapper zeroes y.
+// scan (warp shuffles driven by run-start flags, then every warp over the
+// warp totals in shared memory) joins them. The thread where a row's run
+// ends in the tile writes it through emit_row. Rows with no nonzeros are
+// never written: the wrapper zeroes y.
+//
+// What bounds it on the H100: bytes in principle (8 B per nonzero
+// streamed, 12 in fp64, and a 4- or 8-byte x gather, for 2 flops), but the
+// row tracking (search, runs, scan, emit) costs about as much again as the
+// stream (spmv_tpu_torch/probes/ablate.py: noscat against noseg). Its
+// design: (1) the block stages its tile's row offsets in shared memory
+// with one coalesced pass, after its value, column and x loads are issued,
+// so that no load waits on the tile's bounds and the search, the row steps
+// and the emits read shared memory, not chains of loads of ptr; a tile over
+// the stage's cap (runs of empty rows) reads ptr in global memory, the same
+// code on other offsets, with the same bits; (2) the scan is driven by a
+// ballot of run starts and shuffles only the values; (3) the block scan
+// has one barrier, not two: every warp scans the warp totals itself. The
+// additions, and so the bits, are those of the kernel that searched ptr
+// in global memory. That kernel's ptr reads mostly hit L1 (a block's
+// threads search the same few lines), so (1) pays where a tile holds many
+// rows: on an H100, the same kernel without the stage (global reads,
+// loads after the search) is 7% slower on a power-law matrix of ~110 rows
+// per tile and on a 64-row band, and 2-3% faster at ~16 rows per tile
+// (python -m spmv_tpu_torch.probes.turns). What the row tracking still
+// costs is not load latency.
 template <typename T, typename ColT, int kBlockThreads, int kX = kXGather,
           typename XT = T>
 __global__ void __launch_bounds__(kBlockThreads)
@@ -140,37 +294,22 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols
                       T* __restrict__ carry, int nnz) {
   constexpr int kTileNnz = kBlockThreads * kTileItems;
   constexpr int kWarps = kBlockThreads / kWarp;
+  constexpr int kStage = row_stage_cap<kBlockThreads>();
   static_assert(kBlockThreads % kWarp == 0 && kWarps <= kWarp,
                 "a tile block is 1 to 32 whole warps");
+  __shared__ int s_ptr[kStage];
 
   const int t = blockIdx.x;
-  const int lane = threadIdx.x & (kWarp - 1);
   const int ts = t * kTileNnz;
   const int te = min(ts + kTileNnz, nnz);
   const int e0 = ts + threadIdx.x * kTileItems;
   const int e_end = min(e0 + kTileItems, te);  // one past this thread's last
 
-  int key = -1;          // row of this thread's last run; -1 = no nonzeros
-  T run = T(0);          // that run's partial sum
-  int head_row = -1;     // row of the first run, if it closed in this thread
-  T head_val = T(0);     // and its partial sum
-  int row_end = 0;       // ptr[key + 1]
-
+  // The stream and the x gather first, so that no load waits on the tile's
+  // bounds and they are in flight while the block stages its row offsets.
+  T v[kTileItems];
+  T xv[kTileItems];
   if (e0 < te) {
-    int lo = __ldg(tile_row0 + t);
-    int hi = __ldg(tile_row0 + t + 1);
-    while (lo < hi) {  // largest r in [lo, hi] with ptr[r] <= e0
-      const int mid = (lo + hi + 1) >> 1;
-      if (__ldg(ptr + mid) <= e0) {
-        lo = mid;
-      } else {
-        hi = mid - 1;
-      }
-    }
-    int r = lo;
-    row_end = __ldg(ptr + r + 1);
-
-    T v[kTileItems];
     int c[kTileItems];
     if (e_end - e0 == kTileItems) {
       // aligned: e0 is a multiple of 4 and the wrapper checks the base
@@ -185,77 +324,29 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols
         c[k] = in ? static_cast<int>(__ldg(cols + e0 + k)) : 0;
       }
     }
-
 #pragma unroll
     for (int k = 0; k < kTileItems; ++k) {
-      const int e = e0 + k;
-      if (e < e_end) {
-        if (e >= row_end) {  // the run of row r closed at e - 1
-          if (head_row < 0) {
-            head_row = r;
-            head_val = run;
-          } else {
-            y[r] = run;  // began and ended inside this thread
-          }
-          do {  // step to the row holding e, past any empty rows
-            ++r;
-            row_end = __ldg(ptr + r + 1);
-          } while (e >= row_end);
-          run = T(0);
-        }
-        run += v[k] * x_at<kX, T>(x, c[k]);
-      }
-    }
-    key = r;
-  }
-
-  // Block-wide inclusive segmented scan of the (key, run) pairs. Threads
-  // with no nonzeros sit at the end of the block with key -1 and add
-  // nothing to anyone before them. (ek, ev) is the exclusive value: the
-  // inclusive scan of the thread before this one.
-  T incl = warp_seg_scan(key, run);
-  int ek;
-  T ev;
-  if constexpr (kWarps > 1) {
-    __shared__ int s_key[kWarps];
-    __shared__ T s_val[kWarps];
-    const int warp = threadIdx.x / kWarp;
-    if (lane == kWarp - 1) {
-      s_key[warp] = key;
-      s_val[warp] = incl;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int wk = lane < kWarps ? s_key[lane] : -1;
-      const T wv = warp_seg_scan(wk, lane < kWarps ? s_val[lane] : T(0));
-      if (lane < kWarps) s_val[lane] = wv;  // inclusive over warps 0..lane
-    }
-    __syncthreads();
-    if (warp > 0 && s_key[warp - 1] == key) incl = s_val[warp - 1] + incl;
-    ek = __shfl_up_sync(kFullMask, key, 1);
-    ev = __shfl_up_sync(kFullMask, incl, 1);
-    if (lane == 0) {
-      ek = warp > 0 ? s_key[warp - 1] : -1;
-      ev = warp > 0 ? s_val[warp - 1] : T(0);
-    }
-  } else {  // one warp: its scan is the block's, and lane 0 starts the tile
-    ek = __shfl_up_sync(kFullMask, key, 1);
-    ev = __shfl_up_sync(kFullMask, incl, 1);
-    if (lane == 0) {
-      ek = -1;
-      ev = T(0);
+      xv[k] = e0 + k < e_end ? x_at<kX, T>(x, c[k]) : T(0);
     }
   }
 
-  if (e0 < te) {
-    if (head_row >= 0) {
-      emit_row(ptr, head_row, ek == head_row ? ev + head_val : head_val, t, ts,
-               te, y, carry);
+  const int r0 = __ldg(tile_row0 + t);
+  const int r1 = __ldg(tile_row0 + t + 1);
+  const int span = r1 - r0 + 2;        // offsets ptr[r0 .. r1 + 1]
+  if (span <= kStage) {  // the same for the whole block
+    for (int i = threadIdx.x; i < span; i += kBlockThreads) {
+      s_ptr[i] = __ldg(ptr + r0 + i);
     }
-    // The last run ends here if its row ends at e_end or the tile does.
-    if (row_end == e_end || e_end == te) {
-      emit_row(ptr, key, incl, t, ts, te, y, carry);
+    if constexpr (kWarps > 1) {
+      __syncthreads();
+    } else {
+      __syncwarp();  // one warp (tile 128): a warp barrier is the block's
     }
+    tile_rows<T, kBlockThreads>(StagedOffsets{s_ptr, r0}, r0, r1, t, ts, te, e0,
+                                e_end, v, xv, y, carry);
+  } else {
+    tile_rows<T, kBlockThreads>(GlobalOffsets{ptr}, r0, r1, t, ts, te, e0,
+                                e_end, v, xv, y, carry);
   }
 }
 

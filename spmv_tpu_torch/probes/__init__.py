@@ -2,7 +2,7 @@
 JAX package's B12 probes (``scripts/probe_*.py``).
 
     python -m spmv_tpu_torch.probes {ablate,x2,pack,accum,spmm}
-        [--matrix cant|pl_big|band] [--rounds N] [--device cpu]
+        [--matrix cant|pl_big|pl_wide|band] [--rounds N] [--device cpu]
 
 Each probe builds the plans of one matrix, checks every member's result
 once (the kernels on the card; the plain versions with ``--device cpu``),

@@ -12,14 +12,17 @@ noscat     K1 alone                                    noscat (ablate3)
 nogather   K1 with x̃(c) computed from c, no x read      nowin
 noseg      loads and gather, one sum per tile: no       noseg
            row search, scan or emit
+zero       K1's zero fill of y and the carries alone    (none: the wrapper's
+           (two memsets, no kernel)                     allocation)
 dma        the plan's values and columns alone          dma
 hbm        ``dma`` over 5 L2s of stream: HBM ceiling    (the co-sampled
                                                         ceiling)
 =========  ==========================================  ===================
 
-So noscat − nogather is the gather of x, noscat − noseg the row
-tracking, scan and emit, full − noscat K2 and its launch, and dma the
-floor that streaming the plan sets.
+So noscat − nogather is the gather of x, noscat − noseg − zero the row
+tracking, scan and emit, zero the wrapper's zero fill (noseg writes one sum
+per tile into an uninitialized output), full − noscat K2 and its launch,
+and dma the floor that streaming the plan sets.
 """
 
 from __future__ import annotations
@@ -47,6 +50,15 @@ def members(trip, device):
     def fix(out):
         return E.carry_fixup_reference(dev, out[0].clone(), out[1])
 
+    def zero_fill():  # what K1's wrapper allocates before it launches
+        return (torch.zeros(dev.nrows, dtype=F32, device=device),
+                torch.zeros(2 * dev.ntiles, dtype=F32, device=device))
+
+    def zeros_check(out) -> str:
+        if any(t.count_nonzero() for t in out):
+            raise AssertionError("the zero fill left a nonzero")
+        return f"{sum(t.numel() for t in out)} zeros"
+
     ms = [
         Member("full", lambda: E.carry_fixup(dev, *E.segmented_spmv_partials(dev, x)),
                csr_spmv_bytes(dev), flops, F32, spmv_check(trip, x)),
@@ -58,6 +70,7 @@ def members(trip, device):
         Member("noseg", lambda: KP.ablate_noseg(dev.vals, dev.cols, x),
                stream_bytes(dev.vals, dev.cols, x), flops, F32,
                tile_sums_check(dev.vals, dev.cols, x)),
+        Member("zero", zero_fill, (dev.nrows + 2 * dev.ntiles) * 4, 0, F32, zeros_check),
         *ceiling_members(dev.vals, dev.cols, device),
     ]
     header = [f"float32 CSR plan {dev.stream_bytes} B, {dev.ntiles} tiles of "
@@ -71,7 +84,8 @@ def summary(readings) -> list[str]:
         t = {k: getattr(r, f"{kind}_ms") for k, r in readings.items()}
         out.append(f"stage split, {kind} (ms): x gather (noscat - nogather) "
                    f"{t['noscat'] - t['nogather']:.4f}, row search + scan + emit "
-                   f"(noscat - noseg) {t['noscat'] - t['noseg']:.4f}, K2 + its "
+                   f"(noscat - noseg - zero) {t['noscat'] - t['noseg'] - t['zero']:.4f}, "
+                   f"zero fill (zero) {t['zero']:.4f}, K2 + its "
                    f"launch (full - noscat) {t['full'] - t['noscat']:.4f}, the "
                    f"stream (dma) {t['dma']:.4f}, of K1 + K2 {t['full']:.4f}")
     return out

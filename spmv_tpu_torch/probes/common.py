@@ -1,36 +1,90 @@
-"""What the probes share: the matrices they run on, the checks that hold
-each member's result to an independent definition, and the two ceiling
-members every probe co-samples."""
+"""What the probes share: the matrices they run on, the extreme tile
+shapes of the segmented tile kernel, the checks that hold each member's
+result to an independent definition, and the two ceiling members every
+probe co-samples."""
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
 
 from spmv_tpu_torch import synth
 from spmv_tpu_torch.formats.base import TILE_NNZ
+from spmv_tpu_torch.io.mmio import MMInfo
 from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import (KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv,
                                    kernel_check, row_scale, x2_check)
 from spmv_tpu_torch.probes.bounds import stream_bytes
 from spmv_tpu_torch.probes.timing import Member, l2_bytes, synthetic_stream
 
-__all__ = ["MATRICES", "HBM_STREAM_L2S", "vector", "spmv_check", "tile_sum_bound",
-           "tile_sums_check", "ceiling_members"]
+__all__ = ["MATRICES", "TILE_SHAPES", "HBM_STREAM_L2S", "vector", "spmv_check",
+           "tile_sum_bound", "tile_sums_check", "ceiling_members"]
 
 # The HBM ceiling's stream, in L2 sizes: 250 MiB on the H100's 50 MiB L2.
 HBM_STREAM_L2S = 5
 
 # bench.py's main-suite matrix (bench.py:84-85), its 524k-row power-law
-# matrix (bench.py:211) and the 1024-row band matrix of the parity tests
+# matrix (bench.py:211), the same without its column band (12,373,741 nnz,
+# a plan above the 50 MB L2) and the 1024-row band matrix of the parity
+# tests; partials, so that ``probes.turns`` can name them to a checkout of
+# its own
 MATRICES = {
-    "cant": lambda: synth.synthetic_cant(n=62464, avg_nnz_per_row=64,
-                                         bandwidth=350, seed=0),
-    "pl_big": lambda: synth.power_law(n=524_288, avg_nnz_per_row=24,
-                                      bandwidth=512, seed=0),
-    "band": lambda: synth.synthetic_cant(n=1024, avg_nnz_per_row=16,
-                                         bandwidth=60, seed=5),
+    "cant": partial(synth.synthetic_cant, n=62464, avg_nnz_per_row=64,
+                    bandwidth=350, seed=0),
+    "pl_big": partial(synth.power_law, n=524_288, avg_nnz_per_row=24,
+                      bandwidth=512, seed=0),
+    "pl_wide": partial(synth.power_law, n=524_288, avg_nnz_per_row=24, seed=0),
+    "band": partial(synth.synthetic_cant, n=1024, avg_nnz_per_row=16,
+                    bandwidth=60, seed=5),
 }
+
+
+def _triplets(lengths, ncols: int, seed: int):
+    """Row-ordered triplets with ``lengths[i]`` nonzeros in row i, in
+    distinct consecutive columns (mod ncols) from a random start, and
+    standard-normal values."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, np.int64)
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    first = np.cumsum(lengths) - lengths
+    start = rng.integers(0, ncols, lengths.size)
+    cols = (start[rows] + np.arange(rows.size) - first[rows]) % ncols
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    vals = rng.standard_normal(rows.size)
+    info = MMInfo("matrix", "coordinate", "real", "general", lengths.size, ncols,
+                  rows.size)
+    return info, rows, cols, vals
+
+
+def one_nonzero_rows(seed: int = 0):
+    """100 rows of 7 nonzeros, 2,048 rows of one, 100 rows of 5: the tile
+    of nonzeros 1024-2047 holds 1024 one-nonzero rows, the most nonempty
+    rows a K1 tile can hold."""
+    return _triplets([7] * 100 + [1] * 2048 + [5] * 100, 700, seed)
+
+
+def empty_row_gaps(seed: int = 0):
+    """40 rows of 10 nonzeros, 2,500 empty rows, then every sixth of 3,600
+    rows with 3 nonzeros, then 400 rows of 8: tiles whose row span is
+    thousands of rows, beside tiles of short rows."""
+    sparse = np.zeros(3600, np.int64)
+    sparse[::6] = 3
+    return _triplets([10] * 40 + [0] * 2500 + list(sparse) + [8] * 400, 700, seed)
+
+
+def hub_row(seed: int = 0):
+    """300 rows of 2 nonzeros, one row of 5,000 over six tiles, 300 rows
+    of 3."""
+    return _triplets([2] * 300 + [5000] + [3] * 300, 6000, seed)
+
+
+# The extreme tiles of the segmented tile kernel (K1, K12), from a seed:
+# the tests, the gpu tests and chip_smoke.py run both engines on them
+TILE_SHAPES = {"one_nonzero_rows": one_nonzero_rows,
+               "empty_row_gaps": empty_row_gaps, "hub_row": hub_row}
 
 
 def vector(n: int, dtype: torch.dtype, device, seed: int = 3, R: int | None = None):

@@ -99,3 +99,65 @@ def test_a_conversion_error_returns_jaxs_code(capsys, tmp_path):
     assert "error:" in capsys.readouterr().err
     rc_jax = spmv_tpu.cli.main(["run", "--format", "bsr", "--matrix", str(path)])
     assert rc == rc_jax == ReturnCode.PROGRAM_ERROR == 2
+
+
+def _row_length_lines(text: str) -> list[str]:
+    return [ln for ln in text.splitlines() if ln.startswith("row length:")]
+
+
+@pytest.mark.parametrize("extra", [[], ["--rhs", "3"], ["--dtype", "f32x2"]],
+                         ids=["rhs1", "rhs3", "f32x2"])
+def test_run_ell_prints_jaxs_row_length_line(capsys, extra):
+    """``run --format ell`` prints JAX's ``row length: …`` line before the
+    verdict (``spmv_tpu/cli.py:207-210``) for any ``--rhs``, and not under
+    ``--dtype f32x2``: the same lines from both CLIs on the same file."""
+    import spmv_tpu.cli
+
+    args = ["run", "--format", "ell", "--matrix", EXAMPLE, *extra]
+    assert cli.main([*args, "--device", "cpu"]) == ReturnCode.SUCCESS
+    port = capsys.readouterr().out
+    assert spmv_tpu.cli.main(args) == ReturnCode.SUCCESS
+    jax_out = capsys.readouterr().out
+    assert _row_length_lines(port) == _row_length_lines(jax_out)
+    assert len(_row_length_lines(port)) == (0 if "f32x2" in extra else 1)
+    if not extra:
+        assert _row_length_lines(port) == ["row length: average 8.83, "
+                                           "shortest 0, longest 17"]
+        assert port.index("row length:") < port.index("result is ok")
+
+
+def test_any_exception_while_multiplying_returns_program_error(capsys,
+                                                               monkeypatch):
+    """A torch ``RuntimeError`` (a CUDA error, out of memory) during the
+    SpMV returns PROGRAM_ERROR, as JAX's ``except Exception`` does
+    (``spmv_tpu/cli.py:203-205``), not a traceback with exit status 1."""
+    import spmv_tpu.cli
+    import spmv_tpu.formats.csr
+    import spmv_tpu_torch.formats.csr
+
+    def boom(self, x):
+        raise RuntimeError("CUDA error: out of memory")
+
+    monkeypatch.setattr(spmv_tpu_torch.formats.csr.CSRMatrix, "matvec", boom)
+    monkeypatch.setattr(spmv_tpu.formats.csr.CSRMatrix, "matvec", boom)
+    args = ["run", "--format", "csr", "--matrix", EXAMPLE]
+    rc = cli.main([*args, "--device", "cpu"])
+    assert "RuntimeError: CUDA error: out of memory" in capsys.readouterr().err
+    assert rc == spmv_tpu.cli.main(args) == ReturnCode.PROGRAM_ERROR == 2
+
+
+def test_any_exception_while_loading_returns_file_error(capsys, monkeypatch):
+    """Any exception while reading the matrix returns FILE_ERROR, as
+    ``spmv_tpu/cli.py:185-187`` does; the port caught only ``OSError`` and
+    ``ValueError``."""
+    import spmv_tpu.cli
+
+    def boom(args):
+        raise RuntimeError("unreadable")
+
+    monkeypatch.setattr(cli, "_load", boom)
+    monkeypatch.setattr(spmv_tpu.cli, "_load", boom)
+    args = ["run", "--format", "csr", "--matrix", EXAMPLE]
+    rc = cli.main([*args, "--device", "cpu"])
+    assert "unreadable" in capsys.readouterr().err
+    assert rc == spmv_tpu.cli.main(args) == ReturnCode.FILE_ERROR

@@ -32,6 +32,7 @@ from spmv_tpu_torch.kernels import _build
 from spmv_tpu_torch.kernels import engines as E
 from spmv_tpu_torch.oracle import (KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv,
                                    kernel_check, row_scale)
+from spmv_tpu_torch.probes.common import TILE_SHAPES
 
 MATRICES = {
     "empty_rows": lambda: ref_synth.edge_case("empty_rows"),
@@ -42,6 +43,8 @@ MATRICES = {
     "band_1024": lambda: ref_synth.synthetic_cant(n=1024, avg_nnz_per_row=16,
                                                   bandwidth=60, seed=5),
     "power_law_2048": lambda: ref_synth.power_law(n=2048, seed=7),
+    # the extremes of K1's row-offset stage (test_torch_tiles.py)
+    **TILE_SHAPES,
 }
 
 

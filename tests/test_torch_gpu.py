@@ -18,7 +18,7 @@ from spmv_tpu_torch.kernels import engines_x2 as X2
 from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
-from spmv_tpu_torch.probes.common import tile_sum_bound
+from spmv_tpu_torch.probes.common import TILE_SHAPES, tile_sum_bound
 
 pytestmark = pytest.mark.gpu
 
@@ -28,6 +28,9 @@ MATRICES = {
                                               bandwidth=60, seed=5),
     "power_law_32768": lambda: synth.power_law(n=32768, seed=1),
     "cant_8192": lambda: synth.synthetic_cant(n=8192),
+    # a tile of 1024 one-nonzero rows, tiles over the row-offset stage's cap
+    # (K1 and K12 read ptr in global memory there), a hub row over six tiles
+    **TILE_SHAPES,
 }
 
 
@@ -560,7 +563,8 @@ def test_probe_timing_on_the_card(cuda):
     lines = []
     res = run_probe("ablate", trip=MATRICES["band_1024"](), rounds=1, device=cuda,
                     out=lines.append)
-    assert set(res["members"]) == {"full", "noscat", "nogather", "noseg", "dma", "hbm"}
+    assert set(res["members"]) == {"full", "noscat", "nogather", "noseg", "zero", "dma",
+                                   "hbm"}
     for m in res["members"].values():
         assert m["warm_ms"] > 0 and m["cold_ms"] > 0 and m["bound_ms"] > 0
     assert res["card"] and all(res["card"] in ln for ln in lines if " warm " in ln)

@@ -17,6 +17,7 @@ The kernels themselves are held to these plain versions on the card
 
 import dataclasses
 import functools
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -395,3 +396,52 @@ def test_band_plans_agree_with_the_ptr_they_came_from():
         assert torch.equal(dt.vals, dev.vals)
         assert dt.ntiles == -(-dev.nnz // tile)
     assert np.array_equal(dev.ptr.numpy(), csr_ptr(r, info.nrows))
+
+
+# ---------------------------------------------------------------- turns
+
+
+def test_turns_without_a_card_stops(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    proc = subprocess.run([sys.executable, "-m", "spmv_tpu_torch.probes.turns",
+                           str(REPO), "--out", str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1 and "no CUDA device" in proc.stderr
+    assert not any(tmp_path.iterdir())
+
+
+def test_turns_compare_outputs_bit_for_bit(tmp_path):
+    """``turns.compare`` names every output of a later turn whose bits
+    differ from the first turn's: a flipped last bit, a -0.0 for a 0.0, a
+    missing file; equal NaN bits pass."""
+    from spmv_tpu_torch.probes import turns
+
+    dirs = [tmp_path / f"{i}" for i in range(3)]
+    y32 = np.array([0.0, 1.5, np.nan], np.float32)
+    y64 = np.array([2.0, -3.25], np.float64)
+    for d in dirs:
+        d.mkdir()
+        np.save(d / "a_f32_y.npy", y32)
+        np.save(d / "a_f64_y.npy", y64)
+    assert turns.compare(dirs) == []
+    np.save(dirs[1] / "a_f32_y.npy", np.array([-0.0, 1.5, np.nan], np.float32))
+    np.save(dirs[2] / "a_f64_y.npy", np.nextafter(y64, np.inf))
+    assert turns.compare(dirs) == ["1/a_f32_y.npy", "2/a_f64_y.npy"]
+    (dirs[2] / "a_f32_y.npy").unlink()
+    assert "2/a_f32_y.npy" in turns.compare(dirs)
+
+
+def test_turns_name_the_probes_matrices_to_a_worker():
+    """``turns.matrix_specs`` names each matrix by generator and arguments,
+    through JSON as the worker gets them, and they build the probes'
+    matrices bit for bit."""
+    from spmv_tpu_torch import synth
+    from spmv_tpu_torch.probes import common, turns
+
+    specs = json.loads(json.dumps(turns.matrix_specs()))
+    assert list(specs) == list(turns.TURN_MATRICES)
+    assert specs["pl_wide"] == ["power_law", dict(n=524_288, avg_nnz_per_row=24, seed=0)]
+    gen, kwargs = specs["band"]
+    a, b = getattr(synth, gen)(**kwargs), common.MATRICES["band"]()
+    assert all(np.array_equal(u, w) for u, w in zip(a[1:], b[1:]))

@@ -41,6 +41,7 @@ from spmv_tpu_torch.kernels import engines as E
 from spmv_tpu_torch.kernels import engines_x2 as X
 from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.oracle import golden_spmv, row_scale, x2_check
+from spmv_tpu_torch.probes.common import TILE_SHAPES
 from test_torch_panel import CASES, row_ordered
 
 EXAMPLE = str(Path(__file__).resolve().parents[1] / "databases" / "example.mtx")
@@ -148,6 +149,22 @@ def test_x2_matches_jax_on_the_power_law_case(fmt):
     info, r, c, v, x = case("power_law_2048")
     a = X2Matrix.from_coo(fmt, info.nrows, info.ncols, r, c, v, device="cpu")
     check_port(a.matvec(x), info, r, c, v, x, jax_y("power_law_2048", fmt))
+
+
+@pytest.mark.parametrize("shape", sorted(TILE_SHAPES))
+def test_x2_tile_shapes_match_jax(shape):
+    """Plain K12 + K13 on the extremes of K12's row-offset stage (a tile of
+    1024 one-nonzero rows, tiles over the stage's cap through runs of empty
+    rows, a hub row over six tiles) against JAX's ``X2Matrix`` csr, a dense
+    fp64 product and the oracle, with the module's tolerances."""
+    info, r, c, v = TILE_SHAPES[shape](seed=5)
+    v = v * (1 + 1e-9 * np.arange(v.size))
+    x = np.random.default_rng(6).standard_normal(info.ncols)
+    before = dict(E.LAUNCHES)
+    a = X2Matrix.from_coo("csr", info.nrows, info.ncols, r, c, v, device="cpu")
+    y_jax = JaxX2.from_coo("csr", info.nrows, info.ncols, r, c, v).matvec(x)
+    check_port(a.matvec(x), info, r, c, v, x, np.asarray(y_jax))
+    assert E.LAUNCHES == before
 
 
 @pytest.mark.parametrize("fmt", ["hyb", "ell", "sell"])
