@@ -7,7 +7,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 
 1. The card (nvidia-smi name and power limit), and the build of the CUDA
    kernels from ``spmv_tpu_torch/kernels/csrc/`` (one nvcc per source, all
-   at once) with nvcc's register and spill lines.
+   at once) with nvcc's register and spill lines, and K4's and K14's
+   resident blocks per SM.
 2. Each kernel against its plain PyTorch version on the card, per row
    within ``1e-5 + fp32_rel_tol(max_row_nnz)·Σ|v||x|``, each kernel twice
    with bitwise-equal output. The segmented engine (K1-K3) on the edge
@@ -19,8 +20,14 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    tile of 1024 one-nonzero rows, tiles over the stage's cap through runs
    of empty rows, a hub row over six tiles). The panel
    engine (K4-K7) on the edge cases, the band matrix, cant (pure ELL, and
-   SELL-C-σ as the split builds it) and ``bench.py``'s 32k-row power-law
-   matrix (SELL and ELL without the split, and SELL as the split builds it).
+   SELL-C-σ as the split builds it), ``bench.py``'s 32k-row power-law
+   matrix (SELL and ELL without the split, and SELL as the split builds it)
+   and the cases of the panel tile kernel's walk and ownership
+   (``probes.common.PANEL_SHAPES``: empty slices at tile starts and ends, a
+   slice per tile, a hub slice, one-column slices, a cut last slice); on
+   every panel, cant's split SELL panel included, the launchers of K4 and
+   K14 also write into NaN-filled y and partials, which must equal the
+   wrappers' bits, so a row or slot they leave unwritten fails.
    The multi-RHS kernels at R = 2, 4 and 8, each column within the same
    bound: K8 + K9 on the edge cases, the band matrix, cant and ``pl_big``;
    K10 + K11 on the band matrix's and pl-32768's pure SELL panels,
@@ -30,8 +37,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    plain version (k the longest row), the x2 ``matvec`` against the fp64
    oracle by ``x2_check``: K12 + K13 on the edge cases, band-1024, cant,
    ``pl_big`` and the three stage extremes; K14 + K15 on band-1024's and
-   pl-32768's pure SELL and ELL panels and cant's split SELL panel; K7 on
-   an fp64 y against its index gather, bit for bit.
+   pl-32768's pure SELL and ELL panels, cant's split SELL panel and the
+   panel shapes; K7 on an fp64 y against its index gather, bit for bit.
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
@@ -71,12 +78,14 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    the port.
 6. The probes (``spmv_tpu_torch.probes``, the B12 counterparts): each
    probe kernel against its plain version on band-1024, cant and the
-   tile shape with runs of empty rows, twice with the same bits, with uint16 columns, nogather and x32 bit for bit
-   the production kernel on the same x, and their times at cant as in
-   phase 5; then, with the counters from zero, every probe on cant
-   (ablate, x2, pack, accum, spmm), x2 on band-1024 and ablate and x2 on
-   ``pl_big``, each checked and timed warm and cold against the co-sampled
-   ceiling; the counters must show every probe kernel.
+   tile shape with runs of empty rows (the panel ones on band-1024's and
+   cant's SELL panels and the panel shape with empty slices at tile
+   starts), twice with the same bits, with uint16 columns, nogather and x32
+   bit for bit the production kernel on the same x, and their times at cant
+   as in phase 5; then, with the counters from zero, every probe on cant
+   (ablate, x2, pack, accum, spmm, panel), x2 on band-1024, ablate, x2 and
+   panel on ``pl_big``, each checked and timed warm and cold against the
+   co-sampled ceiling; the counters must show every probe kernel.
 7. One line per kernel with its time, bound and library time; one JSON
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
@@ -87,6 +96,7 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -131,6 +141,9 @@ KERNELS = {
     "seg_ablate_x2_noseg": ("probe_spmv.cu", "scripts/probe_x2.py:241"),
     "seg_ablate_x2_dma": ("probe_spmv.cu", "scripts/probe_x2.py:241"),
     "seg_ablate_x2_x32": ("probe_spmv.cu", "scripts/probe_x2.py:241"),
+    # B12a's nowin cut on the panel tile kernel (K4, K14)
+    "panel_ablate_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
+    "panel_ablate_x2_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
 }
 # seg_ablate's modes cut the stages that all three TPU ablation probes cut
 ABLATE_ALSO = ("scripts/probe_ablate.py:152, scripts/probe_ablate2.py:175, "
@@ -304,6 +317,29 @@ def same_bits(name: str, fn) -> torch.Tensor:
     return a
 
 
+def writes_all(launcher: str, dev, x, got) -> None:
+    """Calls the panel tile launcher ``launcher`` (K4, K14 or a probe's
+    instantiation; x None for one that reads no x) itself, outside its
+    wrapper and its count, into NaN-filled y and partials: a row or slot it
+    leaves unwritten stays NaN, so both must equal the wrapper's ``got`` bit
+    for bit."""
+    from spmv_tpu_torch.kernels import _build
+
+    if not (dev.nslots and dev.nrows):  # the wrapper launches nothing
+        return
+    y, part = (torch.full_like(t, float("nan")) for t in got)
+    rc = getattr(_build.library().lib, launcher)(
+        dev.slice_ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_slice0.data_ptr(), dev.tile_own0.data_ptr(),
+        None if x is None else x.data_ptr(), y.data_ptr(), part.data_ptr(),
+        dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if rc or not (torch.equal(y, got[0]) and torch.equal(part, got[1])):
+        raise AssertionError(f"{launcher} into NaN-filled y and partials (rc {rc}): "
+                             f"a row or slot unwritten, or other bits than the wrapper's")
+
+
 def check_oracle(label: str, trip, y: torch.Tensor, xh: np.ndarray) -> None:
     from spmv_tpu_torch.oracle import golden_spmv, kernel_check, row_scale
 
@@ -383,6 +419,7 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
     tol = fp32_rel_tol(max(dev.max_width, 1))
 
     y4, p4 = same_bits("panel_spmv_tiles", lambda: P.panel_spmv_partials(dev, x))
+    writes_all("panel_spmv_tiles", dev, x, (y4, p4))
     y4r, p4r = P.panel_spmv_partials_reference(dev, x)
     owner = part_rows(dev)
     pscale = np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
@@ -408,7 +445,8 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
           f"{dev.nslots} slots ({dev.nslots / max(a.panel_nnz, 1):.3f}x), spill "
           f"nnz {a.spill_nnz}, tiles {dev.ntiles}, split slices {dev.nsplit}: "
           f"max |kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
-          + "; matvec passes the fp64 oracle; two runs bitwise equal")
+          + "; matvec passes the fp64 oracle; two runs bitwise equal; K4 writes "
+          "every row and slot")
     return errs
 
 
@@ -815,6 +853,7 @@ def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> 
     sscale[where] = scale
     k = max(dev.max_width, 1)
     y14, p14 = same_bits("panel_spmv_tiles_x2", lambda: X2.panel_spmv_x2_partials(dev, x))
+    writes_all("panel_spmv_tiles_x2", dev, x, (y14, p14))
     y14r, p14r = X2.panel_spmv_x2_partials_reference(dev, x)
     owner = part_rows(dev)
     pscale = np.where(owner >= 0, sscale[np.maximum(owner, 0)], 0.0)
@@ -837,7 +876,8 @@ def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> 
           f"{a.sorted_rows}, fp64 panel {dev.stream_bytes} B, tiles {dev.ntiles}, "
           f"split slices {dev.nsplit}: max |kernel - plain| "
           + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
-          + "; matvec passes x2_check; two runs bitwise equal"
+          + "; matvec passes x2_check; two runs bitwise equal; K14 writes every row "
+          "and slot"
           + ("; fp64 K7 gather bitwise the index gather" if a.sorted_rows else ""))
     return errs
 
@@ -1018,6 +1058,49 @@ def check_probes(label: str, trip, seed: int) -> dict:
     return errs
 
 
+def check_panel_probes(label: str, trip, seed: int, **kwargs) -> dict:
+    """Phase 6, the panel probe kernels on one matrix's SELL panels (float32
+    and float64; ``kwargs`` to the container): each twice with the same
+    bits, its launcher into NaN-filled y and partials with the same bits
+    (every row and slot written), bit for bit K4's / K14's on x̃, and
+    against its plain version per entry."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.kernels import probes as KP
+    from spmv_tpu_torch.oracle import fp32_rel_tol
+
+    info, rows, cols, vals = trip
+    a = build("sell", trip, **kwargs)
+    a64 = X2Matrix.from_coo("sell", info.nrows, info.ncols, rows, cols, vals,
+                            device="cuda", **kwargs)
+    errs = {}
+    for dev, tiles, name in ((a.dev, P.panel_spmv_partials, "panel_ablate_nogather"),
+                             (a64.dev, X2.panel_spmv_x2_partials,
+                              "panel_ablate_x2_nogather")):
+        xt = KP.xtilde(info.ncols, dev.vals.dtype, "cuda")
+        got = same_bits(name, lambda dev=dev: KP.panel_ablate_nogather(dev))
+        writes_all(name, dev, None, got)
+        if not all(map(torch.equal, got, tiles(dev, xt))):
+            raise AssertionError(f"{label} {name}: not bit for bit the production kernel")
+        plain = KP.panel_ablate_nogather_reference(dev)
+        # per entry, the plain version's sums of the magnitudes
+        scale = [t.double().cpu().numpy() for t in P.panel_spmv_partials_reference(
+            dataclasses.replace(dev, vals=dev.vals.abs()), xt)]
+        k = max(dev.max_width, 1)
+        if dev.vals.dtype == torch.float32:
+            errs[name] = max(within(f"{label} {name} {w}", g, q, sc, fp32_rel_tol(k))
+                             for w, g, q, sc in zip(("y", "part"), got, plain, scale))
+        else:
+            errs[name] = max(within_x2(f"{label} {name} {w}", g, q, sc, k)
+                             for w, g, q, sc in zip(("y", "part"), got, plain, scale))
+    print(f"  {label} sell{kwargs or ''} panel probe kernels: max |kernel - plain| "
+          + "  ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + "; two runs bitwise equal, every row and slot written; bit for bit "
+          "K4's / K14's on x̃")
+    return errs
+
+
 def time_probes(label: str, trip, card: str) -> dict:
     """Phase 6, the probe kernels and their plain versions on one matrix,
     per call and on the device, with each kernel's bytes and operations."""
@@ -1064,6 +1147,14 @@ def time_probes(label: str, trip, card: str) -> dict:
             B.stream_bytes(d.vals, d.cols), 3 * dev.nnz)
     add("seg_ablate_x2_x32", lambda: KP.ablate_x32(dev64, x),
         lambda: KP.ablate_x32_reference(dev64, x), B.seg_tiles_bytes(dev64, x_itemsize=4))
+    # the panel's: on the SELL panels the split builds (as K4's and K14's rows)
+    sell = build("sell", trip)
+    sell64 = X2Matrix.from_coo("sell", info.nrows, info.ncols, rows, cols, vals,
+                               device="cuda")
+    for p, sfx in ((sell, ""), (sell64, "_x2")):
+        add(f"panel_ablate{sfx}_nogather", lambda d=p.dev: KP.panel_ablate_nogather(d),
+            lambda d=p.dev: KP.panel_ablate_nogather_reference(d),
+            B.panel_tiles_bytes(p.dev, x_itemsize=0), 2 * p.panel_nnz)
     print(f"  {label} probe kernels: float32 plan {dev.stream_bytes} B, float64 "
           f"plan {dev64.stream_bytes} B  [{card}]")
     t = timed(label, fns, card, dev.nnz, dev.stream_bytes)
@@ -1093,6 +1184,12 @@ LIBRARY_CALLS = {
                      "seg_ablate_x2_x32"), (
         "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE), float64, at "
         "the same shapes (K12's row)")),
+    "panel_ablate_nogather": (
+        "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE) on the same "
+        "matrix's CSR plan, float32 (K4's row)"),
+    "panel_ablate_x2_nogather": (
+        "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE) on the same "
+        "matrix's CSR plan, float64 (K14's row)"),
 }
 
 
@@ -1126,7 +1223,7 @@ def main() -> int:
     from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.probes import run_probe
-    from spmv_tpu_torch.probes.common import TILE_SHAPES
+    from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES
     from spmv_tpu_torch.probes.timing import card_line
 
     t_start = time.perf_counter()
@@ -1143,6 +1240,9 @@ def main() -> int:
     for line in built.log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    print(f"  resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, "
+          f"4 warps each): K4 {built.lib.panel_tiles_occupancy(0)}, K14 "
+          f"{built.lib.panel_tiles_occupancy(1)}")
 
     # 2. kernels against their plain versions
     print("phase 2: kernels against plain PyTorch versions")
@@ -1177,6 +1277,10 @@ def main() -> int:
     keep_max(check_panel("pl-32768", pl, seed=6, split=False))
     keep_max(check_panel("pl-32768", pl, seed=6, fmt="ell", split=False))
     keep_max(check_panel("pl-32768", pl, seed=6))
+    # the panel tile kernel's cases, as built (ELL whole: no sort, no split)
+    panel_shapes = {name: build_shape() for name, build_shape in PANEL_SHAPES.items()}
+    for name, shape in panel_shapes.items():
+        keep_max(check_panel(name, shape, seed=8, fmt="ell", split=False))
     for R in (2, 4, 8):
         for name in sorted(synth.EDGE_CASES):
             keep_max(check_multi(name, synth.edge_case(name), seed=R, R=R))
@@ -1199,6 +1303,8 @@ def main() -> int:
         keep_max(check_x2_panel(name, trip, seed=15, split=False))
         keep_max(check_x2_panel(name, trip, seed=15, fmt="ell", split=False))
     keep_max(check_x2_panel(f"cant-{CANT_N}", cant, seed=16))
+    for name, shape in panel_shapes.items():
+        keep_max(check_x2_panel(name, shape, seed=18, fmt="ell", split=False))
     torch.cuda.synchronize()
     print(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1421,12 +1527,18 @@ def main() -> int:
                               ("empty_row_gaps", tile_shapes["empty_row_gaps"], 23)):
         for k, e in check_probes(label, trip, seed).items():
             perrs[k] = max(perrs[k], e)
+    for label, trip, seed, kw in (
+            ("band-1024", band, 24, {"split": False}), (f"cant-{CANT_N}", cant, 25, {}),
+            ("empty_at_tile_start", panel_shapes["empty_at_tile_start"], 26,
+             {"split": False})):
+        for k, e in check_panel_probes(label, trip, seed, **kw).items():
+            perrs[k] = max(perrs[k], e)
     tq = time_probes(cl, cant, card)
     E.reset_launches()
-    for name in ("ablate", "x2", "pack", "accum", "spmm"):
+    for name in ("ablate", "x2", "pack", "accum", "spmm", "panel"):
         run_probe(name, "cant", trip=cant, rounds=PROBE_ROUNDS)
     run_probe("x2", "band", trip=band, rounds=PROBE_ROUNDS)
-    for name in ("ablate", "x2"):
+    for name in ("ablate", "x2", "panel"):
         run_probe(name, "pl_big", trip=pl_big, rounds=PROBE_ROUNDS)
     torch.cuda.synchronize()
     probe_launches = dict(E.LAUNCHES)
@@ -1443,16 +1555,17 @@ def main() -> int:
     errs.update(perrs)
     lib_f32 = {k: tc for k in ("seg_spmv_tiles_u16", "seg_spmv_tiles_t128",
                                "seg_spmv_tiles_t512", "seg_spmv_tiles_t2048",
-                               "seg_ablate_nogather")}
+                               "seg_ablate_nogather", "panel_ablate_nogather")}
     lib_f64 = dict.fromkeys(("seg_spmv_tiles_u16_x2", "seg_ablate_x2_nogather",
-                             "seg_ablate_x2_x32"), tx)
+                             "seg_ablate_x2_x32", "panel_ablate_x2_nogather"), tx)
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         t, at = ((tc, f"synthetic_cant n={CANT_N} csr") if k in SEG else
                  (tm, f"synthetic_cant n={CANT_N} csr/sell R=4") if k in MULTI else
                  (tx, f"synthetic_cant n={CANT_N} csr/sell fp64")
                  if k in X2_SEG + X2_PANEL else
-                 (tq, f"synthetic_cant n={CANT_N} csr probes")
+                 (tq, f"synthetic_cant n={CANT_N} "
+                      f"{'sell' if k.startswith('panel') else 'csr'} probes")
                  if k in PROBE_KERNELS else
                  (tp, f"synthetic_cant n={CANT_N} sell"))
         row = {"name": k, "route": "cuda", "source": CSRC + src,

@@ -94,6 +94,7 @@ class DevPanel:
     vals: torch.Tensor  # (nslots,) float32 or float64, column-major per slice
     cols: torch.Tensor  # (nslots,) int32
     tile_slice0: torch.Tensor  # (ntiles+1,) int32
+    tile_own0: torch.Tensor  # (ntiles+1,) int32: the slices each K4 tile owns
     split_slices: torch.Tensor  # (nsplit,) int32
     nrows: int
     ncols: int
@@ -106,6 +107,7 @@ class DevPanel:
         return cls(slice_ptr=_put(plan.slice_ptr, device, np.int32),
                    vals=_put(plan.vals, device), cols=_put(plan.cols, device),
                    tile_slice0=_put(plan.tile_slice0, device),
+                   tile_own0=_put(plan.tile_own0, device),
                    split_slices=_put(plan.split_slices, device),
                    nrows=plan.nrows, ncols=plan.ncols, tile=plan.tile,
                    max_width=plan.max_width)

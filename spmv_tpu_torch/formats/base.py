@@ -41,6 +41,15 @@ slice spreads over many tiles. A slice that crosses a tile boundary is
 tile's head slot ``part[2t]`` (the slice began in an earlier tile) or tail
 slot ``part[2t+1]`` (it runs on into later tiles), and K5
 (``panel_fixup``) adds them in tile order, exactly as K2 does for rows.
+
+K4 writes all of y and of ``part``, so neither needs clearing. Each slice
+has one owning tile, the tile of its first column: tile ``t`` owns slices
+``tile_own0[t] .. tile_own0[t+1] - 1``, those whose first column lies in
+it, and the last tile also owns the empty slices after the final column.
+The owning tile writes the slice's rows of y: the sum of a slice that lies
+wholly in the tile, and +0.0 for an empty slice or a split one (whose rows
+K5 then overwrites). Every tile writes both its partial slots, +0.0 where
+no split slice uses one.
 """
 
 from __future__ import annotations
@@ -190,6 +199,9 @@ class PanelPlan:
     vals: np.ndarray  # (nslots,) float32 (or float64), column-major within each slice
     cols: np.ndarray  # (nslots,) int32, 0 in pad slots
     tile_slice0: np.ndarray  # (ntiles+1,) int32 — slice of each tile's first column
+    # (ntiles+1,) int32 — the first slice a tile owns (first column at or past
+    # the tile's first); the last entry is nslices
+    tile_own0: np.ndarray
     split_slices: np.ndarray  # (nsplit,) int32 — slices that cross a tile boundary
     tile: int  # slice columns per K4 tile
 
@@ -276,9 +288,14 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
     else:
         tile_slice0 = np.zeros(1, dtype=np.int64)
     cs, ce = scol[:-1], scol[1:]
+    # the slices each tile owns begin at the first whose first column is at
+    # or past the tile's first; the last tile takes every slice after it
+    tile_own0 = np.append(np.searchsorted(cs, np.arange(ntiles) * tile, side="left"),
+                          nslices)
     split = (ce > cs) & (cs // tile != (ce - 1) // tile)
     return PanelPlan(
         nrows=nrows, ncols=ncols, nnz=nnz, slice_ptr=slice_ptr,
         widths=widths, vals=vals_p, cols=cols_p,
         tile_slice0=tile_slice0.astype(np.int32),
+        tile_own0=tile_own0.astype(np.int32),
         split_slices=np.flatnonzero(split).astype(np.int32), tile=tile)

@@ -53,9 +53,9 @@ SIGNATURES = {
     "seg_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "carry_fixup_x2": (_P, _P, _P, _P, _I, _I, _P),
     # panel_spmv.cu
-    # slice_ptr, cols, vals, tile_slice0, x, y, part, ncolumns, ntiles,
-    # tile, nrows, stream
-    "panel_spmv_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # slice_ptr, cols, vals, tile_slice0, tile_own0, x, y, part, ncolumns,
+    # ntiles, tile, nrows, stream
+    "panel_spmv_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # slice_ptr, split_slices, part, y, nsplit, tile, nrows, stream
     "panel_fixup": (_P, _P, _P, _P, _I, _I, _I, _P),
     # slice_ptr, cols, vals, x, y, nslices, nrows, stream
@@ -68,8 +68,10 @@ SIGNATURES = {
     # slice_ptr, split_slices, part, Y, nsplit, tile, nrows, rhs, stream
     "panel_fixup_multi": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # K4 and K5 in float64: the arguments of panel_spmv_tiles and panel_fixup
-    "panel_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "panel_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "panel_fixup_x2": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # fp64 (0 or 1): K4's or K14's resident blocks per SM
+    "panel_tiles_occupancy": (_I,),
     # probe_spmv.cu
     # K1 and K12 with uint16 columns, and K1 at another tile: the arguments
     # of seg_spmv_tiles; K2 at another tile: those of carry_fixup
@@ -80,6 +82,10 @@ SIGNATURES = {
     # ptr, cols, vals, tile_row0, x, y, carry, out, nnz, ntiles, mode, stream
     "seg_ablate": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "seg_ablate_x2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # K4 and K14 with x̃(c) synthesized: the arguments of panel_spmv_tiles
+    # (x may be null)
+    "panel_ablate_nogather": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "panel_ablate_x2_nogather": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

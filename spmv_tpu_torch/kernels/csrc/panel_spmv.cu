@@ -31,12 +31,24 @@
 //
 // What bounds them on the H100: bytes. Each slot streams 8 B (a float32
 // value and an int32 column) and gathers 4 B of x, for 2 flops. Lane l of a
-// warp owns row l of its slice, so each column step of a warp is one
-// coalesced 128-byte load of values and one of columns; the lane sums its
-// row in a register, in column order, and stores it once. A pad costs its
-// 8 B and a gather of x[0], which stays in L1. The TPU layout's stripes,
-// depth-8 x windows, u8 lo/hi and P-planes answer VMEM and DMA limits that
-// this card does not have, so none of them is here.
+// warp owns row l of its slice, so each column step of a warp reads 128
+// bytes of values and 128 of columns; the lane sums its row in a register,
+// in column order, and stores it once. A pad costs its 8 B and a gather of
+// x[0], which stays in L1. The TPU layout's stripes, depth-8 x windows, u8
+// lo/hi and P-planes answer VMEM and DMA limits that this card does not
+// have, so none of them is here.
+//
+// K4 and K14 (panel_tile.cuh) do not reach that bound by streaming alone: a
+// cant-sized panel is ~3,900 tiles, one warp each, ~30 warps per SM in a
+// single wave, so the kernel takes about one warp's time, and a warp that
+// walks its 32 columns as a chain of dependent loads (the parent's: a line
+// of values and columns, then the x gather at those columns, ~64 round
+// trips) is latency-bound. Their warp issues the loads of 8 columns of
+// values and columns at once, then those columns' x gathers, before it adds
+// (4 times per tile), and walks the slices in registers; each tile writes
+// every row and partial slot it owns, so the wrapper allocates y and the
+// partials without a zero fill. K10 keeps the parent's chain (a later
+// redesign).
 //
 // No kernel uses float atomics: every row is summed in an order fixed by the
 // plan, so two runs give the same bits.
@@ -50,17 +62,12 @@
 #include <climits>
 #include <cstdint>
 
+#include "panel_tile.cuh"
 #include "x_rows.cuh"
 
 namespace {
 
-constexpr int kC = 32;  // rows per slice: one warp. Must equal SLICE_ROWS.
-// Slice columns per K4 tile (1024 slots). Must equal TILE_COLS in
-// spmv_tpu_torch/formats/base.py.
-constexpr int kTileCols = 32;
-// K4, K6 and K10: 4 warps per block, each warp on its own tile or slice.
-constexpr int kWarpsPerBlock = 4;
-constexpr int kPanelThreads = kWarpsPerBlock * kC;
+// kC, kTileCols, kWarpsPerBlock and kPanelThreads: panel_tile.cuh.
 // K5, K7 and K11 block size.
 constexpr int kThreads = 256;
 
@@ -89,65 +96,7 @@ panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
   if (row < nrows) y[row] = acc;
 }
 
-// K4 — replaces _panel_kernel (spmv_tpu/kernels/engines.py:269); K14 (T =
-// double) replaces _panel_kernel_x2 (spmv_tpu/kernels/engines_x2.py:205).
-//
-// One warp per tile of kTileCols consecutive slice columns, so every warp
-// does the same work whatever the slice widths: a wide slice is cut into
-// many tiles, and a tile may hold many narrow slices. The warp starts at
-// the slice of its first column (tile_slice0, from the plan) and steps to
-// the next slice where a slice's columns end; every lane sums its own row of
-// the slice. A slice that lies wholly inside the tile goes straight to y.
-// Otherwise the tile leaves the lane's partial in its head slot (the slice
-// began in an earlier tile) or its tail slot (it runs on into later tiles),
-// 32 values each, for K5. Rows of empty slices are never written: the
-// wrapper zeroes y.
-template <typename T>
-__global__ void __launch_bounds__(kPanelThreads)
-panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
-                        const int* __restrict__ cols,
-                        const T* __restrict__ vals,
-                        const int* __restrict__ tile_slice0,
-                        const T* __restrict__ x, T* __restrict__ y,
-                        T* __restrict__ part, int ncolumns, int ntiles,
-                        int nrows) {
-  const int lane = threadIdx.x & (kC - 1);
-  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
-  if (t >= ntiles) return;
-  const int g0 = t * kTileCols;
-  const int g1 = min(g0 + kTileCols, ncolumns);
-
-  // Stores the tile's sum of slice s (columns [cs, ce)) for this lane.
-  auto emit = [&](int s, int cs, int ce, T v) {
-    if (cs < g0) {
-      part[(2 * t) * kC + lane] = v;
-    } else if (ce > g1) {
-      part[(2 * t + 1) * kC + lane] = v;
-    } else {
-      const int row = s * kC + lane;
-      if (row < nrows) y[row] = v;
-    }
-  };
-
-  int s = __ldg(tile_slice0 + t);
-  int cs = __ldg(slice_ptr + s) / kC;
-  int ce = __ldg(slice_ptr + s + 1) / kC;
-  T run = T(0);
-  for (int g = g0; g < g1; ++g) {
-    if (g >= ce) {  // slice s ended at column g - 1 (the branch is warp-uniform)
-      emit(s, cs, ce, run);
-      do {  // step to the slice holding column g, past any empty slices
-        ++s;
-        cs = ce;
-        ce = __ldg(slice_ptr + s + 1) / kC;
-      } while (g >= ce);
-      run = T(0);
-    }
-    const int p = g * kC + lane;
-    run += __ldg(vals + p) * __ldg(x + __ldg(cols + p));
-  }
-  emit(s, cs, ce, run);
-}
+// K4 and K14: panel_spmv_tiles_kernel in panel_tile.cuh.
 
 // K5 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171) as the
 // panel path's epilogue; K2 (seg_spmv.cu) cannot take the job unchanged,
@@ -292,28 +241,6 @@ panel_fixup_multi_kernel(const int* __restrict__ slice_ptr,
   if (row < nrows) Y[static_cast<long long>(row) * rhs + j] = v;
 }
 
-int blocks_for(int items, int per_block) {
-  return (items + per_block - 1) / per_block;
-}
-
-template <typename T>
-int launch_panel_spmv_tiles(const void* slice_ptr, const void* cols,
-                            const void* vals, const void* tile_slice0,
-                            const void* x, void* y, void* part, int ncolumns,
-                            int ntiles, int tile, int nrows, void* stream) {
-  if (tile != kTileCols || ncolumns <= 0 || nrows <= 0 ||
-      ntiles != blocks_for(ncolumns, kTileCols)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  panel_spmv_tiles_kernel<T><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
-                               0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
-      static_cast<const T*>(vals), static_cast<const int*>(tile_slice0),
-      static_cast<const T*>(x), static_cast<T*>(y), static_cast<T*>(part),
-      ncolumns, ntiles, nrows);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int launch_panel_fixup(const void* slice_ptr, const void* split_slices,
                        const void* part, void* y, int nsplit, int tile,
@@ -347,14 +274,16 @@ cudaError_t launch_panel_spmm(const int* slice_ptr, const int* cols,
 
 extern "C" {
 
-// K4: y[r] for the rows of every slice wholly inside one tile, and the
-// head/tail partials (32 per slot, 2 slots per tile) of the split slices.
+// K4: y for the rows of every slice the tile owns (a whole slice's sum,
+// +0.0 for an empty or split one) and both head/tail partial slots of every
+// tile (32 values each; +0.0 where unused): all of y and part.
 int panel_spmv_tiles(const void* slice_ptr, const void* cols, const void* vals,
-                     const void* tile_slice0, const void* x, void* y,
-                     void* part, int ncolumns, int ntiles, int tile, int nrows,
-                     void* stream) {
-  return launch_panel_spmv_tiles<float>(slice_ptr, cols, vals, tile_slice0, x, y,
-                                        part, ncolumns, ntiles, tile, nrows, stream);
+                     const void* tile_slice0, const void* tile_own0, const void* x,
+                     void* y, void* part, int ncolumns, int ntiles, int tile,
+                     int nrows, void* stream) {
+  return launch_panel_spmv_tiles<float>(slice_ptr, cols, vals, tile_slice0, tile_own0,
+                                        x, y, part, ncolumns, ntiles, tile, nrows,
+                                        stream);
 }
 
 // K5: y[r] = the sum of a split slice's partials for row r, in tile order.
@@ -367,11 +296,17 @@ int panel_fixup(const void* slice_ptr, const void* split_slices,
 
 // K14: K4 in float64 — fp64 vals, x, y and partials.
 int panel_spmv_tiles_x2(const void* slice_ptr, const void* cols, const void* vals,
-                        const void* tile_slice0, const void* x, void* y,
-                        void* part, int ncolumns, int ntiles, int tile,
-                        int nrows, void* stream) {
-  return launch_panel_spmv_tiles<double>(slice_ptr, cols, vals, tile_slice0, x, y,
-                                         part, ncolumns, ntiles, tile, nrows, stream);
+                        const void* tile_slice0, const void* tile_own0,
+                        const void* x, void* y, void* part, int ncolumns,
+                        int ntiles, int tile, int nrows, void* stream) {
+  return launch_panel_spmv_tiles<double>(slice_ptr, cols, vals, tile_slice0, tile_own0,
+                                         x, y, part, ncolumns, ntiles, tile, nrows,
+                                         stream);
+}
+
+// K4's (fp64: K14's) blocks resident per SM, or -1.
+int panel_tiles_occupancy(int fp64) {
+  return fp64 ? panel_tiles_blocks_per_sm<double>() : panel_tiles_blocks_per_sm<float>();
 }
 
 // K15: K5 in float64.

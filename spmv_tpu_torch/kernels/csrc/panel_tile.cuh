@@ -1,0 +1,223 @@
+// The panel tile kernel and its launcher, shared by panel_spmv.cu (K4, K14)
+// and probe_spmv.cu (the probe's instantiations with a synthesized x).
+//
+// panel_spmv_tiles_kernel<T, kX> is K4's body:
+//
+//   T    value, x and y type: float (K4) or double (K14)
+//   kX   how x(c) is read: gathered from x (kXGather, production) or
+//        synthesized from the column in registers, x(c) = (c & 1023)·2⁻¹⁰
+//        (kXSynth, the probe without the gather; it still copies every
+//        column), as seg_tile.cuh's tile kernel does
+//
+// Every instantiation sums each row in the same order, so the probe gives
+// K4's bits on the same x. The host wrapper checks shapes, types and
+// devices, allocates every output with torch.empty (the kernel writes all
+// of it) and never launches an empty grid.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+#include "seg_tile.cuh"  // kWarp, kFullMask, the x modes and x_at
+
+namespace {
+
+constexpr int kC = 32;  // rows per slice: one warp. Must equal SLICE_ROWS.
+// Slice columns per K4 tile. Must equal TILE_COLS in
+// spmv_tpu_torch/formats/base.py.
+constexpr int kTileCols = 32;
+// K4's columns per batch: each lane issues a batch's loads of values and
+// columns, then its x gathers, before the batch's first add. 8 was the
+// fastest of 2, 4, 8, 16 and 32, or within 1% of it, on every panel timed:
+// larger batches hold more live registers and fewer warps, smaller ones
+// fewer loads per warp.
+constexpr int kBatch = 8;
+static_assert(kTileCols % kBatch == 0, "a tile is whole batches");
+// K4, K6 and K10: 4 warps per block, each warp on its own tile or slice.
+constexpr int kWarpsPerBlock = 4;
+constexpr int kPanelThreads = kWarpsPerBlock * kC;
+static_assert(kC == kWarp, "a slice is one warp, a lane per row");
+
+int blocks_for(int items, int per_block) {
+  return (items + per_block - 1) / per_block;
+}
+
+// run + v·x rounded once: what the contracted `run += v * x` computes.
+__device__ __forceinline__ float fma_rn(float v, float x, float run) {
+  return __fmaf_rn(v, x, run);
+}
+__device__ __forceinline__ double fma_rn(double v, double x, double run) {
+  return __fma_rn(v, x, run);
+}
+
+// K4 — replaces _panel_kernel (spmv_tpu/kernels/engines.py:269); K14 (T =
+// double) replaces _panel_kernel_x2 (spmv_tpu/kernels/engines_x2.py:205).
+//
+// One warp per tile of kTileCols consecutive slice columns (the slots
+// [g0·32, g1·32), contiguous), so every warp does the same work whatever the
+// slice widths: a wide slice is cut into many tiles, and a tile may hold
+// many narrow slices. Lane l owns row l of every slice the tile touches.
+//
+// What bounds it: bytes. Each slot streams 8 B (12 in fp64) and gathers 4 B
+// (8) of x, for 2 flops. But a cant-sized panel has ~3,900 tiles: one warp
+// each is ~30 warps per SM, a single wave at under half occupancy, so the
+// kernel takes about one warp's time. The parent's warp walked its 32
+// columns as a chain: each step loaded a line of values and of columns,
+// then gathered x at those columns, behind a branch with stores and a
+// slice_ptr load the compiler did not hoist loads across: ~64 dependent
+// memory round trips per warp, 17 µs (fp64: 31 µs) at cant against a byte
+// bound of 10 (15). The design cuts the chain to a few round trips:
+//   1. the warp writes +0.0 to the rows of the empty slices it owns
+//      (tile_own0, below), 32 slices to a ballot;
+//   2. in batches of kBatch columns, each lane issues the batch's loads
+//      of values and columns, then every x gather of the batch, before the
+//      batch's first add, into registers;
+//   3. the walk runs in registers: run = fma(v, x, run) in column order
+//      (the parent's contracted `run += v * x`, so the bits are the
+//      parent's), stepping to the next slice, past empty ones, with one
+//      slice_ptr load each (an L1 or L2 hit; a tile steps about 0.5 slices
+//      at cant, 1-2 on power-law panels).
+// ptxas (sm_90a): K4 40 registers, K14 64, no shared memory, no spills;
+// 12 and 8 blocks of 4 warps resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, panel_tiles_occupancy).
+// On an H100 it runs at the byte bound at cant in float32 (the plan in the
+// L2) and at 0.41-0.79 of the parent's time on every panel timed (python -m
+// spmv_tpu_torch.probes.turns; PERF.md has the runs). Measured and
+// dropped: two bulk async copies (TMA, 1-D) of the tile into shared memory
+// on one mbarrier, then all 32 gathers, 2-44% slower than batches of 16
+// (its one wait holds every gather behind the whole tile; 32-48 KB of
+// shared memory per block leaves 6 or 4 blocks per SM); a window of 32
+// slice ends read ahead of the walk and stepped on a ballot, 0-12% slower
+// than the slice_ptr load per step.
+// Ownership, so that y and part need no zero fill (formats/base.py): the
+// tile writes y for every slice it owns (tile_own0[t] .. tile_own0[t+1] -
+// 1, the slices whose first column lies in it, and for the last tile the
+// empty slices after the final column): the sum of a slice wholly inside
+// it, +0.0 for an empty slice or one that runs on into later tiles (K5
+// overwrites those rows). It writes both its partial slots: the head (the
+// slice began in an earlier tile), the tail (it runs on), +0.0 if unused.
+template <typename T, int kX = kXGather>
+__global__ void __launch_bounds__(kPanelThreads)
+panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
+                        const int* __restrict__ cols,
+                        const T* __restrict__ vals,
+                        const int* __restrict__ tile_slice0,
+                        const int* __restrict__ tile_own0,
+                        const T* __restrict__ x, T* __restrict__ y,
+                        T* __restrict__ part, int ncolumns, int ntiles,
+                        int nrows) {
+  const int lane = threadIdx.x & (kC - 1);
+  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
+  if (t >= ntiles) return;
+  const int g0 = t * kTileCols;
+  const int ncol = min(kTileCols, ncolumns - g0);
+  const int g1 = g0 + ncol;
+
+  // 1. +0.0 for the rows of the empty slices this tile owns
+  const int own1 = __ldg(tile_own0 + t + 1);
+  for (int base = __ldg(tile_own0 + t); base < own1; base += kC) {
+    const int s = base + lane;
+    const bool empty = s < own1 && __ldg(slice_ptr + s) == __ldg(slice_ptr + s + 1);
+    for (unsigned m = __ballot_sync(kFullMask, empty); m; m &= m - 1) {
+      const int row = (base + __ffs(m) - 1) * kC + lane;
+      if (row < nrows) y[row] = T(0);
+    }
+  }
+
+  // 2-3. the batches and the walk, in column order
+  int s = __ldg(tile_slice0 + t);
+  int ce = __ldg(slice_ptr + s + 1) / kC;  // end column of slice s
+  bool head = __ldg(slice_ptr + s) / kC < g0;
+  bool wrote_head = false, wrote_tail = false;
+  T run = T(0);
+  // Stores the tile's sum of slice s for this lane (branches warp-uniform).
+  auto emit = [&]() {
+    if (head) {
+      part[(2 * t) * kC + lane] = run;
+      wrote_head = true;
+      return;
+    }
+    T v = run;
+    if (ce > g1) {  // runs on into later tiles: K5 writes its rows
+      part[(2 * t + 1) * kC + lane] = run;
+      wrote_tail = true;
+      v = T(0);
+    }
+    const int row = s * kC + lane;
+    if (row < nrows) y[row] = v;
+  };
+#pragma unroll
+  for (int b = 0; b < kTileCols; b += kBatch) {
+    T vv[kBatch], xv[kBatch];
+    int cc[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const bool in = b + i < ncol;
+      const int p = (g0 + b + i) * kC + lane;
+      cc[i] = in ? __ldg(cols + p) : 0;
+      vv[i] = in ? __ldg(vals + p) : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      xv[i] = b + i < ncol ? x_at<kX, T>(x, cc[i]) : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (b + i < ncol) {
+        const int g = g0 + b + i;
+        if (g >= ce) {  // slice s ended at column g - 1
+          emit();
+          head = false;
+          do {  // step to the slice holding column g, past any empty slices
+            ++s;
+            ce = __ldg(slice_ptr + s + 1) / kC;
+          } while (g >= ce);
+          run = T(0);
+        }
+        run = fma_rn(vv[i], xv[i], run);
+      }
+    }
+  }
+  emit();
+  if (!wrote_head) part[(2 * t) * kC + lane] = T(0);
+  if (!wrote_tail) part[(2 * t + 1) * kC + lane] = T(0);
+}
+
+// Launches one instantiation on the plan's schedule; refuses
+// (cudaErrorInvalidValue, nothing launched) a tile it was not built for or a
+// schedule that does not cover the columns.
+template <typename T, int kX = kXGather>
+int launch_panel_spmv_tiles(const void* slice_ptr, const void* cols,
+                            const void* vals, const void* tile_slice0,
+                            const void* tile_own0, const void* x, void* y,
+                            void* part, int ncolumns, int ntiles, int tile,
+                            int nrows, void* stream) {
+  if (tile != kTileCols || ncolumns <= 0 || nrows <= 0 ||
+      ntiles != blocks_for(ncolumns, kTileCols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  panel_spmv_tiles_kernel<T, kX><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
+      static_cast<const T*>(vals), static_cast<const int*>(tile_slice0),
+      static_cast<const int*>(tile_own0), static_cast<const T*>(x),
+      static_cast<T*>(y), static_cast<T*>(part), ncolumns, ntiles, nrows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the production instantiation resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers decide), or
+// -1 on an error.
+template <typename T>
+int panel_tiles_blocks_per_sm() {
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, panel_spmv_tiles_kernel<T, kXGather>, kPanelThreads, 0) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+}  // namespace

@@ -17,6 +17,15 @@
 //   seg_ablate_x2           K12 with a stage cut (float64): replace
 //                           scripts/probe_ablate.py:152, probe_ablate2.py:175,
 //                           probe_ablate3.py:211 and probe_x2.py:241.
+//   panel_ablate_nogather   K4 (float32) and K14 (float64) with x(c) =
+//   panel_ablate_x2_nogather (c & 1023)·2⁻¹⁰ computed in registers: the
+//                           panel tile kernel of panel_tile.cuh without the
+//                           x gather, every column still copied. Equals K4 /
+//                           K14 on that x̃ bit for bit. With the stream of
+//                           the panel's values and columns alone (seg_ablate's
+//                           dma over them) it splits K4 into stream, gather
+//                           and walk (the nowin cut of
+//                           scripts/probe_ablate.py:152, on the panel).
 //
 // seg_ablate modes, on K1's grid (one block of 256 threads per tile of
 // 1024 nonzeros, 16-byte loads of values and columns):
@@ -55,6 +64,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "panel_tile.cuh"
 #include "seg_tile.cuh"
 
 namespace {
@@ -235,6 +245,27 @@ int seg_ablate_x2(const void* ptr, const void* cols, const void* vals,
                   void* out, int nnz, int ntiles, int mode, void* stream) {
   return launch_ablate<double>(ptr, cols, vals, tile_row0, x, y, carry, out, nnz,
                                ntiles, mode, stream);
+}
+
+// K4 (float32) without the x gather: the arguments of panel_spmv_tiles; x
+// is not read and may be null.
+int panel_ablate_nogather(const void* slice_ptr, const void* cols, const void* vals,
+                          const void* tile_slice0, const void* tile_own0,
+                          const void* x, void* y, void* part, int ncolumns,
+                          int ntiles, int tile, int nrows, void* stream) {
+  return launch_panel_spmv_tiles<float, kXSynth>(slice_ptr, cols, vals, tile_slice0,
+                                                 tile_own0, x, y, part, ncolumns,
+                                                 ntiles, tile, nrows, stream);
+}
+
+// K14 (float64) without the x gather.
+int panel_ablate_x2_nogather(const void* slice_ptr, const void* cols, const void* vals,
+                             const void* tile_slice0, const void* tile_own0,
+                             const void* x, void* y, void* part, int ncolumns,
+                             int ntiles, int tile, int nrows, void* stream) {
+  return launch_panel_spmv_tiles<double, kXSynth>(slice_ptr, cols, vals, tile_slice0,
+                                                  tile_own0, x, y, part, ncolumns,
+                                                  ntiles, tile, nrows, stream);
 }
 
 }  // extern "C"

@@ -51,10 +51,10 @@ __all__ = ["panel_spmv", "panel_spmv_partials", "panel_fixup",
 _C = SLICE_ROWS
 
 
-def _check_cuda_panel(dev: DevPanel, x: torch.Tensor) -> None:
+def _check_cuda_panel(dev: DevPanel, x: torch.Tensor | None) -> None:
     if dev.tile != TILE_COLS:
         raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
-    if dev.nslots and x.numel() == 0:  # pad slots read x[0]
+    if x is not None and dev.nslots and x.numel() == 0:  # pad slots read x[0]
         raise ValueError("a panel with slots needs at least one column")
 
 
@@ -74,12 +74,24 @@ def _panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel, x: torch.Tensor
     _check_x(dev, x)
     if not _on_cuda(dev, x, dtype=dtype):
         return panel_spmv_partials_reference(dev, x)
+    return _launch_panel_tiles(kernel, dtype, dev, x)
+
+
+def _launch_panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel,
+                        x: torch.Tensor | None, key: str | None = None):
+    """The launch of K4, K14, or the probe's K4 without the gather
+    (``kernels.probes``; x None, not read), counted under ``key``. The
+    kernel writes every row of y and every partial slot, so neither is
+    filled first."""
     _check_cuda_panel(dev, x)
-    y = torch.zeros(dev.nrows, dtype=dtype, device=dev.device)
-    part = torch.zeros(2 * dev.ntiles, _C, dtype=dtype, device=dev.device)
-    if dev.nslots and dev.nrows:  # a zero-sized grid is refused
-        _launch(kernel, dev, dev.slice_ptr, dev.cols, dev.vals, dev.tile_slice0,
-                x, y, part, dev.nslots // _C, dev.ntiles, dev.tile, dev.nrows)
+    if not (dev.nslots and dev.nrows):  # a zero-sized grid is refused
+        return (torch.zeros(dev.nrows, dtype=dtype, device=dev.device),
+                torch.zeros(2 * dev.ntiles, _C, dtype=dtype, device=dev.device))
+    y = torch.empty(dev.nrows, dtype=dtype, device=dev.device)
+    part = torch.empty(2 * dev.ntiles, _C, dtype=dtype, device=dev.device)
+    _launch(kernel, dev, dev.slice_ptr, dev.cols, dev.vals, dev.tile_slice0,
+            dev.tile_own0, x, y, part, dev.nslots // _C, dev.ntiles, dev.tile,
+            dev.nrows, key=key)
     return y, part
 
 
@@ -101,8 +113,8 @@ def _panel_fixup(kernel: str, dtype: torch.dtype, dev: DevPanel,
 def panel_spmv_partials(dev: DevPanel, x: torch.Tensor):
     """K4: ``(y, part)``. y holds the rows of every slice that lies wholly
     inside one tile (0 for the rest); ``part`` (2·ntiles, 32) holds each
-    tile's head and tail partials of the split slices, for
-    ``panel_fixup``."""
+    tile's head and tail partials of the split slices (0 in a slot no
+    split slice uses), for ``panel_fixup``."""
     return _panel_tiles("panel_spmv_tiles", torch.float32, dev, x)
 
 

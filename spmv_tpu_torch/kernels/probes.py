@@ -17,6 +17,8 @@ ablate_nogather                 seg_ablate(_x2), mode 0     scripts/probe_ablate
 ablate_noseg                    seg_ablate(_x2), mode 1     scripts/probe_ablate.py:152 (noseg)
 ablate_dma                      seg_ablate(_x2), mode 2     scripts/probe_ablate.py:152 (dma)
 ablate_x32                      seg_ablate_x2, mode 3       scripts/probe_x2.py:241
+panel_ablate_nogather           panel_ablate(_x2)_nogather  scripts/probe_ablate.py:152 (nowin),
+                                                            on K4 and K14
 ==============================  ==========================  ==================================
 
 Routing, as in ``kernels.engines``: CPU tensors run the plain version,
@@ -32,11 +34,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.device import DevCsr
+from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import TILE_NNZ, build_csr_plan, cdiv
 from spmv_tpu_torch.kernels.engines import (LAUNCHES, _check_x, _launch, _on_cuda,
                                             segmented_spmv_partials_reference,
                                             carry_fixup_reference)
+from spmv_tpu_torch.kernels.panel import (_launch_panel_tiles,
+                                          panel_spmv_partials_reference)
 
 __all__ = ["U16_COLS_MAX", "PROBE_TILES", "LAUNCH_KEYS", "cols16", "retile", "xtilde",
            "segmented_spmv_partials_u16", "segmented_spmv_partials_u16_reference",
@@ -44,7 +48,8 @@ __all__ = ["U16_COLS_MAX", "PROBE_TILES", "LAUNCH_KEYS", "cols16", "retile", "xt
            "segmented_spmv_partials_at_reference", "carry_fixup_at_reference",
            "ablate_nogather", "ablate_nogather_reference", "ablate_noseg",
            "ablate_noseg_reference", "ablate_dma", "ablate_dma_reference",
-           "ablate_x32", "ablate_x32_reference", "tile_sums"]
+           "ablate_x32", "ablate_x32_reference", "tile_sums",
+           "panel_ablate_nogather", "panel_ablate_nogather_reference"]
 
 # The widest matrix a 16-bit column index addresses.
 U16_COLS_MAX = 65536
@@ -58,7 +63,7 @@ LAUNCH_KEYS = ("seg_spmv_tiles_u16", "seg_spmv_tiles_u16_x2",
                *(f"carry_fixup_t{t}" for t in PROBE_TILES),
                "seg_ablate_nogather", "seg_ablate_noseg", "seg_ablate_dma",
                "seg_ablate_x2_nogather", "seg_ablate_x2_noseg", "seg_ablate_x2_dma",
-               "seg_ablate_x2_x32")
+               "seg_ablate_x2_x32", "panel_ablate_nogather", "panel_ablate_x2_nogather")
 for _key in LAUNCH_KEYS:
     LAUNCHES.setdefault(_key, 0)
 
@@ -323,3 +328,22 @@ def ablate_x32(dev: DevCsr, x32: torch.Tensor):
 def ablate_x32_reference(dev: DevCsr, x32: torch.Tensor):
     """Plain K12 on the float32 x widened to float64."""
     return segmented_spmv_partials_reference(dev, x32.double())
+
+
+# ---------------------------------------------------------------- the panel
+
+
+def panel_ablate_nogather(dev: DevPanel):
+    """K4 (float32 panel) or K14 (float64 panel) without the x gather: each
+    product is ``v·x̃(c)`` with x̃ computed from the loaded column. ``(y,
+    part)``, bit for bit K4's on ``xtilde``."""
+    dtype = _plan_dtype(dev)
+    if not _on_cuda(dev, dtype=dtype):
+        return panel_ablate_nogather_reference(dev)
+    name = f"panel_ablate{_suffix(dtype)}_nogather"
+    return _launch_panel_tiles(name, dtype, dev, None, key=name)
+
+
+def panel_ablate_nogather_reference(dev: DevPanel):
+    """Plain K4 on ``xtilde``."""
+    return panel_spmv_partials_reference(dev, xtilde(dev.ncols, dev.vals.dtype, dev.device))

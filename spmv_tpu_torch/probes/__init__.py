@@ -1,8 +1,8 @@
-"""On-card probes of the segmented kernels: the port's counterpart of the
-JAX package's B12 probes (``scripts/probe_*.py``).
+"""On-card probes of the segmented and panel tile kernels: the port's
+counterpart of the JAX package's B12 probes (``scripts/probe_*.py``).
 
-    python -m spmv_tpu_torch.probes {ablate,x2,pack,accum,spmm}
-        [--matrix cant|pl_big|pl_wide|band] [--rounds N] [--device cpu]
+    python -m spmv_tpu_torch.probes {ablate,x2,pack,accum,spmm,panel}
+        [--matrix cant|pl_big|pl_wide|pl|band] [--rounds N] [--device cpu]
 
 Each probe builds the plans of one matrix, checks every member's result
 once (the kernels on the card; the plain versions with ``--device cpu``),
@@ -22,6 +22,9 @@ x2        K12's stage split; the 8-byte gather or    probe_x2.py:241
 pack      int32 against uint16 columns               probe_pack.py:147
 accum     the tile at which partials are folded      probe_accum.py:168
 spmm      one R-vector pass against R passes         probe_spmm.py:140
+panel     K4's and K14's split: stream, x gather,    probe_ablate.py:152
+          walk                                       (nowin, dma), on the
+                                                     panel kernel
 ========  =========================================  ======================
 """
 
@@ -29,28 +32,30 @@ from __future__ import annotations
 
 import torch
 
-from spmv_tpu_torch.probes import ablate, accum, pack, spmm, timing, x2
+from spmv_tpu_torch.probes import ablate, accum, pack, panel, spmm, timing, x2
 from spmv_tpu_torch.probes.bounds import bound_ms
 from spmv_tpu_torch.probes.common import MATRICES
 
 __all__ = ["PROBES", "MATRICES", "run_probe"]
 
-PROBES = {"ablate": ablate, "x2": x2, "pack": pack, "accum": accum, "spmm": spmm}
+PROBES = {"ablate": ablate, "x2": x2, "pack": pack, "accum": accum, "spmm": spmm,
+          "panel": panel}
 
 
 def run_probe(name: str, matrix: str = "cant", *, trip=None, rounds: int = 5,
               device="cuda", out=print) -> dict:
-    """Run probe ``name`` on ``matrix`` (or on the triplets ``trip``):
-    check every member, then time them on a CUDA device (on the CPU, print
-    "not measured"). Returns each member's bytes, bound and readings (None
-    on the CPU). A wrong result raises AssertionError."""
+    """Run probe ``name`` on ``matrix`` (or on the triplets ``trip``, named
+    ``matrix``): its ``members(trip, device, matrix)``; check every member,
+    then time them on a CUDA device (on the CPU, print "not measured").
+    Returns each member's bytes, bound and readings (None on the CPU). A
+    wrong result raises AssertionError."""
     mod = PROBES[name]
     trip = MATRICES[matrix]() if trip is None else trip
     device = torch.device(device)
     on_card = device.type == "cuda"
     card = timing.card_line(device) if on_card else "plain PyTorch versions, CPU"
     info, rows = trip[0], trip[1]
-    members, header = mod.members(trip, device)
+    members, header = mod.members(trip, device, matrix)
     out(f"probe {name} on {matrix}: {info.nrows} x {info.ncols}, nnz {rows.size}  [{card}]")
     for line in header:
         out(f"  {line}")

@@ -41,7 +41,7 @@ from spmv_tpu_torch.probes.timing import Member
 F32 = torch.float32
 
 
-def members(trip, device):
+def members(trip, device, matrix: str):
     info, rows, cols, vals = trip
     dev = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals, device=device).dev
     x = vector(info.ncols, F32, device)

@@ -42,7 +42,7 @@ def _kernels(tile: int):
     return KP.segmented_spmv_partials_at, KP.carry_fixup_at
 
 
-def members(trip, device):
+def members(trip, device, matrix: str):
     info, rows, cols, vals = trip
     base = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals, device=device).dev
     x = vector(info.ncols, F32, device)

@@ -1,7 +1,7 @@
 """What the probes share: the matrices they run on, the extreme tile
-shapes of the segmented tile kernel, the checks that hold each member's
-result to an independent definition, and the two ceiling members every
-probe co-samples."""
+shapes of the segmented and the panel tile kernels, the checks that hold
+each member's result to an independent definition, and the two ceiling
+members every probe co-samples."""
 
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from spmv_tpu_torch.oracle import (KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv,
 from spmv_tpu_torch.probes.bounds import stream_bytes
 from spmv_tpu_torch.probes.timing import Member, l2_bytes, synthetic_stream
 
-__all__ = ["MATRICES", "TILE_SHAPES", "HBM_STREAM_L2S", "vector", "spmv_check",
+__all__ = ["MATRICES", "TILE_SHAPES", "PANEL_SHAPES", "PANEL_SPLIT",
+           "HBM_STREAM_L2S", "vector", "spmv_check", "panel_triplets",
            "tile_sum_bound", "tile_sums_check", "ceiling_members"]
 
 # The HBM ceiling's stream, in L2 sizes: 250 MiB on the H100's 50 MiB L2.
@@ -27,18 +28,26 @@ HBM_STREAM_L2S = 5
 
 # bench.py's main-suite matrix (bench.py:84-85), its 524k-row power-law
 # matrix (bench.py:211), the same without its column band (12,373,741 nnz,
-# a plan above the 50 MB L2) and the 1024-row band matrix of the parity
-# tests; partials, so that ``probes.turns`` can name them to a checkout of
-# its own
+# a plan above the 50 MB L2), its 32k-row power-law matrix (bench.py:164)
+# and the 1024-row band matrix of the parity tests; partials, so that
+# ``probes.turns`` can name them to a checkout of its own
 MATRICES = {
     "cant": partial(synth.synthetic_cant, n=62464, avg_nnz_per_row=64,
                     bandwidth=350, seed=0),
     "pl_big": partial(synth.power_law, n=524_288, avg_nnz_per_row=24,
                       bandwidth=512, seed=0),
     "pl_wide": partial(synth.power_law, n=524_288, avg_nnz_per_row=24, seed=0),
+    "pl": partial(synth.power_law, n=32768, avg_nnz_per_row=24, bandwidth=512,
+                  seed=0),
     "band": partial(synth.synthetic_cant, n=1024, avg_nnz_per_row=16,
                     bandwidth=60, seed=5),
 }
+
+# The SELL panel the ``panel`` probe and ``probes.turns`` run K4 and K14 on:
+# cant's as the panel/spill split builds it (1.011 slots per nonzero), the
+# power-law matrices' whole (``split=False``, bench.py's ``sell_pure``), as
+# chip_smoke.py times them; any other matrix whole
+PANEL_SPLIT = {"cant": True}
 
 
 def _triplets(lengths, ncols: int, seed: int):
@@ -85,6 +94,79 @@ def hub_row(seed: int = 0):
 # the tests, the gpu tests and chip_smoke.py run both engines on them
 TILE_SHAPES = {"one_nonzero_rows": one_nonzero_rows,
                "empty_row_gaps": empty_row_gaps, "hub_row": hub_row}
+
+
+def _slices(widths, seed: int, nrows: int | None = None, ncols: int = 500):
+    """Triplets whose 32-row slices have the given widths: the first row of
+    each slice holds ``widths[s]`` nonzeros, the other rows up to as many;
+    the matrix is cut to ``nrows`` rows."""
+    rng = np.random.default_rng(seed)
+    widths = np.asarray(widths, np.int64)
+    lengths = rng.integers(0, widths[:, None] + 1, (widths.size, 32))
+    lengths[:, 0] = widths
+    lengths = lengths.reshape(-1)
+    return _triplets(lengths[:nrows] if nrows is not None else lengths, ncols, seed)
+
+
+def empty_at_tile_start(seed: int = 0):
+    """Slices of 20 and 12 columns fill tile 0; three empty slices sit at
+    tile 1's first column, 50 inside it (one step of the walk passes them
+    all) and two at tile 2's first column."""
+    return _slices([20, 12, 0, 0, 0, 7, *[0] * 50, 25, 0, 0, 14, 18], seed)
+
+
+def leading_trailing_empty(seed: int = 0):
+    """70 empty slices before the first column (more than one pass of 32
+    over tile 0's slices) and 40 after the last."""
+    return _slices([0] * 70 + [9, 30, 40, 5] + [0] * 40, seed)
+
+
+def slice_fills_tile(seed: int = 0):
+    """Slices of exactly 32 columns, each a whole tile, and two of 16 that
+    share one."""
+    return _slices([32, 32, 16, 16, 32], seed)
+
+
+def hub_slice(seed: int = 0):
+    """A slice of 300 columns over ten tiles (its head and tail in other
+    tiles, and tiles it only passes through) between narrow slices."""
+    return _slices([3, 5, 300, 4, 2], seed)
+
+
+def one_column_slices(seed: int = 0):
+    """Tile 1 holds 32 one-column slices, an empty slice after each (the
+    walk steps 62 times in one tile)."""
+    return _slices([5, 27] + [1, 0] * 32 + [6], seed)
+
+
+def cut_last_slice(seed: int = 0):
+    """103 rows: the last slice holds 7 real rows and 25 past ``nrows``,
+    which have no row of y to write."""
+    return _slices([10, 33, 8, 40], seed, nrows=103)
+
+
+# The cases of the panel tile kernel's ownership and walk (K4, K14): the
+# tests, the gpu tests and chip_smoke.py run both on them
+PANEL_SHAPES = {"empty_at_tile_start": empty_at_tile_start,
+                "leading_trailing_empty": leading_trailing_empty,
+                "slice_fills_tile": slice_fills_tile, "hub_slice": hub_slice,
+                "one_column_slices": one_column_slices,
+                "cut_last_slice": cut_last_slice}
+
+
+def panel_triplets(dev):
+    """The triplets a panel plan holds, pads included (value 0, column 0),
+    in its own row space: row ``s·32 + l`` of slice s, ``nrows`` rows (the
+    last slice's rows past it hold only pads)."""
+    sp = dev.slice_ptr.long().cpu().numpy()
+    slot = np.arange(int(sp[-1]))
+    s = np.searchsorted(sp, slot, side="right") - 1
+    rows = s * 32 + slot % 32
+    real = rows < dev.nrows
+    info = MMInfo("matrix", "coordinate", "real", "general", dev.nrows, dev.ncols,
+                  int(real.sum()))
+    return (info, rows[real], dev.cols.cpu().numpy()[real].astype(np.int64),
+            dev.vals.cpu().numpy()[real])
 
 
 def vector(n: int, dtype: torch.dtype, device, seed: int = 3, R: int | None = None):

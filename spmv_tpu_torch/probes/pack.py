@@ -43,7 +43,7 @@ def same_bits_check(ref):
     return check
 
 
-def members(trip, device):
+def members(trip, device, matrix: str):
     info, rows, cols, vals = trip
     dev32 = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals,
                                device=device).dev

@@ -21,7 +21,7 @@ F32 = torch.float32
 RHS = (2, 4, 8)
 
 
-def members(trip, device):
+def members(trip, device, matrix: str):
     info, rows, cols, vals = trip
     dev = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals, device=device).dev
     x = vector(info.ncols, F32, device)

@@ -1,23 +1,31 @@
-"""Two checkouts' segmented tile kernels, timed in turns on one card.
+"""Two checkouts' tile kernels, timed in turns on one card.
 
     python -m spmv_tpu_torch.probes.turns OTHER_ROOT [--out DIR]
-        [--probe NAME:MATRIX ...] [--rounds N]
+        [--only seg|panel] [--probe NAME:MATRIX ...] [--rounds N]
 
-Measures a change to K1/K12 (``kernels/csrc/seg_tile.cuh``) against another
-checkout of the repository (the commit it changes, unpacked with ``git
-archive``) in one run on one card, in turns: OTHER, THIS, THIS, OTHER. Each
-turn is a fresh process that imports ``spmv_tpu_torch`` from one checkout,
-so it builds and launches that checkout's kernels through that checkout's
-wrappers, and:
+Measures a change to the segmented tile kernel K1/K12
+(``kernels/csrc/seg_tile.cuh``) or the panel tile kernel K4/K14
+(``kernels/csrc/panel_tile.cuh``) against another checkout of the
+repository (the commit it changes, unpacked with ``git archive``) in one
+run on one card, in turns: OTHER, THIS, THIS, OTHER. Each turn is a fresh
+process that imports ``spmv_tpu_torch`` from one checkout, so it builds and
+launches that checkout's kernels through that checkout's wrappers, and
+(``--only`` keeps one of the two engines):
 
-* runs K1 and K12 on cant, ``pl_big``, ``pl_wide`` and band-1024 (the
-  probes' ``common.MATRICES``, named to the worker by generator and
-  arguments, so an older checkout builds the same ones; x from a seed) and saves
-  their y and carries as ``.npy`` under ``DIR/<turn>-<checkout>/``;
-* times K1, the K1 + K2 path, K12 and the K12 + K13 path (``timing.graph_ms``:
-  CUDA-graph replay, warm), and cuSPARSE on the same plan in float32 and
-  float64 (``torch.sparse_csr_tensor @ x``, a yardstick the port never
-  calls), beside each kernel's HBM-peak bound (``bounds``);
+* runs K1 and K12 on cant, ``pl_big``, ``pl_wide`` and band-1024, and K4
+  and K14 on the SELL panels of cant (as the split builds it), pl-32768
+  and ``pl_big`` (whole), ``common.PANEL_SPLIT`` (the probes'
+  ``common.MATRICES``, named to the worker by generator and arguments, so an
+  older checkout builds the same ones; x from a seed), and saves their y and
+  carries or partials as ``.npy`` under ``DIR/<turn>-<checkout>/``; with
+  the panel engine also K4's and K14's y and partials on the whole ELL
+  panels of ``common.PANEL_SHAPES`` (handed to the worker as triplets in
+  ``DIR/shapes/``, which an older checkout has no generator for; untimed);
+* times each tile kernel and its path with the fix-up (K1 + K2, K12 + K13,
+  K4 + K5, K14 + K15; ``timing.graph_ms``: CUDA-graph replay, warm), and
+  cuSPARSE on the same matrix's CSR plan in float32 and float64
+  (``torch.sparse_csr_tensor @ x``, a yardstick the port never calls),
+  beside each kernel's HBM-peak bound (``bounds``);
 * then runs each ``--probe NAME:MATRIX`` (``python -m spmv_tpu_torch.probes``)
   in that checkout, its output saved beside the arrays.
 
@@ -43,6 +51,8 @@ THIS_ROOT = Path(__file__).resolve().parents[2]
 
 # the probes' matrices (``common.MATRICES``) each turn runs K1 and K12 on
 TURN_MATRICES = ("cant", "pl_big", "pl_wide", "band")
+# and those whose SELL panels it runs K4 and K14 on
+PANEL_TURN_MATRICES = ("cant", "pl", "pl_big")
 
 
 def matrix_specs(names=TURN_MATRICES) -> dict:
@@ -54,10 +64,33 @@ def matrix_specs(names=TURN_MATRICES) -> dict:
     return {n: [MATRICES[n].func.__name__, MATRICES[n].keywords] for n in names}
 
 
+def _x2_vals(v: np.ndarray) -> np.ndarray:
+    """fp64 values with content below float32's mantissa."""
+    return v * (1 + 1e-9 * np.arange(v.size) / max(v.size, 1))
+
+
+def shape_specs(out: Path) -> dict:
+    """name → the ``.npz`` under ``out/shapes/`` holding the triplets of
+    each ``common.PANEL_SHAPES`` case (seed 0): what a worker in another
+    checkout, which may lack the generators, builds the shapes from."""
+    from spmv_tpu_torch.probes.common import PANEL_SHAPES
+
+    (out / "shapes").mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, build in PANEL_SHAPES.items():
+        info, r, c, v = build()
+        paths[name] = str(out / "shapes" / f"{name}.npz")
+        np.savez(paths[name], shape=[info.nrows, info.ncols], r=r, c=c, v=v)
+    return paths
+
+
 def _worker(out_dir: Path, specs: dict) -> dict:
     """One turn, in a process whose ``spmv_tpu_torch`` is the checkout in
-    the working directory: K1 and K12 on the matrices of ``specs``
-    (``matrix_specs``), the outputs saved, the times returned."""
+    the working directory: K1 and K12 on the matrices of ``specs["seg"]``,
+    K4 and K14 on the SELL panels of ``specs["panel"]`` (each
+    ``matrix_specs``, a panel's with its split) and on the ELL panels of
+    ``specs["shapes"]`` (``shape_specs``), the outputs saved, the times
+    returned."""
     import torch
 
     import spmv_tpu_torch
@@ -66,39 +99,75 @@ def _worker(out_dir: Path, specs: dict) -> dict:
     from spmv_tpu_torch.formats.base import build_csr_plan, csr_ptr
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
     from spmv_tpu_torch.probes import bounds as B
     from spmv_tpu_torch.probes.timing import card_line, graph_ms
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    kernels = {"f32": (torch.float32, E.segmented_spmv_partials, E.carry_fixup),
-               "f64": (torch.float64, X2.segmented_spmv_x2_partials, X2.carry_fixup_x2)}
+    dtypes = {"f32": (torch.float32, np.float32), "f64": (torch.float64, np.float64)}
+    kernels = {"f32": (E.segmented_spmv_partials, E.carry_fixup),
+               "f64": (X2.segmented_spmv_x2_partials, X2.carry_fixup_x2)}
+    panels = {"f32": (P.panel_spmv_partials, P.panel_fixup),
+              "f64": (X2.panel_spmv_x2_partials, X2.panel_fixup_x2)}
     res = {"card": card_line(), "package": spmv_tpu_torch.__file__, "ms": {}}
-    for name, (gen, kwargs) in specs.items():
-        info, r, c, v = getattr(synth, gen)(**kwargs)
-        order = np.lexsort((c, r))
-        r, c, v = r[order], c[order], np.asarray(v, np.float64)[order]
-        ptr = csr_ptr(r, info.nrows)
-        for key, (dtype, tiles, fixup) in kernels.items():
-            vals = v if key == "f32" else v * (1 + 1e-9 * np.arange(v.size) / max(v.size, 1))
-            np_dtype = np.float32 if key == "f32" else np.float64
-            dev = DevCsr.from_plan(build_csr_plan(info.nrows, info.ncols, ptr, c, vals,
-                                                  dtype=np_dtype), "cuda")
-            xh = np.random.default_rng(3).standard_normal(info.ncols).astype(np_dtype)
-            x = torch.from_numpy(xh).cuda()
-            y, carry = tiles(dev, x)
-            np.save(out_dir / f"{name}_{key}_y.npy", y.cpu().numpy())
-            np.save(out_dir / f"{name}_{key}_carry.npy", carry.cpu().numpy())
-            A = torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals, (dev.nrows, dev.ncols))
-            flops = 2 * dev.nnz
-            res["ms"][f"{name} {key} tiles"] = graph_ms(lambda: tiles(dev, x))
-            res["ms"][f"{name} {key} path"] = graph_ms(lambda: fixup(dev, *tiles(dev, x)))
-            res["ms"][f"{name} {key} cusparse"] = graph_ms(lambda: A @ x)
-            res["ms"][f"{name} {key} tiles bound"] = B.bound_ms(
-                B.seg_tiles_bytes(dev), flops, dtype)[0]
-            res["ms"][f"{name} {key} path bound"] = B.bound_ms(
-                B.csr_spmv_bytes(dev), flops, dtype)[0]
-            del dev, A
-        torch.cuda.synchronize()
+    ms = res["ms"]
+
+    def save(label, key, y, part):
+        stem = f"{label.replace(' ', '_')}_{key}"
+        np.save(out_dir / f"{stem}_y.npy", y.cpu().numpy())
+        np.save(out_dir / f"{stem}_part.npy", part.cpu().numpy())
+
+    def time_tiles(label, key, dev, x, tiles, fixup, tiles_bytes, nnz, A):
+        dtype = dtypes[key][0]
+        save(label, key, *tiles(dev, x))
+        ms[f"{label} {key} tiles"] = graph_ms(lambda: tiles(dev, x))
+        ms[f"{label} {key} path"] = graph_ms(lambda: fixup(dev, *tiles(dev, x)))
+        ms[f"{label} {key} cusparse"] = graph_ms(lambda: A @ x)
+        ms[f"{label} {key} tiles bound"] = B.bound_ms(tiles_bytes, 2 * nnz, dtype)[0]
+        ms[f"{label} {key} path bound"] = B.bound_ms(B.csr_spmv_bytes(dev), 2 * nnz,
+                                                     dtype)[0]
+
+    def vector(n, np_dtype):
+        xh = np.random.default_rng(3).standard_normal(n).astype(np_dtype)
+        return torch.from_numpy(xh).cuda()
+
+    for name, path in specs.pop("shapes", {}).items():
+        z = np.load(path)
+        nrows, ncols = (int(n) for n in z["shape"])
+        for key, (dtype, np_dtype) in dtypes.items():
+            vals = z["v"] if key == "f32" else _x2_vals(z["v"])
+            make = (spmv_tpu_torch.from_coo if key == "f32" else
+                    spmv_tpu_torch.X2Matrix.from_coo)
+            a = make("ell", nrows, ncols, z["r"], z["c"], vals, split=False,
+                     device="cuda")
+            save(f"{name} shape", key, *panels[key][0](a.dev, vector(ncols, np_dtype)))
+    for engine, named in specs.items():
+        for name, (gen, kwargs, *split) in named.items():
+            info, r, c, v = getattr(synth, gen)(**kwargs)
+            order = np.lexsort((c, r))
+            r, c, v = r[order], c[order], np.asarray(v, np.float64)[order]
+            ptr = csr_ptr(r, info.nrows)
+            for key, (dtype, np_dtype) in dtypes.items():
+                vals = v if key == "f32" else _x2_vals(v)
+                dev = DevCsr.from_plan(build_csr_plan(info.nrows, info.ncols, ptr, c, vals,
+                                                      dtype=np_dtype), "cuda")
+                x = vector(info.ncols, np_dtype)
+                A = torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals,
+                                            (dev.nrows, dev.ncols))
+                if engine == "seg":
+                    time_tiles(name, key, dev, x, *kernels[key], B.seg_tiles_bytes(dev),
+                               dev.nnz, A)
+                else:
+                    args = ("sell", info.nrows, info.ncols, r, c, vals)
+                    a = (spmv_tpu_torch.from_coo(*args, split=split[0], device="cuda")
+                         if key == "f32" else
+                         spmv_tpu_torch.X2Matrix.from_coo(*args, split=split[0],
+                                                          device="cuda"))
+                    time_tiles(f"{name} panel", key, a.dev, x, *panels[key],
+                               B.panel_tiles_bytes(a.dev), a.panel_nnz, A)
+                    del a
+                del dev, A
+            torch.cuda.synchronize()
     return res
 
 
@@ -124,6 +193,8 @@ def main(argv=None) -> int:
     p.add_argument("other", help="root of the other checkout")
     p.add_argument("--out", default="turns_out",
                    help="directory for the outputs and turns.json")
+    p.add_argument("--only", choices=("seg", "panel"),
+                   help="time one engine's tile kernels only")
     p.add_argument("--probe", action="append", default=[],
                    help="NAME:MATRIX, run in each turn, e.g. ablate:pl_big")
     p.add_argument("--rounds", type=int, default=5, help="rounds of each probe")
@@ -138,7 +209,15 @@ def main(argv=None) -> int:
     roots = {"other": Path(args.other).resolve(), "this": THIS_ROOT}
     out = Path(args.out).resolve()
     turns, dirs = [], {"other": [], "this": []}
-    specs = json.dumps(matrix_specs())
+    from spmv_tpu_torch.probes.common import PANEL_SPLIT
+
+    panel = {n: [*spec, PANEL_SPLIT.get(n, False)]
+             for n, spec in matrix_specs(PANEL_TURN_MATRICES).items()}
+    specs = {"seg": matrix_specs(), "panel": panel}
+    specs = {k: v for k, v in specs.items() if args.only in (None, k)}
+    if "panel" in specs:
+        specs["shapes"] = shape_specs(out)
+    specs = json.dumps(specs)
     for i, tree in enumerate(("other", "this", "this", "other")):
         d = out / f"{i}-{tree}"
         proc = subprocess.run([sys.executable, __file__, "--worker", str(d), specs],
@@ -166,15 +245,15 @@ def main(argv=None) -> int:
 
     bad = compare(dirs["other"] + dirs["this"])
     card = turns[0]["card"]
-    print(f"K1 / K12 device ms, median of each checkout's two turns (CUDA-graph "
-          f"replay, warm); 'bound' is the HBM-peak bound  [{card}]")
+    print(f"tile kernels and paths, device ms, median of each checkout's two "
+          f"turns (CUDA-graph replay, warm); 'bound' is the HBM-peak bound  [{card}]")
     medians = {}
     for key in turns[0]["ms"]:
         m = {tree: statistics.median(t["ms"][key] for t in turns if t["tree"] == tree)
              for tree in ("other", "this")}
         medians[key] = m
         ratio = m["this"] / m["other"] if m["other"] else float("nan")
-        print(f"  {key:28s} other {m['other'] * 1e3:9.2f} µs  this "
+        print(f"  {key:34s} other {m['other'] * 1e3:9.2f} µs  this "
               f"{m['this'] * 1e3:9.2f} µs  this/other {ratio:.3f}")
     n = len(list(dirs["other"][0].glob("*.npy")))
     print(f"bit for bit: {n} outputs of each of four turns; "

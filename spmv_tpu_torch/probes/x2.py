@@ -40,7 +40,7 @@ from spmv_tpu_torch.probes.timing import Member
 F32, F64 = torch.float32, torch.float64
 
 
-def members(trip, device):
+def members(trip, device, matrix: str):
     info, rows, cols, vals = trip
     dev = X2Matrix.from_coo("csr", info.nrows, info.ncols, rows, cols, vals,
                             device=device).dev

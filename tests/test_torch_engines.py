@@ -189,7 +189,8 @@ def test_a_library_name_follows_its_source_and_the_headers(tmp_path):
     assert _build._so_path(src, tmp_path) == first
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build._so_path(src, tmp_path) != first
-    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"seg_tile.cuh", "x_rows.cuh"}
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"seg_tile.cuh", "x_rows.cuh",
+                                                            "panel_tile.cuh"}
 
 
 def test_build_failures_raise(tmp_path, monkeypatch):

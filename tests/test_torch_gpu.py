@@ -5,6 +5,8 @@ on a CUDA card. Skipped without one (the decision is made in the
     pytest -m gpu tests/test_torch_gpu.py      # on a machine with a card
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from spmv_tpu_torch.kernels import engines_x2 as X2
 from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
-from spmv_tpu_torch.probes.common import TILE_SHAPES, tile_sum_bound
+from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES, tile_sum_bound
 
 pytestmark = pytest.mark.gpu
 
@@ -31,6 +33,9 @@ MATRICES = {
     # a tile of 1024 one-nonzero rows, tiles over the row-offset stage's cap
     # (K1 and K12 read ptr in global memory there), a hub row over six tiles
     **TILE_SHAPES,
+    # the panel tile kernel's cases: empty slices at tile starts and ends, a
+    # slice per tile, a hub slice, one-column slices, a cut last slice
+    **PANEL_SHAPES,
 }
 
 
@@ -145,6 +150,9 @@ def test_each_launch_counts_once(cuda):
         KP.ablate_dma(d.vals, d.cols)
         KP.ablate_dma_reference(d.vals, d.cols)
     KP.ablate_x32(dev64, x64.float())
+    KP.panel_ablate_nogather(a.dev)
+    KP.panel_ablate_nogather(pdev64)
+    KP.panel_ablate_nogather_reference(a.dev)
     assert E.LAUNCHES == {k: 1 for k in (
         "seg_spmv_tiles", "carry_fixup", "csr_spmv_fused", "panel_spmv_tiles",
         "panel_fixup", "panel_spmv_fused", "inverse_permute", "seg_spmm_tiles",
@@ -155,7 +163,7 @@ def test_each_launch_counts_once(cuda):
         "carry_fixup_t128", "carry_fixup_t512", "carry_fixup_t2048",
         "seg_ablate_nogather", "seg_ablate_noseg", "seg_ablate_dma",
         "seg_ablate_x2_nogather", "seg_ablate_x2_noseg", "seg_ablate_x2_dma",
-        "seg_ablate_x2_x32")}
+        "seg_ablate_x2_x32", "panel_ablate_nogather", "panel_ablate_x2_nogather")}
 
 
 def test_empty_plans_launch_nothing(cuda):
@@ -229,10 +237,72 @@ def test_refused_panel_launch_raises(cuda):
     part = torch.zeros(2 * dev.ntiles, 32, device=cuda)
     rc = lib.panel_spmv_tiles(dev.slice_ptr.data_ptr(), dev.cols.data_ptr(),
                               dev.vals.data_ptr(), dev.tile_slice0.data_ptr(),
-                              x.data_ptr(), y.data_ptr(), part.data_ptr(),
-                              dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows,
-                              torch.cuda.current_stream().cuda_stream)
+                              dev.tile_own0.data_ptr(), x.data_ptr(), y.data_ptr(),
+                              part.data_ptr(), dev.nslots // 32, dev.ntiles, dev.tile,
+                              dev.nrows, torch.cuda.current_stream().cuda_stream)
     assert rc != 0
+
+
+def poison(*shapes, dtype, device):
+    """Fill blocks of these shapes with NaN and free them: the caching
+    allocator hands them to the next allocations of the same sizes, so a
+    row or slot that a kernel leaves unwritten reads NaN."""
+    blocks = [torch.full(shape, float("nan"), dtype=dtype, device=device)
+              for shape in shapes]
+    del blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(PANEL_SHAPES))
+def test_panel_tile_kernel_writes_every_row_and_slot(cuda, name, dtype):
+    """K4 and K14 on each panel shape (the plan as built, no σ-sort): twice
+    with the same bits into NaN-poisoned allocations, against the plain
+    version per entry, the launcher itself into NaN-filled y and partials
+    (every row and slot written, with the wrapper's bits), and the path
+    with K5 / K15 against the plain path."""
+    info, r, c, v = PANEL_SHAPES[name](1)
+    f32 = dtype == torch.float32
+    v = v if f32 else v * (1 + 1e-9 * np.arange(v.size))
+    dev = DevPanel.from_plan(build_panel_plan(info.nrows, info.ncols, r, c, v,
+                                              dtype=np.float32 if f32 else np.float64),
+                             cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(info.ncols)).to(
+        dtype).to(cuda)
+    tiles, fixup, kname = ((P.panel_spmv_partials, P.panel_fixup, "panel_spmv_tiles")
+                           if f32 else (X2.panel_spmv_x2_partials, X2.panel_fixup_x2,
+                                        "panel_spmv_tiles_x2"))
+    outs = []
+    for _ in range(2):
+        poison((dev.nrows,), (2 * dev.ntiles, 32), dtype=dtype, device=cuda)
+        outs.append(tiles(dev, x))
+    (y, part), (yb, partb) = outs
+    assert torch.equal(y, yb) and torch.equal(part, partb)
+    # per entry: the plain version of the same sums, and of their magnitudes
+    y_plain, part_plain = P.panel_spmv_partials_reference(dev, x)
+    y_abs, part_abs = P.panel_spmv_partials_reference(
+        dataclasses.replace(dev, vals=dev.vals.abs()), x.abs())
+    k = max(dev.max_width, 1)
+
+    def bound(scale):
+        return (KERNEL_TOL_ABS + fp32_rel_tol(k) * scale.double() if f32
+                else k * 2.0 ** -50 * scale)
+
+    assert ((y.double() - y_plain.double()).abs() <= bound(y_abs)).all()
+    assert ((part.double() - part_plain.double()).abs() <= bound(part_abs)).all()
+    y_nan, part_nan = torch.full_like(y, float("nan")), torch.full_like(part, float("nan"))
+    lib = _build.library().lib
+    assert getattr(lib, kname)(dev.slice_ptr.data_ptr(), dev.cols.data_ptr(),
+                               dev.vals.data_ptr(), dev.tile_slice0.data_ptr(),
+                               dev.tile_own0.data_ptr(), x.data_ptr(), y_nan.data_ptr(),
+                               part_nan.data_ptr(), dev.nslots // 32, dev.ntiles,
+                               dev.tile, dev.nrows,
+                               torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y_nan, y) and torch.equal(part_nan, part)
+    yp = fixup(dev, y.clone(), part)
+    yp_plain = P.panel_fixup_reference(dev, y_plain.clone(), part_plain)
+    yp_abs = P.panel_fixup_reference(dev, y_abs.clone(), part_abs)
+    assert ((yp.double() - yp_plain.double()).abs() <= bound(yp_abs)).all()
 
 
 # ---------------------------------------------------------------- R > 1
@@ -526,6 +596,21 @@ def test_probe_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
             assert torch.equal(out, fn(d.vals, d.cols, *args))
             err = (out - ref(d.vals, d.cols, *args)).abs().double().cpu().numpy()
             assert (err <= tile_sum_bound(d.vals, d.cols, *args)).all(), fn.__name__
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_panel_nogather_is_k4_on_xtilde(cuda, name):
+    """The probe's K4 and K14 without the gather: twice with the same bits,
+    and bit for bit the production kernel on x̃."""
+    a, _, _ = setup_panel(name, cuda)
+    _, pdev64, _ = setup_x2(name, cuda)
+    for dev, tiles in ((a.dev, P.panel_spmv_partials),
+                       (pdev64, X2.panel_spmv_x2_partials)):
+        xt = KP.xtilde(dev.ncols, dev.vals.dtype, cuda)
+        got = KP.panel_ablate_nogather(dev)
+        assert all(map(torch.equal, got, KP.panel_ablate_nogather(dev)))
+        assert all(map(torch.equal, got, tiles(dev, xt)))
     torch.cuda.synchronize()
 
 

@@ -145,7 +145,7 @@ def test_device_panel_bytes_and_types():
     p = panel_of(CASES["band_1024"]())
     dev = DevPanel.from_plan(p, "cpu")
     arrays = (p.slice_ptr.astype(np.int32), p.vals, p.cols, p.tile_slice0,
-              p.split_slices)
+              p.tile_own0, p.split_slices)
     assert dev.stream_bytes == sum(a.nbytes for a in arrays)
     assert dev.slice_ptr.dtype == dev.cols.dtype == torch.int32
     assert (dev.nslices, dev.nslots, dev.ntiles, dev.nsplit) == (

@@ -31,7 +31,7 @@ from spmv_tpu import synth as ref_synth
 from spmv_tpu.device import x_to_table, y_from_padded
 from spmv_tpu.kernels.engines import segmented_spmv_partials as jax_partials
 from spmv_tpu.oracle import container_scale, engine_rel_tol
-from spmv_tpu_torch import CSRMatrix, X2Matrix
+from spmv_tpu_torch import CSRMatrix, X2Matrix, from_coo
 from spmv_tpu_torch.device import DevCsr
 from spmv_tpu_torch.errors import ReturnCode
 from spmv_tpu_torch.formats.base import build_csr_plan, csr_ptr
@@ -327,6 +327,16 @@ def test_byte_counts_follow_the_plan():
     ms, by = bounds.bound_ms(3_350_000_000, 2, F32)
     assert by == "bytes" and ms == pytest.approx(1.0)
     assert bounds.bound_ms(1, 67_000_000_000, F32) == (pytest.approx(1.0), "operations")
+
+
+def test_panel_byte_counts_read_tile_own0_at_one_column_only():
+    """K4 and K14 read the plan's tile_own0; K10 (R > 1) does not."""
+    info, r, c, v = reference("power_law_2048")[:4]
+    pdev = from_coo("sell", info.nrows, info.ncols, r, c, v, split=False, device="cpu").dev
+    read = bounds.nbytes(pdev.slice_ptr, pdev.cols, pdev.vals, pdev.tile_slice0)
+    xy = 4 * (pdev.ncols + pdev.nrows + 2 * pdev.ntiles * 32)
+    assert bounds.panel_tiles_bytes(pdev) == read + bounds.nbytes(pdev.tile_own0) + xy
+    assert bounds.panel_tiles_bytes(pdev, R=4) == read + 4 * xy
 
 
 # ---------------------------------------------------------------- the CLI
