@@ -7,8 +7,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 
 1. The card (nvidia-smi name and power limit), and the build of the CUDA
    kernels from ``spmv_tpu_torch/kernels/csrc/`` (one nvcc per source, all
-   at once) with nvcc's register and spill lines, and K4's and K14's
-   resident blocks per SM.
+   at once) with nvcc's register and spill lines, and the tile kernels'
+   resident blocks per SM (K1, K12, K4, K14, and K8 and K10 at R = 2..8).
 2. Each kernel against its plain PyTorch version on the card, per row
    within ``1e-5 + fp32_rel_tol(max_row_nnz)·Σ|v||x|``, each kernel twice
    with bitwise-equal output. The segmented engine (K1-K3) on the edge
@@ -29,10 +29,13 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    K14 also write into NaN-filled y and partials, which must equal the
    wrappers' bits, so a row or slot they leave unwritten fails.
    The multi-RHS kernels at R = 2, 4 and 8, each column within the same
-   bound: K8 + K9 on the edge cases, the band matrix, cant and ``pl_big``;
-   K10 + K11 on the band matrix's and pl-32768's pure SELL panels,
-   pl-32768's pure ELL panel and cant's split SELL panel, with K7 gathering
-   rows of R floats where the panel is σ-sorted. The fp64-grade kernels,
+   bound and bit for bit the one-vector kernel's on that column (y and
+   carries or partials): K8 + K9 on the edge cases, the band matrix, cant,
+   ``pl_big`` and the tile shapes; K10 + K11 on the band matrix's and
+   pl-32768's pure SELL panels, pl-32768's pure ELL panel, cant's split
+   SELL panel and the panel shapes, K10's launcher also into NaN-filled Y
+   and partials on each, with K7 gathering rows of R floats where the
+   panel is σ-sorted. The fp64-grade kernels,
    each twice with the same bits and per row within k·2⁻⁵⁰·Σ|v||x| of its
    plain version (k the longest row), the x2 ``matvec`` against the fp64
    oracle by ``x2_check``: K12 + K13 on the edge cases, band-1024, cant,
@@ -318,21 +321,22 @@ def same_bits(name: str, fn) -> torch.Tensor:
 
 
 def writes_all(launcher: str, dev, x, got) -> None:
-    """Calls the panel tile launcher ``launcher`` (K4, K14 or a probe's
-    instantiation; x None for one that reads no x) itself, outside its
-    wrapper and its count, into NaN-filled y and partials: a row or slot it
-    leaves unwritten stays NaN, so both must equal the wrapper's ``got`` bit
-    for bit."""
+    """Calls the panel tile launcher ``launcher`` (K4, K14, K10 with x an
+    (ncols, R) X, or a probe's instantiation; x None for one that reads no
+    x) itself, outside its wrapper and its count, into NaN-filled y and
+    partials: a row or slot it leaves unwritten stays NaN, so both must
+    equal the wrapper's ``got`` bit for bit."""
     from spmv_tpu_torch.kernels import _build
 
     if not (dev.nslots and dev.nrows):  # the wrapper launches nothing
         return
     y, part = (torch.full_like(t, float("nan")) for t in got)
+    rhs = () if x is None or x.dim() == 1 else (x.shape[1],)
     rc = getattr(_build.library().lib, launcher)(
         dev.slice_ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
         dev.tile_slice0.data_ptr(), dev.tile_own0.data_ptr(),
         None if x is None else x.data_ptr(), y.data_ptr(), part.data_ptr(),
-        dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows,
+        dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows, *rhs,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     if rc or not (torch.equal(y, got[0]) and torch.equal(part, got[1])):
@@ -641,11 +645,14 @@ def check_multi(label: str, trip, seed: int, R: int) -> dict:
                 E.carry_fixup_multi_reference(dev, Y8.clone(), c8), scale, tol)
     check_oracle_columns(f"{label} R={R} K8+K9", trip, Y9, Xh)
     # column j of K8 against K1 on X[:, j]: the same order of additions
-    same_as_k1 = all(torch.equal(Y8[:, j], E.segmented_spmv_partials(
-        dev, X[:, j].contiguous())[0]) for j in range(R))
+    for j in range(R):
+        y1, c1 = E.segmented_spmv_partials(dev, X[:, j].contiguous())
+        if not (torch.equal(Y8[:, j], y1) and torch.equal(c8[:, j], c1)):
+            raise AssertionError(f"{label} R={R}: column {j} of K8's y or carries "
+                                 f"is not K1's bits")
     print(f"  {label} R={R}: max |kernel - plain| K8 {e8:.3e}  K9 {e9:.3e}; "
           f"passes the fp64 oracle per column; two runs bitwise equal; "
-          f"each column bitwise equal to K1's: {same_as_k1}")
+          f"each column's y and carries bitwise K1's")
     return {"seg_spmm_tiles": e8, "carry_fixup_multi": e9}
 
 
@@ -669,6 +676,7 @@ def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
     scale[real] = column_scales(trip, Xh)[perm[real]]
     tol = fp32_rel_tol(max(dev.max_width, 1))
     Y10, p10 = same_bits("panel_spmm_tiles", lambda: P.panel_spmv_multi_partials(dev, X))
+    writes_all("panel_spmm_tiles", dev, X, (Y10, p10))
     Y10r, p10r = P.panel_spmv_multi_partials_reference(dev, X)
     owner = part_rows(dev)
     pscale = np.where(owner[..., None] >= 0, scale[np.maximum(owner, 0)], 0.0)
@@ -686,13 +694,17 @@ def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
             P.inverse_permute_reference(a.invperm_dev, Y11, info.nrows),
             np.zeros((info.nrows, R)), 0.0)
     check_oracle_columns(f"{label} R={R} {fmt} matmat", trip, a.matmat(X), Xh)
-    same_as_k4 = all(torch.equal(Y10[:, j], P.panel_spmv_partials(
-        dev, X[:, j].contiguous())[0]) for j in range(R))
+    for j in range(R):  # column j of K10 against K4 on X[:, j]
+        y4, p4 = P.panel_spmv_partials(dev, X[:, j].contiguous())
+        if not (torch.equal(Y10[:, j], y4) and torch.equal(p10[..., j], p4)):
+            raise AssertionError(f"{label} {fmt} R={R}: column {j} of K10's y or "
+                                 f"partials is not K4's bits")
     print(f"  {label} {fmt}{kwargs or ''} R={R}: shape {a.shape}, sorted "
           f"{getattr(a, 'sorted_rows', False)}, split slices {dev.nsplit}: max "
           f"|kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
-          + f"; matmat passes the fp64 oracle per column; two runs bitwise "
-          f"equal; each column bitwise equal to K4's: {same_as_k4}")
+          + "; matmat passes the fp64 oracle per column; two runs bitwise "
+          "equal; K10 writes every row and slot; each column's y and partials "
+          "bitwise K4's")
     return errs
 
 
@@ -1240,9 +1252,13 @@ def main() -> int:
     for line in built.log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    print(f"  resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, "
-          f"4 warps each): K4 {built.lib.panel_tiles_occupancy(0)}, K14 "
-          f"{built.lib.panel_tiles_occupancy(1)}")
+    lib = built.lib
+    print(f"  resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+          f"K1 {lib.seg_tiles_occupancy(0, 1)}, K12 {lib.seg_tiles_occupancy(1, 1)} "
+          f"(8 warps each); K4 {lib.panel_tiles_occupancy(0, 1)}, K14 "
+          f"{lib.panel_tiles_occupancy(1, 1)} (4 warps each); at R = 2..8, K8 "
+          f"{[lib.seg_tiles_occupancy(0, R) for R in range(2, 9)]}, K10 "
+          f"{[lib.panel_tiles_occupancy(0, R) for R in range(2, 9)]}")
 
     # 2. kernels against their plain versions
     print("phase 2: kernels against plain PyTorch versions")
@@ -1287,10 +1303,14 @@ def main() -> int:
         keep_max(check_multi("band-1024", band, seed=R, R=R))
         keep_max(check_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
         keep_max(check_multi("pl_big-524288", pl_big, seed=R, R=R))
+        for name, shape in tile_shapes.items():
+            keep_max(check_multi(name, shape, seed=R, R=R))
         keep_max(check_panel_multi("band-1024", band, seed=R, R=R, split=False))
         keep_max(check_panel_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
         keep_max(check_panel_multi("pl-32768", pl, seed=R, R=R, split=False))
         keep_max(check_panel_multi("pl-32768", pl, seed=R, R=R, fmt="ell", split=False))
+        for name, shape in panel_shapes.items():
+            keep_max(check_panel_multi(name, shape, seed=R, R=R, fmt="ell", split=False))
     # the fp64-grade kernels (K12-K15, and K7 on an fp64 y)
     for name in sorted(synth.EDGE_CASES):
         keep_max(check_x2_seg(name, synth.edge_case(name), seed=11))

@@ -52,6 +52,8 @@ SIGNATURES = {
     # K1 and K2 in float64: the arguments of seg_spmv_tiles and carry_fixup
     "seg_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "carry_fixup_x2": (_P, _P, _P, _P, _I, _I, _P),
+    # fp64 (0 or 1), rhs: K1's, K12's or K8's resident blocks per SM
+    "seg_tiles_occupancy": (_I, _I),
     # panel_spmv.cu
     # slice_ptr, cols, vals, tile_slice0, tile_own0, x, y, part, ncolumns,
     # ntiles, tile, nrows, stream
@@ -62,16 +64,16 @@ SIGNATURES = {
     "panel_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
     # invperm, y_sorted, y, n, r, stream
     "inverse_permute": (_P, _P, _P, _I, _I, _P),
-    # slice_ptr, cols, vals, tile_slice0, X, Y, part, ncolumns, ntiles,
-    # tile, nrows, rhs, stream
-    "panel_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # slice_ptr, cols, vals, tile_slice0, tile_own0, X, Y, part, ncolumns,
+    # ntiles, tile, nrows, rhs, stream
+    "panel_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # slice_ptr, split_slices, part, Y, nsplit, tile, nrows, rhs, stream
     "panel_fixup_multi": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # K4 and K5 in float64: the arguments of panel_spmv_tiles and panel_fixup
     "panel_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "panel_fixup_x2": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # fp64 (0 or 1): K4's or K14's resident blocks per SM
-    "panel_tiles_occupancy": (_I,),
+    # fp64 (0 or 1), rhs: K4's, K14's or K10's resident blocks per SM
+    "panel_tiles_occupancy": (_I, _I),
     # probe_spmv.cu
     # K1 and K12 with uint16 columns, and K1 at another tile: the arguments
     # of seg_spmv_tiles; K2 at another tile: those of carry_fixup

@@ -17,7 +17,8 @@
 //   K15 panel_fixup_x2       with its epilogue folded in there
 //
 // K14 and K15 are K4 and K5 instantiated for double (both are templates on
-// the value type), so the tile and slot rules stay in one place. B11's hi
+// the value type), and K10 is K4 at R right-hand sides, so the tile and
+// slot rules stay in one place. B11's hi
 // and lo f32 planes and its TwoSum chains answer the TPU's missing FMA;
 // Hopper has native fp64 FMA, so K14 reads fp64 values and x and sums each
 // row in fp64. A slot then streams 12 B and gathers 8 B of x: bytes still
@@ -38,7 +39,7 @@
 // lo/hi and P-planes answer VMEM and DMA limits that this card does not
 // have, so none of them is here.
 //
-// K4 and K14 (panel_tile.cuh) do not reach that bound by streaming alone: a
+// K4, K10 and K14 (panel_tile.cuh) do not reach that bound by streaming alone: a
 // cant-sized panel is ~3,900 tiles, one warp each, ~30 warps per SM in a
 // single wave, so the kernel takes about one warp's time, and a warp that
 // walks its 32 columns as a chain of dependent loads (the parent's: a line
@@ -47,8 +48,9 @@
 // values and columns at once, then those columns' x gathers, before it adds
 // (4 times per tile), and walks the slices in registers; each tile writes
 // every row and partial slot it owns, so the wrapper allocates y and the
-// partials without a zero fill. K10 keeps the parent's chain (a later
-// redesign).
+// partials without a zero fill. K10 is the same template at R = 2..8: each
+// slot's X row (R floats) is gathered in the batch, and each lane carries R
+// sums.
 //
 // No kernel uses float atomics: every row is summed in an order fixed by the
 // plan, so two runs give the same bits.
@@ -63,7 +65,6 @@
 #include <cstdint>
 
 #include "panel_tile.cuh"
-#include "x_rows.cuh"
 
 namespace {
 
@@ -96,7 +97,7 @@ panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
   if (row < nrows) y[row] = acc;
 }
 
-// K4 and K14: panel_spmv_tiles_kernel in panel_tile.cuh.
+// K4, K10 and K14: panel_spmv_tiles_kernel in panel_tile.cuh.
 
 // K5 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171) as the
 // panel path's epilogue; K2 (seg_spmv.cu) cannot take the job unchanged,
@@ -150,69 +151,13 @@ inverse_permute_kernel(const int* __restrict__ invperm,
 // (2·ntiles, 32, R). Per right-hand side a slot's 8 plan bytes are shared
 // by R columns, and each slot gathers one contiguous X row of R floats.
 
-// K10 — replaces _panel_kernel_multi (spmv_tpu/kernels/engines.py:623).
-//
-// K4 with R accumulators per lane: the same tile of kTileCols slice columns
-// per warp, the same slice steps, one row per lane. Each slot's value and
-// column are read once (one 128-byte load of each per warp and column) and
-// its X row is gathered whole; column j of K10 adds in K4's order.
-template <int R>
-__global__ void __launch_bounds__(kPanelThreads)
-panel_spmm_tiles_kernel(const int* __restrict__ slice_ptr,
-                        const int* __restrict__ cols,
-                        const float* __restrict__ vals,
-                        const int* __restrict__ tile_slice0,
-                        const float* __restrict__ X, float* __restrict__ Y,
-                        float* __restrict__ part, int ncolumns, int ntiles,
-                        int nrows, bool vec) {
-  const int lane = threadIdx.x & (kC - 1);
-  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
-  if (t >= ntiles) return;
-  const int g0 = t * kTileCols;
-  const int g1 = min(g0 + kTileCols, ncolumns);
-
-  float run[R];
-  // Stores the tile's sums of slice s (columns [cs, ce)) for this lane.
-  auto emit = [&](int s, int cs, int ce) {
-    float* out;
-    if (cs < g0) {
-      out = part + (static_cast<long long>(2 * t) * kC + lane) * R;
-    } else if (ce > g1) {
-      out = part + (static_cast<long long>(2 * t + 1) * kC + lane) * R;
-    } else {
-      const int row = s * kC + lane;
-      if (row >= nrows) return;
-      out = Y + static_cast<long long>(row) * R;
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) out[j] = run[j];
-  };
-
-  int s = __ldg(tile_slice0 + t);
-  int cs = __ldg(slice_ptr + s) / kC;
-  int ce = __ldg(slice_ptr + s + 1) / kC;
-#pragma unroll
-  for (int j = 0; j < R; ++j) run[j] = 0.f;
-  for (int g = g0; g < g1; ++g) {
-    if (g >= ce) {  // slice s ended at column g - 1 (the branch is warp-uniform)
-      emit(s, cs, ce);
-      do {
-        ++s;
-        cs = ce;
-        ce = __ldg(slice_ptr + s + 1) / kC;
-      } while (g >= ce);
-#pragma unroll
-      for (int j = 0; j < R; ++j) run[j] = 0.f;
-    }
-    const int p = g * kC + lane;
-    const float v = __ldg(vals + p);
-    float xr[R];
-    load_x_row<R>(X, __ldg(cols + p), vec, xr);
-#pragma unroll
-    for (int j = 0; j < R; ++j) run[j] += v * xr[j];
-  }
-  emit(s, cs, ce);
-}
+// K10 — replaces _panel_kernel_multi (spmv_tpu/kernels/engines.py:623) —
+// is panel_tile.cuh's tile kernel at R = 2..8: K4's tile of kTileCols slice
+// columns per warp, its batches (each batch's values and columns, then its
+// X-row gathers, before the first add), its walk in registers with R sums
+// per lane in K4's order (column j of K10 is K4's on X[:, j], bit for bit),
+// and its ownership: every row of Y the tile owns and both partial slots,
+// so the wrapper allocates Y and the partials without a zero fill.
 
 // K11 — replaces _scatter_kernel_multi (spmv_tpu/kernels/engines.py:537) as
 // the panel path's epilogue.
@@ -257,19 +202,6 @@ int launch_panel_fixup(const void* slice_ptr, const void* split_slices,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int R>
-cudaError_t launch_panel_spmm(const int* slice_ptr, const int* cols,
-                              const float* vals, const int* tile_slice0,
-                              const float* X, float* Y, float* part,
-                              int ncolumns, int ntiles, int nrows,
-                              cudaStream_t s) {
-  const bool vec = reinterpret_cast<uintptr_t>(X) % 16 == 0;
-  panel_spmm_tiles_kernel<R><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
-                               0, s>>>(slice_ptr, cols, vals, tile_slice0, X, Y,
-                                       part, ncolumns, ntiles, nrows, vec);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -304,9 +236,20 @@ int panel_spmv_tiles_x2(const void* slice_ptr, const void* cols, const void* val
                                          stream);
 }
 
-// K4's (fp64: K14's) blocks resident per SM, or -1.
-int panel_tiles_occupancy(int fp64) {
-  return fp64 ? panel_tiles_blocks_per_sm<double>() : panel_tiles_blocks_per_sm<float>();
+// K4's (fp64: K14's; rhs 2..8: K10's) blocks resident per SM, or -1.
+int panel_tiles_occupancy(int fp64, int rhs) {
+  if (fp64) return rhs == 1 ? panel_tiles_blocks_per_sm<double>() : -1;
+  switch (rhs) {
+    case 1: return panel_tiles_blocks_per_sm<float>();
+    case 2: return panel_tiles_blocks_per_sm<float, 2>();
+    case 3: return panel_tiles_blocks_per_sm<float, 3>();
+    case 4: return panel_tiles_blocks_per_sm<float, 4>();
+    case 5: return panel_tiles_blocks_per_sm<float, 5>();
+    case 6: return panel_tiles_blocks_per_sm<float, 6>();
+    case 7: return panel_tiles_blocks_per_sm<float, 7>();
+    case 8: return panel_tiles_blocks_per_sm<float, 8>();
+    default: return -1;
+  }
 }
 
 // K15: K5 in float64.
@@ -345,37 +288,25 @@ int inverse_permute(const void* invperm, const void* y_sorted, void* y, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10: Y[r, :] for the rows of every slice wholly inside one tile, and the
-// head/tail partials (32 rows of R per slot, 2 slots per tile) of the split
-// slices; R = 2..8.
+// K10: K4 at R = 2..8 right-hand sides: Y (nrows, R) for the rows of every
+// slice the tile owns and both head/tail partial slots of every tile (32
+// rows of R each; +0.0 where unused): all of Y and part.
 int panel_spmm_tiles(const void* slice_ptr, const void* cols, const void* vals,
-                     const void* tile_slice0, const void* X, void* Y,
-                     void* part, int ncolumns, int ntiles, int tile, int nrows,
-                     int rhs, void* stream) {
-  if (tile != kTileCols || ncolumns <= 0 || nrows <= 0 ||
-      ntiles != blocks_for(ncolumns, kTileCols)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int* sp = static_cast<const int*>(slice_ptr);
-  const int* c = static_cast<const int*>(cols);
-  const float* v = static_cast<const float*>(vals);
-  const int* t0 = static_cast<const int*>(tile_slice0);
-  const float* xx = static_cast<const float*>(X);
-  float* yy = static_cast<float*>(Y);
-  float* pp = static_cast<float*>(part);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+                     const void* tile_slice0, const void* tile_own0, const void* X,
+                     void* Y, void* part, int ncolumns, int ntiles, int tile,
+                     int nrows, int rhs, void* stream) {
   switch (rhs) {
-    case 2: err = launch_panel_spmm<2>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
-    case 3: err = launch_panel_spmm<3>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
-    case 4: err = launch_panel_spmm<4>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
-    case 5: err = launch_panel_spmm<5>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
-    case 6: err = launch_panel_spmm<6>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
-    case 7: err = launch_panel_spmm<7>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
-    case 8: err = launch_panel_spmm<8>(sp, c, v, t0, xx, yy, pp, ncolumns, ntiles, nrows, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define K10_CASE(R)                                                                  \
+  case R:                                                                            \
+    return launch_panel_spmv_tiles<float, kXGather, R>(slice_ptr, cols, vals,        \
+                                                       tile_slice0, tile_own0, X, Y, \
+                                                       part, ncolumns, ntiles, tile, \
+                                                       nrows, stream);
+    K10_CASE(2) K10_CASE(3) K10_CASE(4) K10_CASE(5) K10_CASE(6) K10_CASE(7) K10_CASE(8)
+#undef K10_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }
 
 // K11: Y[r, j] = the sum of a split slice's partials for row r, column j,

@@ -1,26 +1,33 @@
-// The panel tile kernel and its launcher, shared by panel_spmv.cu (K4, K14)
-// and probe_spmv.cu (the probe's instantiations with a synthesized x).
+// The panel tile kernel and its launcher, shared by panel_spmv.cu (K4, K10,
+// K14) and probe_spmv.cu (the probe's instantiations with a synthesized x).
 //
-// panel_spmv_tiles_kernel<T, kX> is K4's body:
+// panel_spmv_tiles_kernel<T, kX, R> is K4's body:
 //
-//   T    value, x and y type: float (K4) or double (K14)
+//   T    value, x and y type: float (K4, K10) or double (K14)
 //   kX   how x(c) is read: gathered from x (kXGather, production) or
 //        synthesized from the column in registers, x(c) = (c & 1023)·2⁻¹⁰
 //        (kXSynth, the probe without the gather; it still copies every
 //        column), as seg_tile.cuh's tile kernel does
+//   R    right-hand sides: 1 (a vector x and y: K4, K14, the probes) or
+//        2..8 (K10: row-major X (ncols, R), Y (nrows, R), partials
+//        (2·ntiles, 32, R); float and gathered only). Each lane carries R
+//        sums; the loads, the walk and the ownership are K4's.
 //
 // Every instantiation sums each row in the same order, so the probe gives
-// K4's bits on the same x. The host wrapper checks shapes, types and
-// devices, allocates every output with torch.empty (the kernel writes all
-// of it) and never launches an empty grid.
+// K4's bits on the same x, and column j of K10 gives K4's bits on X[:, j].
+// The host wrapper checks shapes, types and devices, allocates every
+// output with torch.empty (the kernel writes all of it) and never
+// launches an empty grid.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
-#include "seg_tile.cuh"  // kWarp, kFullMask, the x modes and x_at
+// kWarp, kFullMask, the x modes, x_row_at, x_rows_aligned, row_of, store_row
+#include "seg_tile.cuh"
 
 namespace {
 
@@ -34,7 +41,15 @@ constexpr int kTileCols = 32;
 // larger batches hold more live registers and fewer warps, smaller ones
 // fewer loads per warp.
 constexpr int kBatch = 8;
-static_assert(kTileCols % kBatch == 0, "a tile is whole batches");
+// K10's at R right-hand sides, where a batch holds kB·R gathered floats
+// per lane: 8 up to R = 4, 4 above. On an H100 (probes.turns, PERF.md)
+// batches of 8 beat 4 by 5-23% at R = 2 and by 4-5% at R = 4 on cant and
+// pl-32768 (2.8% slower on pl_big's panel); at R = 8 they took 96
+// registers with a spill and were 20% slower at cant.
+template <int R>
+__host__ __device__ constexpr int batch_cols() {
+  return R <= 4 ? kBatch : 4;
+}
 // K4, K6 and K10: 4 warps per block, each warp on its own tile or slice.
 constexpr int kWarpsPerBlock = 4;
 constexpr int kPanelThreads = kWarpsPerBlock * kC;
@@ -53,7 +68,8 @@ __device__ __forceinline__ double fma_rn(double v, double x, double run) {
 }
 
 // K4 — replaces _panel_kernel (spmv_tpu/kernels/engines.py:269); K14 (T =
-// double) replaces _panel_kernel_x2 (spmv_tpu/kernels/engines_x2.py:205).
+// double) replaces _panel_kernel_x2 (spmv_tpu/kernels/engines_x2.py:205);
+// K10 (R = 2..8) replaces _panel_kernel_multi (engines.py:623).
 //
 // One warp per tile of kTileCols consecutive slice columns (the slots
 // [g0·32, g1·32), contiguous), so every warp does the same work whatever the
@@ -61,30 +77,35 @@ __device__ __forceinline__ double fma_rn(double v, double x, double run) {
 // many narrow slices. Lane l owns row l of every slice the tile touches.
 //
 // What bounds it: bytes. Each slot streams 8 B (12 in fp64) and gathers 4 B
-// (8) of x, for 2 flops. But a cant-sized panel has ~3,900 tiles: one warp
-// each is ~30 warps per SM, a single wave at under half occupancy, so the
-// kernel takes about one warp's time. The parent's warp walked its 32
-// columns as a chain: each step loaded a line of values and of columns,
-// then gathered x at those columns, behind a branch with stores and a
-// slice_ptr load the compiler did not hoist loads across: ~64 dependent
-// memory round trips per warp, 17 µs (fp64: 31 µs) at cant against a byte
-// bound of 10 (15). The design cuts the chain to a few round trips:
+// (8) of x, for 2 flops; at R right-hand sides (K10) the 8 plan bytes serve
+// R columns and the gather is one row of X, R·4 B. But a cant-sized panel
+// has ~3,900 tiles: one warp each is ~30 warps per SM, a single wave at
+// under half occupancy, so the kernel takes about one warp's time. The
+// parent's warp walked its 32 columns as a chain: each step loaded a line
+// of values and of columns, then gathered x at those columns, behind a
+// branch with stores and a slice_ptr load the compiler did not hoist loads
+// across: ~64 dependent memory round trips per warp, 17 µs (fp64: 31 µs) at
+// cant against a byte bound of 10 (15). The design cuts the chain to a few
+// round trips:
 //   1. the warp writes +0.0 to the rows of the empty slices it owns
 //      (tile_own0, below), 32 slices to a ballot;
-//   2. in batches of kBatch columns, each lane issues the batch's loads
-//      of values and columns, then every x gather of the batch, before the
-//      batch's first add, into registers;
-//   3. the walk runs in registers: run = fma(v, x, run) in column order
-//      (the parent's contracted `run += v * x`, so the bits are the
-//      parent's), stepping to the next slice, past empty ones, with one
-//      slice_ptr load each (an L1 or L2 hit; a tile steps about 0.5 slices
-//      at cant, 1-2 on power-law panels).
-// ptxas (sm_90a): K4 40 registers, K14 64, no shared memory, no spills;
-// 12 and 8 blocks of 4 warps resident per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, panel_tiles_occupancy).
+//   2. in batches of batch_cols<R>() columns, each lane issues the batch's
+//      loads of values and columns, then every x gather (X-row gather) of
+//      the batch, before the batch's first add, into registers;
+//   3. the walk runs in registers: run[j] = fma(v, x[j], run[j]) in column
+//      order (the parent's contracted `run += v * x`, so the bits are the
+//      parent's, and column j of K10 is K4's on X[:, j]), stepping to the
+//      next slice, past empty ones, with one slice_ptr load each (an L1 or
+//      L2 hit; a tile steps about 0.5 slices at cant, 1-2 on power-law
+//      panels).
+// ptxas (sm_90a): K4 40 registers, K14 64, K10 48 / 64 / 64 at R = 2 / 4
+// / 8, no shared memory, no spills; 12, 8 and 10 / 8 / 8 blocks of 4 warps
+// resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// panel_tiles_occupancy).
 // On an H100 it runs at the byte bound at cant in float32 (the plan in the
 // L2) and at 0.41-0.79 of the parent's time on every panel timed (python -m
-// spmv_tpu_torch.probes.turns; PERF.md has the runs). Measured and
+// spmv_tpu_torch.probes.turns; PERF.md has the runs); K10 at 0.36-0.38 of
+// the chain it replaced at cant for R = 2 and 4, 0.68 at R = 8. Measured and
 // dropped: two bulk async copies (TMA, 1-D) of the tile into shared memory
 // on one mbarrier, then all 32 gathers, 2-44% slower than batches of 16
 // (its one wait holds every gather behind the whole tile; 32-48 KB of
@@ -98,7 +119,9 @@ __device__ __forceinline__ double fma_rn(double v, double x, double run) {
 // it, +0.0 for an empty slice or one that runs on into later tiles (K5
 // overwrites those rows). It writes both its partial slots: the head (the
 // slice began in an earlier tile), the tail (it runs on), +0.0 if unused.
-template <typename T, int kX = kXGather>
+// At R > 1 a row of y and a lane's row of a slot are R floats (Y (nrows,
+// R), part (2·ntiles, 32, R)).
+template <typename T, int kX = kXGather, int R = 1>
 __global__ void __launch_bounds__(kPanelThreads)
 panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
                         const int* __restrict__ cols,
@@ -108,12 +131,19 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
                         const T* __restrict__ x, T* __restrict__ y,
                         T* __restrict__ part, int ncolumns, int ntiles,
                         int nrows) {
+  constexpr int kB = batch_cols<R>();
+  static_assert(kTileCols % kB == 0, "a tile is whole batches");
+  static_assert(R == 1 || (std::is_same_v<T, float> && kX == kXGather),
+                "R > 1 gathers rows of a float X");
   const int lane = threadIdx.x & (kC - 1);
   const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
   if (t >= ntiles) return;
   const int g0 = t * kTileCols;
   const int ncol = min(kTileCols, ncolumns - g0);
   const int g1 = g0 + ncol;
+  T zero[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) zero[j] = T(0);
 
   // 1. +0.0 for the rows of the empty slices this tile owns
   const int own1 = __ldg(tile_own0 + t + 1);
@@ -122,7 +152,7 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
     const bool empty = s < own1 && __ldg(slice_ptr + s) == __ldg(slice_ptr + s + 1);
     for (unsigned m = __ballot_sync(kFullMask, empty); m; m &= m - 1) {
       const int row = (base + __ffs(m) - 1) * kC + lane;
-      if (row < nrows) y[row] = T(0);
+      if (row < nrows) store_row<R>(row_of<R>(y, row), zero);
     }
   }
 
@@ -131,40 +161,51 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
   int ce = __ldg(slice_ptr + s + 1) / kC;  // end column of slice s
   bool head = __ldg(slice_ptr + s) / kC < g0;
   bool wrote_head = false, wrote_tail = false;
-  T run = T(0);
-  // Stores the tile's sum of slice s for this lane (branches warp-uniform).
+  const bool vec = x_rows_aligned<R>(x);
+  T run[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) run[j] = T(0);
+  // Stores the tile's sums of slice s for this lane (branches warp-uniform).
   auto emit = [&]() {
     if (head) {
-      part[(2 * t) * kC + lane] = run;
+      store_row<R>(row_of<R>(part, (2 * t) * kC + lane), run);
       wrote_head = true;
       return;
     }
-    T v = run;
+    T v[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[j] = run[j];
     if (ce > g1) {  // runs on into later tiles: K5 writes its rows
-      part[(2 * t + 1) * kC + lane] = run;
+      store_row<R>(row_of<R>(part, (2 * t + 1) * kC + lane), run);
       wrote_tail = true;
-      v = T(0);
+#pragma unroll
+      for (int j = 0; j < R; ++j) v[j] = T(0);
     }
     const int row = s * kC + lane;
-    if (row < nrows) y[row] = v;
+    if (row < nrows) store_row<R>(row_of<R>(y, row), v);
   };
 #pragma unroll
-  for (int b = 0; b < kTileCols; b += kBatch) {
-    T vv[kBatch], xv[kBatch];
-    int cc[kBatch];
+  for (int b = 0; b < kTileCols; b += kB) {
+    T vv[kB], xv[kB][R];
+    int cc[kB];
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
+    for (int i = 0; i < kB; ++i) {
       const bool in = b + i < ncol;
       const int p = (g0 + b + i) * kC + lane;
       cc[i] = in ? __ldg(cols + p) : 0;
       vv[i] = in ? __ldg(vals + p) : T(0);
     }
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      xv[i] = b + i < ncol ? x_at<kX, T>(x, cc[i]) : T(0);
+    for (int i = 0; i < kB; ++i) {
+      if (b + i < ncol) {
+        x_row_at<kX, R>(x, cc[i], vec, xv[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) xv[i][j] = T(0);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
+    for (int i = 0; i < kB; ++i) {
       if (b + i < ncol) {
         const int g = g0 + b + i;
         if (g >= ce) {  // slice s ended at column g - 1
@@ -174,21 +215,23 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
             ++s;
             ce = __ldg(slice_ptr + s + 1) / kC;
           } while (g >= ce);
-          run = T(0);
+#pragma unroll
+          for (int j = 0; j < R; ++j) run[j] = T(0);
         }
-        run = fma_rn(vv[i], xv[i], run);
+#pragma unroll
+        for (int j = 0; j < R; ++j) run[j] = fma_rn(vv[i], xv[i][j], run[j]);
       }
     }
   }
   emit();
-  if (!wrote_head) part[(2 * t) * kC + lane] = T(0);
-  if (!wrote_tail) part[(2 * t + 1) * kC + lane] = T(0);
+  if (!wrote_head) store_row<R>(row_of<R>(part, (2 * t) * kC + lane), zero);
+  if (!wrote_tail) store_row<R>(row_of<R>(part, (2 * t + 1) * kC + lane), zero);
 }
 
 // Launches one instantiation on the plan's schedule; refuses
 // (cudaErrorInvalidValue, nothing launched) a tile it was not built for or a
 // schedule that does not cover the columns.
-template <typename T, int kX = kXGather>
+template <typename T, int kX = kXGather, int R = 1>
 int launch_panel_spmv_tiles(const void* slice_ptr, const void* cols,
                             const void* vals, const void* tile_slice0,
                             const void* tile_own0, const void* x, void* y,
@@ -198,8 +241,8 @@ int launch_panel_spmv_tiles(const void* slice_ptr, const void* cols,
       ntiles != blocks_for(ncolumns, kTileCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  panel_spmv_tiles_kernel<T, kX><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  panel_spmv_tiles_kernel<T, kX, R><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
+                                      0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
       static_cast<const T*>(vals), static_cast<const int*>(tile_slice0),
       static_cast<const int*>(tile_own0), static_cast<const T*>(x),
@@ -207,14 +250,15 @@ int launch_panel_spmv_tiles(const void* slice_ptr, const void* cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the production instantiation resident per SM
+// Blocks of a production instantiation (K4, K14, K10 at R) resident per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers decide), or
 // -1 on an error.
-template <typename T>
+template <typename T, int R = 1>
 int panel_tiles_blocks_per_sm() {
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, panel_spmv_tiles_kernel<T, kXGather>, kPanelThreads, 0) != cudaSuccess) {
+          &blocks, panel_spmv_tiles_kernel<T, kXGather, R>, kPanelThreads, 0) !=
+      cudaSuccess) {
     return -1;
   }
   return blocks;

@@ -12,10 +12,11 @@
 //   K12 seg_spmv_tiles_x2 replaces _seg_kernel_x2        (segmented_spmv_x2),
 //   K13 carry_fixup_x2    with its epilogue folded in there
 //
-// K1, K2, K12 and K13 are instantiations of the tile kernel and its fix-up
-// in seg_tile.cuh (templates on the value type, the column type, the block
-// size and the x read), which probe_spmv.cu instantiates too, so the tile
-// bounds and carry-slot rules stay in one place. The TPU kernel B10 carries hi and lo f32 planes,
+// K1, K2, K8, K12 and K13 are instantiations of the tile kernel and its
+// fix-up in seg_tile.cuh (templates on the value type, the column type, the
+// block size, the x read and, for K8, the number of right-hand sides),
+// which probe_spmv.cu instantiates too, so the tile bounds and carry-slot
+// rules stay in one place. The TPU kernel B10 carries hi and lo f32 planes,
 // Dekker splits and TwoSum chains because its VPU has no FMA and its MXU
 // takes bf16; Hopper has native fp64 FMA, so K12 reads fp64 values and x,
 // multiplies and adds in fp64 and writes fp64 y and carries. It streams
@@ -45,17 +46,15 @@
 #include <cstdint>
 
 #include "seg_tile.cuh"
-#include "x_rows.cuh"
 
 namespace {
 
 // K1's tile: 256 threads, each taking 4 consecutive nonzeros. Must equal
 // TILE_NNZ in spmv_tpu_torch/formats/base.py. K8 and K9 share it. K1, K2,
 // K12 and K13 are the <float|double, int32_t, 256> instantiations of the
-// tile kernel and fix-up in seg_tile.cuh.
+// tile kernel and fix-up in seg_tile.cuh, K8 its <float, int32_t, 256, R>.
 constexpr int kTileThreads = 256;
 constexpr int kTileNnz = kTileThreads * kTileItems;
-constexpr int kTileWarps = kTileThreads / kWarp;
 
 // K3 and K9 block size.
 constexpr int kThreads = 256;
@@ -96,189 +95,15 @@ csr_spmv_fused_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 // and gathers R·4 B of X, so per right-hand side the plan costs 8/R B
 // against K1's 8 — that is the point of the multi-RHS engine
 // (spmv_tpu/api.py:94-97).
-
-// warp_seg_scan for R values per lane: the key is shuffled once per step
-// and shared by the R value shuffles. Column j adds in the same order as
-// warp_seg_scan does for one vector.
-template <int R>
-__device__ __forceinline__ void warp_seg_scan_multi(int key, float (&val)[R]) {
-  const int lane = threadIdx.x & (kWarp - 1);
-#pragma unroll
-  for (int d = 1; d < kWarp; d <<= 1) {
-    const int k = __shfl_up_sync(kFullMask, key, d);
-    const bool take = lane >= d && k == key;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const float v = __shfl_up_sync(kFullMask, val[j], d);
-      if (take) val[j] = v + val[j];
-    }
-  }
-}
-
-// emit_row for R values: Y row r, or the tile's head or tail carry row.
-template <int R>
-__device__ __forceinline__ void emit_row_multi(const int* __restrict__ ptr, int r,
-                                               const float (&v)[R], int t, int ts,
-                                               int te, float* __restrict__ Y,
-                                               float* __restrict__ carry) {
-  const int rs = __ldg(ptr + r);
-  const int re = __ldg(ptr + r + 1);
-  float* out = rs < ts   ? carry + static_cast<long long>(2 * t) * R
-               : re > te ? carry + static_cast<long long>(2 * t + 1) * R
-                         : Y + static_cast<long long>(r) * R;
-#pragma unroll
-  for (int j = 0; j < R; ++j) out[j] = v[j];
-}
-
-// K8 — replaces _seg_kernel_multi (spmv_tpu/kernels/engines.py:571).
 //
-// K1 with R running sums: the same tile of kTileNnz nonzeros per block, the
-// same binary search, the same 16-byte loads of 4 values and 4 columns per
-// thread, and per nonzero one row of X (load_x_row). Every column is summed
-// in K1's order, so column j of K8 is what K1 gives for X[:, j]. The
-// block-wide segmented scan carries R values per (key, run) pair: shared
-// memory holds 8 keys and 8·R partials. The TPU kernel's stacked x tables,
-// sub-chunk windows and b2 bank bits answer VMEM limits; none is here.
-template <int R>
-__global__ void __launch_bounds__(kTileThreads)
-seg_spmm_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-                      const float* __restrict__ vals,
-                      const int* __restrict__ tile_row0,
-                      const float* __restrict__ X, float* __restrict__ Y,
-                      float* __restrict__ carry, int nnz, bool vec) {
-  __shared__ int s_key[kTileWarps];
-  __shared__ float s_val[kTileWarps][R];
-
-  const int t = blockIdx.x;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = threadIdx.x / kWarp;
-  const int ts = t * kTileNnz;
-  const int te = min(ts + kTileNnz, nnz);
-  const int e0 = ts + threadIdx.x * kTileItems;
-  const int e_end = min(e0 + kTileItems, te);
-
-  int key = -1;
-  float run[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) run[j] = 0.f;
-  int head_row = -1;
-  float head_val[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) head_val[j] = 0.f;
-  int row_end = 0;
-
-  if (e0 < te) {
-    int lo = __ldg(tile_row0 + t);
-    int hi = __ldg(tile_row0 + t + 1);
-    while (lo < hi) {  // largest r in [lo, hi] with ptr[r] <= e0
-      const int mid = (lo + hi + 1) >> 1;
-      if (__ldg(ptr + mid) <= e0) {
-        lo = mid;
-      } else {
-        hi = mid - 1;
-      }
-    }
-    int r = lo;
-    row_end = __ldg(ptr + r + 1);
-
-    float v[kTileItems];
-    int c[kTileItems];
-    if (e_end - e0 == kTileItems) {
-      const float4 v4 = __ldg(reinterpret_cast<const float4*>(vals + e0));
-      const int4 c4 = __ldg(reinterpret_cast<const int4*>(cols + e0));
-      v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
-      c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
-    } else {
-#pragma unroll
-      for (int k = 0; k < kTileItems; ++k) {
-        const bool in = e0 + k < e_end;
-        v[k] = in ? __ldg(vals + e0 + k) : 0.f;
-        c[k] = in ? __ldg(cols + e0 + k) : 0;
-      }
-    }
-
-#pragma unroll
-    for (int k = 0; k < kTileItems; ++k) {
-      const int e = e0 + k;
-      if (e < e_end) {
-        if (e >= row_end) {  // the run of row r closed at e - 1
-          if (head_row < 0) {
-            head_row = r;
-#pragma unroll
-            for (int j = 0; j < R; ++j) head_val[j] = run[j];
-          } else {
-            float* out = Y + static_cast<long long>(r) * R;
-#pragma unroll
-            for (int j = 0; j < R; ++j) out[j] = run[j];
-          }
-          do {
-            ++r;
-            row_end = __ldg(ptr + r + 1);
-          } while (e >= row_end);
-#pragma unroll
-          for (int j = 0; j < R; ++j) run[j] = 0.f;
-        }
-        float xr[R];
-        load_x_row<R>(X, c[k], vec, xr);
-#pragma unroll
-        for (int j = 0; j < R; ++j) run[j] += v[k] * xr[j];
-      }
-    }
-    key = r;
-  }
-
-  // Block-wide inclusive segmented scan, as in K1, R values at a time.
-  float incl[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) incl[j] = run[j];
-  warp_seg_scan_multi<R>(key, incl);
-  if (lane == kWarp - 1) {
-    s_key[warp] = key;
-#pragma unroll
-    for (int j = 0; j < R; ++j) s_val[warp][j] = incl[j];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int wk = lane < kTileWarps ? s_key[lane] : -1;
-    float wv[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) wv[j] = lane < kTileWarps ? s_val[lane][j] : 0.f;
-    warp_seg_scan_multi<R>(wk, wv);
-    if (lane < kTileWarps) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) s_val[lane][j] = wv[j];
-    }
-  }
-  __syncthreads();
-  if (warp > 0 && s_key[warp - 1] == key) {
-#pragma unroll
-    for (int j = 0; j < R; ++j) incl[j] = s_val[warp - 1][j] + incl[j];
-  }
-
-  // Exclusive value: the inclusive scan of the thread before this one.
-  int ek = __shfl_up_sync(kFullMask, key, 1);
-  float ev[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) ev[j] = __shfl_up_sync(kFullMask, incl[j], 1);
-  if (lane == 0) {
-    ek = warp > 0 ? s_key[warp - 1] : -1;
-#pragma unroll
-    for (int j = 0; j < R; ++j) ev[j] = warp > 0 ? s_val[warp - 1][j] : 0.f;
-  }
-
-  if (e0 < te) {
-    if (head_row >= 0) {
-      if (ek == head_row) {
-#pragma unroll
-        for (int j = 0; j < R; ++j) head_val[j] = ev[j] + head_val[j];
-      }
-      emit_row_multi<R>(ptr, head_row, head_val, t, ts, te, Y, carry);
-    }
-    if (row_end == e_end || e_end == te) {
-      emit_row_multi<R>(ptr, key, incl, t, ts, te, Y, carry);
-    }
-  }
-}
+// K8 — replaces _seg_kernel_multi (spmv_tpu/kernels/engines.py:571) — is
+// seg_tile.cuh's tile block at R = 2..8 (seg_spmm_tiles_kernel): K1's
+// tile, its value and column loads, its staged offsets, its ballot scan
+// with one barrier and its emit, each carrying R sums, with each X row
+// gathered in the walk and a launch bound of its own (seg_tile.cuh says
+// why). Column j adds in K1's order, so it is what K1 gives for X[:, j],
+// bit for bit. The TPU kernel's stacked x tables, sub-chunk windows and b2
+// bank bits answer VMEM limits; none is here.
 
 // K9 — replaces _scatter_kernel_multi (spmv_tpu/kernels/engines.py:537) on
 // the segmented path.
@@ -302,14 +127,18 @@ carry_fixup_multi_kernel(const int* __restrict__ ptr,
   Y[static_cast<long long>(r) * rhs + j] = s;
 }
 
-template <int R>
-cudaError_t launch_seg_spmm(const int* ptr, const int* cols, const float* vals,
-                            const int* tile_row0, const float* X, float* Y,
-                            float* carry, int nnz, int ntiles, cudaStream_t s) {
-  const bool vec = reinterpret_cast<uintptr_t>(X) % 16 == 0;
-  seg_spmm_tiles_kernel<R><<<ntiles, kTileThreads, 0, s>>>(
-      ptr, cols, vals, tile_row0, X, Y, carry, nnz, vec);
-  return cudaGetLastError();
+// Blocks of K1 (T = double: K12; R = 2..8: K8) resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers and the
+// static shared memory decide), or -1 on an error.
+template <typename T, int R = 1>
+int seg_tiles_blocks_per_sm() {
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, seg_tiles_kernel<T, int32_t, kTileThreads, kXGather, T, R>(),
+          kTileThreads, 0) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
 }
 
 }  // namespace
@@ -347,6 +176,22 @@ int carry_fixup_x2(const void* ptr, const void* carry_rows, const void* carry,
                                               tile, stream);
 }
 
+// K1's (fp64: K12's; rhs 2..8: K8's) blocks resident per SM, or -1.
+int seg_tiles_occupancy(int fp64, int rhs) {
+  if (fp64) return rhs == 1 ? seg_tiles_blocks_per_sm<double>() : -1;
+  switch (rhs) {
+    case 1: return seg_tiles_blocks_per_sm<float>();
+    case 2: return seg_tiles_blocks_per_sm<float, 2>();
+    case 3: return seg_tiles_blocks_per_sm<float, 3>();
+    case 4: return seg_tiles_blocks_per_sm<float, 4>();
+    case 5: return seg_tiles_blocks_per_sm<float, 5>();
+    case 6: return seg_tiles_blocks_per_sm<float, 6>();
+    case 7: return seg_tiles_blocks_per_sm<float, 7>();
+    case 8: return seg_tiles_blocks_per_sm<float, 8>();
+    default: return -1;
+  }
+}
+
 // K3: y = A·x in one dispatch, vec lanes per row (4, 8, 16 or 32).
 int csr_spmv_fused(const void* ptr, const void* cols, const void* vals,
                    const void* x, void* y, int nrows, int vec, void* stream) {
@@ -375,30 +220,16 @@ int csr_spmv_fused(const void* ptr, const void* cols, const void* vals,
 int seg_spmm_tiles(const void* ptr, const void* cols, const void* vals,
                    const void* tile_row0, const void* X, void* Y, void* carry,
                    int nnz, int ntiles, int tile, int rhs, void* stream) {
-  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
-      ntiles != (nnz + kTileNnz - 1) / kTileNnz) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int* p = static_cast<const int*>(ptr);
-  const int* c = static_cast<const int*>(cols);
-  const float* v = static_cast<const float*>(vals);
-  const int* t0 = static_cast<const int*>(tile_row0);
-  const float* xx = static_cast<const float*>(X);
-  float* yy = static_cast<float*>(Y);
-  float* cc = static_cast<float*>(carry);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (rhs) {
-    case 2: err = launch_seg_spmm<2>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
-    case 3: err = launch_seg_spmm<3>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
-    case 4: err = launch_seg_spmm<4>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
-    case 5: err = launch_seg_spmm<5>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
-    case 6: err = launch_seg_spmm<6>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
-    case 7: err = launch_seg_spmm<7>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
-    case 8: err = launch_seg_spmm<8>(p, c, v, t0, xx, yy, cc, nnz, ntiles, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define K8_CASE(R)                                                                  \
+  case R:                                                                           \
+    return launch_seg_tiles<float, int32_t, kTileThreads, kXGather, float, R>(      \
+        ptr, cols, vals, tile_row0, X, Y, carry, nnz, ntiles, tile, stream);
+    K8_CASE(2) K8_CASE(3) K8_CASE(4) K8_CASE(5) K8_CASE(6) K8_CASE(7) K8_CASE(8)
+#undef K8_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }
 
 // K9: Y[r, j] = the sum of split row r's partials in column j, in tile order.

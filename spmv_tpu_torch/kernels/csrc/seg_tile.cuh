@@ -1,8 +1,10 @@
 // The segmented tile kernel and its fix-up, shared by seg_spmv.cu (K1, K2,
-// K12, K13) and probe_spmv.cu (the probes' instantiations of the same
+// K8, K12, K13) and probe_spmv.cu (the probes' instantiations of the same
 // code: 16-bit columns, other tile sizes, a synthesized or float32 x).
 //
-// seg_spmv_tiles_kernel<T, ColT, kBlockThreads, kX, XT> is K1's body:
+// seg_tiles_block<T, ColT, kBlockThreads, kX, XT, R> is the body of K1's
+// kernel (seg_spmv_tiles_kernel, R = 1) and of K8's (seg_spmm_tiles_kernel,
+// R = 2..8):
 //
 //   T             value, x and y type: float (K1) or double (K12)
 //   ColT          column type: int32_t (the plan's) or uint16_t (4 columns
@@ -17,17 +19,25 @@
 //                 the 8-byte gather), or synthesized from the column in
 //                 registers, x(c) = (c & 1023)·2⁻¹⁰ (the probe without the
 //                 gather; it still loads every column).
+//   R             right-hand sides: 1 (a vector x and y: K1, K12, the
+//                 probes) or 2..8 (K8: row-major X (ncols, R), Y (nrows,
+//                 R) and carries (2·ntiles, R); float, gathered, int32
+//                 columns only). Every value the thread carries is R wide;
+//                 the row tracking is shared by the R columns.
 //
 // Every instantiation sums each row in the same order as K1, so a probe
-// variant gives K1's bits on the same x. The host wrapper checks shapes,
-// types, alignment and devices, allocates every output and never launches
-// an empty grid.
+// variant gives K1's bits on the same x, and column j of K8 gives K1's
+// bits on X[:, j]. The host wrapper checks shapes, types, alignment and
+// devices, allocates every output and never launches an empty grid.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
+
+#include "x_rows.cuh"
 
 namespace {
 
@@ -48,14 +58,15 @@ constexpr int kXSynth = 1;   // (c & 1023)·2⁻¹⁰, no x read at all
 // come last, so "the lane d back holds my key" is the same as "no run
 // starts in the d lanes up to mine": one ballot of the run starts gives
 // every lane the distance back to its run's first lane, and each level
-// shuffles only the value (one shuffle of a float, two of a double, where
-// the scan that compared keys shuffled the key beside it at every level).
-// A lane adds its neighbour's running sum at the same levels and in the
-// same order as that scan did, so the bits are the same. `prev_key` is
-// the key of the lane before (any value on lane 0). kLanes: the lanes
-// whose sums are wanted; levels past them are not run.
-template <typename T, int kLanes = kWarp>
-__device__ __forceinline__ T warp_seg_scan(int key, int prev_key, T val) {
+// shuffles only the R values (one shuffle of a float, two of a double,
+// where the scan that compared keys shuffled the key beside them at every
+// level). A lane adds its neighbour's running sums at the same levels and
+// in the same order as that scan did, so the bits are the same, and
+// column j of R values sums as one value would. `prev_key` is the key of
+// the lane before (any value on lane 0). kLanes: the lanes whose sums are
+// wanted; levels past them are not run.
+template <typename T, int R, int kLanes = kWarp>
+__device__ __forceinline__ void warp_seg_scan(int key, int prev_key, T (&val)[R]) {
   const int lane = threadIdx.x & (kWarp - 1);
   const unsigned starts = __ballot_sync(kFullMask, lane == 0 || prev_key != key);
   // lanes back to the start of my run: lane 0 always starts one
@@ -63,10 +74,12 @@ __device__ __forceinline__ T warp_seg_scan(int key, int prev_key, T val) {
       lane - (31 - __clz(static_cast<int>(starts & (kFullMask >> (31 - lane)))));
 #pragma unroll
   for (int d = 1; d < kLanes; d <<= 1) {
-    const T v = __shfl_up_sync(kFullMask, val, d);
-    if (d <= reach) val = v + val;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const T v = __shfl_up_sync(kFullMask, val[j], d);
+      if (d <= reach) val[j] = v + val[j];
+    }
   }
-  return val;
 }
 
 // 4 consecutive values from a 16-byte-aligned address: one 16-byte load of
@@ -105,6 +118,43 @@ __device__ __forceinline__ T x_at(const XT* __restrict__ x, int c) {
   }
 }
 
+// What a tile kernel multiplies column c's products by: x(c) for R = 1,
+// X's row c for R > 1 (load_x_row: float X, wide loads where `vec`).
+template <int kX, int R, typename T, typename XT>
+__device__ __forceinline__ void x_row_at(const XT* __restrict__ x, int c, bool vec,
+                                         T (&xr)[R]) {
+  if constexpr (R == 1) {
+    xr[0] = x_at<kX, T>(x, c);
+  } else {
+    load_x_row<R>(x, c, vec, xr);
+  }
+}
+
+// Whether a tile kernel may load X's rows with wide loads: R > 1 and X
+// 16-byte aligned (the same for the whole launch, so the branch is
+// uniform).
+template <int R, typename XT>
+__device__ __forceinline__ bool x_rows_aligned(const XT* x) {
+  return R > 1 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// Row r of a row-major (n, R) array: r itself for R = 1, so that the
+// vector kernels index as they always did.
+template <int R, typename T>
+__device__ __forceinline__ T* row_of(T* p, int r) {
+  if constexpr (R == 1) {
+    return p + r;
+  } else {
+    return p + static_cast<long long>(r) * R;
+  }
+}
+
+template <int R, typename T>
+__device__ __forceinline__ void store_row(T* p, const T (&v)[R]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) p[j] = v[j];
+}
+
 // A tile's row offsets ptr[r] for r in [tile_row0[t], tile_row0[t + 1] + 1],
 // where the thread of a tile kernel finds, walks and closes its rows.
 // StagedOffsets reads the copy the block staged in shared memory;
@@ -120,40 +170,46 @@ struct GlobalOffsets {
   __device__ __forceinline__ int operator()(int r) const { return __ldg(ptr + r); }
 };
 
-// Writes the tile's total for row r: straight to y when the whole row lies
-// in this tile [ts, te), else to the tile's head slot (the row began in an
-// earlier tile) or tail slot (the row runs on into later tiles).
-template <typename T, typename Offsets>
-__device__ __forceinline__ void emit_row(Offsets off, int r, T v, int t, int ts,
-                                         int te, T* __restrict__ y,
+// Writes the tile's totals for row r (R columns): straight to y when the
+// whole row lies in this tile [ts, te), else to the tile's head slot (the
+// row began in an earlier tile) or tail slot (the row runs on into later
+// tiles).
+template <typename T, int R, typename Offsets>
+__device__ __forceinline__ void emit_row(Offsets off, int r, const T (&v)[R], int t,
+                                         int ts, int te, T* __restrict__ y,
                                          T* __restrict__ carry) {
   if (off(r) < ts) {
-    carry[2 * t] = v;
+    store_row<R>(row_of<R>(carry, 2 * t), v);
   } else if (off(r + 1) > te) {
-    carry[2 * t + 1] = v;
+    store_row<R>(row_of<R>(carry, 2 * t + 1), v);
   } else {
-    y[r] = v;
+    store_row<R>(row_of<R>(y, r), v);
   }
 }
 
 // Everything of a tile kernel after the loads: the row search, the runs,
 // the block-wide scan and the emit, on the tile's row offsets `off`. `v`
-// and `xv` are this thread's values and x(c) (0 past e_end).
-template <typename T, int kBlockThreads, typename Offsets>
+// holds this thread's values; xrow(k, xr) gives x(c) of its k-th nonzero
+// (X's row for R > 1) as the runs reach it.
+template <typename T, int kBlockThreads, int R, typename Offsets, typename XRow>
 __device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
                                           int ts, int te, int e0, int e_end,
-                                          const T (&v)[kTileItems],
-                                          const T (&xv)[kTileItems],
+                                          const T (&v)[kTileItems], XRow xrow,
                                           T* __restrict__ y,
                                           T* __restrict__ carry) {
   constexpr int kWarps = kBlockThreads / kWarp;
   const int lane = threadIdx.x & (kWarp - 1);
 
   int key = -1;          // row of this thread's last run; -1 = no nonzeros
-  T run = T(0);          // that run's partial sum
+  T run[R];              // that run's partial sums
   int head_row = -1;     // row of the first run, if it closed in this thread
-  T head_val = T(0);     // and its partial sum
+  T head_val[R];         // and its partial sums
   int row_end = 0;       // ptr[key + 1]
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    run[j] = T(0);
+    head_val[j] = T(0);
+  }
 
   if (e0 < te) {
     while (lo < hi) {  // largest r in [lo, hi] with ptr[r] <= e0
@@ -170,20 +226,25 @@ __device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
     for (int k = 0; k < kTileItems; ++k) {
       const int e = e0 + k;
       if (e < e_end) {
+        T xr[R];
+        xrow(k, xr);  // before the row-close branch, so no load waits on its stores
         if (e >= row_end) {  // the run of row r closed at e - 1
           if (head_row < 0) {
             head_row = r;
-            head_val = run;
+#pragma unroll
+            for (int j = 0; j < R; ++j) head_val[j] = run[j];
           } else {
-            y[r] = run;  // began and ended inside this thread
+            store_row<R>(row_of<R>(y, r), run);  // began and ended inside this thread
           }
           do {  // step to the row holding e, past any empty rows
             ++r;
             row_end = off(r + 1);
           } while (e >= row_end);
-          run = T(0);
+#pragma unroll
+          for (int j = 0; j < R; ++j) run[j] = T(0);
         }
-        run += v[k] * xv[k];
+#pragma unroll
+        for (int j = 0; j < R; ++j) run[j] += v[k] * xr[j];
       }
     }
     key = r;
@@ -194,45 +255,64 @@ __device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
   // nothing to anyone before them. (ek, ev) is the exclusive value: the
   // inclusive scan of the thread before this one.
   int ek = __shfl_up_sync(kFullMask, key, 1);
-  T incl = warp_seg_scan(key, ek, run);
+  T incl[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) incl[j] = run[j];
+  warp_seg_scan<T, R>(key, ek, incl);
   int before_key = -1;  // lane 31's key in the warp before this one
-  T before = T(0);      // and the inclusive scan over the warps before
+  T before[R];          // and the inclusive scan over the warps before
+#pragma unroll
+  for (int j = 0; j < R; ++j) before[j] = T(0);
   if constexpr (kWarps > 1) {
-    // One barrier: each warp's last lane posts (key, total), then every
+    // One barrier: each warp's last lane posts (key, totals), then every
     // warp scans the kWarps totals itself, in the order one warp would,
-    // and takes the sum over the warps before it by a shuffle.
+    // and takes the sums over the warps before it by a shuffle.
     __shared__ int s_key[kWarps];
-    __shared__ T s_val[kWarps];
+    __shared__ T s_val[kWarps][R];
     const int warp = threadIdx.x / kWarp;
     if (lane == kWarp - 1) {
       s_key[warp] = key;
-      s_val[warp] = incl;
+#pragma unroll
+      for (int j = 0; j < R; ++j) s_val[warp][j] = incl[j];
     }
     __syncthreads();
     const int wk = lane < kWarps ? s_key[lane] : -1;
-    const T wv = warp_seg_scan<T, kWarps>(
-        wk, __shfl_up_sync(kFullMask, wk, 1), lane < kWarps ? s_val[lane] : T(0));
-    const T w = __shfl_sync(kFullMask, wv, warp > 0 ? warp - 1 : 0);
+    T wv[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) wv[j] = lane < kWarps ? s_val[lane][j] : T(0);
+    warp_seg_scan<T, R, kWarps>(wk, __shfl_up_sync(kFullMask, wk, 1), wv);
+    T w[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) w[j] = __shfl_sync(kFullMask, wv[j], warp > 0 ? warp - 1 : 0);
     if (warp > 0) {
       before_key = s_key[warp - 1];
-      before = w;
-      if (before_key == key) incl = before + incl;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        before[j] = w[j];
+        if (before_key == key) incl[j] = before[j] + incl[j];
+      }
     }
   }
-  T ev = __shfl_up_sync(kFullMask, incl, 1);
+  T ev[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) ev[j] = __shfl_up_sync(kFullMask, incl[j], 1);
   if (lane == 0) {  // lane 0 continues the warp before, or starts the tile
     ek = before_key;
-    ev = before;
+#pragma unroll
+    for (int j = 0; j < R; ++j) ev[j] = before[j];
   }
 
   if (e0 < te) {
     if (head_row >= 0) {
-      emit_row(off, head_row, ek == head_row ? ev + head_val : head_val, t, ts,
-               te, y, carry);
+      if (ek == head_row) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) head_val[j] = ev[j] + head_val[j];
+      }
+      emit_row<T, R>(off, head_row, head_val, t, ts, te, y, carry);
     }
     // The last run ends here if its row ends at e_end or the tile does.
     if (row_end == e_end || e_end == te) {
-      emit_row(off, key, incl, t, ts, te, y, carry);
+      emit_row<T, R>(off, key, incl, t, ts, te, y, carry);
     }
   }
 }
@@ -248,7 +328,8 @@ __host__ __device__ constexpr int row_stage_cap() {
 }
 
 // K1 — replaces _seg_kernel (spmv_tpu/kernels/engines.py:414); K12 (T =
-// double) replaces _seg_kernel_x2 (spmv_tpu/kernels/engines_x2.py:267).
+// double) replaces _seg_kernel_x2 (spmv_tpu/kernels/engines_x2.py:267); K8
+// (R = 2..8) replaces _seg_kernel_multi (engines.py:571).
 //
 // One block per tile of 4·kBlockThreads consecutive nonzeros, so every
 // block does the same work whatever the row lengths (a power-law hub row
@@ -284,19 +365,30 @@ __host__ __device__ constexpr int row_stage_cap() {
 // per tile and on a 64-row band, and 2-3% faster at ~16 rows per tile
 // (python -m spmv_tpu_torch.probes.turns). What the row tracking still
 // costs is not load latency.
-template <typename T, typename ColT, int kBlockThreads, int kX = kXGather,
-          typename XT = T>
-__global__ void __launch_bounds__(kBlockThreads)
-seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols,
-                      const T* __restrict__ vals,
-                      const int* __restrict__ tile_row0,
-                      const XT* __restrict__ x, T* __restrict__ y,
-                      T* __restrict__ carry, int nnz) {
+// At R > 1 (K8, its own __global__ below) each nonzero's 8 plan bytes and
+// its row tracking serve R columns, and its gather is one row of X (R·4 B,
+// one 32-byte sector). The thread carries R sums through the runs, the
+// scan (R shuffles per level behind one ballot) and the emit (R floats per
+// row), and gathers each X row in the walk, issued before the row-close
+// branch, not ahead of the stage as K1 gathers x: 4·R floats held across
+// the stage raised K8 from 32 to 48 registers at R = 4 and made it 9-14%
+// slower than the kernel it replaced on an H100 (probes.turns, PERF.md).
+template <typename T, typename ColT, int kBlockThreads, int kX, typename XT, int R>
+__device__ __forceinline__ void seg_tiles_block(const int* __restrict__ ptr,
+                                                const ColT* __restrict__ cols,
+                                                const T* __restrict__ vals,
+                                                const int* __restrict__ tile_row0,
+                                                const XT* __restrict__ x,
+                                                T* __restrict__ y,
+                                                T* __restrict__ carry, int nnz) {
   constexpr int kTileNnz = kBlockThreads * kTileItems;
   constexpr int kWarps = kBlockThreads / kWarp;
   constexpr int kStage = row_stage_cap<kBlockThreads>();
   static_assert(kBlockThreads % kWarp == 0 && kWarps <= kWarp,
                 "a tile block is 1 to 32 whole warps");
+  static_assert(R == 1 || (std::is_same_v<T, float> && std::is_same_v<XT, float> &&
+                           kX == kXGather),
+                "R > 1 gathers rows of a float X");
   __shared__ int s_ptr[kStage];
 
   const int t = blockIdx.x;
@@ -305,12 +397,15 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols
   const int e0 = ts + threadIdx.x * kTileItems;
   const int e_end = min(e0 + kTileItems, te);  // one past this thread's last
 
-  // The stream and the x gather first, so that no load waits on the tile's
-  // bounds and they are in flight while the block stages its row offsets.
+  // The stream (and at R = 1 the x gather) first, so that no load waits on
+  // the tile's bounds and they are in flight while the block stages its
+  // row offsets.
+  constexpr bool kAhead = R == 1;
   T v[kTileItems];
-  T xv[kTileItems];
+  T xv[kTileItems][R];
+  int c[kTileItems];
+  const bool vec = x_rows_aligned<R>(x);
   if (e0 < te) {
-    int c[kTileItems];
     if (e_end - e0 == kTileItems) {
       // aligned: e0 is a multiple of 4 and the wrapper checks the base
       // pointers (16 bytes; 8 for uint16 columns)
@@ -324,11 +419,26 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols
         c[k] = in ? static_cast<int>(__ldg(cols + e0 + k)) : 0;
       }
     }
+    if constexpr (kAhead) {
 #pragma unroll
-    for (int k = 0; k < kTileItems; ++k) {
-      xv[k] = e0 + k < e_end ? x_at<kX, T>(x, c[k]) : T(0);
+      for (int k = 0; k < kTileItems; ++k) {
+        if (e0 + k < e_end) {
+          x_row_at<kX, R>(x, c[k], vec, xv[k]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < R; ++j) xv[k][j] = T(0);
+        }
+      }
     }
   }
+  auto xrow = [&](int k, T (&xr)[R]) {
+    if constexpr (kAhead) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) xr[j] = xv[k][j];
+    } else {
+      x_row_at<kX, R>(x, c[k], vec, xr);
+    }
+  };
 
   const int r0 = __ldg(tile_row0 + t);
   const int r1 = __ldg(tile_row0 + t + 1);
@@ -342,12 +452,45 @@ seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols
     } else {
       __syncwarp();  // one warp (tile 128): a warp barrier is the block's
     }
-    tile_rows<T, kBlockThreads>(StagedOffsets{s_ptr, r0}, r0, r1, t, ts, te, e0,
-                                e_end, v, xv, y, carry);
+    tile_rows<T, kBlockThreads, R>(StagedOffsets{s_ptr, r0}, r0, r1, t, ts, te, e0,
+                                   e_end, v, xrow, y, carry);
   } else {
-    tile_rows<T, kBlockThreads>(GlobalOffsets{ptr}, r0, r1, t, ts, te, e0,
-                                e_end, v, xv, y, carry);
+    tile_rows<T, kBlockThreads, R>(GlobalOffsets{ptr}, r0, r1, t, ts, te, e0,
+                                   e_end, v, xrow, y, carry);
   }
+}
+
+template <typename T, typename ColT, int kBlockThreads, int kX = kXGather,
+          typename XT = T>
+__global__ void __launch_bounds__(kBlockThreads)
+seg_spmv_tiles_kernel(const int* __restrict__ ptr, const ColT* __restrict__ cols,
+                      const T* __restrict__ vals,
+                      const int* __restrict__ tile_row0,
+                      const XT* __restrict__ x, T* __restrict__ y,
+                      T* __restrict__ carry, int nnz) {
+  seg_tiles_block<T, ColT, kBlockThreads, kX, XT, 1>(ptr, cols, vals, tile_row0, x, y,
+                                                      carry, nnz);
+}
+
+// K8: the block at R = 2..8 (float, int32 columns, X gathered), with a
+// bound of its own: at least 8 resident blocks of 256 (32 registers) up to
+// R = 4, 5 (48) above. Left to ptxas, R = 4 took 39 registers (6 blocks)
+// and ran 2.6% slower than the kernel it replaced on an H100, against 1.5%
+// faster with the bound; K1 keeps its bare bound, since an explicit
+// minimum of even 1 block raised it from 32 registers to 48.
+template <int R>
+__host__ __device__ constexpr int multi_min_blocks() {
+  return R <= 4 ? 8 : 5;
+}
+template <int kBlockThreads, int R>
+__global__ void __launch_bounds__(kBlockThreads, multi_min_blocks<R>())
+seg_spmm_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
+                      const float* __restrict__ vals,
+                      const int* __restrict__ tile_row0,
+                      const float* __restrict__ X, float* __restrict__ Y,
+                      float* __restrict__ carry, int nnz) {
+  seg_tiles_block<float, int32_t, kBlockThreads, kXGather, float, R>(
+      ptr, cols, vals, tile_row0, X, Y, carry, nnz);
 }
 
 // K2 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171); K13 (T =
@@ -375,11 +518,21 @@ carry_fixup_kernel(const int* __restrict__ ptr,
   y[r] = s;
 }
 
+// The entry of an instantiation: K1's kernel at R = 1, K8's above.
+template <typename T, typename ColT, int kBlockThreads, int kX, typename XT, int R>
+auto seg_tiles_kernel() {
+  if constexpr (R == 1) {
+    return seg_spmv_tiles_kernel<T, ColT, kBlockThreads, kX, XT>;
+  } else {
+    return seg_spmm_tiles_kernel<kBlockThreads, R>;
+  }
+}
+
 // Launches one tile kernel instantiation on the plan's schedule; refuses
 // (cudaErrorInvalidValue, nothing launched) a tile it was not built for or
 // a schedule that does not cover nnz.
 template <typename T, typename ColT, int kBlockThreads, int kX = kXGather,
-          typename XT = T>
+          typename XT = T, int R = 1>
 int launch_seg_tiles(const void* ptr, const void* cols, const void* vals,
                      const void* tile_row0, const void* x, void* y, void* carry,
                      int nnz, int ntiles, int tile, void* stream) {
@@ -388,12 +541,10 @@ int launch_seg_tiles(const void* ptr, const void* cols, const void* vals,
       ntiles != (nnz + kTileNnz - 1) / kTileNnz) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  seg_spmv_tiles_kernel<T, ColT, kBlockThreads, kX, XT>
-      <<<ntiles, kBlockThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(ptr), static_cast<const ColT*>(cols),
-          static_cast<const T*>(vals), static_cast<const int*>(tile_row0),
-          static_cast<const XT*>(x), static_cast<T*>(y), static_cast<T*>(carry),
-          nnz);
+  seg_tiles_kernel<T, ColT, kBlockThreads, kX, XT, R>()<<<ntiles, kBlockThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ptr), static_cast<const ColT*>(cols),
+      static_cast<const T*>(vals), static_cast<const int*>(tile_row0),
+      static_cast<const XT*>(x), static_cast<T*>(y), static_cast<T*>(carry), nnz);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
-// Row gather of a row-major (ncols, R) X, shared by the multi-RHS kernels
-// K8 (seg_spmv.cu) and K10 (panel_spmv.cu). Each source includes it and
-// builds alone; _build.py hashes it into every library's name.
+// Row gather of a row-major (ncols, R) X, which the tile kernels of
+// seg_tile.cuh and panel_tile.cuh take at R > 1 (K8, K10). Each source
+// includes it and builds alone; _build.py hashes it into every library's
+// name.
 
 #pragma once
 

@@ -138,16 +138,24 @@ def _seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Tensor):
     _check_x(dev, x)
     if not _on_cuda(dev, x, dtype=dtype):
         return segmented_spmv_partials_reference(dev, x)
+    return _launch_seg_tiles(kernel, dtype, dev, x)
+
+
+def _launch_seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Tensor):
+    """The launch of K1, K12 or K8 (the tile kernel at R columns: x an
+    (ncols, R) X, y and the carries R wide, R passed after the tile).
+    Rows with no nonzeros are not written, so y is zero-filled."""
     if dev.tile != TILE_NNZ:
         raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
     for t in (dev.cols, dev.vals):  # 4 nonzeros per step, in 16-byte loads
         if t.data_ptr() % 16:
             raise ValueError("plan tensors must be 16-byte aligned")
-    y = torch.zeros(dev.nrows, dtype=dtype, device=dev.device)
-    carry = torch.zeros(2 * dev.ntiles, dtype=dtype, device=dev.device)
+    tail = tuple(x.shape[1:])
+    y = torch.zeros((dev.nrows, *tail), dtype=dtype, device=dev.device)
+    carry = torch.zeros((2 * dev.ntiles, *tail), dtype=dtype, device=dev.device)
     if dev.nnz:  # a zero-sized grid is refused: nothing to launch
         _launch(kernel, dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0, x, y,
-                carry, dev.nnz, dev.ntiles, dev.tile)
+                carry, dev.nnz, dev.ntiles, dev.tile, *tail)
     return y, carry
 
 
@@ -239,24 +247,14 @@ def carry_fixup_reference(dev: DevCsr, y: torch.Tensor,
 
 
 def segmented_spmv_multi_partials(dev: DevCsr, X: torch.Tensor):
-    """K8: ``(Y, carry)`` for X of shape (ncols, R). Y (nrows, R) holds
-    every row that lies wholly inside one tile; ``carry`` (2·ntiles, R)
-    holds the split rows' head and tail partials, for
-    ``carry_fixup_multi``."""
-    R = _check_X(dev, X)
+    """K8, K1 at R columns: ``(Y, carry)`` for X of shape (ncols, R).
+    Y (nrows, R) holds every row that lies wholly inside one tile;
+    ``carry`` (2·ntiles, R) holds the split rows' head and tail partials,
+    for ``carry_fixup_multi``."""
+    _check_X(dev, X)
     if not _on_cuda(dev, X):
         return segmented_spmv_multi_partials_reference(dev, X)
-    if dev.tile != TILE_NNZ:
-        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
-    for t in (dev.cols, dev.vals):  # K8 reads 4 nonzeros per 16-byte load
-        if t.data_ptr() % 16:
-            raise ValueError("plan tensors must be 16-byte aligned")
-    Y = torch.zeros(dev.nrows, R, dtype=torch.float32, device=dev.device)
-    carry = torch.zeros(2 * dev.ntiles, R, dtype=torch.float32, device=dev.device)
-    if dev.nnz:  # a zero-sized grid is refused: nothing to launch
-        _launch("seg_spmm_tiles", dev, dev.ptr, dev.cols, dev.vals,
-                dev.tile_row0, X, Y, carry, dev.nnz, dev.ntiles, dev.tile, R)
-    return Y, carry
+    return _launch_seg_tiles("seg_spmm_tiles", torch.float32, dev, X)
 
 
 def carry_fixup_multi(dev: DevCsr, Y: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:

@@ -79,19 +79,21 @@ def _panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel, x: torch.Tensor
 
 def _launch_panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel,
                         x: torch.Tensor | None, key: str | None = None):
-    """The launch of K4, K14, or the probe's K4 without the gather
-    (``kernels.probes``; x None, not read), counted under ``key``. The
-    kernel writes every row of y and every partial slot, so neither is
-    filled first."""
+    """The launch of K4, K14, K10 (the tile kernel at R columns: x an
+    (ncols, R) X, y and the partials R wide, R passed after nrows) or the
+    probe's K4 without the gather (``kernels.probes``; x None, not read),
+    counted under ``key``. The kernel writes every row of y and every
+    partial slot, so neither is filled first."""
     _check_cuda_panel(dev, x)
+    tail = () if x is None else tuple(x.shape[1:])
     if not (dev.nslots and dev.nrows):  # a zero-sized grid is refused
-        return (torch.zeros(dev.nrows, dtype=dtype, device=dev.device),
-                torch.zeros(2 * dev.ntiles, _C, dtype=dtype, device=dev.device))
-    y = torch.empty(dev.nrows, dtype=dtype, device=dev.device)
-    part = torch.empty(2 * dev.ntiles, _C, dtype=dtype, device=dev.device)
+        return (torch.zeros((dev.nrows, *tail), dtype=dtype, device=dev.device),
+                torch.zeros((2 * dev.ntiles, _C, *tail), dtype=dtype, device=dev.device))
+    y = torch.empty((dev.nrows, *tail), dtype=dtype, device=dev.device)
+    part = torch.empty((2 * dev.ntiles, _C, *tail), dtype=dtype, device=dev.device)
     _launch(kernel, dev, dev.slice_ptr, dev.cols, dev.vals, dev.tile_slice0,
             dev.tile_own0, x, y, part, dev.nslots // _C, dev.ntiles, dev.tile,
-            dev.nrows, key=key)
+            dev.nrows, *tail, key=key)
     return y, part
 
 
@@ -239,21 +241,15 @@ def panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
 
 
 def panel_spmv_multi_partials(dev: DevPanel, X: torch.Tensor):
-    """K10: ``(Y, part)`` for X of shape (ncols, R). Y (nrows, R) holds the
-    rows of every slice that lies wholly inside one tile; ``part``
-    (2·ntiles, 32, R) holds the split slices' head and tail partials, for
+    """K10, K4 at R columns: ``(Y, part)`` for X of shape (ncols, R).
+    Y (nrows, R) holds the rows of every slice that lies wholly inside one
+    tile (0 for the rest); ``part`` (2·ntiles, 32, R) holds the split
+    slices' head and tail partials (0 in a slot no split slice uses), for
     ``panel_fixup_multi``."""
-    R = _check_X(dev, X)
+    _check_X(dev, X)
     if not _on_cuda(dev, X):
         return panel_spmv_multi_partials_reference(dev, X)
-    _check_cuda_panel(dev, X)
-    Y = torch.zeros(dev.nrows, R, dtype=torch.float32, device=dev.device)
-    part = torch.zeros(2 * dev.ntiles, _C, R, dtype=torch.float32, device=dev.device)
-    if dev.nslots and dev.nrows:  # a zero-sized grid is refused
-        _launch("panel_spmm_tiles", dev, dev.slice_ptr, dev.cols, dev.vals,
-                dev.tile_slice0, X, Y, part, dev.nslots // _C, dev.ntiles,
-                dev.tile, dev.nrows, R)
-    return Y, part
+    return _launch_panel_tiles("panel_spmm_tiles", torch.float32, dev, X)
 
 
 def panel_fixup_multi(dev: DevPanel, Y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:

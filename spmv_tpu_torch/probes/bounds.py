@@ -78,14 +78,14 @@ def fused_bytes(dev) -> int:
 
 
 def panel_tiles_bytes(pdev, R: int = 1, x_itemsize: int | None = None) -> int:
-    """K4 (K10 at R columns, K14 in float64): slice_ptr, columns, values
-    and tile_slice0 read, x read, y and the 2 × 32 partials of every tile
-    written; K4 and K14 (R = 1) also read tile_own0, K10 does not.
-    ``x_itemsize`` the bytes of an x entry (0 when x is not read)."""
+    """K4 (K10 at R columns, K14 in float64): slice_ptr, columns, values,
+    tile_slice0 and tile_own0 read, x read, y and the 2 × 32 partials of
+    every tile written. ``x_itemsize`` the bytes of an x entry (0 when x
+    is not read)."""
     es = pdev.vals.element_size()
     xs = es if x_itemsize is None else x_itemsize
-    own = (pdev.tile_own0,) if R == 1 else ()
-    return (nbytes(pdev.slice_ptr, pdev.cols, pdev.vals, pdev.tile_slice0, *own)
+    return (nbytes(pdev.slice_ptr, pdev.cols, pdev.vals, pdev.tile_slice0,
+                   pdev.tile_own0)
             + (pdev.ncols * xs + (pdev.nrows + 2 * pdev.ntiles * 32) * es) * R)
 
 

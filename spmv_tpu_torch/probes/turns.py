@@ -1,16 +1,16 @@
 """Two checkouts' tile kernels, timed in turns on one card.
 
     python -m spmv_tpu_torch.probes.turns OTHER_ROOT [--out DIR]
-        [--only seg|panel] [--probe NAME:MATRIX ...] [--rounds N]
+        [--only seg|panel|spmm] [--probe NAME:MATRIX ...] [--rounds N]
 
-Measures a change to the segmented tile kernel K1/K12
-(``kernels/csrc/seg_tile.cuh``) or the panel tile kernel K4/K14
+Measures a change to the segmented tile kernel K1/K12/K8
+(``kernels/csrc/seg_tile.cuh``) or the panel tile kernel K4/K14/K10
 (``kernels/csrc/panel_tile.cuh``) against another checkout of the
 repository (the commit it changes, unpacked with ``git archive``) in one
 run on one card, in turns: OTHER, THIS, THIS, OTHER. Each turn is a fresh
 process that imports ``spmv_tpu_torch`` from one checkout, so it builds and
 launches that checkout's kernels through that checkout's wrappers, and
-(``--only`` keeps one of the two engines):
+(``--only`` keeps one of the three engines):
 
 * runs K1 and K12 on cant, ``pl_big``, ``pl_wide`` and band-1024, and K4
   and K14 on the SELL panels of cant (as the split builds it), pl-32768
@@ -21,11 +21,16 @@ launches that checkout's kernels through that checkout's wrappers, and
   the panel engine also K4's and K14's y and partials on the whole ELL
   panels of ``common.PANEL_SHAPES`` (handed to the worker as triplets in
   ``DIR/shapes/``, which an older checkout has no generator for; untimed);
+* with the ``spmm`` engine, the multi-RHS kernels at each R of
+  ``SPMM_RHS`` on the same matrices and panels: K8 on the CSR plans, K10
+  on the SELL and the shapes' ELL panels, their Y and carries or partials
+  saved;
 * times each tile kernel and its path with the fix-up (K1 + K2, K12 + K13,
-  K4 + K5, K14 + K15; ``timing.graph_ms``: CUDA-graph replay, warm), and
-  cuSPARSE on the same matrix's CSR plan in float32 and float64
-  (``torch.sparse_csr_tensor @ x``, a yardstick the port never calls),
-  beside each kernel's HBM-peak bound (``bounds``);
+  K4 + K5, K14 + K15, K8 + K9, K10 + K11; ``timing.graph_ms``: CUDA-graph
+  replay, warm), and cuSPARSE on the same matrix's CSR plan in float32
+  and float64 (``torch.sparse_csr_tensor @ x``, ``@ X`` for R columns, a
+  yardstick the port never calls), beside each kernel's HBM-peak bound
+  (``bounds``);
 * then runs each ``--probe NAME:MATRIX`` (``python -m spmv_tpu_torch.probes``)
   in that checkout, its output saved beside the arrays.
 
@@ -53,6 +58,8 @@ THIS_ROOT = Path(__file__).resolve().parents[2]
 TURN_MATRICES = ("cant", "pl_big", "pl_wide", "band")
 # and those whose SELL panels it runs K4 and K14 on
 PANEL_TURN_MATRICES = ("cant", "pl", "pl_big")
+# the right-hand sides the spmm engine runs K8 and K10 at
+SPMM_RHS = (2, 4, 8)
 
 
 def matrix_specs(names=TURN_MATRICES) -> dict:
@@ -86,11 +93,12 @@ def shape_specs(out: Path) -> dict:
 
 def _worker(out_dir: Path, specs: dict) -> dict:
     """One turn, in a process whose ``spmv_tpu_torch`` is the checkout in
-    the working directory: K1 and K12 on the matrices of ``specs["seg"]``,
-    K4 and K14 on the SELL panels of ``specs["panel"]`` (each
-    ``matrix_specs``, a panel's with its split) and on the ELL panels of
-    ``specs["shapes"]`` (``shape_specs``), the outputs saved, the times
-    returned."""
+    the working directory: at each R of ``specs["rhs"]`` (1: K1 and K12,
+    K4 and K14; 2-8: K8, K10) the segmented kernels on the matrices of
+    ``specs["seg"]``, the panel kernels on the SELL panels of
+    ``specs["panel"]`` (each ``matrix_specs``, a panel's with its split)
+    and on the ELL panels of ``specs["shapes"]`` (``shape_specs``), the
+    outputs saved, the times returned."""
     import torch
 
     import spmv_tpu_torch
@@ -104,11 +112,16 @@ def _worker(out_dir: Path, specs: dict) -> dict:
     from spmv_tpu_torch.probes.timing import card_line, graph_ms
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    dtypes = {"f32": (torch.float32, np.float32), "f64": (torch.float64, np.float64)}
+    dtypes = {"f32": np.float32, "f64": np.float64}
     kernels = {"f32": (E.segmented_spmv_partials, E.carry_fixup),
-               "f64": (X2.segmented_spmv_x2_partials, X2.carry_fixup_x2)}
+               "f64": (X2.segmented_spmv_x2_partials, X2.carry_fixup_x2),
+               "multi": (E.segmented_spmv_multi_partials, E.carry_fixup_multi)}
     panels = {"f32": (P.panel_spmv_partials, P.panel_fixup),
-              "f64": (X2.panel_spmv_x2_partials, X2.panel_fixup_x2)}
+              "f64": (X2.panel_spmv_x2_partials, X2.panel_fixup_x2),
+              "multi": (P.panel_spmv_multi_partials, P.panel_fixup_multi)}
+    rhs = specs.pop("rhs")
+    multi = [R for R in rhs if R > 1]
+    keys = [k for k in dtypes if 1 in rhs or (k == "f32" and multi)]
     res = {"card": card_line(), "package": spmv_tpu_torch.__file__, "ms": {}}
     ms = res["ms"]
 
@@ -117,58 +130,87 @@ def _worker(out_dir: Path, specs: dict) -> dict:
         np.save(out_dir / f"{stem}_y.npy", y.cpu().numpy())
         np.save(out_dir / f"{stem}_part.npy", part.cpu().numpy())
 
-    def time_tiles(label, key, dev, x, tiles, fixup, tiles_bytes, nnz, A):
-        dtype = dtypes[key][0]
+    def time_tiles(label, key, dev, x, tiles, fixup, tiles_bytes, nnz, A, R=1):
+        dtype = dev.vals.dtype
         save(label, key, *tiles(dev, x))
         ms[f"{label} {key} tiles"] = graph_ms(lambda: tiles(dev, x))
         ms[f"{label} {key} path"] = graph_ms(lambda: fixup(dev, *tiles(dev, x)))
         ms[f"{label} {key} cusparse"] = graph_ms(lambda: A @ x)
-        ms[f"{label} {key} tiles bound"] = B.bound_ms(tiles_bytes, 2 * nnz, dtype)[0]
-        ms[f"{label} {key} path bound"] = B.bound_ms(B.csr_spmv_bytes(dev), 2 * nnz,
-                                                     dtype)[0]
+        ms[f"{label} {key} tiles bound"] = B.bound_ms(tiles_bytes, 2 * nnz * R, dtype)[0]
+        ms[f"{label} {key} path bound"] = B.bound_ms(B.csr_spmv_bytes(dev, R),
+                                                     2 * nnz * R, dtype)[0]
 
-    def vector(n, np_dtype):
-        xh = np.random.default_rng(3).standard_normal(n).astype(np_dtype)
+    def vector(n, np_dtype, R=None):
+        shape = (n,) if R is None else (n, R)
+        xh = np.random.default_rng(3).standard_normal(shape).astype(np_dtype)
         return torch.from_numpy(xh).cuda()
 
     for name, path in specs.pop("shapes", {}).items():
         z = np.load(path)
         nrows, ncols = (int(n) for n in z["shape"])
-        for key, (dtype, np_dtype) in dtypes.items():
+        for key in keys:
+            np_dtype = dtypes[key]
             vals = z["v"] if key == "f32" else _x2_vals(z["v"])
             make = (spmv_tpu_torch.from_coo if key == "f32" else
                     spmv_tpu_torch.X2Matrix.from_coo)
             a = make("ell", nrows, ncols, z["r"], z["c"], vals, split=False,
                      device="cuda")
-            save(f"{name} shape", key, *panels[key][0](a.dev, vector(ncols, np_dtype)))
+            if 1 in rhs:
+                save(f"{name} shape", key, *panels[key][0](a.dev, vector(ncols, np_dtype)))
+            for R in multi if key == "f32" else ():
+                save(f"{name} shape", f"R{R}",
+                     *panels["multi"][0](a.dev, vector(ncols, np_dtype, R)))
     for engine, named in specs.items():
         for name, (gen, kwargs, *split) in named.items():
             info, r, c, v = getattr(synth, gen)(**kwargs)
             order = np.lexsort((c, r))
             r, c, v = r[order], c[order], np.asarray(v, np.float64)[order]
             ptr = csr_ptr(r, info.nrows)
-            for key, (dtype, np_dtype) in dtypes.items():
+            for key in keys:
+                np_dtype = dtypes[key]
                 vals = v if key == "f32" else _x2_vals(v)
                 dev = DevCsr.from_plan(build_csr_plan(info.nrows, info.ncols, ptr, c, vals,
                                                       dtype=np_dtype), "cuda")
-                x = vector(info.ncols, np_dtype)
                 A = torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals,
                                             (dev.nrows, dev.ncols))
                 if engine == "seg":
-                    time_tiles(name, key, dev, x, *kernels[key], B.seg_tiles_bytes(dev),
-                               dev.nnz, A)
+                    label, d, fns, nnz, tb = name, dev, kernels, dev.nnz, B.seg_tiles_bytes
                 else:
                     args = ("sell", info.nrows, info.ncols, r, c, vals)
                     a = (spmv_tpu_torch.from_coo(*args, split=split[0], device="cuda")
                          if key == "f32" else
                          spmv_tpu_torch.X2Matrix.from_coo(*args, split=split[0],
                                                           device="cuda"))
-                    time_tiles(f"{name} panel", key, a.dev, x, *panels[key],
-                               B.panel_tiles_bytes(a.dev), a.panel_nnz, A)
-                    del a
-                del dev, A
+                    label, d, fns, nnz, tb = (f"{name} panel", a.dev, panels,
+                                              a.panel_nnz, B.panel_tiles_bytes)
+                if 1 in rhs:
+                    time_tiles(label, key, d, vector(info.ncols, np_dtype), *fns[key],
+                               tb(d, 1), nnz, A)
+                for R in multi if key == "f32" else ():
+                    time_tiles(label, f"R{R}", d, vector(info.ncols, np_dtype, R),
+                               *fns["multi"], tb(d, R), nnz, A, R)
+                del dev, A, d
             torch.cuda.synchronize()
     return res
+
+
+def run_specs(only: str | None, out: Path) -> dict:
+    """What each turn's worker runs for ``--only`` (None: everything):
+    ``rhs``, the R of each kernel (1 for the seg and panel engines,
+    ``SPMM_RHS`` for spmm); ``seg``, the matrices of the segmented
+    kernels; ``panel``, those of the panel kernels with their split;
+    ``shapes``, the panel shapes' triplets, written under ``out``."""
+    from spmv_tpu_torch.probes.common import PANEL_SPLIT
+
+    rhs = [1] * (only != "spmm") + list(SPMM_RHS) * (only in (None, "spmm"))
+    specs = {"rhs": rhs}
+    if only != "panel":
+        specs["seg"] = matrix_specs()
+    if only != "seg":
+        specs["panel"] = {n: [*spec, PANEL_SPLIT.get(n, False)]
+                          for n, spec in matrix_specs(PANEL_TURN_MATRICES).items()}
+        specs["shapes"] = shape_specs(out)
+    return specs
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -193,8 +235,9 @@ def main(argv=None) -> int:
     p.add_argument("other", help="root of the other checkout")
     p.add_argument("--out", default="turns_out",
                    help="directory for the outputs and turns.json")
-    p.add_argument("--only", choices=("seg", "panel"),
-                   help="time one engine's tile kernels only")
+    p.add_argument("--only", choices=("seg", "panel", "spmm"),
+                   help="time one engine's tile kernels only (spmm: K8 and "
+                        "K10 at R = 2, 4, 8)")
     p.add_argument("--probe", action="append", default=[],
                    help="NAME:MATRIX, run in each turn, e.g. ablate:pl_big")
     p.add_argument("--rounds", type=int, default=5, help="rounds of each probe")
@@ -209,18 +252,11 @@ def main(argv=None) -> int:
     roots = {"other": Path(args.other).resolve(), "this": THIS_ROOT}
     out = Path(args.out).resolve()
     turns, dirs = [], {"other": [], "this": []}
-    from spmv_tpu_torch.probes.common import PANEL_SPLIT
-
-    panel = {n: [*spec, PANEL_SPLIT.get(n, False)]
-             for n, spec in matrix_specs(PANEL_TURN_MATRICES).items()}
-    specs = {"seg": matrix_specs(), "panel": panel}
-    specs = {k: v for k, v in specs.items() if args.only in (None, k)}
-    if "panel" in specs:
-        specs["shapes"] = shape_specs(out)
-    specs = json.dumps(specs)
+    specs = run_specs(args.only, out)
     for i, tree in enumerate(("other", "this", "this", "other")):
         d = out / f"{i}-{tree}"
-        proc = subprocess.run([sys.executable, __file__, "--worker", str(d), specs],
+        proc = subprocess.run([sys.executable, __file__, "--worker", str(d),
+                               json.dumps(specs)],
                               cwd=roots[tree], capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout, proc.stderr, sep="\n", file=sys.stderr)

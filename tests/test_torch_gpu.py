@@ -362,6 +362,16 @@ def test_multi_kernels_match_plain_versions_and_repeat_bitwise(cuda, name, R):
     Y10, p10 = P.panel_spmv_multi_partials(pdev, X)
     Y10b, p10b = P.panel_spmv_multi_partials(pdev, X)
     assert torch.equal(Y10, Y10b) and torch.equal(p10, p10b)
+    if pdev.nslots:  # K10 writes every row of Y and every partial slot: its
+        # launcher into NaN-filled outputs gives the wrapper's bits
+        Y_nan, p_nan = (torch.full_like(t, float("nan")) for t in (Y10, p10))
+        assert _build.library().lib.panel_spmm_tiles(
+            pdev.slice_ptr.data_ptr(), pdev.cols.data_ptr(), pdev.vals.data_ptr(),
+            pdev.tile_slice0.data_ptr(), pdev.tile_own0.data_ptr(), X.data_ptr(),
+            Y_nan.data_ptr(), p_nan.data_ptr(), pdev.nslots // 32, pdev.ntiles,
+            pdev.tile, pdev.nrows, R, torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(Y_nan, Y10) and torch.equal(p_nan, p10)
     Ys = P.panel_fixup_multi(pdev, Y10.clone(), p10)
     assert torch.equal(Ys, P.panel_fixup_multi(pdev, Y10.clone(), p10))
     Ys_plain = P.panel_fixup_multi_reference(

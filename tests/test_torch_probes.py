@@ -330,13 +330,16 @@ def test_byte_counts_follow_the_plan():
 
 
 def test_panel_byte_counts_read_tile_own0_at_one_column_only():
-    """K4 and K14 read the plan's tile_own0; K10 (R > 1) does not."""
+    """K4, K14 and K10 (the same tile kernel at R > 1) read the plan's
+    tile_own0 once, at any R; only x, y and the partials grow with R."""
     info, r, c, v = reference("power_law_2048")[:4]
     pdev = from_coo("sell", info.nrows, info.ncols, r, c, v, split=False, device="cpu").dev
-    read = bounds.nbytes(pdev.slice_ptr, pdev.cols, pdev.vals, pdev.tile_slice0)
+    read = bounds.nbytes(pdev.slice_ptr, pdev.cols, pdev.vals, pdev.tile_slice0,
+                         pdev.tile_own0)
     xy = 4 * (pdev.ncols + pdev.nrows + 2 * pdev.ntiles * 32)
-    assert bounds.panel_tiles_bytes(pdev) == read + bounds.nbytes(pdev.tile_own0) + xy
-    assert bounds.panel_tiles_bytes(pdev, R=4) == read + 4 * xy
+    assert bounds.nbytes(pdev.tile_own0) > 0
+    for R in (1, 2, 4, 8):
+        assert bounds.panel_tiles_bytes(pdev, R=R) == read + R * xy
 
 
 # ---------------------------------------------------------------- the CLI
@@ -455,3 +458,53 @@ def test_turns_name_the_probes_matrices_to_a_worker():
     gen, kwargs = specs["band"]
     a, b = getattr(synth, gen)(**kwargs), common.MATRICES["band"]()
     assert all(np.array_equal(u, w) for u, w in zip(a[1:], b[1:]))
+
+
+@pytest.mark.parametrize("only", [None, "seg", "panel", "spmm"])
+def test_turns_specs_name_each_engines_matrices_and_rhs(tmp_path, only):
+    """``turns.run_specs`` hands each worker, through JSON, the R of its
+    kernels (1 for seg and panel, 2, 4, 8 for spmm), the segmented
+    kernels' matrices, the SELL panels with their split and the panel
+    shapes' triplets; ``--only`` keeps one engine's."""
+    from spmv_tpu_torch.probes import common, turns
+
+    specs = json.loads(json.dumps(turns.run_specs(only, tmp_path)))
+    assert specs["rhs"] == {None: [1, 2, 4, 8], "seg": [1], "panel": [1],
+                            "spmm": [2, 4, 8]}[only]
+    assert turns.SPMM_RHS == (2, 4, 8)
+    assert ("seg" in specs) == (only != "panel")
+    assert ("panel" in specs) == ("shapes" in specs) == (only != "seg")
+    if "seg" in specs:
+        assert specs["seg"] == json.loads(json.dumps(turns.matrix_specs()))
+    if "panel" in specs:
+        assert list(specs["panel"]) == list(turns.PANEL_TURN_MATRICES)
+        assert {n: s[-1] for n, s in specs["panel"].items()} == {
+            "cant": True, "pl": False, "pl_big": False}
+        assert sorted(specs["shapes"]) == sorted(common.PANEL_SHAPES)
+        for name, path in specs["shapes"].items():
+            z = np.load(path)
+            info, r, c, v = common.PANEL_SHAPES[name]()
+            assert list(z["shape"]) == [info.nrows, info.ncols]
+            assert np.array_equal(z["r"], r) and np.array_equal(z["v"], v)
+
+
+def test_turns_compare_multi_rhs_outputs_column_by_column(tmp_path):
+    """The spmm engine's saved Y, carries and partials ((n, R) and
+    (2·ntiles, 32, R)) go through ``turns.compare`` like the vectors: one
+    flipped bit in one column of one turn is named."""
+    from spmv_tpu_torch.probes import turns
+
+    rng = np.random.default_rng(0)
+    arrays = {"cant_R4_y.npy": rng.standard_normal((50, 4)).astype(np.float32),
+              "cant_R4_part.npy": rng.standard_normal((6, 4)).astype(np.float32),
+              "cant_panel_R8_part.npy": rng.standard_normal((4, 32, 8)).astype(np.float32)}
+    dirs = [tmp_path / f"{i}" for i in range(4)]
+    for d in dirs:
+        d.mkdir()
+        for name, a in arrays.items():
+            np.save(d / name, a)
+    assert turns.compare(dirs) == []
+    part = arrays["cant_panel_R8_part.npy"].copy()
+    part.view(np.uint32)[2, 17, 7] ^= 1  # the last bit of column 7
+    np.save(dirs[3] / "cant_panel_R8_part.npy", part)
+    assert turns.compare(dirs) == ["3/cant_panel_R8_part.npy"]

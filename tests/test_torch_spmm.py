@@ -31,6 +31,7 @@ from spmv_tpu_torch.kernels import engines as E
 from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.oracle import (KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv,
                                    kernel_check, row_scale)
+from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES
 from test_torch_panel import CASES, row_ordered
 
 EXAMPLE_MTX = str(Path(__file__).resolve().parents[1] / "databases" / "example.mtx")
@@ -104,6 +105,29 @@ def test_spmm_matches_jax(R, fmt):
     assert isinstance(Yt, torch.Tensor) and Yt.device.type == "cpu"
     assert Yt.dtype == torch.float32 and Yt.shape == (info.nrows, R)
     check_columns(Yt.numpy(), Y_jax, a_jax, info, r, c, v, X)
+
+
+# K8's extreme tiles (csr) and K10's ownership and walk cases (ell, whole):
+# the shapes the card's tests run the tile kernels on, here on their plain
+# versions
+SHAPE_CASES = ([("csr", n) for n in sorted(TILE_SHAPES)]
+               + [("ell_pure", n) for n in sorted(PANEL_SHAPES)])
+
+
+@pytest.mark.parametrize("R", [3, 4])
+@pytest.mark.parametrize("fmt,shape", SHAPE_CASES)
+def test_spmm_on_tile_and_panel_shapes_matches_jax(fmt, shape, R):
+    """``spmm`` on each of ``TILE_SHAPES`` (csr) and ``PANEL_SHAPES`` (ell
+    without the split), column by column against the fp64 oracle and
+    against JAX's ``spmm`` (interpret mode) on the same triplets and X,
+    within the sum of both engines' tolerances."""
+    info, r, c, v = {**TILE_SHAPES, **PANEL_SHAPES}[shape]()
+    X = np.random.default_rng(R).standard_normal((info.ncols, R)).astype(np.float32)
+    a_jax = make(fmt, info, r, c, v, jax=True)
+    Y = spmv_tpu_torch.spmm(make(fmt, info, r, c, v), X)
+    assert Y.shape == (info.nrows, R) and Y.dtype == torch.float32
+    check_columns(Y.numpy(), np.asarray(spmv_tpu.spmm(a_jax, X)), a_jax, info, r, c,
+                  v, X)
 
 
 @pytest.mark.parametrize("fmt", ["ell", "sell", "hyb"])
