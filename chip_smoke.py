@@ -27,7 +27,14 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    slice per tile, a hub slice, one-column slices, a cut last slice); on
    every panel, cant's split SELL panel included, the launchers of K4 and
    K14 also write into NaN-filled y and partials, which must equal the
-   wrappers' bits, so a row or slot they leave unwritten fails.
+   wrappers' bits, so a row or slot they leave unwritten fails. The
+   segmented tile kernels (K1, K12, K8) leave the carry slots that no split
+   row uses unwritten, and their wrappers do not clear them: their carries
+   are compared on the used slots only (``engines.carry_slot_rows``), and
+   on every matrix K1's, K12's and K8's launchers also write into a
+   NaN-filled carry, after which K2, K13 and K9 must give the wrappers' y
+   bit for bit, so a slot a fix-up reads and the tile kernel leaves
+   unwritten fails.
    The multi-RHS kernels at R = 2, 4 and 8, each column within the same
    bound and bit for bit the one-vector kernel's on that column (y and
    carries or partials): K8 + K9 on the edge cases, the band matrix, cant,
@@ -75,7 +82,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    against R ``matvec`` calls for csr and sell on cant, BSR at R = 32 on
    cant in Gnnz·vec/s, K12-K15 and their plain versions at cant, the x2
    ``matvec`` of all six formats beside the f32 one on cant, and K12 + K13
-   at ``pl_big``. Beside each kernel: its library yardstick (one PyTorch
+   at ``pl_big``; then the segmented paths K1 + K2 (cant, ``pl_big``,
+   ``pl_wide``, band-1024) and K12 + K13 (cant, ``pl_big``) beside the tile
+   kernel alone, and the launch floor (a one-block kernel that does
+   nothing, ``kernels.probes.launch_floor``), which the fix-ups' rows carry
+   beside their bound. Beside each kernel: its library yardstick (one PyTorch
    call that computes the same y: ``torch.sparse_csr_tensor @ x``, cuSPARSE;
    ``index_select`` for K7), timed as the kernel is and used nowhere in
    the port.
@@ -84,7 +95,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    tile shape with runs of empty rows (the panel ones on band-1024's and
    cant's SELL panels and the panel shape with empty slices at tile
    starts), twice with the same bits, with uint16 columns, nogather and x32
-   bit for bit the production kernel on the same x, and their times at cant
+   bit for bit the production kernel on the same x, the fold (K1 with K2
+   in its last block) bit for bit K1 + K2, and their times at cant
    as in phase 5; then, with the counters from zero, every probe on cant
    (ablate, x2, pack, accum, spmm, panel), x2 on band-1024, ablate, x2 and
    panel on ``pl_big``, each checked and timed warm and cold against the
@@ -137,6 +149,7 @@ KERNELS = {
     "carry_fixup_t128": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
     "carry_fixup_t512": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
     "carry_fixup_t2048": ("probe_spmv.cu", "scripts/probe_accum.py:168"),
+    "seg_spmv_tiles_fold": ("probe_spmv.cu", "scripts/probe_ablate3.py:211"),
     "seg_ablate_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
     "seg_ablate_noseg": ("probe_spmv.cu", "scripts/probe_ablate2.py:175"),
     "seg_ablate_dma": ("probe_spmv.cu", "scripts/probe_ablate3.py:211"),
@@ -163,6 +176,10 @@ NO_LIBRARY = {
                      "seg_ablate_x2_dma"),
                     "none: no single call sums a stream per 1024-nonzero tile"),
 }
+# the fix-ups and the σ gather: separate launches of a few KB each, given the
+# launch floor (a one-block kernel that does nothing) beside their bound
+FIXUPS = ("carry_fixup", "panel_fixup", "inverse_permute", "carry_fixup_multi",
+          "panel_fixup_multi", "carry_fixup_x2", "panel_fixup_x2")
 SEG = ("seg_spmv_tiles", "carry_fixup", "csr_spmv_fused")
 PANEL = ("panel_spmv_tiles", "panel_fixup", "panel_spmv_fused", "inverse_permute")
 MULTI = ("seg_spmm_tiles", "carry_fixup_multi", "panel_spmm_tiles", "panel_fixup_multi")
@@ -273,14 +290,11 @@ def library_csr(dev) -> torch.Tensor:
 
 
 def slot_rows(dev) -> np.ndarray:
-    """Row that owns each K1 carry slot (-1 for slots no row uses)."""
-    ptr = dev.ptr.cpu().numpy().astype(np.int64)
-    owner = np.full(2 * dev.ntiles, -1, np.int64)
-    for r in dev.carry_rows.cpu().numpy():
-        ta, tb = ptr[r] // dev.tile, (ptr[r + 1] - 1) // dev.tile
-        owner[2 * ta + 1] = r
-        owner[2 * np.arange(ta + 1, tb + 1)] = r
-    return owner
+    """Row that owns each K1 carry slot (-1 for slots no row uses, which
+    the tile kernel does not write: ``engines.carry_slot_rows``)."""
+    from spmv_tpu_torch.kernels.engines import carry_slot_rows
+
+    return carry_slot_rows(dev).cpu().numpy()
 
 
 def part_rows(dev) -> np.ndarray:
@@ -311,13 +325,58 @@ def within(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max()) if err.size else 0.0
 
 
-def same_bits(name: str, fn) -> torch.Tensor:
+def same_bits(name: str, fn, dev=None) -> torch.Tensor:
+    """``fn()`` twice, bit for bit the same. With ``dev`` (a CSR plan), the
+    second of the outputs is a tile kernel's carry, compared on the slots
+    a split row uses only (``slot_rows``): the kernel writes no other."""
     a, b = fn(), fn()
-    for u, v in zip(a if isinstance(a, tuple) else (a,),
-                    b if isinstance(b, tuple) else (b,)):
+    a_, b_ = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+    for i, (u, v) in enumerate(zip(a_, b_)):
+        if dev is not None and i == 1:
+            u, v = used_slots(dev, u), used_slots(dev, v)
         if not torch.equal(u, v):
             raise AssertionError(f"{name}: two runs differ")
     return a
+
+
+def used_slots(dev, carry: torch.Tensor) -> torch.Tensor:
+    """The carry slots of CSR plan ``dev`` that a split row uses, in slot
+    order (R wide for a multi-RHS carry)."""
+    return carry[torch.from_numpy(slot_rows(dev) >= 0).to(carry.device)]
+
+
+def within_carry(name: str, dev, got: torch.Tensor, want: torch.Tensor,
+                 scale: np.ndarray, tol, check=None) -> float:
+    """``within`` (or ``check``: ``within_x2``) over the carry slots a split
+    row uses, each held to its row's scale."""
+    owner = slot_rows(dev)
+    return (check or within)(name, used_slots(dev, got), used_slots(dev, want),
+                             scale[owner[owner >= 0]], tol)
+
+
+def fixup_of_nan_carry(launcher: str, dev, x, fixup, want: torch.Tensor) -> None:
+    """Calls the tile launcher ``launcher`` (K1, K12, K8 with x an (ncols, R)
+    X) itself, outside its wrapper and its count, into a zero-filled y and
+    a NaN-filled carry, then the fix-up ``fixup`` (K2, K13, K9) through its
+    wrapper: a slot the fix-up reads and the tile kernel leaves unwritten
+    stays NaN, so y must equal the wrappers' ``want`` bit for bit."""
+    from spmv_tpu_torch.kernels import _build
+
+    if not dev.nnz:  # the wrapper launches nothing
+        return
+    tail = tuple(x.shape[1:])
+    y = torch.zeros((dev.nrows, *tail), dtype=want.dtype, device=want.device)
+    carry = torch.full((2 * dev.ntiles, *tail), float("nan"), dtype=want.dtype,
+                       device=want.device)
+    rc = getattr(_build.library().lib, launcher)(
+        dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), carry.data_ptr(),
+        dev.nnz, dev.ntiles, dev.tile, *tail, torch.cuda.current_stream().cuda_stream)
+    got = fixup(dev, y, carry)
+    torch.cuda.synchronize()
+    if rc or not torch.equal(got, want):
+        raise AssertionError(f"{launcher} into a NaN-filled carry, then its fix-up "
+                             f"(rc {rc}): y is not the wrappers' bits")
 
 
 def writes_all(launcher: str, dev, x, got) -> None:
@@ -372,15 +431,14 @@ def check_kernels(label: str, trip, seed: int) -> dict:
     scale = row_scale(info.nrows, rows, cols, vals.astype(np.float32), xh)
     tol = fp32_rel_tol(dev.max_row_nnz)
 
-    y1, c1 = same_bits("seg_spmv_tiles", lambda: E.segmented_spmv_partials(dev, x))
+    y1, c1 = same_bits("seg_spmv_tiles", lambda: E.segmented_spmv_partials(dev, x), dev)
     y1r, c1r = E.segmented_spmv_partials_reference(dev, x)
-    owner = slot_rows(dev)
-    cscale = np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
     e1 = max(within(f"{label} seg_spmv_tiles y", y1, y1r, scale, tol),
-             within(f"{label} seg_spmv_tiles carry", c1, c1r, cscale, tol))
+             within_carry(f"{label} seg_spmv_tiles carry", dev, c1, c1r, scale, tol))
     y2 = same_bits("carry_fixup", lambda: E.carry_fixup(dev, y1.clone(), c1))
     y2r = E.carry_fixup_reference(dev, y1.clone(), c1)
     e2 = within(f"{label} carry_fixup", y2, y2r, scale, tol)
+    fixup_of_nan_carry("seg_spmv_tiles", dev, x, E.carry_fixup, y2)
     y3 = same_bits("csr_spmv_fused", lambda: E.segmented_spmv_fused(dev, x))
     y3r = E.segmented_spmv_fused_reference(dev, x)
     e3 = within(f"{label} csr_spmv_fused", y3, y3r, scale, tol)
@@ -391,7 +449,8 @@ def check_kernels(label: str, trip, seed: int) -> dict:
           f"{dev.ntiles} ({over} over the row-offset stage) split rows "
           f"{dev.ncarry}: max |kernel - plain| "
           f"K1 {e1:.3e}  K2 {e2:.3e}  K3 {e3:.3e}; K1+K2 and K3 pass the "
-          f"fp64 oracle; two runs bitwise equal")
+          f"fp64 oracle; two runs bitwise equal (carries on used slots); K2 after "
+          f"K1 into a NaN-filled carry gives the same y")
     return {"seg_spmv_tiles": e1, "carry_fixup": e2, "csr_spmv_fused": e3}
 
 
@@ -634,25 +693,27 @@ def check_multi(label: str, trip, seed: int, R: int) -> dict:
     X = torch.from_numpy(Xh).cuda()
     scale = column_scales(trip, Xh)
     tol = fp32_rel_tol(dev.max_row_nnz)
-    Y8, c8 = same_bits("seg_spmm_tiles", lambda: E.segmented_spmv_multi_partials(dev, X))
+    Y8, c8 = same_bits("seg_spmm_tiles", lambda: E.segmented_spmv_multi_partials(dev, X),
+                       dev)
     Y8r, c8r = E.segmented_spmv_multi_partials_reference(dev, X)
-    owner = slot_rows(dev)
-    cscale = np.where(owner[:, None] >= 0, scale[np.maximum(owner, 0)], 0.0)
     e8 = max(within(f"{label} R={R} seg_spmm_tiles Y", Y8, Y8r, scale, tol),
-             within(f"{label} R={R} seg_spmm_tiles carry", c8, c8r, cscale, tol))
+             within_carry(f"{label} R={R} seg_spmm_tiles carry", dev, c8, c8r, scale, tol))
     Y9 = same_bits("carry_fixup_multi", lambda: E.carry_fixup_multi(dev, Y8.clone(), c8))
     e9 = within(f"{label} R={R} carry_fixup_multi", Y9,
                 E.carry_fixup_multi_reference(dev, Y8.clone(), c8), scale, tol)
+    fixup_of_nan_carry("seg_spmm_tiles", dev, X, E.carry_fixup_multi, Y9)
     check_oracle_columns(f"{label} R={R} K8+K9", trip, Y9, Xh)
     # column j of K8 against K1 on X[:, j]: the same order of additions
     for j in range(R):
         y1, c1 = E.segmented_spmv_partials(dev, X[:, j].contiguous())
-        if not (torch.equal(Y8[:, j], y1) and torch.equal(c8[:, j], c1)):
+        if not (torch.equal(Y8[:, j], y1)
+                and torch.equal(used_slots(dev, c8)[:, j], used_slots(dev, c1))):
             raise AssertionError(f"{label} R={R}: column {j} of K8's y or carries "
                                  f"is not K1's bits")
     print(f"  {label} R={R}: max |kernel - plain| K8 {e8:.3e}  K9 {e9:.3e}; "
           f"passes the fp64 oracle per column; two runs bitwise equal; "
-          f"each column's y and carries bitwise K1's")
+          f"each column's y and carries bitwise K1's (carries on used slots); "
+          f"K9 after K8 into a NaN-filled carry gives the same Y")
     return {"seg_spmm_tiles": e8, "carry_fixup_multi": e9}
 
 
@@ -829,19 +890,21 @@ def check_x2_seg(label: str, trip, seed: int) -> dict:
     dev = a.dev
     x = torch.from_numpy(xh).cuda()
     k = dev.max_row_nnz
-    y12, c12 = same_bits("seg_spmv_tiles_x2", lambda: X2.segmented_spmv_x2_partials(dev, x))
+    y12, c12 = same_bits("seg_spmv_tiles_x2", lambda: X2.segmented_spmv_x2_partials(dev, x),
+                         dev)
     y12r, c12r = X2.segmented_spmv_x2_partials_reference(dev, x)
-    owner = slot_rows(dev)
-    cscale = np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
     e12 = max(within_x2(f"{label} seg_spmv_tiles_x2 y", y12, y12r, scale, k),
-              within_x2(f"{label} seg_spmv_tiles_x2 carry", c12, c12r, cscale, k))
+              within_carry(f"{label} seg_spmv_tiles_x2 carry", dev, c12, c12r, scale, k,
+                           within_x2))
     y13 = same_bits("carry_fixup_x2", lambda: X2.carry_fixup_x2(dev, y12.clone(), c12))
     e13 = within_x2(f"{label} carry_fixup_x2", y13,
                     X2.carry_fixup_x2_reference(dev, y12.clone(), c12), scale, k)
+    fixup_of_nan_carry("seg_spmv_tiles_x2", dev, x, X2.carry_fixup_x2, y13)
     check_oracle_x2(f"{label} x2 csr matvec", trip, v, a.matvec(xh), xh, scale)
     print(f"  {label} x2: fp64 plan {dev.stream_bytes} B, tiles {dev.ntiles}, "
           f"split rows {dev.ncarry}: max |kernel - plain| K12 {e12:.3e}  K13 "
-          f"{e13:.3e}; matvec passes x2_check; two runs bitwise equal")
+          f"{e13:.3e}; matvec passes x2_check; two runs bitwise equal (carries on "
+          f"used slots); K13 after K12 into a NaN-filled carry gives the same y")
     return {"seg_spmv_tiles_x2": e12, "carry_fixup_x2": e13}
 
 
@@ -992,41 +1055,39 @@ def check_probes(label: str, trip, seed: int) -> dict:
     v32, v64 = vals.astype(np.float32), np.asarray(vals, np.float64)
     tol, k = fp32_rel_tol(dev.max_row_nnz), dev.max_row_nnz
 
-    def carry_scale(d, scale):
-        owner = slot_rows(d)
-        return np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
-
-    def bitwise(name, got, want):
-        if not all(torch.equal(a, b) for a, b in zip(got, want, strict=True)):
+    def bitwise(name, got, want, d=dev):  # y, and the carries on used slots
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(used_slots(d, got[1]), used_slots(d, want[1]))):
             raise AssertionError(f"{label} {name}: not bit for bit the production kernel")
 
     def f32_partials(name, got, plain, scale, d=dev):
         return max(within(f"{label} {name} y", got[0], plain[0], scale, tol),
-                   within(f"{label} {name} carry", got[1], plain[1],
-                          carry_scale(d, scale), tol))
+                   within_carry(f"{label} {name} carry", d, got[1], plain[1], scale, tol))
 
     def f64_partials(name, got, plain, scale):
         return max(within_x2(f"{label} {name} y", got[0], plain[0], scale, k),
-                   within_x2(f"{label} {name} carry", got[1], plain[1],
-                             carry_scale(dev64, scale), k))
+                   within_carry(f"{label} {name} carry", dev64, got[1], plain[1], scale,
+                                k, within_x2))
 
     errs = {}
     s32, s64 = row_scale(info.nrows, rows, cols, v32, xh), row_scale(info.nrows, rows, cols, v64, xh)
     c16 = KP.cols16(dev)
-    got = same_bits("seg_spmv_tiles_u16", lambda: KP.segmented_spmv_partials_u16(dev, c16, x))
+    got = same_bits("seg_spmv_tiles_u16", lambda: KP.segmented_spmv_partials_u16(dev, c16, x),
+                    dev)
     bitwise("seg_spmv_tiles_u16", got, E.segmented_spmv_partials(dev, x))
     errs["seg_spmv_tiles_u16"] = f32_partials(
         "seg_spmv_tiles_u16", got, KP.segmented_spmv_partials_u16_reference(dev, c16, x), s32)
     got = same_bits("seg_spmv_tiles_u16_x2",
-                    lambda: KP.segmented_spmv_partials_u16(dev64, c16, x64))
-    bitwise("seg_spmv_tiles_u16_x2", got, X2.segmented_spmv_x2_partials(dev64, x64))
+                    lambda: KP.segmented_spmv_partials_u16(dev64, c16, x64), dev64)
+    bitwise("seg_spmv_tiles_u16_x2", got, X2.segmented_spmv_x2_partials(dev64, x64),
+            dev64)
     errs["seg_spmv_tiles_u16_x2"] = f64_partials(
         "seg_spmv_tiles_u16_x2", got,
         KP.segmented_spmv_partials_u16_reference(dev64, c16, x64), s64)
     for tile in KP.PROBE_TILES:
         dt = KP.retile(dev, tile)
         name = f"seg_spmv_tiles_t{tile}"
-        ya, ca = same_bits(name, lambda: KP.segmented_spmv_partials_at(dt, x))
+        ya, ca = same_bits(name, lambda: KP.segmented_spmv_partials_at(dt, x), dt)
         errs[name] = f32_partials(name, (ya, ca),
                                   KP.segmented_spmv_partials_at_reference(dt, x), s32, dt)
         name = f"carry_fixup_t{tile}"
@@ -1034,21 +1095,29 @@ def check_probes(label: str, trip, seed: int) -> dict:
         errs[name] = within(f"{label} {name}", y,
                             KP.carry_fixup_at_reference(dt, ya.clone(), ca), s32, tol)
         check_oracle(f"{label} tile {tile} K1+K2", trip, y, xh.astype(np.float32))
+    y = same_bits("seg_spmv_tiles_fold", lambda: KP.segmented_spmv_fold(dev, x))
+    if not torch.equal(y, E.carry_fixup(dev, *E.segmented_spmv_partials(dev, x))):
+        raise AssertionError(f"{label} seg_spmv_tiles_fold: not bit for bit K1 + K2")
+    errs["seg_spmv_tiles_fold"] = within(f"{label} seg_spmv_tiles_fold", y,
+                                         KP.segmented_spmv_fold_reference(dev, x), s32, tol)
+    check_oracle(f"{label} K1 + K2 folded", trip, y, xh.astype(np.float32))
     xt = KP.xtilde(info.ncols, torch.float32, "cuda")
     st = row_scale(info.nrows, rows, cols, v32, xt.cpu().numpy())
-    got = same_bits("seg_ablate_nogather", lambda: KP.ablate_nogather(dev))
+    got = same_bits("seg_ablate_nogather", lambda: KP.ablate_nogather(dev), dev)
     bitwise("seg_ablate_nogather", got, E.segmented_spmv_partials(dev, xt))
     errs["seg_ablate_nogather"] = f32_partials("seg_ablate_nogather", got,
                                                KP.ablate_nogather_reference(dev), st)
     xt64 = KP.xtilde(info.ncols, torch.float64, "cuda")
-    got = same_bits("seg_ablate_x2_nogather", lambda: KP.ablate_nogather(dev64))
-    bitwise("seg_ablate_x2_nogather", got, X2.segmented_spmv_x2_partials(dev64, xt64))
+    got = same_bits("seg_ablate_x2_nogather", lambda: KP.ablate_nogather(dev64), dev64)
+    bitwise("seg_ablate_x2_nogather", got, X2.segmented_spmv_x2_partials(dev64, xt64),
+            dev64)
     errs["seg_ablate_x2_nogather"] = f64_partials(
         "seg_ablate_x2_nogather", got, KP.ablate_nogather_reference(dev64),
         row_scale(info.nrows, rows, cols, v64, xt64.cpu().numpy()))
     x32 = x64.float()
-    got = same_bits("seg_ablate_x2_x32", lambda: KP.ablate_x32(dev64, x32))
-    bitwise("seg_ablate_x2_x32", got, X2.segmented_spmv_x2_partials(dev64, x32.double()))
+    got = same_bits("seg_ablate_x2_x32", lambda: KP.ablate_x32(dev64, x32), dev64)
+    bitwise("seg_ablate_x2_x32", got, X2.segmented_spmv_x2_partials(dev64, x32.double()),
+            dev64)
     errs["seg_ablate_x2_x32"] = f64_partials(
         "seg_ablate_x2_x32", got, KP.ablate_x32_reference(dev64, x32),
         row_scale(info.nrows, rows, cols, v64, x32.double().cpu().numpy()))
@@ -1066,7 +1135,8 @@ def check_probes(label: str, trip, seed: int) -> dict:
     print(f"  {label}: probe kernels against their plain versions, max |kernel - "
           f"plain| " + "  ".join(f"{n} {e:.3e}" for n, e in errs.items())
           + "; two runs bitwise equal; uint16 columns, nogather on x̃ and x32 on "
-          "the widened x bit for bit K1's / K12's; tile variants pass the fp64 oracle")
+          "the widened x bit for bit K1's / K12's, the fold K1 + K2's; tile variants "
+          "and the fold pass the fp64 oracle")
     return errs
 
 
@@ -1148,6 +1218,8 @@ def time_probes(label: str, trip, card: str) -> dict:
         add(f"carry_fixup_t{tile}", lambda dt=dt, y=y, c=carry: KP.carry_fixup_at(dt, y, c),
             lambda dt=dt, y=y, c=carry: KP.carry_fixup_at_reference(dt, y.clone(), c),
             B.fixup_bytes(dt), 0)
+    add("seg_spmv_tiles_fold", lambda: KP.segmented_spmv_fold(dev, x),
+        lambda: KP.segmented_spmv_fold_reference(dev, x), B.csr_spmv_bytes(dev))
     for d, xx, sfx in ((dev, x, ""), (dev64, x64, "_x2")):
         add(f"seg_ablate{sfx}_nogather", lambda d=d: KP.ablate_nogather(d),
             lambda d=d: KP.ablate_nogather_reference(d), B.seg_tiles_bytes(d, x_itemsize=0))
@@ -1189,7 +1261,8 @@ LIBRARY_CALLS = {
     **dict.fromkeys(("seg_spmv_tiles_x2", "panel_spmv_tiles_x2"), (
         "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE), float64")),
     **dict.fromkeys(("seg_spmv_tiles_u16", "seg_spmv_tiles_t128", "seg_spmv_tiles_t512",
-                     "seg_spmv_tiles_t2048", "seg_ablate_nogather"), (
+                     "seg_spmv_tiles_t2048", "seg_ablate_nogather",
+                     "seg_spmv_tiles_fold"), (
         "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE), float32, at "
         "the same shapes (K1's row)")),
     **dict.fromkeys(("seg_spmv_tiles_u16_x2", "seg_ablate_x2_nogather",
@@ -1234,6 +1307,7 @@ def main() -> int:
     from spmv_tpu_torch import cli, synth
     from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.kernels import probes as KP
     from spmv_tpu_torch.probes import run_probe
     from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES
     from spmv_tpu_torch.probes.timing import card_line
@@ -1520,6 +1594,26 @@ def main() -> int:
     print(f"fp64-grade kernels at cant and K12 + K13 at pl_big  [{card}]")
     tx = time_x2(cl, cant, card)
     tx_big = time_x2("pl_big-524288", pl_big, card, panel=False)
+    floor = graph_device_ms("launch floor", lambda: KP.launch_floor("cuda"))
+    print(f"segmented fix-up paths, device µs (CUDA-graph replay): the tile kernel "
+          f"alone, with its fix-up, and the fix-up alone beside its bound and the "
+          f"launch floor (a one-block kernel that does nothing) {floor * 1e3:.2f} µs  "
+          f"[{card}]")
+    for label, t, k1, k2, path in (
+            (cl, tc, "seg_spmv_tiles", "carry_fixup", "path K1+K2"),
+            ("pl_big-524288", tc_big, "seg_spmv_tiles", "carry_fixup", "path K1+K2"),
+            ("pl_wide-524288", times["pl_wide-524288"], "seg_spmv_tiles",
+             "carry_fixup", "path K1+K2"),
+            ("band-1024", times["band-1024"], "seg_spmv_tiles", "carry_fixup",
+             "path K1+K2"),
+            (cl, tx, "seg_spmv_tiles_x2", "carry_fixup_x2", "path K12+K13"),
+            ("pl_big-524288", tx_big, "seg_spmv_tiles_x2", "carry_fixup_x2",
+             "path K12+K13")):
+        tile, both, fix = (t[k][1] * 1e3 for k in (k1, path, k2))
+        print(f"  {label:16s} {k1} {tile:8.2f}  {path} {both:8.2f} (+{both - tile:.2f})"
+              f"  {k2} alone {fix:.2f} against its bound "
+              f"{bound_fields(k2, t)['bound_ms'] * 1e3:.3f} and the floor "
+              f"{floor * 1e3:.2f}  [{card}]")
     print(f"f32x2 against f32 matvec per format at cant, ms per call | "
           f"device  [{card}]")
     xh64 = np.random.default_rng(3).standard_normal(cant[0].ncols)
@@ -1575,7 +1669,8 @@ def main() -> int:
     errs.update(perrs)
     lib_f32 = {k: tc for k in ("seg_spmv_tiles_u16", "seg_spmv_tiles_t128",
                                "seg_spmv_tiles_t512", "seg_spmv_tiles_t2048",
-                               "seg_ablate_nogather", "panel_ablate_nogather")}
+                               "seg_ablate_nogather", "panel_ablate_nogather",
+                               "seg_spmv_tiles_fold")}
     lib_f64 = dict.fromkeys(("seg_spmv_tiles_u16_x2", "seg_ablate_x2_nogather",
                              "seg_ablate_x2_x32", "panel_ablate_x2_nogather"), tx)
     kernels = []
@@ -1597,6 +1692,8 @@ def main() -> int:
         row.update(library_fields(k, {**lib_f32, **lib_f64}.get(k, t)))
         if k.startswith("seg_ablate_") and "_x2_" not in k:
             row["also_replaces"] = ABLATE_ALSO
+        if k in FIXUPS:
+            row["launch_floor_ms"] = floor
         if k in ("seg_spmv_tiles", "seg_spmv_tiles_x2"):
             more = ({"pl_big": tc_big, "pl_wide": times["pl_wide-524288"]}
                     if k == "seg_spmv_tiles" else {"pl_big": tx_big})

@@ -21,7 +21,9 @@ partials in tile order. Tile ``t`` owns two slots:
 A split row ``r`` with ``ta = ptr[r] // tile`` and
 ``tb = (ptr[r+1] - 1) // tile`` therefore reads
 ``carry[2ta+1] + carry[2(ta+1)] + … + carry[2tb]`` — a range of tiles, so a
-power-law row may span any number of them.
+power-law row may span any number of them. Those are exactly the slots K1
+writes (``kernels.engines.carry_slot_rows``); K2 reads no other, so the
+carries need no clearing.
 
 The panel plan (counterpart of ``build_panel_plan`` there, again not of its
 128-column stripes, depth-8 x windows, u8 ``lo``/``hi`` or P-planes) is

@@ -84,6 +84,11 @@ SIGNATURES = {
     # ptr, cols, vals, tile_row0, x, y, carry, out, nnz, ntiles, mode, stream
     "seg_ablate": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "seg_ablate_x2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # K1 + K2 in one launch: ptr, cols, vals, tile_row0, x, y, carry,
+    # carry_rows, arrived, nnz, ntiles, ncarry, tile, stream
+    "seg_spmv_tiles_fold": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # stream: one launch of a kernel that does nothing
+    "launch_floor": (_P,),
     # K4 and K14 with x̃(c) synthesized: the arguments of panel_spmv_tiles
     # (x may be null)
     "panel_ablate_nogather": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

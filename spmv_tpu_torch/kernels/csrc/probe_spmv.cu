@@ -17,6 +17,20 @@
 //   seg_ablate_x2           K12 with a stage cut (float64): replace
 //                           scripts/probe_ablate.py:152, probe_ablate2.py:175,
 //                           probe_ablate3.py:211 and probe_x2.py:241.
+//   seg_spmv_tiles_fold     K1 with K2 folded into its last block: y = A·x
+//                           in one launch. Each block runs K1's block, makes
+//                           its writes visible (__threadfence) and counts
+//                           itself on an integer counter; the last to
+//                           arrive adds every split row's carries in K2's
+//                           order, reading them from L2, and resets the
+//                           counter for the next launch. The same bits as
+//                           K1 + K2; no float atomics. It asks what the
+//                           fix-up's separate launch costs (the scatter
+//                           epilogue of scripts/probe_ablate3.py:211).
+//   launch_floor            a one-block kernel that does nothing: the least
+//                           time a separate launch takes in a CUDA graph,
+//                           beside which the fix-ups (K2, K5, K7, K9, K13,
+//                           K15) are timed. It replaces no TPU kernel.
 //   panel_ablate_nogather   K4 (float32) and K14 (float64) with x(c) =
 //   panel_ablate_x2_nogather (c & 1023)·2⁻¹⁰ computed in registers: the
 //                           panel tile kernel of panel_tile.cuh without the
@@ -137,6 +151,38 @@ seg_ablate_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
   }
 }
 
+// seg_spmv_tiles_fold's kernel: K1's block, then K2 in the last block to
+// arrive. `arrived` is 0 at launch and 0 again when the grid ends.
+__global__ void __launch_bounds__(kTileThreads)
+seg_spmv_tiles_fold_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
+                           const float* __restrict__ vals,
+                           const int* __restrict__ tile_row0,
+                           const float* __restrict__ x, float* __restrict__ y,
+                           float* carry, int nnz, const int* __restrict__ carry_rows,
+                           int ncarry, unsigned int* arrived) {
+  seg_tiles_block<float, int32_t, kTileThreads, kXGather, float, 1>(
+      ptr, cols, vals, tile_row0, x, y, carry, nnz);
+  __shared__ bool s_last;
+  __threadfence();  // this block's y and carries, visible device-wide
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrived, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int j = threadIdx.x; j < ncarry; j += kTileThreads) {
+    const int r = __ldg(carry_rows + j);
+    const int ta = __ldg(ptr + r) / kTileNnz;
+    const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
+    float s = __ldcg(carry + 2 * ta + 1);  // from L2: other blocks wrote them
+    for (int t = ta + 1; t <= tb; ++t) s += __ldcg(carry + 2 * t);
+    y[r] = s;
+  }
+  if (threadIdx.x == 0) *arrived = 0u;
+}
+
+// launch_floor's kernel: one block of one thread, no work.
+__global__ void launch_floor_kernel() {}
+
 template <typename T, int kMode>
 int launch_ablate_stream(const void* cols, const void* vals, const void* x,
                          void* out, int nnz, int ntiles, void* stream) {
@@ -214,7 +260,8 @@ int seg_spmv_tiles_at(const void* ptr, const void* cols, const void* vals,
   }
 }
 
-// K2 (float32) for a plan of tile 128, 512 or 2048 nonzeros.
+// K2 (float32) for a plan of tile 128, 512 or 2048 nonzeros, launched as K2
+// is: a programmatic dependent of the kernel ahead of it.
 int carry_fixup_at(const void* ptr, const void* carry_rows, const void* carry,
                    void* y, int ncarry, int tile, void* stream) {
   switch (tile) {
@@ -245,6 +292,32 @@ int seg_ablate_x2(const void* ptr, const void* cols, const void* vals,
                   void* out, int nnz, int ntiles, int mode, void* stream) {
   return launch_ablate<double>(ptr, cols, vals, tile_row0, x, y, carry, out, nnz,
                                ntiles, mode, stream);
+}
+
+// K1 + K2 in one launch (float32, tile 1024): the arguments of
+// seg_spmv_tiles, then K2's carry_rows and ncarry, and `arrived`, one
+// unsigned int that is 0 and that no other launch uses meanwhile.
+int seg_spmv_tiles_fold(const void* ptr, const void* cols, const void* vals,
+                        const void* tile_row0, const void* x, void* y, void* carry,
+                        const void* carry_rows, void* arrived, int nnz, int ntiles,
+                        int ncarry, int tile, void* stream) {
+  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
+      ntiles != (nnz + kTileNnz - 1) / kTileNnz || ncarry < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  seg_spmv_tiles_fold_kernel<<<ntiles, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(cols),
+      static_cast<const float*>(vals), static_cast<const int*>(tile_row0),
+      static_cast<const float*>(x), static_cast<float*>(y), static_cast<float*>(carry),
+      nnz, static_cast<const int*>(carry_rows), ncarry,
+      static_cast<unsigned int*>(arrived));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of a kernel that does nothing, on the stream.
+int launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K4 (float32) without the x gather: the arguments of panel_spmv_tiles; x

@@ -37,7 +37,9 @@
 //
 // Plain C interface for ctypes: every launcher takes device pointers and
 // the stream as void*, launches on that stream, and returns
-// cudaGetLastError() (0 = launched). The host wrapper
+// cudaGetLastError() (0 = launched; for K2 and K13, which launch with
+// cudaLaunchKernelEx as programmatic dependents of the tile kernel ahead
+// of them, that call's error first). The host wrapper
 // (spmv_tpu_torch/kernels/engines.py) checks shapes, types and devices,
 // allocates every output, and never calls a launcher with an empty grid.
 
@@ -154,7 +156,8 @@ int seg_spmv_tiles(const void* ptr, const void* cols, const void* vals,
       ptr, cols, vals, tile_row0, x, y, carry, nnz, ntiles, tile, stream);
 }
 
-// K2: y[r] = the sum of a split row's partials, in tile order.
+// K2: y[r] = the sum of a split row's partials, in tile order; a
+// programmatic dependent launch (seg_tile.cuh, launch_carry_fixup).
 int carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
                 void* y, int ncarry, int tile, void* stream) {
   return launch_carry_fixup<float, kTileNnz>(ptr, carry_rows, carry, y, ncarry,

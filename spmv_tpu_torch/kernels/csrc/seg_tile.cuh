@@ -343,7 +343,10 @@ __host__ __device__ constexpr int row_stage_cap() {
 // scan (warp shuffles driven by run-start flags, then every warp over the
 // warp totals in shared memory) joins them. The thread where a row's run
 // ends in the tile writes it through emit_row. Rows with no nonzeros are
-// never written: the wrapper zeroes y.
+// never written: the wrapper zeroes y. Nor is a carry slot that no split
+// row uses (a tile whose first row starts at its first nonzero has no
+// head, one whose last row ends inside it no tail): the fix-ups read only
+// the slots written here, so the wrapper allocates carry without a fill.
 //
 // What bounds it on the H100: bytes in principle (8 B per nonzero
 // streamed, 12 in fp64, and a 4- or 8-byte x gather, for 2 flops), but the
@@ -431,6 +434,15 @@ __device__ __forceinline__ void seg_tiles_block(const int* __restrict__ ptr,
       }
     }
   }
+  // Release the programmatic dependent launched after this kernel (K2,
+  // K13) once every block has issued its stream: its grid may then start
+  // while this kernel's last wave runs, and does its plan reads before it
+  // waits for this kernel to finish. On an H100 this placement made the
+  // K1 + K2 and K12 + K13 paths 0.3-1.4 µs faster than no trigger and
+  // 0.4-1.8 µs faster than one after the emit, with the same registers
+  // (probes.turns; PERF.md §6). It does nothing when the next launch
+  // is an ordinary one.
+  asm volatile("griddepcontrol.launch_dependents;");
   auto xrow = [&](int k, T (&xr)[R]) {
     if constexpr (kAhead) {
 #pragma unroll
@@ -501,18 +513,36 @@ seg_spmm_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 // kTileNnz nonzeros). It adds the row's partials in tile order: the tail
 // slot of the tile where the row begins, then the head slot of every later
 // tile it reaches. Reads 4 B (8 B for doubles) per carry and writes y
-// once; a few KB at cant scale, so launch latency is its cost.
+// once; a few KB at cant scale, so bytes are not its cost: its launch, and
+// a chain of three dependent loads (the row, its two offsets, the carries)
+// behind the whole tile kernel, are.
+//
+// So it is launched as a programmatic dependent of the tile kernel ahead
+// of it on the stream (launch_carry_fixup): the grid may start while the
+// tile kernel's last blocks run, and each thread reads its row and the
+// row's offsets, plan data that no kernel writes, and computes its tile
+// range before griddepcontrol.wait. The wait returns once the kernel ahead
+// has completed and its writes are visible; only then does the thread read
+// the carries and write y. carry is written by that kernel while this grid
+// may already be resident, so it is read with plain (coherent) loads after
+// the wait, never through the read-only path. Launched after anything
+// other than a kernel, the wait returns at once. The sum and so the bits
+// are those of the kernel that waited for the launch. With the tile
+// kernel's trigger (griddepcontrol.launch_dependents, seg_tiles_block),
+// the launch took 0.2-1.4 µs off the K1 + K2 and K12 + K13 paths on an
+// H100 against an ordinary launch; alone it costs about the time of a
+// kernel that does nothing (probes.turns, chip_smoke.py; PERF.md §6).
 template <typename T, int kTileNnz>
 __global__ void __launch_bounds__(kFixupThreads)
 carry_fixup_kernel(const int* __restrict__ ptr,
                    const int* __restrict__ carry_rows,
-                   const T* __restrict__ carry, T* __restrict__ y,
-                   int ncarry) {
+                   const T* carry, T* __restrict__ y, int ncarry) {
   const int j = blockIdx.x * kFixupThreads + threadIdx.x;
   if (j >= ncarry) return;
   const int r = __ldg(carry_rows + j);
   const int ta = __ldg(ptr + r) / kTileNnz;
   const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   T s = carry[2 * ta + 1];
   for (int t = ta + 1; t <= tb; ++t) s += carry[2 * t];
   y[r] = s;
@@ -548,18 +578,32 @@ int launch_seg_tiles(const void* ptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches K2 (K13 for T = double; a probe's tile) as a programmatic
+// dependent of the kernel ahead of it on the stream. Returns the launch's
+// error (cudaLaunchKernelEx's, else cudaGetLastError()); refuses
+// (cudaErrorInvalidValue, nothing launched) a tile it was not built for.
 template <typename T, int kTileNnz>
 int launch_carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
                        void* y, int ncarry, int tile, void* stream) {
   if (tile != kTileNnz || ncarry <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (ncarry + kFixupThreads - 1) / kFixupThreads;
-  carry_fixup_kernel<T, kTileNnz>
-      <<<blocks, kFixupThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(ptr), static_cast<const int*>(carry_rows),
-          static_cast<const T*>(carry), static_cast<T*>(y), ncarry);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((ncarry + kFixupThreads - 1) / kFixupThreads);
+  config.blockDim = dim3(kFixupThreads);
+  config.dynamicSmemBytes = 0;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &config, carry_fixup_kernel<T, kTileNnz>, static_cast<const int*>(ptr),
+      static_cast<const int*>(carry_rows), static_cast<const T*>(carry),
+      static_cast<T*>(y), ncarry);
+  const cudaError_t last = cudaGetLastError();  // and clears a refused launch's
+  return static_cast<int>(rc != cudaSuccess ? rc : last);
 }
 
 }  // namespace

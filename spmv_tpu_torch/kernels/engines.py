@@ -39,8 +39,8 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
            "carry_fixup_reference", "segmented_spmv_fused_reference",
            "segmented_spmv_multi", "segmented_spmv_multi_partials",
            "carry_fixup_multi", "segmented_spmv_multi_partials_reference",
-           "carry_fixup_multi_reference", "MULTI_RHS_MAX",
-           "LAUNCHES", "reset_launches", "fused_lanes", "KernelError"]
+           "carry_fixup_multi_reference", "MULTI_RHS_MAX", "carry_slot_rows",
+           "tile_outputs", "LAUNCHES", "reset_launches", "fused_lanes", "KernelError"]
 
 # Launch counts per kernel, this engine's, the panel engine's
 # (``kernels.panel``) and the fp64-grade ones (``kernels.engines_x2``); the
@@ -141,18 +141,27 @@ def _seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Tensor):
     return _launch_seg_tiles(kernel, dtype, dev, x)
 
 
+def tile_outputs(dev: DevCsr, dtype: torch.dtype, tail=()):
+    """y and carry for a launch of the tile kernel (K1, K8, K12 and the
+    probes' instantiations): y zero-filled, since rows with no nonzeros are
+    not written; carry not filled, since the kernel writes every slot a
+    split row uses and the fix-ups read no other (``carry_slot_rows``)."""
+    y = torch.zeros((dev.nrows, *tail), dtype=dtype, device=dev.device)
+    carry = torch.empty((2 * dev.ntiles, *tail), dtype=dtype, device=dev.device)
+    return y, carry
+
+
 def _launch_seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Tensor):
     """The launch of K1, K12 or K8 (the tile kernel at R columns: x an
-    (ncols, R) X, y and the carries R wide, R passed after the tile).
-    Rows with no nonzeros are not written, so y is zero-filled."""
+    (ncols, R) X, y and the carries R wide, R passed after the tile), into
+    ``tile_outputs``."""
     if dev.tile != TILE_NNZ:
         raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
     for t in (dev.cols, dev.vals):  # 4 nonzeros per step, in 16-byte loads
         if t.data_ptr() % 16:
             raise ValueError("plan tensors must be 16-byte aligned")
     tail = tuple(x.shape[1:])
-    y = torch.zeros((dev.nrows, *tail), dtype=dtype, device=dev.device)
-    carry = torch.zeros((2 * dev.ntiles, *tail), dtype=dtype, device=dev.device)
+    y, carry = tile_outputs(dev, dtype, tail)
     if dev.nnz:  # a zero-sized grid is refused: nothing to launch
         _launch(kernel, dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0, x, y,
                 carry, dev.nnz, dev.ntiles, dev.tile, *tail)
@@ -178,13 +187,20 @@ def segmented_spmv_partials(dev: DevCsr, x: torch.Tensor):
     """K1: ``(y, carry)``. y holds every row that lies wholly inside one
     tile (and 0 for empty rows); ``carry`` (2 slots per tile, see
     ``formats.base``) holds the partials of the rows that cross a tile
-    boundary, for ``carry_fixup``."""
+    boundary, for ``carry_fixup``. On the card a slot that no split row
+    uses (``carry_slot_rows`` -1) holds whatever the memory held: the
+    kernel does not write it and nothing reads it. The plain version
+    leaves such slots 0."""
     return _seg_tiles("seg_spmv_tiles", torch.float32, dev, x)
 
 
 def carry_fixup(dev: DevCsr, y: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
     """K2: adds each split row's partials, in tile order, into ``y``.
-    Updates ``y`` in place (no second y buffer) and returns it."""
+    Updates ``y`` in place (no second y buffer) and returns it. On the
+    card K2 is a programmatic dependent launch: it reads its rows and their
+    offsets while the kernel ahead of it on the stream (K1) finishes, then
+    waits for that kernel before it reads ``carry``. So ``dev``'s plan must
+    not be written by that kernel, as no kernel of the port does."""
     return _seg_fixup("carry_fixup", torch.float32, dev, y, carry)
 
 
@@ -218,6 +234,28 @@ def segmented_spmv_partials_reference(dev: DevCsr, x: torch.Tensor):
     slot = 2 * stile + (rs >= ts).long()  # head slot 2t, tail slot 2t+1
     carry[slot[~whole]] = sums[~whole]
     return y, carry
+
+
+def carry_slot_rows(dev: DevCsr) -> torch.Tensor:
+    """The split row whose partial each of the plan's ``2·ntiles`` carry
+    slots holds, -1 for a slot no row uses, on the plan's device: row r
+    with ``ta = ptr[r] // tile`` and ``tb = (ptr[r+1] - 1) // tile`` owns
+    the tail slot ``2ta+1`` and the head slots ``2t``, ``ta < t <= tb``.
+    These are the slots the tile kernel writes and the fix-ups read; the
+    checks of a carry compare these slots only."""
+    owner = torch.full((2 * dev.ntiles,), -1, dtype=torch.long, device=dev.device)
+    if dev.ncarry == 0:
+        return owner
+    r = dev.carry_rows.long()
+    ptr = dev.ptr.long()
+    ta = ptr[r] // dev.tile
+    counts = (ptr[r + 1] - 1) // dev.tile - ta + 1
+    first = torch.repeat_interleave(ta, counts)  # each slot's row's first tile
+    step = torch.arange(int(counts.sum()), device=dev.device) - torch.repeat_interleave(
+        torch.cumsum(counts, 0) - counts, counts)
+    t = first + step
+    owner[2 * t + (step == 0).long()] = torch.repeat_interleave(r, counts)
+    return owner
 
 
 def carry_fixup_reference(dev: DevCsr, y: torch.Tensor,

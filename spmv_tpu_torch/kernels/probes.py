@@ -19,6 +19,11 @@ ablate_dma                      seg_ablate(_x2), mode 2     scripts/probe_ablate
 ablate_x32                      seg_ablate_x2, mode 3       scripts/probe_x2.py:241
 panel_ablate_nogather           panel_ablate(_x2)_nogather  scripts/probe_ablate.py:152 (nowin),
                                                             on K4 and K14
+segmented_spmv_fold             seg_spmv_tiles_fold         scripts/probe_ablate3.py:211
+                                                            (the scatter epilogue's cost)
+launch_floor                    launch_floor                no TPU kernel: the floor under
+                                                            a separate launch (no plain
+                                                            version: it computes nothing)
 ==============================  ==========================  ==================================
 
 Routing, as in ``kernels.engines``: CPU tensors run the plain version,
@@ -30,6 +35,7 @@ per stage cut), which this module adds to that table.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -38,7 +44,7 @@ from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import TILE_NNZ, build_csr_plan, cdiv
 from spmv_tpu_torch.kernels.engines import (LAUNCHES, _check_x, _launch, _on_cuda,
                                             segmented_spmv_partials_reference,
-                                            carry_fixup_reference)
+                                            carry_fixup_reference, tile_outputs)
 from spmv_tpu_torch.kernels.panel import (_launch_panel_tiles,
                                           panel_spmv_partials_reference)
 
@@ -49,7 +55,8 @@ __all__ = ["U16_COLS_MAX", "PROBE_TILES", "LAUNCH_KEYS", "cols16", "retile", "xt
            "ablate_nogather", "ablate_nogather_reference", "ablate_noseg",
            "ablate_noseg_reference", "ablate_dma", "ablate_dma_reference",
            "ablate_x32", "ablate_x32_reference", "tile_sums",
-           "panel_ablate_nogather", "panel_ablate_nogather_reference"]
+           "panel_ablate_nogather", "panel_ablate_nogather_reference",
+           "segmented_spmv_fold", "segmented_spmv_fold_reference", "launch_floor"]
 
 # The widest matrix a 16-bit column index addresses.
 U16_COLS_MAX = 65536
@@ -63,7 +70,8 @@ LAUNCH_KEYS = ("seg_spmv_tiles_u16", "seg_spmv_tiles_u16_x2",
                *(f"carry_fixup_t{t}" for t in PROBE_TILES),
                "seg_ablate_nogather", "seg_ablate_noseg", "seg_ablate_dma",
                "seg_ablate_x2_nogather", "seg_ablate_x2_noseg", "seg_ablate_x2_dma",
-               "seg_ablate_x2_x32", "panel_ablate_nogather", "panel_ablate_x2_nogather")
+               "seg_ablate_x2_x32", "panel_ablate_nogather", "panel_ablate_x2_nogather",
+               "seg_spmv_tiles_fold", "launch_floor")
 for _key in LAUNCH_KEYS:
     LAUNCHES.setdefault(_key, 0)
 
@@ -134,8 +142,7 @@ def segmented_spmv_partials_u16(dev: DevCsr, c16: torch.Tensor, x: torch.Tensor)
         return segmented_spmv_partials_u16_reference(dev, c16, x)
     _check_tile(dev, (TILE_NNZ,))
     _aligned((dev.vals, 16), (c16, 8))
-    y = torch.zeros(dev.nrows, dtype=dtype, device=dev.device)
-    carry = torch.zeros(2 * dev.ntiles, dtype=dtype, device=dev.device)
+    y, carry = tile_outputs(dev, dtype)
     if dev.nnz:
         name = "seg_spmv_tiles_u16" + _suffix(dtype)
         _launch(name, dev, dev.ptr, c16, dev.vals, dev.tile_row0, x, y, carry,
@@ -170,8 +177,7 @@ def segmented_spmv_partials_at(dev: DevCsr, x: torch.Tensor):
         return segmented_spmv_partials_at_reference(dev, x)
     _check_tile(dev, PROBE_TILES)
     _aligned((dev.vals, 16), (dev.cols, 16))
-    y = torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
-    carry = torch.zeros(2 * dev.ntiles, dtype=torch.float32, device=dev.device)
+    y, carry = tile_outputs(dev, torch.float32)
     if dev.nnz:
         _launch("seg_spmv_tiles_at", dev, dev.ptr, dev.cols, dev.vals,
                 dev.tile_row0, x, y, carry, dev.nnz, dev.ntiles, dev.tile,
@@ -222,8 +228,7 @@ def ablate_nogather(dev: DevCsr):
         return ablate_nogather_reference(dev)
     _check_tile(dev, (TILE_NNZ,))
     _aligned((dev.vals, 16), (dev.cols, 16))
-    y = torch.zeros(dev.nrows, dtype=dtype, device=dev.device)
-    carry = torch.zeros(2 * dev.ntiles, dtype=dtype, device=dev.device)
+    y, carry = tile_outputs(dev, dtype)
     if dev.nnz:
         name = "seg_ablate" + _suffix(dtype)
         _launch(name, dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0, None, y,
@@ -316,8 +321,7 @@ def ablate_x32(dev: DevCsr, x32: torch.Tensor):
         return ablate_x32_reference(dev, x32)
     _check_tile(dev, (TILE_NNZ,))
     _aligned((dev.vals, 16), (dev.cols, 16))
-    y = torch.zeros(dev.nrows, dtype=torch.float64, device=dev.device)
-    carry = torch.zeros(2 * dev.ntiles, dtype=torch.float64, device=dev.device)
+    y, carry = tile_outputs(dev, torch.float64)
     if dev.nnz:
         _launch("seg_ablate_x2", dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0,
                 x32, y, carry, None, dev.nnz, dev.ntiles, _MODES["x32"],
@@ -347,3 +351,51 @@ def panel_ablate_nogather(dev: DevPanel):
 def panel_ablate_nogather_reference(dev: DevPanel):
     """Plain K4 on ``xtilde``."""
     return panel_spmv_partials_reference(dev, xtilde(dev.ncols, dev.vals.dtype, dev.device))
+
+
+# ---------------------------------------------------------------- K1 + K2 folded
+
+# the fold kernel's arrival counter per device: zeroed once, and left at 0
+# by the last block of every launch
+_ARRIVED: dict = {}
+
+
+def segmented_spmv_fold(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
+    """K1 with K2 folded into its last block (float32 plan): y = A·x in one
+    launch, bit for bit K1 then K2. The blocks count themselves on one
+    integer counter per device, so launches that share a device must not
+    overlap (one stream)."""
+    _check_x(dev, x)
+    if not _on_cuda(dev, x):
+        return segmented_spmv_fold_reference(dev, x)
+    _check_tile(dev, (TILE_NNZ,))
+    _aligned((dev.vals, 16), (dev.cols, 16))
+    y, carry = tile_outputs(dev, torch.float32)
+    if dev.nnz:
+        if dev.device not in _ARRIVED:
+            _ARRIVED[dev.device] = torch.zeros(1, dtype=torch.int32, device=dev.device)
+        _launch("seg_spmv_tiles_fold", dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0,
+                x, y, carry, dev.carry_rows, _ARRIVED[dev.device], dev.nnz,
+                dev.ntiles, dev.ncarry, dev.tile)
+    return y
+
+
+def segmented_spmv_fold_reference(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
+    """Plain K1 then plain K2."""
+    return carry_fixup_reference(dev, *segmented_spmv_partials_reference(dev, x))
+
+
+# ---------------------------------------------------------------- launch floor
+
+
+def launch_floor(device) -> None:
+    """One launch of a kernel that does nothing, one block of one thread,
+    on the current stream of CUDA ``device``. Timed in a CUDA graph
+    (``probes.timing.graph_ms``) it is the least time a separate launch
+    takes: the floor under a fix-up's launch, beside its byte bound. It
+    computes nothing, so it has no plain version, and any other device is
+    refused."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the launch floor is a CUDA launch, not one on {device}")
+    _launch("launch_floor", SimpleNamespace(device=device))

@@ -1,13 +1,17 @@
 """Two checkouts' tile kernels, timed in turns on one card.
 
-    python -m spmv_tpu_torch.probes.turns OTHER_ROOT [--out DIR]
-        [--only seg|panel|spmm] [--probe NAME:MATRIX ...] [--rounds N]
+    python -m spmv_tpu_torch.probes.turns OTHER_ROOT [OTHER_ROOT ...]
+        [--out DIR] [--only seg|panel|spmm] [--probe NAME:MATRIX ...]
+        [--rounds N]
 
-Measures a change to the segmented tile kernel K1/K12/K8
+Measures a change to the segmented tile kernel K1/K12/K8 and its fix-ups
 (``kernels/csrc/seg_tile.cuh``) or the panel tile kernel K4/K14/K10
 (``kernels/csrc/panel_tile.cuh``) against another checkout of the
 repository (the commit it changes, unpacked with ``git archive``) in one
-run on one card, in turns: OTHER, THIS, THIS, OTHER. Each turn is a fresh
+run on one card, in turns: OTHER, THIS, THIS, OTHER. With several other
+checkouts (variants of one design) each runs twice too, in the order
+OTHER, OTHER2, ..., THIS, THIS, ..., OTHER2, OTHER, and every time is
+also given against the first. Each turn is a fresh
 process that imports ``spmv_tpu_torch`` from one checkout, so it builds and
 launches that checkout's kernels through that checkout's wrappers, and
 (``--only`` keeps one of the three engines):
@@ -30,14 +34,19 @@ launches that checkout's kernels through that checkout's wrappers, and
   replay, warm), and cuSPARSE on the same matrix's CSR plan in float32
   and float64 (``torch.sparse_csr_tensor @ x``, ``@ X`` for R columns, a
   yardstick the port never calls), beside each kernel's HBM-peak bound
-  (``bounds``);
+  (``bounds``), and, where the checkout has them, the launch floor
+  (``kernels.probes.launch_floor``, a kernel that does nothing) and K1 with
+  K2 folded into its last block (``kernels.probes.segmented_spmv_fold``,
+  its y checked against K1 + K2's bit for bit);
 * then runs each ``--probe NAME:MATRIX`` (``python -m spmv_tpu_torch.probes``)
   in that checkout, its output saved beside the arrays.
 
-At the end every saved output is compared bit for bit across the four
-turns, and each time is printed as the median of its checkout's two turns,
-with the card's name and power limit; ``DIR/turns.json`` keeps all of it.
-Exits 1 without a card, and when two outputs differ.
+A segmented carry is saved with the slots no split row uses set to 0:
+the tile kernel does not write them (``engines.carry_slot_rows``). At the
+end every saved output is compared bit for bit across all turns, and each
+time is printed as the median of its checkout's two turns, with the
+card's name and power limit; ``DIR/turns.json`` keeps all of it. Exits 1
+without a card, and when two outputs differ.
 """
 
 from __future__ import annotations
@@ -91,6 +100,20 @@ def shape_specs(out: Path) -> dict:
     return paths
 
 
+def _unused_slots(dev) -> np.ndarray:
+    """The carry slots of a CSR plan that no split row uses: what
+    ``engines.carry_slot_rows`` marks -1, computed here on the host
+    because the worker may run in a checkout that lacks it."""
+    ptr = dev.ptr.cpu().numpy().astype(np.int64)
+    r = dev.carry_rows.cpu().numpy().astype(np.int64)
+    ta, tb = ptr[r] // dev.tile, (ptr[r + 1] - 1) // dev.tile
+    used = np.zeros(2 * dev.ntiles, bool)
+    used[2 * ta + 1] = True
+    for a, b in zip(ta, tb):
+        used[2 * np.arange(a + 1, b + 1)] = True
+    return ~used
+
+
 def _worker(out_dir: Path, specs: dict) -> dict:
     """One turn, in a process whose ``spmv_tpu_torch`` is the checkout in
     the working directory: at each R of ``specs["rhs"]`` (1: K1 and K12,
@@ -108,6 +131,7 @@ def _worker(out_dir: Path, specs: dict) -> dict:
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.kernels import engines_x2 as X2
     from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.kernels import probes as KP
     from spmv_tpu_torch.probes import bounds as B
     from spmv_tpu_torch.probes.timing import card_line, graph_ms
 
@@ -125,16 +149,28 @@ def _worker(out_dir: Path, specs: dict) -> dict:
     res = {"card": card_line(), "package": spmv_tpu_torch.__file__, "ms": {}}
     ms = res["ms"]
 
-    def save(label, key, y, part):
+    def save(label, key, y, part, unused=None):
         stem = f"{label.replace(' ', '_')}_{key}"
+        part = part.cpu().numpy()
+        if unused is not None:
+            part[unused] = 0
         np.save(out_dir / f"{stem}_y.npy", y.cpu().numpy())
-        np.save(out_dir / f"{stem}_part.npy", part.cpu().numpy())
+        np.save(out_dir / f"{stem}_part.npy", part)
+
+    fold = getattr(KP, "segmented_spmv_fold", None)
 
     def time_tiles(label, key, dev, x, tiles, fixup, tiles_bytes, nnz, A, R=1):
         dtype = dev.vals.dtype
-        save(label, key, *tiles(dev, x))
+        save(label, key, *tiles(dev, x),
+             unused=_unused_slots(dev) if isinstance(dev, DevCsr) else None)
         ms[f"{label} {key} tiles"] = graph_ms(lambda: tiles(dev, x))
         ms[f"{label} {key} path"] = graph_ms(lambda: fixup(dev, *tiles(dev, x)))
+        if fold is not None and key == "f32" and isinstance(dev, DevCsr):
+            # K1 + K2 in one launch, where the checkout has the probe: its y
+            # must be the path's, bit for bit
+            if not torch.equal(fold(dev, x), fixup(dev, *tiles(dev, x))):
+                raise AssertionError(f"{label}: the folded K1 + K2 is not K1 + K2's bits")
+            ms[f"{label} {key} fold"] = graph_ms(lambda: fold(dev, x))
         ms[f"{label} {key} cusparse"] = graph_ms(lambda: A @ x)
         ms[f"{label} {key} tiles bound"] = B.bound_ms(tiles_bytes, 2 * nnz * R, dtype)[0]
         ms[f"{label} {key} path bound"] = B.bound_ms(B.csr_spmv_bytes(dev, R),
@@ -160,6 +196,9 @@ def _worker(out_dir: Path, specs: dict) -> dict:
             for R in multi if key == "f32" else ():
                 save(f"{name} shape", f"R{R}",
                      *panels["multi"][0](a.dev, vector(ncols, np_dtype, R)))
+    floor = getattr(KP, "launch_floor", None)
+    if floor is not None:
+        ms["launch floor"] = graph_ms(lambda: floor("cuda"))
     for engine, named in specs.items():
         for name, (gen, kwargs, *split) in named.items():
             info, r, c, v = getattr(synth, gen)(**kwargs)
@@ -229,10 +268,18 @@ def compare(dirs: list[Path]) -> list[str]:
     return bad
 
 
+def turn_order(names: list[str]) -> list[str]:
+    """The checkouts' turns: the others in order, this twice, the others
+    in reverse, so each runs twice and both runs of this sit in the
+    middle."""
+    return [*names, "this", "this", *reversed(names)]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m spmv_tpu_torch.probes.turns",
                                 description=__doc__.splitlines()[0])
-    p.add_argument("other", help="root of the other checkout")
+    p.add_argument("other", nargs="+", help="root of the other checkout (the "
+                   "first is the one every time is given against)")
     p.add_argument("--out", default="turns_out",
                    help="directory for the outputs and turns.json")
     p.add_argument("--only", choices=("seg", "panel", "spmm"),
@@ -249,11 +296,13 @@ def main(argv=None) -> int:
         print("turns: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    roots = {"other": Path(args.other).resolve(), "this": THIS_ROOT}
+    others = ["other"] + [f"other{i}" for i in range(2, len(args.other) + 1)]
+    roots = {**{n: Path(o).resolve() for n, o in zip(others, args.other)},
+             "this": THIS_ROOT}
     out = Path(args.out).resolve()
-    turns, dirs = [], {"other": [], "this": []}
+    turns, dirs = [], {tree: [] for tree in roots}
     specs = run_specs(args.only, out)
-    for i, tree in enumerate(("other", "this", "this", "other")):
+    for i, tree in enumerate(turn_order(others)):
         d = out / f"{i}-{tree}"
         proc = subprocess.run([sys.executable, __file__, "--worker", str(d),
                                json.dumps(specs)],
@@ -279,20 +328,28 @@ def main(argv=None) -> int:
         dirs[tree].append(d)
         print(f"turn {i} ({tree}) done  [{res['card']}]", flush=True)
 
-    bad = compare(dirs["other"] + dirs["this"])
+    bad = compare([d for tree in roots for d in dirs[tree]])
     card = turns[0]["card"]
     print(f"tile kernels and paths, device ms, median of each checkout's two "
-          f"turns (CUDA-graph replay, warm); 'bound' is the HBM-peak bound  [{card}]")
+          f"turns (CUDA-graph replay, warm); 'bound' is the HBM-peak bound; each "
+          f"ratio against 'other' ({roots['other']})  [{card}]")
     medians = {}
-    for key in turns[0]["ms"]:
-        m = {tree: statistics.median(t["ms"][key] for t in turns if t["tree"] == tree)
-             for tree in ("other", "this")}
+    keys = list(dict.fromkeys(k for t in turns for k in t["ms"]))
+    for key in keys:
+        m = {}  # a checkout that lacks a member (the launch floor) has no time
+        for tree in roots:
+            got = [t["ms"][key] for t in turns if t["tree"] == tree and key in t["ms"]]
+            if got:
+                m[tree] = statistics.median(got)
         medians[key] = m
-        ratio = m["this"] / m["other"] if m["other"] else float("nan")
-        print(f"  {key:34s} other {m['other'] * 1e3:9.2f} µs  this "
-              f"{m['this'] * 1e3:9.2f} µs  this/other {ratio:.3f}")
+        cells = "  ".join(f"{tree} {m[tree] * 1e3:9.2f} µs" if tree in m
+                          else f"{tree} {'—':>9s}   " for tree in roots)
+        ratios = "  ".join(f"{tree}/other {m[tree] / m['other']:.3f}"
+                           for tree in roots if tree != "other" and tree in m
+                           and m.get("other"))
+        print(f"  {key:34s} {cells}  {ratios}")
     n = len(list(dirs["other"][0].glob("*.npy")))
-    print(f"bit for bit: {n} outputs of each of four turns; "
+    print(f"bit for bit: {n} outputs of each of {len(turns)} turns; "
           + ("all equal" if not bad else f"{len(bad)} differ: {bad}"))
     (out / "turns.json").write_text(json.dumps(
         {"roots": {k: str(v) for k, v in roots.items()}, "turns": turns,

@@ -6,12 +6,13 @@ on a CUDA card. Skipped without one (the decision is made in the
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from spmv_tpu_torch import CSRMatrix, EllMatrix, SellMatrix, synth
+from spmv_tpu_torch import CSRMatrix, EllMatrix, SellMatrix, X2Matrix, synth
 from spmv_tpu_torch.formats.base import build_csr_plan, build_panel_plan, csr_ptr
 from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.kernels import _build
@@ -20,7 +21,9 @@ from spmv_tpu_torch.kernels import engines_x2 as X2
 from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
+from spmv_tpu_torch.probes.common import MATRICES as MATRICES_OF_PROBES
 from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES, tile_sum_bound
+from spmv_tpu_torch.probes.turns import TURN_MATRICES
 
 pytestmark = pytest.mark.gpu
 
@@ -37,6 +40,19 @@ MATRICES = {
     # slice per tile, a hub slice, one-column slices, a cut last slice
     **PANEL_SHAPES,
 }
+
+
+def used(dev, carry):
+    """The carry slots of a CSR plan that a split row uses
+    (``engines.carry_slot_rows``): the tile kernel writes no other, and its
+    wrapper does not clear them."""
+    return carry[E.carry_slot_rows(dev) >= 0]
+
+
+def same_partials(dev, a, b) -> bool:
+    """Two ``(y, carry)`` of the tile kernel bit for bit: y, and the carry
+    slots a split row uses."""
+    return torch.equal(a[0], b[0]) and torch.equal(used(dev, a[1]), used(dev, b[1]))
 
 
 @pytest.fixture
@@ -59,8 +75,7 @@ def setup(name, device):
 def test_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
     dev, x, bound = setup(name, cuda)
     y1, carry = E.segmented_spmv_partials(dev, x)
-    y1b, carryb = E.segmented_spmv_partials(dev, x)
-    assert torch.equal(y1, y1b) and torch.equal(carry, carryb)
+    assert same_partials(dev, (y1, carry), E.segmented_spmv_partials(dev, x))
     y = E.carry_fixup(dev, y1.clone(), carry)
     assert torch.equal(y, E.carry_fixup(dev, y1.clone(), carry))
     y_plain = E.carry_fixup_reference(dev, *E.segmented_spmv_partials_reference(dev, x))
@@ -153,6 +168,9 @@ def test_each_launch_counts_once(cuda):
     KP.panel_ablate_nogather(a.dev)
     KP.panel_ablate_nogather(pdev64)
     KP.panel_ablate_nogather_reference(a.dev)
+    KP.segmented_spmv_fold(dev, x)
+    KP.segmented_spmv_fold_reference(dev, x)
+    KP.launch_floor(cuda)
     assert E.LAUNCHES == {k: 1 for k in (
         "seg_spmv_tiles", "carry_fixup", "csr_spmv_fused", "panel_spmv_tiles",
         "panel_fixup", "panel_spmv_fused", "inverse_permute", "seg_spmm_tiles",
@@ -163,7 +181,8 @@ def test_each_launch_counts_once(cuda):
         "carry_fixup_t128", "carry_fixup_t512", "carry_fixup_t2048",
         "seg_ablate_nogather", "seg_ablate_noseg", "seg_ablate_dma",
         "seg_ablate_x2_nogather", "seg_ablate_x2_noseg", "seg_ablate_x2_dma",
-        "seg_ablate_x2_x32", "panel_ablate_nogather", "panel_ablate_x2_nogather")}
+        "seg_ablate_x2_x32", "panel_ablate_nogather", "panel_ablate_x2_nogather",
+        "seg_spmv_tiles_fold", "launch_floor")}
 
 
 def test_empty_plans_launch_nothing(cuda):
@@ -342,8 +361,7 @@ def test_multi_kernels_match_plain_versions_and_repeat_bitwise(cuda, name, R):
     dev = CSRMatrix.from_coo(info.nrows, info.ncols, r, c, v, device=cuda).dev
     bound = columns_bound(info, r, c, v, Xh, dev.max_row_nnz).to(cuda)
     Y8, c8 = E.segmented_spmv_multi_partials(dev, X)
-    Y8b, c8b = E.segmented_spmv_multi_partials(dev, X)
-    assert torch.equal(Y8, Y8b) and torch.equal(c8, c8b)
+    assert same_partials(dev, (Y8, c8), E.segmented_spmv_multi_partials(dev, X))
     Y = E.carry_fixup_multi(dev, Y8.clone(), c8)
     assert torch.equal(Y, E.carry_fixup_multi(dev, Y8.clone(), c8))
     Y_plain = E.carry_fixup_multi_reference(
@@ -352,7 +370,7 @@ def test_multi_kernels_match_plain_versions_and_repeat_bitwise(cuda, name, R):
     assert torch.equal(E.segmented_spmv_multi(dev, unaligned_copy(X)), Y)
     for j in range(R):
         y1, c1 = E.segmented_spmv_partials(dev, X[:, j].contiguous())
-        assert torch.equal(Y8[:, j], y1) and torch.equal(c8[:, j], c1)
+        assert same_partials(dev, (Y8[:, j], c8[:, j]), (y1, c1))
 
     a = SellMatrix.from_coo(info.nrows, info.ncols, r, c, v, sigma=128,
                             split=False, device=cuda)
@@ -447,9 +465,8 @@ def test_x2_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
     dev, pdev, x = setup_x2(name, cuda)
     bound = x2_bound(dev, x, dev.max_row_nnz)
     y12, c12 = X2.segmented_spmv_x2_partials(dev, x)
-    y12b, c12b = X2.segmented_spmv_x2_partials(dev, x)
     assert y12.dtype == c12.dtype == torch.float64
-    assert torch.equal(y12, y12b) and torch.equal(c12, c12b)
+    assert same_partials(dev, (y12, c12), X2.segmented_spmv_x2_partials(dev, x))
     y = X2.carry_fixup_x2(dev, y12.clone(), c12)
     assert torch.equal(y, X2.carry_fixup_x2(dev, y12.clone(), c12))
     y_plain = X2.carry_fixup_x2_reference(
@@ -559,6 +576,104 @@ def test_a_conversion_error_returns_program_error_on_the_card(cuda, tmp_path, ca
     assert "error:" in capsys.readouterr().err
 
 
+# ---------------------------------------------------------------- fix-ups
+
+
+# The matrices ``probes.turns`` times K1 + K2 and K12 + K13 on (cant,
+# pl_big, pl_wide, band-1024), and the extremes of the tile kernel's stage
+FIXUP_MATRICES = {**{f"turns_{n}": MATRICES_OF_PROBES[n] for n in TURN_MATRICES},
+                  **TILE_SHAPES}
+
+
+@functools.cache
+def fixup_plans(name):
+    """A matrix of ``FIXUP_MATRICES`` as float32 and float64 CSR plans on
+    the card, with x of each type (cached: the 524k-row ones take seconds
+    to build)."""
+    info, r, c, v = FIXUP_MATRICES[name]()
+    dev = CSRMatrix.from_coo(info.nrows, info.ncols, r, c, v, device="cuda").dev
+    dev64 = X2Matrix.from_coo("csr", info.nrows, info.ncols, r, c, v, device="cuda").dev
+    xh = np.random.default_rng(9).standard_normal(info.ncols)
+    return dev, dev64, torch.from_numpy(xh).float().cuda(), torch.from_numpy(xh).cuda()
+
+
+def fixup_of_nan_carry(launcher, dev, x, fixup):
+    """The tile launcher itself (K1, K12, K8 with x an (ncols, R) X) into a
+    zero-filled y and a NaN-filled carry, then the fix-up's wrapper: a slot
+    the fix-up reads and the tile kernel leaves unwritten stays NaN."""
+    tail = tuple(x.shape[1:])
+    y = torch.zeros((dev.nrows, *tail), dtype=x.dtype, device=x.device)
+    carry = torch.full((2 * dev.ntiles, *tail), float("nan"), dtype=x.dtype,
+                       device=x.device)
+    assert getattr(_build.library().lib, launcher)(
+        dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), carry.data_ptr(),
+        dev.nnz, dev.ntiles, dev.tile, *tail,
+        torch.cuda.current_stream().cuda_stream) == 0
+    return fixup(dev, y, carry)
+
+
+@pytest.mark.parametrize("name", sorted(FIXUP_MATRICES))
+def test_fixups_read_only_the_carry_slots_the_tile_kernel_writes(cuda, name):
+    """K1 → K2 and K12 → K13 with the tile launcher writing into a
+    NaN-filled carry give the wrappers' y bit for bit; two runs of the
+    tile kernel agree on every used slot."""
+    dev, dev64, x, x64 = fixup_plans(name)
+    for tiles, fixup, launcher, d, xx in (
+            (E.segmented_spmv_partials, E.carry_fixup, "seg_spmv_tiles", dev, x),
+            (X2.segmented_spmv_x2_partials, X2.carry_fixup_x2, "seg_spmv_tiles_x2",
+             dev64, x64)):
+        part = tiles(d, xx)
+        assert same_partials(d, part, tiles(d, xx))
+        want = fixup(d, part[0].clone(), part[1])
+        assert torch.equal(fixup_of_nan_carry(launcher, d, xx, fixup), want)
+        assert not want.isnan().any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("R", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(FIXUP_MATRICES))
+def test_multi_fixup_reads_only_the_carry_slots_k8_writes(cuda, name, R):
+    """K8 → K9 with K8's launcher writing into a NaN-filled carry gives
+    the wrappers' Y bit for bit."""
+    dev, _, _, _ = fixup_plans(name)
+    X = torch.from_numpy(np.random.default_rng(R).standard_normal(
+        (dev.ncols, R)).astype(np.float32)).cuda()
+    want = E.segmented_spmv_multi(dev, X)
+    got = fixup_of_nan_carry("seg_spmm_tiles", dev, X, E.carry_fixup_multi)
+    assert torch.equal(got, want) and not want.isnan().any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["turns_cant", "turns_band", "hub_row",
+                                  "empty_row_gaps"])
+def test_fixup_paths_in_a_cuda_graph_equal_the_eager_run(cuda, name):
+    """K1 + K2, K12 + K13 and K8 + K9 captured in a CUDA graph (the fix-up
+    a programmatic dependent launch there too) and replayed give the eager
+    run's bits."""
+    dev, dev64, x, x64 = fixup_plans(name)
+    X = torch.stack([x, -x, 2 * x, x * x], dim=1)
+    paths = {"K1 + K2": (lambda d, xx: E.carry_fixup(d, *E.segmented_spmv_partials(d, xx)),
+                         dev, x),
+             "K12 + K13": (X2.segmented_spmv_x2, dev64, x64),
+             "K8 + K9": (E.segmented_spmv_multi, dev, X)}
+    for what, (path, d, xx) in paths.items():
+        eager = path(d, xx)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
+            path(d, xx)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = path(d, xx)
+        for _ in range(3):
+            out.fill_(float("nan"))
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), what
+
+
 # ---------------------------------------------------------------- probes
 
 
@@ -572,33 +687,37 @@ def test_probe_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
     y1, c1 = E.segmented_spmv_partials(dev, x)
     c16 = KP.cols16(dev)
     yu, cu = KP.segmented_spmv_partials_u16(dev, c16, x)
-    assert torch.equal(yu, y1) and torch.equal(cu, c1)
+    assert same_partials(dev, (yu, cu), (y1, c1))
     # the plain versions' index_add_ sums in no fixed order on the card
     y_plain = E.carry_fixup_reference(
         dev, *KP.segmented_spmv_partials_u16_reference(dev, c16, x))
     y = E.carry_fixup(dev, yu.clone(), cu)
     assert ((y.double() - y_plain.double()).abs() <= bound).all()
     y12 = X2.segmented_spmv_x2_partials(dev64, x64)
-    assert all(map(torch.equal, KP.segmented_spmv_partials_u16(dev64, c16, x64), y12))
+    assert same_partials(dev64, KP.segmented_spmv_partials_u16(dev64, c16, x64), y12)
     for tile in KP.PROBE_TILES:
         dt = KP.retile(dev, tile)
         ya, ca = KP.segmented_spmv_partials_at(dt, x)
-        yb, cb = KP.segmented_spmv_partials_at(dt, x)
-        assert torch.equal(ya, yb) and torch.equal(ca, cb)
+        assert same_partials(dt, (ya, ca), KP.segmented_spmv_partials_at(dt, x))
         y = KP.carry_fixup_at(dt, ya.clone(), ca)
         assert torch.equal(y, KP.carry_fixup_at(dt, ya.clone(), ca))
         y_plain = E.carry_fixup_reference(dt, *E.segmented_spmv_partials_reference(dt, x))
         assert ((y.double() - y_plain.double()).abs() <= bound).all(), tile
+    # K1 + K2 folded into one launch: K1 then K2's bits, twice (the counter
+    # is back at 0 after each launch)
+    y_path = E.carry_fixup(dev, y1.clone(), c1)
+    assert torch.equal(KP.segmented_spmv_fold(dev, x), y_path)
+    assert torch.equal(KP.segmented_spmv_fold(dev, x), y_path)
     xt = KP.xtilde(dev.ncols, torch.float32, cuda)
     yn, cn = KP.ablate_nogather(dev)
-    assert all(map(torch.equal, (yn, cn), E.segmented_spmv_partials(dev, xt)))
-    assert all(map(torch.equal, (yn, cn), KP.ablate_nogather(dev)))
+    assert same_partials(dev, (yn, cn), E.segmented_spmv_partials(dev, xt))
+    assert same_partials(dev, (yn, cn), KP.ablate_nogather(dev))
     xt64 = KP.xtilde(dev.ncols, torch.float64, cuda)
-    assert all(map(torch.equal, KP.ablate_nogather(dev64),
-                   X2.segmented_spmv_x2_partials(dev64, xt64)))
+    assert same_partials(dev64, KP.ablate_nogather(dev64),
+                         X2.segmented_spmv_x2_partials(dev64, xt64))
     x32 = x64.float()
-    assert all(map(torch.equal, KP.ablate_x32(dev64, x32),
-                   X2.segmented_spmv_x2_partials(dev64, x32.double())))
+    assert same_partials(dev64, KP.ablate_x32(dev64, x32),
+                         X2.segmented_spmv_x2_partials(dev64, x32.double()))
     for d, xx in ((dev, x), (dev64, x64)):
         for fn, ref, args in ((KP.ablate_noseg, KP.ablate_noseg_reference, (xx,)),
                               (KP.ablate_dma, KP.ablate_dma_reference, ())):
@@ -658,8 +777,8 @@ def test_probe_timing_on_the_card(cuda):
     lines = []
     res = run_probe("ablate", trip=MATRICES["band_1024"](), rounds=1, device=cuda,
                     out=lines.append)
-    assert set(res["members"]) == {"full", "noscat", "nogather", "noseg", "zero", "dma",
-                                   "hbm"}
+    assert set(res["members"]) == {"full", "fold", "noscat", "nogather", "noseg", "zero",
+                                   "dma", "hbm"}
     for m in res["members"].values():
         assert m["warm_ms"] > 0 and m["cold_ms"] > 0 and m["bound_ms"] > 0
     assert res["card"] and all(res["card"] in ln for ln in lines if " warm " in ln)

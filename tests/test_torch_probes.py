@@ -508,3 +508,16 @@ def test_turns_compare_multi_rhs_outputs_column_by_column(tmp_path):
     part.view(np.uint32)[2, 17, 7] ^= 1  # the last bit of column 7
     np.save(dirs[3] / "cant_panel_R8_part.npy", part)
     assert turns.compare(dirs) == ["3/cant_panel_R8_part.npy"]
+
+
+def test_turns_run_each_checkout_twice_around_this():
+    """``turns.turn_order``: one other checkout gives OTHER, THIS, THIS,
+    OTHER; several (variants of one design) each run twice, in mirrored
+    order around THIS's two turns."""
+    from spmv_tpu_torch.probes import turns
+
+    assert turns.turn_order(["other"]) == ["other", "this", "this", "other"]
+    order = turns.turn_order(["other", "other2", "other3"])
+    assert order == ["other", "other2", "other3", "this", "this", "other3", "other2",
+                     "other"]
+    assert all(order.count(t) == 2 for t in set(order))
