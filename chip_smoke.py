@@ -49,6 +49,16 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``pl_big`` and the three stage extremes; K14 + K15 on band-1024's and
    pl-32768's pure SELL and ELL panels, cant's split SELL panel and the
    panel shapes; K7 on an fp64 y against its index gather, bit for bit.
+   K7, the sorted SELL's epilogue, in both modes on every sorted build:
+   gather-only after K6, and with the tile kernel's partials (K4, K10 at
+   R = 2..8, K14) into a y′ whose split-slice rows are NaN, bit for bit the
+   fix-up kernel (K5, K11, K15) and the gather; with a spill part on
+   pl-32768 and ``pl_big`` built with the split's dispatch price set to 0
+   (a sorted panel that spills its hub rows' tails), bit for bit the
+   fix-up kernel, a torch add and the gather, at R = 1..8 and in fp64;
+   each within the bound of its plain version. CUDA-graph replays of K4 +
+   K7, K10 + K7, K14 + K7, the sorted path with a spill and K8 + K9 give
+   the eager bits.
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
@@ -57,18 +67,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    {ell,sell,hyb}`` on cant, SELL and HYB at ``pl_big`` (``bench.py:211-215``),
    bench.py's pure-panel ``ell_pure``/``sell_pure`` builds of the 32k
    power-law matrix, and SELL on the 512-row matrix; then ``run --rhs 4``
-   (``spmm``) for all six formats on cant, and ``run --format bsr --rhs 32``
-   on cant. Each is validated against the fp64 oracle, every column of an
+   (``spmm``) for all six formats on cant and ``spmm`` at R = 4 on the
+   32k power-law matrix's ``ell_pure`` build, and ``run --format bsr --rhs
+   32`` on cant. Each is validated against the fp64 oracle, every column of an
    ``--rhs`` run included. Then ``run --dtype f32x2`` for all six formats
    on cant, csr with ``--x random``, csr and sell with ``--rhs 4``, hyb at
-   ``pl_big``, each held to ``x2_check``; and ``--format bsr --dtype
-   f32x2``, which must return 2.
+   ``pl_big``, ``ell_pure`` on the 32k power-law matrix, each held to
+   ``x2_check``; and ``--format bsr --dtype f32x2``, which must return 2.
 4. The launch counters show that each run went through its kernels: the
-   R = 4 runs through K8-K11 (and K7 for SELL), the csr one without K1 (the
-   multi path, not a loop over columns); and BSR's Y is bitwise equal over
-   two calls. The f32x2 runs through K12 + K13 (segmented formats), K14 +
-   K15 (panel formats) and K7 (sorted SELL), and through no float32 tile
-   kernel (K1, K3, K4, K6, K8, K10).
+   R = 4 runs through K8-K11, the csr one without K1 (the multi path, not
+   a loop over columns); and BSR's Y is bitwise equal over two calls. The
+   f32x2 runs through K12 + K13 (segmented formats) and K14 + K15 (ell,
+   hyb), and through no float32 tile kernel (K1, K3, K4, K6, K8, K10). The
+   sorted SELL runs (sell and sell_pure, sell --rhs 4, f32x2 sell and sell
+   --rhs 4) launch their tile kernel (K4, K10, K14) and K7, and no K5,
+   K11 or K15.
 5. Times per call (CUDA events around one call, median of 30 after warm-up;
    host launch work included) and on the device (CUDA events around a CUDA
    graph of 20 calls for the kernels, the kernel paths and the library
@@ -84,12 +97,18 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``matvec`` of all six formats beside the f32 one on cant, and K12 + K13
    at ``pl_big``; then the segmented paths K1 + K2 (cant, ``pl_big``,
    ``pl_wide``, band-1024) and K12 + K13 (cant, ``pl_big``) beside the tile
-   kernel alone, and the launch floor (a one-block kernel that does
+   kernel alone; the sorted SELL chains (K4, K10 at R = 4, K14 with the
+   fix-up kernel and K7 as the gather, against the tile kernel and K7)
+   with K7 alone beside its bound (the gather's bytes and the fix-up's), K7
+   with a spill part on ``pl_big`` built at a dispatch price of 0 (the
+   spill's bytes too), K7 gather-only beside ``index_select``, K8 + K9 with
+   K9 alone;
+   and the launch floor (a one-block kernel that does
    nothing, ``kernels.probes.launch_floor``), which the fix-ups' rows carry
    beside their bound. Beside each kernel: its library yardstick (one PyTorch
    call that computes the same y: ``torch.sparse_csr_tensor @ x``, cuSPARSE;
-   ``index_select`` for K7), timed as the kernel is and used nowhere in
-   the port.
+   ``index_select`` for K7's gather-only mode), timed as the kernel is and
+   used nowhere in the port.
 6. The probes (``spmv_tpu_torch.probes``, the B12 counterparts): each
    probe kernel against its plain version on band-1024, cant and the
    tile shape with runs of empty rows (the panel ones on band-1024's and
@@ -175,6 +194,9 @@ NO_LIBRARY = {
     **dict.fromkeys(("seg_ablate_noseg", "seg_ablate_dma", "seg_ablate_x2_noseg",
                      "seg_ablate_x2_dma"),
                     "none: no single call sums a stream per 1024-nonzero tile"),
+    "inverse_permute": "none for K7 with the partials (the sorted path's mode): no "
+                       "single call sums the split slices and gathers; the gather-only "
+                       "mode's yardstick, index_select, is under gather_only",
 }
 # the fix-ups and the σ gather: separate launches of a few KB each, given the
 # launch floor (a one-block kernel that does nothing) beside their bound
@@ -403,6 +425,60 @@ def writes_all(launcher: str, dev, x, got) -> None:
                              f"a row or slot unwritten, or other bits than the wrapper's")
 
 
+def split_rows_nan(dev, y: torch.Tensor) -> torch.Tensor:
+    """y′ with the rows of the plan's split slices set to NaN: K7 given the
+    partials reads none of them, so its y must not change."""
+    out = y.clone()
+    s = dev.split_slices.long()
+    rows = (s[:, None] * 32 + torch.arange(32, device=y.device)).reshape(-1)
+    out[rows[rows < dev.nrows]] = float("nan")
+    return out
+
+
+def check_epilogue(label: str, a, y: torch.Tensor, part: torch.Tensor,
+                   fixed: torch.Tensor, spill: torch.Tensor | None, scale: np.ndarray,
+                   tol, check=None) -> float:
+    """K7 with the partials ``part`` of y′ ``y`` (and the spill's y′) on the
+    sorted container ``a``, into a y′ whose split-slice rows are NaN: twice
+    the same bits, bit for bit the parent's sequence (``fixed``, the fix-up
+    kernel's y′, then a torch add of the spill, then the gather), and
+    within ``tol`` (``check``: ``within_x2``) of the plain K7 per row of
+    ``scale`` (original rows). Returns max |kernel - plain|."""
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+
+    epilogue = X2.inverse_permute_x2 if y.dtype == torch.float64 else P.inverse_permute
+    ip = a.invperm_dev
+    got = same_bits("inverse_permute", lambda: epilogue(
+        ip, split_rows_nan(a.dev, y), a.nrows, dev=a.dev, part=part, spill=spill))
+    want = (fixed if spill is None else fixed + spill)[ip[:a.nrows].long()]
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: K7 with partials is not the fix-up, add and "
+                             f"gather's bits")
+    plain = P.inverse_permute_reference(ip, y, a.nrows, dev=a.dev, part=part, spill=spill)
+    return (check or within)(f"{label} inverse_permute", got, plain, scale, tol)
+
+
+def graph_equals_eager(what: str, fn) -> None:
+    """``fn`` captured in a CUDA graph (its programmatic launches there too)
+    and replayed into a NaN-filled output gives the eager run's bits."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    for _ in range(3):
+        out.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            raise AssertionError(f"{what}: a CUDA-graph replay is not the eager bits")
+
+
 def check_oracle(label: str, trip, y: torch.Tensor, xh: np.ndarray) -> None:
     from spmv_tpu_torch.oracle import golden_spmv, kernel_check, row_scale
 
@@ -495,13 +571,15 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
     e6 = within(f"{label} panel_spmv_fused", y6,
                 P.panel_spmv_fused_reference(dev, x), scale, tol)
     errs = {"panel_spmv_tiles": e4, "panel_fixup": e5, "panel_spmv_fused": e6}
-    if getattr(a, "sorted_rows", False):
+    if getattr(a, "sorted_rows", False):  # K7 gather-only after K6, and with K4's partials
         y7 = same_bits("inverse_permute",
                        lambda: P.inverse_permute(a.invperm_dev, y6, info.nrows))
-        errs["inverse_permute"] = within(
-            f"{label} inverse_permute", y7,
-            P.inverse_permute_reference(a.invperm_dev, y6, info.nrows),
-            np.zeros(info.nrows), 0.0)
+        errs["inverse_permute"] = max(
+            within(f"{label} inverse_permute", y7,
+                   P.inverse_permute_reference(a.invperm_dev, y6, info.nrows),
+                   np.zeros(info.nrows), 0.0),
+            check_epilogue(label, a, y4, p4, y5, None,
+                           scale[a.invperm_dev[:info.nrows].cpu().numpy()], tol))
     check_oracle(f"{label} {fmt} matvec", trip, a.matvec(x), xh)
     print(f"  {label} {fmt}{kwargs or ''}: shape {a.shape}, sorted "
           f"{getattr(a, 'sorted_rows', False)}, panel nnz {a.panel_nnz} in "
@@ -509,7 +587,9 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
           f"nnz {a.spill_nnz}, tiles {dev.ntiles}, split slices {dev.nsplit}: "
           f"max |kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + "; matvec passes the fp64 oracle; two runs bitwise equal; K4 writes "
-          "every row and slot")
+          "every row and slot"
+          + ("; K7 with K4's partials bitwise K5 and the gather, y′'s split rows "
+             "unread" if getattr(a, "sorted_rows", False) else ""))
     return errs
 
 
@@ -519,7 +599,7 @@ def by_graph(k: str) -> bool:
     compare by one method. The rest sync with the host inside a call: the
     containers' ``matvec`` and ``spmm`` go to the profiler, and a plain
     version (``*_plain``) is timed per call only."""
-    return k in KERNELS or k.startswith(("path ", "library "))
+    return k in KERNELS or k.startswith(("path ", "library ", "inverse_permute "))
 
 
 def timed(label: str, fns: dict, card: str, nnz: int, nbytes: int) -> dict:
@@ -613,8 +693,10 @@ def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
         "panel_spmv_fused": lambda: P.panel_spmv_fused(dev, x),
         "path K4+K5": lambda: P.panel_fixup(dev, *P.panel_spmv_partials(dev, x)),
     }
-    if sorted_:
-        fns["inverse_permute"] = lambda: P.inverse_permute(a.invperm_dev, y6, a.nrows)
+    if sorted_:  # K7 with K4's partials (the main path's), gather-only after K6
+        fns.update(sorted_fns(a, x, P.panel_spmv_partials, P.panel_fixup, "K4", "K5"))
+        fns["inverse_permute gather"] = lambda: P.inverse_permute(a.invperm_dev, y6,
+                                                                  a.nrows)
     if plain:
         fns.update({
             "panel_spmv_tiles_plain": lambda: P.panel_spmv_partials_reference(dev, x),
@@ -623,7 +705,7 @@ def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
         })
         if sorted_:
             fns["inverse_permute_plain"] = lambda: P.inverse_permute_reference(
-                a.invperm_dev, y6, a.nrows)
+                a.invperm_dev, y, a.nrows, dev=dev, part=part)
     if csr is not None:
         A = library_csr(csr)
         fns["library csr@x"] = lambda: A @ x
@@ -639,10 +721,34 @@ def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
     t["bytes"] = {"panel_spmv_tiles": B.panel_tiles_bytes(dev),
                   "panel_fixup": B.panel_fixup_bytes(dev),
                   "panel_spmv_fused": B.panel_fused_bytes(dev),
-                  "inverse_permute": B.permute_bytes(a.nrows, 4)}
+                  "inverse_permute gather": B.permute_bytes(a.nrows, 4)}
+    if sorted_:
+        t["bytes"]["inverse_permute"] = B.epilogue_bytes(dev, a.invperm_dev, a.nrows)
     t["flops"] = {"panel_spmv_tiles": 2 * a.panel_nnz, "panel_fixup": 0,
-                  "panel_spmv_fused": 2 * a.panel_nnz, "inverse_permute": 0}
+                  "panel_spmv_fused": 2 * a.panel_nnz, "inverse_permute": 0,
+                  "inverse_permute gather": 0}
     return t
+
+
+def sorted_fns(a, x, tiles, fixup, tname: str, fname: str, sfx: str = "") -> dict:
+    """Phase 5, a σ-sorted SELL's chains at one x (an (ncols, R) X): K7
+    alone with the tile kernel's partials, the tile kernel then K7 (the
+    sorted path), and the parent's chain, the tile kernel, the fix-up
+    kernel ``fixup`` (K5, K11, K15) and K7 as the gather."""
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+
+    dev, ip, n = a.dev, a.invperm_dev, a.nrows
+    epilogue = X2.inverse_permute_x2 if dev.vals.dtype == torch.float64 else P.inverse_permute
+    y, part = tiles(dev, x)
+
+    def path():
+        yt, pt = tiles(dev, x)
+        return epilogue(ip, yt, n, dev=dev, part=pt)
+
+    return {f"inverse_permute{sfx}": lambda: epilogue(ip, y, n, dev=dev, part=part),
+            f"path {tname}+K7": path,
+            f"path {tname}+{fname}+K7": lambda: epilogue(ip, fixup(dev, *tiles(dev, x)), n)}
 
 
 def time_formats(label: str, trip, builds: dict, card: str) -> dict:
@@ -747,13 +853,15 @@ def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
     e11 = within(f"{label} R={R} panel_fixup_multi", Y11,
                  P.panel_fixup_multi_reference(dev, Y10.clone(), p10), scale, tol)
     errs = {"panel_spmm_tiles": e10, "panel_fixup_multi": e11}
-    if getattr(a, "sorted_rows", False):
+    if getattr(a, "sorted_rows", False):  # K7 gather-only, and with K10's partials
         Y7 = same_bits("inverse_permute",
                        lambda: P.inverse_permute(a.invperm_dev, Y11, info.nrows))
-        errs["inverse_permute"] = within(
-            f"{label} R={R} inverse_permute", Y7,
-            P.inverse_permute_reference(a.invperm_dev, Y11, info.nrows),
-            np.zeros((info.nrows, R)), 0.0)
+        errs["inverse_permute"] = max(
+            within(f"{label} R={R} inverse_permute", Y7,
+                   P.inverse_permute_reference(a.invperm_dev, Y11, info.nrows),
+                   np.zeros((info.nrows, R)), 0.0),
+            check_epilogue(f"{label} R={R}", a, Y10, p10, Y11, None,
+                           scale[a.invperm_dev[:info.nrows].cpu().numpy()], tol))
     check_oracle_columns(f"{label} R={R} {fmt} matmat", trip, a.matmat(X), Xh)
     for j in range(R):  # column j of K10 against K4 on X[:, j]
         y4, p4 = P.panel_spmv_partials(dev, X[:, j].contiguous())
@@ -765,7 +873,9 @@ def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
           f"|kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + "; matmat passes the fp64 oracle per column; two runs bitwise "
           "equal; K10 writes every row and slot; each column's y and partials "
-          "bitwise K4's")
+          "bitwise K4's"
+          + ("; K7 with K10's partials bitwise K11 and the gather"
+             if getattr(a, "sorted_rows", False) else ""))
     return errs
 
 
@@ -800,6 +910,9 @@ def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
         "panel_spmm_tiles_plain": lambda: P.panel_spmv_multi_partials_reference(pdev, X),
         "panel_fixup_multi_plain": lambda: P.panel_fixup_multi_reference(pdev, Y10, p10),
     }
+    if a_sell.sorted_rows:  # K7 over rows of R with K10's partials
+        panel.update(sorted_fns(a_sell, X, P.panel_spmv_multi_partials,
+                                P.panel_fixup_multi, "K10", "K11", f" R={R}"))
     print(f"  {label} R={R} csr plan {dev.stream_bytes} B, split rows "
           f"{dev.ncarry}; sell panel {pdev.stream_bytes} B, split slices "
           f"{pdev.nsplit}  [{card}]")
@@ -809,8 +922,12 @@ def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
                   "carry_fixup_multi": B.fixup_bytes(dev, R),
                   "panel_spmm_tiles": B.panel_tiles_bytes(pdev, R),
                   "panel_fixup_multi": B.panel_fixup_bytes(pdev, R)}
+    if a_sell.sorted_rows:
+        t["bytes"][f"inverse_permute R={R}"] = B.epilogue_bytes(
+            pdev, a_sell.invperm_dev, a_sell.nrows, R)
     t["flops"] = {"seg_spmm_tiles": 2 * dev.nnz * R, "carry_fixup_multi": 0,
-                  "panel_spmm_tiles": 2 * a_sell.panel_nnz * R, "panel_fixup_multi": 0}
+                  "panel_spmm_tiles": 2 * a_sell.panel_nnz * R, "panel_fixup_multi": 0,
+                  f"inverse_permute R={R}": 0}
     return t
 
 
@@ -938,14 +1055,15 @@ def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> 
     e15 = within_x2(f"{label} panel_fixup_x2", y15,
                     X2.panel_fixup_x2_reference(dev, y14.clone(), p14), sscale, k)
     errs = {"panel_spmv_tiles_x2": e14, "panel_fixup_x2": e15}
-    if a.sorted_rows:
+    if a.sorted_rows:  # the fp64 K7 gather-only, and with K14's partials
         y7 = same_bits("inverse_permute x2",
                        lambda: X2.inverse_permute_x2(a.invperm_dev, y15, info.nrows))
         want = y15[a.invperm_dev[:info.nrows].long()]
         plain = X2.inverse_permute_x2_reference(a.invperm_dev, y15, info.nrows)
         if not (torch.equal(y7, want) and torch.equal(y7, plain)):
             raise AssertionError(f"{label}: the fp64 K7 gather is not a bit copy")
-        errs["inverse_permute"] = 0.0
+        errs["inverse_permute"] = check_epilogue(f"{label} x2", a, y14, p14, y15, None,
+                                                 scale, k, within_x2)
     check_oracle_x2(f"{label} x2 {fmt} matvec", trip, v, a.matvec(xh), xh, scale)
     print(f"  {label} x2 {fmt}{kwargs or ''}: shape {a.shape}, sorted "
           f"{a.sorted_rows}, fp64 panel {dev.stream_bytes} B, tiles {dev.ntiles}, "
@@ -953,8 +1071,89 @@ def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> 
           + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + "; matvec passes x2_check; two runs bitwise equal; K14 writes every row "
           "and slot"
-          + ("; fp64 K7 gather bitwise the index gather" if a.sorted_rows else ""))
+          + ("; fp64 K7 gather bitwise the index gather, K7 with K14's partials "
+             "bitwise K15 and the gather" if a.sorted_rows else ""))
     return errs
+
+
+def sorted_with_spill(trip, **kwargs):
+    """The float32 and fp64-grade SELL of ``trip`` built with the split's
+    dispatch price set to 0, which makes it keep a σ-sorted panel and spill
+    the hub rows' tails: the sorted path with a spill part, which the
+    priced split keeps off these sizes."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.probes.turns import forced_split
+
+    info, rows, cols, _ = trip
+    with forced_split(dispatch_s=0.0):
+        a = build("sell", trip, **kwargs)
+        a2 = X2Matrix.from_coo("sell", info.nrows, info.ncols, rows, cols,
+                               x2_inputs(trip, 0)[0], device="cuda", **kwargs)
+    if not (a.sorted_rows and a2.sorted_rows and a.dev_spill is not None
+            and a2.dev_spill is not None):
+        raise AssertionError("the build is not a sorted SELL with a spill")
+    return a, a2
+
+
+def check_sorted_spill(label: str, trip, seed: int) -> dict:
+    """Phase 2, K7 with a spill part, on ``sorted_with_spill``'s builds:
+    float32 at R = 1..8 and fp64, K7 after K4 (K10, K14) with the partials
+    and after K6 without, each with the spill's y′ (K1 + K2 or K3, K8 +
+    K9, K12 + K13): bit for bit the fix-up kernel, a torch add and the
+    gather, within the bound of its plain version; the containers'
+    ``matvec``, ``spmm`` and x2 ``matvec`` against the fp64 oracle."""
+    import spmv_tpu_torch
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
+
+    info, rows, cols, vals = trip
+    a, a2 = sorted_with_spill(trip)
+    dev, ip = a.dev, a.invperm_dev[:info.nrows].long()
+    tol = fp32_rel_tol(dev.max_width + a.dev_spill.max_row_nnz)
+    xh = np.random.default_rng(seed).standard_normal(info.ncols).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    scale = row_scale(info.nrows, rows, cols, vals.astype(np.float32), xh)
+    y4, p4 = P.panel_spmv_partials(dev, x)
+    sp = E.segmented_spmv(a.dev_spill, x)
+    err = check_epilogue(label, a, y4, p4, P.panel_fixup(dev, y4.clone(), p4), sp,
+                         scale, tol)
+    y6 = P.panel_spmv_fused(dev, x)
+    y7 = same_bits("inverse_permute", lambda: P.inverse_permute(a.invperm_dev, y6,
+                                                                info.nrows, spill=sp))
+    if not torch.equal(y7, (y6 + sp)[ip]):
+        raise AssertionError(f"{label}: K7 after K6 with a spill is not the add and gather")
+    err = max(err, within(f"{label} inverse_permute after K6", y7,
+                          P.inverse_permute_reference(a.invperm_dev, y6, info.nrows,
+                                                      spill=sp), scale, tol))
+    check_oracle(f"{label} sell with a spill, matvec", trip, a.matvec(x), xh)
+    for R in range(2, 9):
+        Xh = np.random.default_rng(seed + R).standard_normal((info.ncols, R)).astype(
+            np.float32)
+        X = torch.from_numpy(Xh).cuda()
+        Y10, p10 = P.panel_spmv_multi_partials(dev, X)
+        err = max(err, check_epilogue(
+            f"{label} R={R}", a, Y10, p10, P.panel_fixup_multi(dev, Y10.clone(), p10),
+            E.segmented_spmv_multi(a.dev_spill, X), column_scales(trip, Xh), tol))
+        check_oracle_columns(f"{label} R={R} sell with a spill, spmm", trip,
+                             spmv_tpu_torch.spmm(a, X), Xh)
+    v64, xh64, scale64 = x2_inputs(trip, seed)
+    x64 = torch.from_numpy(xh64).cuda()
+    y14, p14 = X2.panel_spmv_x2_partials(a2.dev, x64)
+    k = a2.dev.max_width + a2.dev_spill.max_row_nnz
+    err64 = check_epilogue(f"{label} x2", a2, y14, p14,
+                           X2.panel_fixup_x2(a2.dev, y14.clone(), p14),
+                           X2.segmented_spmv_x2(a2.dev_spill, x64), scale64, k, within_x2)
+    check_oracle_x2(f"{label} x2 sell with a spill, matvec", trip, v64, a2.matvec(xh64),
+                    xh64, scale64)
+    print(f"  {label} sell with a spill (dispatch price 0): sorted {a.sorted_rows}, "
+          f"panel nnz {a.panel_nnz}, spill nnz {a.spill_nnz}, split slices "
+          f"{dev.nsplit}: K7 with the partials and the spill (R = 1..8, fp64) and "
+          f"after K6 with the spill bitwise the fix-up kernels, a torch add and the "
+          f"gather, y′'s split rows unread; max |K7 - plain| {err:.3e}, fp64 "
+          f"{err64:.3e}; matvec, spmm and the x2 matvec pass the fp64 oracle")
+    return {"inverse_permute": err}
 
 
 def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
@@ -1001,17 +1200,20 @@ def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
         "panel_spmv_tiles_x2_plain": lambda: X2.panel_spmv_x2_partials_reference(pdev, x),
         "panel_fixup_x2_plain": lambda: X2.panel_fixup_x2_reference(pdev, yp, part),
     }
-    if sell.sorted_rows:
-        y15 = X2.panel_spmv_x2(pdev, x)
-        panel_fns["inverse_permute x2"] = lambda: X2.inverse_permute_x2(
-            sell.invperm_dev, y15, info.nrows)
+    if sell.sorted_rows:  # K7 in fp64 with K14's partials
+        panel_fns.update(sorted_fns(sell, x, X2.panel_spmv_x2_partials, X2.panel_fixup_x2,
+                                    "K14", "K15", " x2"))
     print(f"  {label} x2: sell fp64 panel {pdev.stream_bytes} B (shape "
           f"{sell.shape}, sorted {sell.sorted_rows}), split slices "
           f"{pdev.nsplit}  [{card}]")
     t.update(timed(label, panel_fns, card, sell.panel_nnz, pdev.stream_bytes))
-    t["bytes"].update(panel_spmv_tiles_x2=B.panel_tiles_bytes(pdev),
-                      panel_fixup_x2=B.panel_fixup_bytes(pdev))
-    t["flops"].update(panel_spmv_tiles_x2=2 * sell.panel_nnz, panel_fixup_x2=0)
+    t["bytes"].update({"panel_spmv_tiles_x2": B.panel_tiles_bytes(pdev),
+                       "panel_fixup_x2": B.panel_fixup_bytes(pdev)})
+    if sell.sorted_rows:
+        t["bytes"]["inverse_permute x2"] = B.epilogue_bytes(pdev, sell.invperm_dev,
+                                                            sell.nrows)
+    t["flops"].update({"panel_spmv_tiles_x2": 2 * sell.panel_nnz, "panel_fixup_x2": 0,
+                       "inverse_permute x2": 0})
     return t
 
 
@@ -1255,7 +1457,6 @@ LIBRARY_CALLS = {
     **dict.fromkeys(("panel_spmv_tiles", "panel_spmv_fused"), (
         "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE) on the same "
         "matrix's CSR plan, float32: the y of K4 + K5 and of K6")),
-    "inverse_permute": ("library index_select", "y_sorted.index_select(0, perm)"),
     **dict.fromkeys(("seg_spmm_tiles", "panel_spmm_tiles"), (
         "library csr@X", "torch.sparse_csr_tensor @ X (cuSPARSE), float32, R = 4")),
     **dict.fromkeys(("seg_spmv_tiles_x2", "panel_spmv_tiles_x2"), (
@@ -1308,6 +1509,8 @@ def main() -> int:
     from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.kernels import probes as KP
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.probes import bounds as B
     from spmv_tpu_torch.probes import run_probe
     from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES
     from spmv_tpu_torch.probes.timing import card_line
@@ -1385,6 +1588,9 @@ def main() -> int:
         keep_max(check_panel_multi("pl-32768", pl, seed=R, R=R, fmt="ell", split=False))
         for name, shape in panel_shapes.items():
             keep_max(check_panel_multi(name, shape, seed=R, R=R, fmt="ell", split=False))
+    for R in (3, 5, 6, 7):  # K8 + K9's and K10 + K7's other instantiations
+        keep_max(check_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
+        keep_max(check_panel_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
     # the fp64-grade kernels (K12-K15, and K7 on an fp64 y)
     for name in sorted(synth.EDGE_CASES):
         keep_max(check_x2_seg(name, synth.edge_case(name), seed=11))
@@ -1399,6 +1605,27 @@ def main() -> int:
     keep_max(check_x2_panel(f"cant-{CANT_N}", cant, seed=16))
     for name, shape in panel_shapes.items():
         keep_max(check_x2_panel(name, shape, seed=18, fmt="ell", split=False))
+    # K7 with a spill part: sorted SELL builds that keep a panel and spill
+    keep_max(check_sorted_spill("pl-32768", pl, seed=19))
+    keep_max(check_sorted_spill("pl_big-524288", pl_big, seed=20))
+    # the programmatic edges in a CUDA graph: K4 + K7 and K10 + K7 on cant's
+    # sorted SELL, the sorted path with a spill part, K14 + K7, K8 + K9
+    xc = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        cant[0].ncols).astype(np.float32)).cuda()
+    Xc = torch.stack([xc, -xc, 2 * xc, xc * xc], dim=1)
+    cant_sell, cant_x2 = build("sell", cant), spmv_tpu_torch.X2Matrix.from_coo(
+        "sell", cant[0].nrows, cant[0].ncols, *cant[1:], device="cuda")
+    pl_spill = sorted_with_spill(pl)[0]
+    cant_csr = build("csr", cant).dev
+    for what, fn in (("K4 + K7", lambda: cant_sell.matvec(xc)),
+                     ("K10 + K7", lambda: spmv_tpu_torch.spmm(cant_sell, Xc)),
+                     ("K14 + K7", lambda: cant_x2.matvec(xc.double())),
+                     ("sorted SELL with a spill",
+                      lambda: pl_spill.matvec(xc[:pl[0].ncols].contiguous())),
+                     ("K8 + K9", lambda: E.segmented_spmv_multi(cant_csr, Xc))):
+        graph_equals_eager(what, fn)
+    print("  CUDA-graph replays of K4 + K7, K10 + K7, K14 + K7, the sorted SELL "
+          "with a spill and K8 + K9 give the eager bits")
     torch.cuda.synchronize()
     print(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1421,9 +1648,12 @@ def main() -> int:
     seg_launches = dict(E.LAUNCHES)
 
     E.reset_launches()
+    panel_runs = {}
     for fmt in ("ell", "sell", "hyb"):
+        before = dict(E.LAUNCHES)
         if cli.main(["run", "--format", fmt, *cant_args]) != 0:
             raise SystemExit(f"run --format {fmt} on cant failed")
+        panel_runs[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
     for fmt in ("sell", "hyb"):
         if cli.run_spmv(fmt, *pl_big, device="cuda") != 0:
             raise SystemExit(f"run --format {fmt} on pl_big failed")
@@ -1433,8 +1663,9 @@ def main() -> int:
         before = dict(E.LAUNCHES)
         y = build(fmt, pl, split=False).matvec(xh)
         check_oracle(f"pl-32768 {fmt}_pure", pl, y, xh)
-        pure_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in PANEL}
-        print(f"{fmt}_pure on pl-32768: result is ok; launches {pure_launches[fmt]}")
+        pure_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+        print(f"{fmt}_pure on pl-32768: result is ok; launches "
+              f"{ {k: n for k, n in pure_launches[fmt].items() if n} }")
     if cli.run_spmv("sell", *entry, x_mode="random", seed=1, device="cuda") != 0:
         raise SystemExit("sell on the 512-row entry() matrix failed")
     torch.cuda.synchronize()
@@ -1447,6 +1678,13 @@ def main() -> int:
         if cli.main(["run", "--format", fmt, "--rhs", "4", *cant_args]) != 0:
             raise SystemExit(f"run --format {fmt} --rhs 4 on cant failed")
         rhs_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+    # bench.py's ell_pure at R = 4: K10 + K11 on an unsorted panel (cant's
+    # ell and hyb spill everything, and its sell is sorted: K10 + K7)
+    before = dict(E.LAUNCHES)
+    Xp = np.random.default_rng(4).standard_normal((pl[0].ncols, 4)).astype(np.float32)
+    check_oracle_columns("pl-32768 ell_pure R=4", pl,
+                         spmv_tpu_torch.spmm(build("ell", pl, split=False), Xp), Xp)
+    rhs_launches["ell_pure pl-32768"] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
     torch.cuda.synchronize()
     multi_launches = dict(E.LAUNCHES)
     if cli.main(["run", "--format", "bsr", "--rhs", "32", *cant_args]) != 0:
@@ -1470,6 +1708,14 @@ def main() -> int:
     for fmt in ("csr", "sell"):
         run_x2(f"{fmt} --rhs 4", ["--format", fmt, "--rhs", "4", *cant_args])
     run_x2("hyb pl_big", trip=pl_big, fmt="hyb")
+    # ell_pure in fp64 on pl-32768: K14 + K15 on an unsorted panel
+    E.reset_launches()
+    v64, xh64, scale64 = x2_inputs(pl, 7)
+    ell64 = spmv_tpu_torch.X2Matrix.from_coo("ell", pl[0].nrows, pl[0].ncols, pl[1], pl[2],
+                                             v64, split=False, device="cuda")
+    check_oracle_x2("pl-32768 x2 ell_pure", pl, v64, ell64.matvec(xh64), xh64, scale64)
+    torch.cuda.synchronize()
+    x2_launches["ell_pure pl-32768"] = {k: n for k, n in E.LAUNCHES.items() if n}
     E.reset_launches()
     rc = cli.main(["run", "--format", "bsr", "--dtype", "f32x2", *cant_args])
     if rc != 2 or any(E.LAUNCHES.values()):
@@ -1485,14 +1731,12 @@ def main() -> int:
     missing = [k for k in PANEL if panel_launches[k] < 1]
     if missing:
         raise SystemExit(f"the panel path did not launch {missing}")
-    if pure_launches["sell"]["inverse_permute"] < 1:
-        raise SystemExit("sell_pure on the power-law matrix did not launch K7")
+    print(f"  ell, sell, hyb runs on cant, launches per format: "
+          f"{ {f: {k: n for k, n in r.items() if n} for f, r in panel_runs.items()} }")
     print(f"  --rhs 4 runs on cant, launches per format: {rhs_launches}")
     missing = [k for k in MULTI if multi_launches[k] < 1]
     if missing:
         raise SystemExit(f"the --rhs 4 runs did not launch {missing}")
-    if rhs_launches["sell"]["inverse_permute"] < 1:
-        raise SystemExit("sell --rhs 4 on cant did not launch K7")
     if any(rhs_launches["csr"][k] for k in SEG):
         raise SystemExit("csr --rhs 4 launched a one-vector kernel: "
                          f"{rhs_launches['csr']}")
@@ -1511,9 +1755,25 @@ def main() -> int:
     for fmt in ("csr", "coo", "cmrs", "csr --x random", "csr --rhs 4"):
         if any(k not in x2_launches[fmt] for k in X2_SEG):
             raise SystemExit(f"f32x2 {fmt} did not launch K12 and K13")
-    for key in ("sell", "sell --rhs 4"):
-        if any(k not in x2_launches[key] for k in (*X2_PANEL, "inverse_permute")):
-            raise SystemExit(f"f32x2 {key} did not launch K14, K15 and K7")
+    # the σ-sorted SELL runs: the tile kernel, then K7 as the one epilogue,
+    # with no fix-up kernel of the panel (K5, K11, K15) behind it
+    sorted_runs = {"sell on cant": (panel_runs["sell"], "panel_spmv_tiles"),
+                   "sell_pure on pl-32768": (pure_launches["sell"], "panel_spmv_tiles"),
+                   "sell --rhs 4 on cant": (rhs_launches["sell"], "panel_spmm_tiles"),
+                   "f32x2 sell on cant": (x2_launches["sell"], "panel_spmv_tiles_x2"),
+                   "f32x2 sell --rhs 4 on cant": (x2_launches["sell --rhs 4"],
+                                                  "panel_spmv_tiles_x2")}
+    for what, (ran, tiles) in sorted_runs.items():
+        if ran.get(tiles, 0) < 1 or ran.get("inverse_permute", 0) < 1:
+            raise SystemExit(f"{what} did not launch {tiles} and K7: {ran}")
+        fixups = [k for k in ("panel_fixup", "panel_fixup_multi", "panel_fixup_x2")
+                  if ran.get(k, 0)]
+        if fixups:
+            raise SystemExit(f"{what} launched {fixups} beside K7: {ran}")
+    print(f"  sorted SELL runs launch their tile kernel and K7, no K5, K11 or K15: "
+          f"{', '.join(sorted_runs)}")
+    if not x2_launches["ell_pure pl-32768"].get("panel_fixup_x2", 0):
+        raise SystemExit("f32x2 ell_pure on pl-32768 did not launch K15")
     x2_total = {k: sum(r.get(k, 0) for r in x2_launches.values()) for k in KERNELS}
     launches = {k: seg_launches[k] + panel_launches[k] + multi_launches[k]
                 + x2_total[k] for k in KERNELS}
@@ -1614,6 +1874,51 @@ def main() -> int:
               f"  {k2} alone {fix:.2f} against its bound "
               f"{bound_fields(k2, t)['bound_ms'] * 1e3:.3f} and the floor "
               f"{floor * 1e3:.2f}  [{card}]")
+    print(f"sorted SELL paths, device µs (CUDA-graph replay): the tile kernel alone, "
+          f"the parent's chain (tile kernel, fix-up kernel, K7 as the gather), the "
+          f"sorted path (tile kernel, K7), and K7 alone with the partials beside its "
+          f"bound and the launch floor {floor * 1e3:.2f} µs; K7 gather-only (after K6) "
+          f"beside index_select  [{card}]")
+    for label, t, tiles, fix, k7, dtype in (
+            (f"{cl} sell", tp, "K4", "K5", "inverse_permute", torch.float32),
+            ("pl-32768 sell_pure", ptimes["pl-32768 sell_pure"], "K4", "K5",
+             "inverse_permute", torch.float32),
+            ("pl_big-524288 sell_pure", ptimes["pl_big-524288 sell_pure"], "K4", "K5",
+             "inverse_permute", torch.float32),
+            (f"{cl} sell R=4", tm, "K10", "K11", "inverse_permute R=4", torch.float32),
+            (f"{cl} sell x2", tx, "K14", "K15", "inverse_permute x2", torch.float64)):
+        tile_key = {"K4": "panel_spmv_tiles", "K10": "panel_spmm_tiles",
+                    "K14": "panel_spmv_tiles_x2"}[tiles]
+        old_path, new_path, alone = (t[k][1] * 1e3 for k in (
+            f"path {tiles}+{fix}+K7", f"path {tiles}+K7", k7))
+        bound = B.bound_ms(t["bytes"][k7], 0, dtype)[0] * 1e3
+        print(f"  {label:26s} {tiles} {t[tile_key][1] * 1e3:8.2f}  {tiles}+{fix}+K7 "
+              f"{old_path:8.2f}  {tiles}+K7 {new_path:8.2f} ({new_path - old_path:+.2f})"
+              f"  K7 alone {alone:.2f} against its bound {bound:.3f}  [{card}]")
+    # K7 with the partials and a spill part: pl_big's sorted SELL built at a
+    # dispatch price of 0 (K4, the spill's K1 + K2, K7)
+    big = sorted_with_spill(pl_big)[0]
+    xb = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        pl_big[0].ncols).astype(np.float32)).cuda()
+    yb, pb = P.panel_spmv_partials(big.dev, xb)
+    sb = E.segmented_spmv(big.dev_spill, xb)
+    k7_spill = graph_device_ms("inverse_permute spill", lambda: P.inverse_permute(
+        big.invperm_dev, yb, big.nrows, dev=big.dev, part=pb, spill=sb))
+    big_path = graph_device_ms("path sorted with a spill", lambda: big.matvec(xb))
+    print(f"  {'pl_big-524288 with a spill':26s} K4+K1+K2+K7 {big_path * 1e3:8.2f}  K7 alone "
+          f"{k7_spill * 1e3:.2f} against its bound "
+          f"{B.bound_ms(B.epilogue_bytes(big.dev, big.invperm_dev, big.nrows, spill=True), 0)[0] * 1e3:.3f}"
+          f"  [{card}]")
+    del big, yb, pb, sb
+    print(f"  {cl + ' sell':26s} K7 gather-only {tp['inverse_permute gather'][1] * 1e3:.2f} "
+          f"against its bound "
+          f"{B.bound_ms(tp['bytes']['inverse_permute gather'], 0)[0] * 1e3:.3f}, "
+          f"index_select {tp['library index_select'][1] * 1e3:.2f}  [{card}]")
+    print(f"  {cl} R=4 K8 {tm['seg_spmm_tiles'][1] * 1e3:.2f}  K8+K9 "
+          f"{tm['path K8+K9'][1] * 1e3:.2f}  K9 alone "
+          f"{tm['carry_fixup_multi'][1] * 1e3:.2f} against its bound "
+          f"{bound_fields('carry_fixup_multi', tm)['bound_ms'] * 1e3:.3f} and the floor "
+          f"{floor * 1e3:.2f}  [{card}]")
     print(f"f32x2 against f32 matvec per format at cant, ms per call | "
           f"device  [{card}]")
     xh64 = np.random.default_rng(3).standard_normal(cant[0].ncols)
@@ -1694,6 +1999,13 @@ def main() -> int:
             row["also_replaces"] = ABLATE_ALSO
         if k in FIXUPS:
             row["launch_floor_ms"] = floor
+        if k == "inverse_permute":  # timed with K4's partials; the gather-only mode too
+            g, lib = tp["inverse_permute gather"], tp["library index_select"]
+            row["gather_only"] = {
+                "ms": g[0], "device_ms": g[1],
+                "bound_ms": B.bound_ms(tp["bytes"]["inverse_permute gather"], 0)[0],
+                "library_ms": lib[0], "library_device_ms": lib[1],
+                "library_call": "y_sorted.index_select(0, perm), after K6"}
         if k in ("seg_spmv_tiles", "seg_spmv_tiles_x2"):
             more = ({"pl_big": tc_big, "pl_wide": times["pl_wide-524288"]}
                     if k == "seg_spmv_tiles" else {"pl_big": tx_big})

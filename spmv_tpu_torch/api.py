@@ -88,7 +88,7 @@ def spmm(a, X) -> torch.Tensor:
     The branches of ``spmv_tpu/api.py:145-176``: BSR runs its batched
     matmul for any R. The engine formats run one multi-RHS pass over each
     plan for 2 ≤ R ≤ ``MULTI_RHS_MAX`` (``matmat``: K8 + K9 on CSR plans and
-    spill parts, K10 + K11 on panels, one K7 for a σ-sorted SELL), and one
+    spill parts, K10 + K11 on panels, K10 then one K7 for a σ-sorted SELL), and one
     ``matvec`` per column for R = 1 or R > ``MULTI_RHS_MAX`` — the JAX
     envelope, not a fallback: a kernel that fails raises. An ``X2Matrix``
     keeps X in float64 and runs one fp64 ``matvec`` per column, as

@@ -10,12 +10,15 @@ pre-sorted file, never unpermuting y).
   padded panel, counted on the port's own 32-row slices (the JAX package
   counts its striped TPU panel, so the two can decide differently).
 * The panel/spill split (``formats.split``) runs in sorted row space, on
-  ``nrows_pad`` rows; the spill adds into y′ there, and one gather, K7
-  (``kernels.panel.inverse_permute``), takes y′ back to the original row
-  order and cuts it to ``nrows``; ``matmat`` does the same for Y with
-  one K7 launch over rows of R floats. Where the sort was not applied no
-  gather is launched. Where the split spills everything, the sort is dropped
-  again: a pure spill has no panel widths to shrink.
+  ``nrows_pad`` rows. A sorted matrix runs the panel's tile kernel (K4, or
+  K6 for a small plan), the spill's engine where it spills, then one
+  epilogue, K7 (``kernels.panel.sorted_panel_and_spill_spmv``), which sums
+  the split slices' partials, adds the spill's y′, takes y′ back to the
+  original row order and cuts it to ``nrows``; ``matmat`` does the same
+  for Y with K10, K8 + K9 and one K7 over rows of R floats. Where the sort
+  was not applied the parts run as ELL's do and no K7 is launched. Where
+  the split spills everything, the sort is dropped again: a pure spill has
+  no panel widths to shrink.
 * The format's public surface — ``slice_widths``, ``sell_arrays()``,
   ``from_sell`` — keeps the JAX container's C = 128 (``SellMatrix.C``), so
   its classical arrays match JAX's bit for bit wherever both make the same
@@ -33,7 +36,8 @@ from spmv_tpu_torch.device import X_to_device, x_to_device
 from spmv_tpu_torch.formats.base import SLICE_ROWS, cdiv
 from spmv_tpu_torch.formats.split import (PanelSpill, PanelSpillFormat,
                                           split_triplets)
-from spmv_tpu_torch.kernels.panel import inverse_permute
+from spmv_tpu_torch.kernels.panel import (sorted_panel_and_spill_spmm,
+                                          sorted_panel_and_spill_spmv)
 
 __all__ = ["SellMatrix", "DEFAULT_SIGMA", "sigma_sort_tables", "sort_and_split"]
 
@@ -219,19 +223,21 @@ class SellMatrix(PanelSpillFormat):
 
     def matvec(self, x) -> torch.Tensor:
         """y = A·x as a float32 tensor on the plan's device."""
-        y_sorted = self.parts.spmv(x_to_device(x, self.ncols, self.dev.device))
-        if not self.sorted_rows:  # identity permutation: no gather
-            return y_sorted[:self.nrows]
-        return inverse_permute(self.invperm_dev, y_sorted, self.nrows)
+        xt = x_to_device(x, self.ncols, self.dev.device)
+        if not self.sorted_rows:  # identity permutation: no epilogue
+            return self.parts.spmv(xt)[:self.nrows]
+        return sorted_panel_and_spill_spmv(self.dev, self.dev_spill, self.invperm_dev,
+                                           xt, self.nrows)
 
     def matmat(self, X) -> torch.Tensor:
         """Y = A·X for X of shape (ncols, R), 2 ≤ R ≤ ``MULTI_RHS_MAX``: the
-        parts' multi-RHS passes add in sorted row space, then one K7 launch
-        gathers rows of R floats back to the original order, as ``matvec``
-        does for one vector (``api.spmm`` takes any R)."""
-        Y_sorted = self.parts.spmm(X_to_device(X, self.ncols, self.dev.device))
-        if not self.sorted_rows:  # identity permutation: no gather
-            return Y_sorted[:self.nrows]
-        return inverse_permute(self.invperm_dev, Y_sorted, self.nrows)
+        parts' multi-RHS passes in sorted row space, then one K7 launch over
+        rows of R floats, as ``matvec`` does for one vector (``api.spmm``
+        takes any R)."""
+        Xt = X_to_device(X, self.ncols, self.dev.device)
+        if not self.sorted_rows:  # identity permutation: no epilogue
+            return self.parts.spmm(Xt)[:self.nrows]
+        return sorted_panel_and_spill_spmm(self.dev, self.dev_spill, self.invperm_dev,
+                                           Xt, self.nrows)
 
     __matmul__ = matvec

@@ -1,6 +1,7 @@
 // Sliced-ELLPACK (SELL-C) SpMV kernels for Hopper (sm_90a): y = A·x in
 // float32, Y = A·X for R = 2..8 right-hand sides, y = A·x in float64 (the
-// fp64-grade mode), and the gather that undoes the SELL-C-σ row sort.
+// fp64-grade mode), and the SELL-C-σ epilogue that sums the split slices,
+// adds the spill and undoes the row sort.
 //
 // Eight kernels, each replacing one Pallas kernel of the JAX package's
 // panel engine (spmv_tpu/kernels/engines.py, engines_x2.py):
@@ -9,7 +10,8 @@
 //   K5 panel_fixup        replaces _scatter_kernel       (_window_scatter, as
 //                         panel_spmv_partials' epilogue)
 //   K6 panel_spmv_fused   replaces _panel_kernel_fused   (panel_spmv_fused)
-//   K7 inverse_permute    replaces _perm_kernel          (inverse_permute_blocks)
+//   K7 inverse_permute    replaces _perm_kernel          (inverse_permute_blocks;
+//                         on a σ-sorted SELL it also does K5/K11/K15's work)
 //   K10 panel_spmm_tiles  replaces _panel_kernel_multi   (panel_spmv_multi)
 //   K11 panel_fixup_multi replaces _scatter_kernel_multi (_window_scatter_multi,
 //                         as panel_spmv_multi's epilogue)
@@ -22,8 +24,7 @@
 // and lo f32 planes and its TwoSum chains answer the TPU's missing FMA;
 // Hopper has native fp64 FMA, so K14 reads fp64 values and x and sums each
 // row in fp64. A slot then streams 12 B and gathers 8 B of x: bytes still
-// bound it. The sorted SELL's gather of an fp64 y is K7 on rows of 2
-// floats (the wrapper views y so), an exact bit copy.
+// bound it. The sorted SELL's epilogue in fp64 is K7 built for double.
 //
 // The plan (spmv_tpu_torch/formats/base.py:build_panel_plan): slices of
 // kC = 32 rows. Slice s holds 32·K_s slots from slot slice_ptr[s], stored
@@ -63,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "panel_tile.cuh"
 
@@ -126,23 +128,119 @@ panel_fixup_kernel(const int* __restrict__ slice_ptr,
   if (row < nrows) y[row] = v;
 }
 
-// K7 — replaces _perm_kernel (spmv_tpu/kernels/engines.py:719).
+// K7 — replaces _perm_kernel (spmv_tpu/kernels/engines.py:719) — is the
+// σ-sorted SELL's one epilogue: the fix-up of the split slices (K5, K11 or
+// K15's work), the add of the spill part's y′ and the gather back to row
+// order, in one launch.
 //
-// y[i, :] = y_sorted[invperm[i], :] for rows of r floats (r = 1 for a
-// vector, R for the multi-RHS path): a gather, one thread per output
-// float, so neighbouring threads copy neighbouring floats of one row. The
-// TPU kernel's 8x128 windows and whi/idx tables bound its sublane gather
-// depth; a Hopper thread gathers from anywhere, and the sources of
-// neighbouring rows lie within one σ window (≤ 1024 rows, 4·r KB), in L2.
+// y′ (y_sorted) is the panel's y in sorted row space, (nrows_pad, R): K4's,
+// K10's or K14's, whose rows of split slices hold +0.0, or K6's, whole.
+// One thread per output row i < nrows, carrying its R columns:
+//   p = invperm[i], the sorted position; slice s = p / 32, lane p % 32;
+//   with partials: slice s is split iff it spans more than one tile
+//     (formats/base.py's rule on slice_ptr[s] / 32 and slice_ptr[s+1] / 32);
+//     then v is its partials summed as K5 sums them: the tail slot of its
+//     first tile, then the head slot of every later tile, in tile order;
+//     y′'s row of a split slice is never read;
+//   else v = y′[p] (no partials: K6's y′, or a plan with no split slice);
+//   with a spill's y′ (sorted rows too), v = v + spill[p], the single
+//     rounding of the parent's y′ += spill;
+//   y[i, :] = v, written once.
+// So the bits are those of K5 (K11, K15), the torch add and the gather in
+// turn, and on a plan with no spill or no split slice the kernel is the
+// gather alone. R = 1..8 columns in float32; double (the fp64-grade mode,
+// R = 1) reads fp64 y′, partials and spill and adds in fp64.
+//
+// Bytes are few (the rows of y read and written, ~0.25 MB at cant, and
+// the split slices' partials) and the work a few adds: what costs is the
+// launch, the chain behind the kernel ahead of it, and per row the three
+// dependent loads (invperm, slice_ptr, then y′ or the partials). So it is a
+// programmatic dependent launch (launch_programmatic, seg_tile.cuh): each
+// thread reads invperm[i] and its slice's two slice_ptr entries, plan data
+// that no kernel writes, and decides the slice's tile range before
+// griddepcontrol.wait; y′, the partials and the spill are read after it,
+// through coherent loads (no __restrict__ on them, no __ldg): the kernel
+// ahead writes them while this grid may already be resident. A row's R
+// values move as one 16-byte (8-byte) access where R allows (x_rows.cuh's
+// load_row with CoherentLoad, and store_row). On an H100
+// (probes.turns, PERF.md §6) a thread per row beat a thread per (row,
+// column), the gather's layout, by 6-11% at R = 2..8 on pl_big's 524k
+// rows, where the per-column threads repeated each row's plan reads and
+// index work R times and lost 1-5% to the three launches they replaced; it
+// lost 10% to it at R = 8 on pl-32768, whose 32k threads fill fewer
+// blocks than the card has SMs; a thread per 16 bytes of a row tied the
+// row layout over all the sorted calls timed. The sources of 32
+// neighbouring rows lie within one σ window (≤ 1024 rows), so their
+// slice_ptr entries and partials are L1 and L2 hits; the TPU kernel's 8x128
+// windows and whi/idx tables bound its sublane gather, which this card
+// does not have.
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 inverse_permute_kernel(const int* __restrict__ invperm,
-                       const float* __restrict__ y_sorted,
-                       float* __restrict__ y, int n, int r) {
-  // n·r < 2^31 - kThreads (the launcher checks), so int indices hold
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n * r) return;
-  const int row = i / r;
-  y[i] = __ldg(y_sorted + static_cast<long long>(__ldg(invperm + row)) * r + (i - row * r));
+                       const int* __restrict__ slice_ptr, const T* part,
+                       const T* y_sorted, const T* spill, T* y, int nrows) {
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  if (row >= nrows) return;
+  const int p = __ldg(invperm + row);
+  int ta = 0, tb = -1;  // the tiles of a split slice; none
+  if (part != nullptr) {
+    const int s = p / kC;
+    const int cs = __ldg(slice_ptr + s) / kC;
+    const int ce = __ldg(slice_ptr + s + 1) / kC;
+    if (ce > cs && cs / kTileCols != (ce - 1) / kTileCols) {
+      ta = cs / kTileCols;
+      tb = (ce - 1) / kTileCols;
+    }
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  // every row starts at a multiple of R, so the base pointers decide
+  // whether the wide loads and stores are aligned
+  constexpr uintptr_t kAlign = sizeof(T) * (R % 4 == 0 ? 4 : R % 2 == 0 ? 2 : 1);
+  const bool vec = ((reinterpret_cast<uintptr_t>(part) | reinterpret_cast<uintptr_t>(y_sorted) |
+                     reinterpret_cast<uintptr_t>(spill) | reinterpret_cast<uintptr_t>(y)) &
+                    (kAlign - 1)) == 0;
+  const long long at = static_cast<long long>(p) * R;
+  T v[R];
+  if (tb >= 0) {
+    const int lane = p & (kC - 1);
+    load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * ta + 1) * kC + lane) * R,
+                              vec, v);
+    for (int t = ta + 1; t <= tb; ++t) {
+      T w[R];
+      load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * t) * kC + lane) * R,
+                                vec, w);
+#pragma unroll
+      for (int j = 0; j < R; ++j) v[j] += w[j];
+    }
+  } else {
+    load_row<R, CoherentLoad>(y_sorted + at, vec, v);
+  }
+  if (spill != nullptr) {
+    T w[R];
+    load_row<R, CoherentLoad>(spill + at, vec, w);
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[j] = v[j] + w[j];
+  }
+  store_row<R>(y + static_cast<long long>(row) * R, v, vec);
+}
+
+// Launches one K7 instantiation as a programmatic dependent of the kernel
+// ahead of it; part and spill may be null (no partials, no spill). Refuses
+// (cudaErrorInvalidValue, nothing launched) an empty or too large grid, and
+// partials without slice_ptr or for a tile it was not built for.
+template <typename T, int R>
+int launch_inverse_permute(const void* invperm, const void* slice_ptr,
+                           const void* part, const void* y_sorted, const void* spill,
+                           void* y, int nrows, int tile, void* stream) {
+  if (nrows <= 0 || nrows > INT_MAX - kThreads ||
+      (part != nullptr && (slice_ptr == nullptr || tile != kTileCols))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_programmatic(
+      inverse_permute_kernel<T, R>, blocks_for(nrows, kThreads), kThreads, stream,
+      static_cast<const int*>(invperm), static_cast<const int*>(slice_ptr),
+      static_cast<const T*>(part), static_cast<const T*>(y_sorted),
+      static_cast<const T*>(spill), static_cast<T*>(y), nrows);
 }
 
 // ---------------------------------------------------------------- R > 1
@@ -275,17 +373,32 @@ int panel_spmv_fused(const void* slice_ptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7: y[i, :] = y_sorted[invperm[i], :] for i < n, rows of r floats.
-int inverse_permute(const void* invperm, const void* y_sorted, void* y, int n,
-                    int r, void* stream) {
-  if (n <= 0 || r <= 0 || static_cast<long long>(n) * r > (1LL << 31) - kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// K7: y[i, :] for i < nrows from sorted position invperm[i]: the split
+// slices' partials summed in tile order where part is given (else y′'s
+// row), plus the spill's y′ where spill is given; rows of rhs = 1..8
+// floats. A programmatic dependent launch.
+int inverse_permute(const void* invperm, const void* slice_ptr, const void* part,
+                    const void* y_sorted, const void* spill, void* y, int nrows,
+                    int tile, int rhs, void* stream) {
+  switch (rhs) {
+#define K7_CASE(R)                                                                   \
+  case R:                                                                            \
+    return launch_inverse_permute<float, R>(invperm, slice_ptr, part, y_sorted,      \
+                                            spill, y, nrows, tile, stream);
+    K7_CASE(1) K7_CASE(2) K7_CASE(3) K7_CASE(4) K7_CASE(5) K7_CASE(6) K7_CASE(7)
+    K7_CASE(8)
+#undef K7_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  inverse_permute_kernel<<<blocks_for(n * r, kThreads), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(invperm), static_cast<const float*>(y_sorted),
-      static_cast<float*>(y), n, r);
-  return static_cast<int>(cudaGetLastError());
+}
+
+// K7 in float64 (R = 1): the fp64-grade SELL's epilogue, K15's sums in fp64.
+int inverse_permute_x2(const void* invperm, const void* slice_ptr, const void* part,
+                       const void* y_sorted, const void* spill, void* y, int nrows,
+                       int tile, void* stream) {
+  return launch_inverse_permute<double, 1>(invperm, slice_ptr, part, y_sorted, spill,
+                                           y, nrows, tile, stream);
 }
 
 // K10: K4 at R = 2..8 right-hand sides: Y (nrows, R) for the rows of every

@@ -26,7 +26,8 @@
 #include <cstdint>
 #include <type_traits>
 
-// kWarp, kFullMask, the x modes, x_row_at, x_rows_aligned, row_of, store_row
+// kWarp, kFullMask, the x modes, x_row_at, x_rows_aligned, row_of (and
+// x_rows.cuh's store_row)
 #include "seg_tile.cuh"
 
 namespace {
@@ -223,6 +224,16 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
       }
     }
   }
+  // Release the programmatic dependent launched after this kernel (K7 on
+  // a σ-sorted SELL) once every warp has walked its tile: its grid may then
+  // start while this kernel's last stores drain, and does its plan reads
+  // before it waits for this kernel to finish. On an H100 this placement
+  // made the sorted SELL calls 0.3-1.3 µs faster than no trigger; one at
+  // the kernel's top or after the first batch tied it over all the calls
+  // timed and was 1.3-1.6 µs slower at cant with R = 4 (probes.turns, with
+  // K7's earlier thread per column; PERF.md §6). It does nothing when
+  // the next launch is an ordinary one (K5 on the other panel paths).
+  asm volatile("griddepcontrol.launch_dependents;");
   emit();
   if (!wrote_head) store_row<R>(row_of<R>(part, (2 * t) * kC + lane), zero);
   if (!wrote_tail) store_row<R>(row_of<R>(part, (2 * t + 1) * kC + lane), zero);

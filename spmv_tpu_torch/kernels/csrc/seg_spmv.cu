@@ -12,9 +12,9 @@
 //   K12 seg_spmv_tiles_x2 replaces _seg_kernel_x2        (segmented_spmv_x2),
 //   K13 carry_fixup_x2    with its epilogue folded in there
 //
-// K1, K2, K8, K12 and K13 are instantiations of the tile kernel and its
+// K1, K2, K8, K9, K12 and K13 are instantiations of the tile kernel and its
 // fix-up in seg_tile.cuh (templates on the value type, the column type, the
-// block size, the x read and, for K8, the number of right-hand sides),
+// block size, the x read and, for K8 and K9, the number of right-hand sides),
 // which probe_spmv.cu instantiates too, so the tile bounds and carry-slot
 // rules stay in one place. The TPU kernel B10 carries hi and lo f32 planes,
 // Dekker splits and TwoSum chains because its VPU has no FMA and its MXU
@@ -37,7 +37,7 @@
 //
 // Plain C interface for ctypes: every launcher takes device pointers and
 // the stream as void*, launches on that stream, and returns
-// cudaGetLastError() (0 = launched; for K2 and K13, which launch with
+// cudaGetLastError() (0 = launched; for K2, K9 and K13, which launch with
 // cudaLaunchKernelEx as programmatic dependents of the tile kernel ahead
 // of them, that call's error first). The host wrapper
 // (spmv_tpu_torch/kernels/engines.py) checks shapes, types and devices,
@@ -54,11 +54,11 @@ namespace {
 // K1's tile: 256 threads, each taking 4 consecutive nonzeros. Must equal
 // TILE_NNZ in spmv_tpu_torch/formats/base.py. K8 and K9 share it. K1, K2,
 // K12 and K13 are the <float|double, int32_t, 256> instantiations of the
-// tile kernel and fix-up in seg_tile.cuh, K8 its <float, int32_t, 256, R>.
+// tile kernel and fix-up in seg_tile.cuh, K8 and K9 their R-wide ones.
 constexpr int kTileThreads = 256;
 constexpr int kTileNnz = kTileThreads * kTileItems;
 
-// K3 and K9 block size.
+// K3's block size.
 constexpr int kThreads = 256;
 
 // K3 — replaces _seg_kernel_fused (spmv_tpu/kernels/engines.py:430).
@@ -108,26 +108,10 @@ csr_spmv_fused_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 // bank bits answer VMEM limits; none is here.
 
 // K9 — replaces _scatter_kernel_multi (spmv_tpu/kernels/engines.py:537) on
-// the segmented path.
-//
-// K2 per column: one thread per (split row, column), neighbouring threads
-// on neighbouring columns of one carry row. It adds the row's partials in
-// tile order, as K2 does, and writes Y once.
-__global__ void __launch_bounds__(kThreads)
-carry_fixup_multi_kernel(const int* __restrict__ ptr,
-                         const int* __restrict__ carry_rows,
-                         const float* __restrict__ carry, float* __restrict__ Y,
-                         int ncarry, int rhs) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(ncarry) * rhs) return;
-  const int j = static_cast<int>(i % rhs);
-  const int r = __ldg(carry_rows + i / rhs);
-  const int ta = __ldg(ptr + r) / kTileNnz;
-  const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
-  float s = carry[static_cast<long long>(2 * ta + 1) * rhs + j];
-  for (int t = ta + 1; t <= tb; ++t) s += carry[static_cast<long long>(2 * t) * rhs + j];
-  Y[static_cast<long long>(r) * rhs + j] = s;
-}
+// the segmented path — is seg_tile.cuh's fix-up at R = 2..8
+// (carry_fixup_kernel, launch_carry_fixup): K2's thread per split row and
+// column, its tile order, and its programmatic dependent launch behind K8,
+// whose block triggers it as K1's triggers K2.
 
 // Blocks of K1 (T = double: K12; R = 2..8: K8) resident per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers and the
@@ -235,19 +219,20 @@ int seg_spmm_tiles(const void* ptr, const void* cols, const void* vals,
   }
 }
 
-// K9: Y[r, j] = the sum of split row r's partials in column j, in tile order.
+// K9: Y[r, j] = the sum of split row r's partials in column j, in tile
+// order; R = 2..8; a programmatic dependent launch (launch_carry_fixup).
 int carry_fixup_multi(const void* ptr, const void* carry_rows, const void* carry,
                       void* Y, int ncarry, int tile, int rhs, void* stream) {
-  if (tile != kTileNnz || ncarry <= 0 || rhs <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (rhs) {
+#define K9_CASE(R)                                                                 \
+  case R:                                                                          \
+    return launch_carry_fixup<float, kTileNnz, R>(ptr, carry_rows, carry, Y, ncarry, \
+                                                  tile, stream);
+    K9_CASE(2) K9_CASE(3) K9_CASE(4) K9_CASE(5) K9_CASE(6) K9_CASE(7) K9_CASE(8)
+#undef K9_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long blocks = (static_cast<long long>(ncarry) * rhs + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  carry_fixup_multi_kernel<<<static_cast<int>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ptr), static_cast<const int*>(carry_rows),
-      static_cast<const float*>(carry), static_cast<float*>(Y), ncarry, rhs);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

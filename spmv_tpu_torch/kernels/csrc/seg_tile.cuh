@@ -1,5 +1,5 @@
 // The segmented tile kernel and its fix-up, shared by seg_spmv.cu (K1, K2,
-// K8, K12, K13) and probe_spmv.cu (the probes' instantiations of the same
+// K8, K9, K12, K13) and probe_spmv.cu (the probes' instantiations of the same
 // code: 16-bit columns, other tile sizes, a synthesized or float32 x).
 //
 // seg_tiles_block<T, ColT, kBlockThreads, kX, XT, R> is the body of K1's
@@ -46,7 +46,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 // Consecutive nonzeros per thread of a tile kernel.
 constexpr int kTileItems = 4;
-// K2's block size.
+// K2's, K9's and K13's block size.
 constexpr int kFixupThreads = 256;
 
 // How a tile kernel gets x(c).
@@ -147,12 +147,6 @@ __device__ __forceinline__ T* row_of(T* p, int r) {
   } else {
     return p + static_cast<long long>(r) * R;
   }
-}
-
-template <int R, typename T>
-__device__ __forceinline__ void store_row(T* p, const T (&v)[R]) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) p[j] = v[j];
 }
 
 // A tile's row offsets ptr[r] for r in [tile_row0[t], tile_row0[t + 1] + 1],
@@ -507,12 +501,15 @@ seg_spmm_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 
 // K2 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171); K13 (T =
 // double) is the epilogue of _seg_kernel_x2 (engines_x2.py:267), which the
-// TPU kernel folds into its one dispatch.
+// TPU kernel folds into its one dispatch; K9 (R = 2..8) replaces
+// _scatter_kernel_multi (engines.py:537) on the segmented path.
 //
 // One thread per split row (a row that crosses a tile boundary of
-// kTileNnz nonzeros). It adds the row's partials in tile order: the tail
-// slot of the tile where the row begins, then the head slot of every later
-// tile it reaches. Reads 4 B (8 B for doubles) per carry and writes y
+// kTileNnz nonzeros) and column: at R > 1 neighbouring threads take
+// neighbouring columns of one row, so they read neighbouring floats of a
+// carry row. It adds the row's partials in tile order: the tail slot of
+// the tile where the row begins, then the head slot of every later tile it
+// reaches. Reads 4 B (8 B for doubles) per carry and column and writes y
 // once; a few KB at cant scale, so bytes are not its cost: its launch, and
 // a chain of three dependent loads (the row, its two offsets, the carries)
 // behind the whole tile kernel, are.
@@ -532,20 +529,24 @@ seg_spmm_tiles_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 // the launch took 0.2-1.4 µs off the K1 + K2 and K12 + K13 paths on an
 // H100 against an ordinary launch; alone it costs about the time of a
 // kernel that does nothing (probes.turns, chip_smoke.py; PERF.md §6).
-template <typename T, int kTileNnz>
+// K8's block is K1's, trigger included, so K9 takes the same launch.
+template <typename T, int kTileNnz, int R = 1>
 __global__ void __launch_bounds__(kFixupThreads)
 carry_fixup_kernel(const int* __restrict__ ptr,
                    const int* __restrict__ carry_rows,
                    const T* carry, T* __restrict__ y, int ncarry) {
-  const int j = blockIdx.x * kFixupThreads + threadIdx.x;
-  if (j >= ncarry) return;
+  // ncarry·R < 2^31 - kFixupThreads (the launcher checks)
+  const int i = blockIdx.x * kFixupThreads + threadIdx.x;
+  if (i >= ncarry * R) return;
+  const int j = i / R;            // the split row's entry
+  const int col = i - j * R;      // and its column, 0 at R = 1
   const int r = __ldg(carry_rows + j);
   const int ta = __ldg(ptr + r) / kTileNnz;
   const int tb = (__ldg(ptr + r + 1) - 1) / kTileNnz;
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  T s = carry[2 * ta + 1];
-  for (int t = ta + 1; t <= tb; ++t) s += carry[2 * t];
-  y[r] = s;
+  T s = carry[(2 * ta + 1) * R + col];
+  for (int t = ta + 1; t <= tb; ++t) s += carry[2 * t * R + col];
+  y[static_cast<long long>(r) * R + col] = s;
 }
 
 // The entry of an instantiation: K1's kernel at R = 1, K8's above.
@@ -578,32 +579,47 @@ int launch_seg_tiles(const void* ptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K2 (K13 for T = double; a probe's tile) as a programmatic
-// dependent of the kernel ahead of it on the stream. Returns the launch's
-// error (cudaLaunchKernelEx's, else cudaGetLastError()); refuses
-// (cudaErrorInvalidValue, nothing launched) a tile it was not built for.
-template <typename T, int kTileNnz>
-int launch_carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
-                       void* y, int ncarry, int tile, void* stream) {
-  if (tile != kTileNnz || ncarry <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Launches `kernel` on `stream` as a programmatic dependent of the kernel
+// ahead of it (cudaLaunchKernelEx with
+// cudaLaunchAttributeProgrammaticStreamSerialization): its grid may start
+// once every block of that kernel has issued griddepcontrol.launch_dependents
+// or exited, so the kernel must run griddepcontrol.wait before it reads
+// anything the kernel ahead writes. K2, K9, K13 (launch_carry_fixup) and
+// K7 (panel_spmv.cu) launch so. Returns cudaLaunchKernelEx's error, else
+// cudaGetLastError() (which it also clears after a refused launch).
+template <typename... Params, typename... Args>
+int launch_programmatic(void (*kernel)(Params...), int blocks, int threads,
+                        void* stream, Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((ncarry + kFixupThreads - 1) / kFixupThreads);
-  config.blockDim = dim3(kFixupThreads);
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(threads);
   config.dynamicSmemBytes = 0;
   config.stream = static_cast<cudaStream_t>(stream);
   config.attrs = attr;
   config.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(
-      &config, carry_fixup_kernel<T, kTileNnz>, static_cast<const int*>(ptr),
+  const cudaError_t rc = cudaLaunchKernelEx(&config, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(rc != cudaSuccess ? rc : last);
+}
+
+// Launches K2 (K13 for T = double, K9 for R = 2..8; a probe's tile) as a
+// programmatic dependent of the kernel ahead of it on the stream
+// (launch_programmatic). Refuses (cudaErrorInvalidValue, nothing launched)
+// a tile it was not built for.
+template <typename T, int kTileNnz, int R = 1>
+int launch_carry_fixup(const void* ptr, const void* carry_rows, const void* carry,
+                       void* y, int ncarry, int tile, void* stream) {
+  if (tile != kTileNnz || ncarry <= 0 || ncarry > (INT_MAX - kFixupThreads) / R) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_programmatic(
+      carry_fixup_kernel<T, kTileNnz, R>, (ncarry * R + kFixupThreads - 1) / kFixupThreads,
+      kFixupThreads, stream, static_cast<const int*>(ptr),
       static_cast<const int*>(carry_rows), static_cast<const T*>(carry),
       static_cast<T*>(y), ncarry);
-  const cudaError_t last = cudaGetLastError();  // and clears a refused launch's
-  return static_cast<int>(rc != cudaSuccess ? rc : last);
 }
 
 }  // namespace

@@ -297,7 +297,10 @@ def segmented_spmv_multi_partials(dev: DevCsr, X: torch.Tensor):
 
 def carry_fixup_multi(dev: DevCsr, Y: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
     """K9: adds each split row's partials, in tile order and column by
-    column, into ``Y``. Updates ``Y`` in place and returns it."""
+    column, into ``Y``. Updates ``Y`` in place and returns it. On the card
+    K9 is K2's kernel at R columns and, like K2, a programmatic dependent
+    launch that reads its rows and their offsets before it waits for the
+    kernel ahead of it (K8)."""
     R = Y.shape[-1] if Y.dim() == 2 else 0
     if Y.shape != (dev.nrows, R) or carry.shape != (2 * dev.ntiles, R):
         raise ValueError("Y or carry does not match the plan")

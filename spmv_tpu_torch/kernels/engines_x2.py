@@ -1,5 +1,6 @@
 """The fp64-grade mode's engines: wrappers of K12-K15, each with its plain
-PyTorch version beside it, and the σ gather of an fp64 y.
+PyTorch version beside it, and K7 on an fp64 y, the sorted SELL's
+epilogue.
 
 Counterpart of ``spmv_tpu/kernels/engines_x2.py``.
 
@@ -10,7 +11,7 @@ segmented_spmv_x2_partials   K12 seg_spmv_tiles_x2     engines_x2.py:267 ``_seg_
 carry_fixup_x2               K13 carry_fixup_x2        engines_x2.py:267, its fixed-up sum
 panel_spmv_x2_partials       K14 panel_spmv_tiles_x2   engines_x2.py:205 ``_panel_kernel_x2``
 panel_fixup_x2               K15 panel_fixup_x2        engines_x2.py:205, its fixed-up sum
-inverse_permute_x2           K7 inverse_permute        engines.py:719 ``_perm_kernel`` (fp64 y)
+inverse_permute_x2           K7 inverse_permute_x2     engines.py:719 ``_perm_kernel`` (fp64 y)
 ===========================  ========================  =========================================
 
 The JAX engines carry each value as f32 hi and lo planes, x as a (2S, 128)
@@ -38,8 +39,7 @@ from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.kernels.engines import (_seg_fixup, _seg_tiles,
                                             carry_fixup_reference,
                                             segmented_spmv_partials_reference)
-from spmv_tpu_torch.kernels.panel import (_panel_fixup, _panel_tiles,
-                                          inverse_permute,
+from spmv_tpu_torch.kernels.panel import (_epilogue, _panel_fixup, _panel_tiles,
                                           inverse_permute_reference,
                                           panel_fixup_reference,
                                           panel_spmv_partials_reference)
@@ -47,17 +47,20 @@ from spmv_tpu_torch.kernels.panel import (_panel_fixup, _panel_tiles,
 __all__ = ["segmented_spmv_x2", "segmented_spmv_x2_partials", "carry_fixup_x2",
            "panel_spmv_x2", "panel_spmv_x2_partials", "panel_fixup_x2",
            "panel_and_spill_spmv_x2", "inverse_permute_x2",
+           "sorted_panel_and_spill_spmv_x2",
            "segmented_spmv_x2_partials_reference", "carry_fixup_x2_reference",
            "panel_spmv_x2_partials_reference", "panel_fixup_x2_reference",
            "inverse_permute_x2_reference"]
 
 _F64 = torch.float64
 
-# Plain K12-K15: plain K1, K2, K4 and K5, which sum in the plan's dtype.
+# Plain K12-K15 and the fp64 K7: plain K1, K2, K4, K5 and K7, which work in
+# their inputs' dtype.
 segmented_spmv_x2_partials_reference = segmented_spmv_partials_reference
 carry_fixup_x2_reference = carry_fixup_reference
 panel_spmv_x2_partials_reference = panel_spmv_partials_reference
 panel_fixup_x2_reference = panel_fixup_reference
+inverse_permute_x2_reference = inverse_permute_reference
 
 
 def segmented_spmv_x2_partials(dev: DevCsr, x: torch.Tensor):
@@ -113,26 +116,25 @@ def panel_and_spill_spmv_x2(dev: DevPanel, dev_spill: DevCsr | None,
     return y.add_(segmented_spmv_x2(dev_spill, x))
 
 
-def _as_pairs(y: torch.Tensor) -> torch.Tensor:
-    """An fp64 vector viewed as rows of 2 float32 (the same bytes)."""
-    if y.dtype != _F64 or y.dim() != 1 or not y.is_contiguous():
-        raise ValueError(f"y must be a contiguous float64 vector, got {y.dtype} "
-                         f"{tuple(y.shape)}")
-    return y.view(torch.float32).view(-1, 2)
+def inverse_permute_x2(invperm: torch.Tensor, y_sorted: torch.Tensor, nrows: int, *,
+                       dev: DevPanel | None = None, part: torch.Tensor | None = None,
+                       spill: torch.Tensor | None = None) -> torch.Tensor:
+    """K7 in float64, the fp64-grade SELL's epilogue: ``kernels.panel.
+    inverse_permute`` on fp64 y′, K14's partials and an fp64 spill, the
+    sums in fp64, counted under ``inverse_permute``. Without partials or a
+    spill it is the gather alone, an exact bit copy; JAX applies its
+    ``inverse_permute_blocks`` to each half (``spmv_tpu/x2.py:165-177``)."""
+    return _epilogue("inverse_permute_x2", _F64, invperm, y_sorted, nrows, dev, part,
+                     spill)
 
 
-def inverse_permute_x2(invperm: torch.Tensor, y_sorted: torch.Tensor,
-                       nrows: int) -> torch.Tensor:
-    """K7 on an fp64 y: ``y[i] = y_sorted[invperm[i]]`` for ``i < nrows``.
-    One launch over rows of 2 floats, each the bytes of one double, so the
-    gather is an exact bit copy; JAX applies its ``inverse_permute_blocks``
-    to each half (``spmv_tpu/x2.py:165-177``)."""
-    return inverse_permute(invperm, _as_pairs(y_sorted), nrows).view(_F64).view(-1)
-
-
-def inverse_permute_x2_reference(invperm: torch.Tensor, y_sorted: torch.Tensor,
-                                 nrows: int) -> torch.Tensor:
-    """Plain fp64 K7: the same index gather over the same rows of 2
-    floats."""
-    return inverse_permute_reference(invperm, _as_pairs(y_sorted),
-                                      nrows).view(_F64).view(-1)
+def sorted_panel_and_spill_spmv_x2(dev: DevPanel, dev_spill: DevCsr | None,
+                                   invperm: torch.Tensor, x: torch.Tensor,
+                                   nrows: int) -> torch.Tensor:
+    """y = A·x in float64 for a σ-sorted SELL, in row order and cut to
+    ``nrows``: K14, the spill's K12 + K13 where there is a spill, then K7 in
+    float64, in place of K15, the fp64 torch add and the gather of
+    ``panel_and_spill_spmv_x2``, with the same bits."""
+    y, part = panel_spmv_x2_partials(dev, x)
+    spill = segmented_spmv_x2(dev_spill, x) if dev_spill is not None else None
+    return inverse_permute_x2(invperm, y, nrows, dev=dev, part=part, spill=spill)

@@ -19,10 +19,15 @@ panel_fixup_multi           K11 panel_fixup_multi   engines.py:537 ``_scatter_ke
 ``device.FUSED_STREAM_BYTES_MAX`` bytes and K4 then K5 otherwise — the JAX
 engine's fused and two-dispatch shapes, on the segmented engine's
 predicate. ``panel_and_spill_spmv`` adds a CSR spill part to the panel's y
-(the panel/spill split of ELL, SELL-C-σ and HYB). ``panel_spmv_multi``
-(K10 then K11) and ``panel_and_spill_spmm`` are the same for X of shape
-(ncols, R), 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``; K7 gathers rows of R floats
-for them.
+(the panel/spill split of ELL, HYB and unsorted SELL-C-σ).
+``panel_spmv_multi`` (K10 then K11) and ``panel_and_spill_spmm`` are the
+same for X of shape (ncols, R), 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``.
+
+A σ-sorted SELL takes ``sorted_panel_and_spill_spmv`` (``_spmm``) instead:
+K4 (K6 for a small plan; K10 at R columns), the spill part's engine where
+there is one, then K7, the one epilogue that sums the split slices'
+partials, adds the spill's y and gathers back to row order, where the
+shared path would run K5 (K11), a torch add and the gather.
 
 Routing, as in ``kernels.engines``: CPU tensors run the plain version
 (``*_reference``), CUDA tensors launch the kernel or raise, and each
@@ -35,9 +40,9 @@ import torch
 
 from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import SLICE_ROWS, TILE_COLS
-from spmv_tpu_torch.kernels.engines import (_check_X, _check_x, _launch, _lead,
-                                            _on_cuda, segmented_spmv,
-                                            segmented_spmv_multi)
+from spmv_tpu_torch.kernels.engines import (MULTI_RHS_MAX, _check_X, _check_x,
+                                            _launch, _lead, _on_cuda,
+                                            segmented_spmv, segmented_spmv_multi)
 
 __all__ = ["panel_spmv", "panel_spmv_partials", "panel_fixup",
            "panel_spmv_fused", "inverse_permute", "panel_and_spill_spmv",
@@ -46,7 +51,8 @@ __all__ = ["panel_spmv", "panel_spmv_partials", "panel_fixup",
            "panel_spmv_multi", "panel_spmv_multi_partials",
            "panel_fixup_multi", "panel_and_spill_spmm",
            "panel_spmv_multi_partials_reference",
-           "panel_fixup_multi_reference"]
+           "panel_fixup_multi_reference", "sorted_panel_and_spill_spmv",
+           "sorted_panel_and_spill_spmm"]
 
 _C = SLICE_ROWS
 
@@ -296,30 +302,103 @@ def panel_and_spill_spmm(dev: DevPanel, dev_spill: DevCsr | None,
 # ---------------------------------------------------------------- K7
 
 
-def inverse_permute(invperm: torch.Tensor, y_sorted: torch.Tensor,
-                    nrows: int) -> torch.Tensor:
-    """K7: ``y[i] = y_sorted[invperm[i]]`` for ``i < nrows`` — undoes the
-    SELL-C-σ row sort (``invperm`` maps an original row to its sorted
-    position) and cuts y to ``nrows``. ``y_sorted`` is a vector, or an
-    (nrows_pad, R) Y whose rows of R floats the one launch gathers."""
+def _epilogue(launcher: str, dtype: torch.dtype, invperm: torch.Tensor,
+              y_sorted: torch.Tensor, nrows: int, dev: DevPanel | None,
+              part: torch.Tensor | None, spill: torch.Tensor | None) -> torch.Tensor:
+    """K7 in float32 (``inverse_permute``) or float64 (``launcher``
+    ``inverse_permute_x2``): the wrapper both share, counted under
+    ``inverse_permute``."""
     if invperm.dtype != torch.int32 or not invperm.is_contiguous():
         raise ValueError(f"invperm must be contiguous int32, got {invperm.dtype}")
+    R = y_sorted.shape[1] if y_sorted.dim() == 2 else 1
     if (invperm.dim() != 1 or y_sorted.dim() not in (1, 2)
-            or y_sorted.shape[0] != invperm.numel()
+            or y_sorted.shape[0] != invperm.numel() or not 1 <= R <= MULTI_RHS_MAX
             or not 0 <= nrows <= invperm.numel()):
         raise ValueError(f"invperm {tuple(invperm.shape)}, y_sorted "
                          f"{tuple(y_sorted.shape)} and nrows {nrows} do not match")
-    if not _on_cuda(invperm, y_sorted):
-        return inverse_permute_reference(invperm, y_sorted, nrows)
-    y = torch.empty((nrows, *y_sorted.shape[1:]), dtype=torch.float32,
-                    device=y_sorted.device)
-    if y.numel():
-        _launch("inverse_permute", invperm, invperm, y_sorted, y, nrows,
-                y.numel() // nrows)
+    if spill is not None and spill.shape != y_sorted.shape:
+        raise ValueError(f"spill {tuple(spill.shape)} is not y_sorted's "
+                         f"{tuple(y_sorted.shape)}")
+    if part is not None and (
+            dev is None or dev.nrows != invperm.numel()
+            or part.shape != (2 * dev.ntiles, _C, *y_sorted.shape[1:])):
+        raise ValueError("partials need the panel plan they belong to")
+    if invperm.device != y_sorted.device:
+        raise ValueError(f"invperm on {invperm.device}, y_sorted on {y_sorted.device}")
+    extra = tuple(t for t in (part, spill) if t is not None)
+    if not _on_cuda(dev if part is not None else invperm, y_sorted, *extra,
+                    dtype=dtype):
+        return inverse_permute_reference(invperm, y_sorted, nrows, dev=dev,
+                                         part=part, spill=spill)
+    y = torch.empty((nrows, *y_sorted.shape[1:]), dtype=dtype, device=y_sorted.device)
+    if not nrows:  # a zero-sized grid is refused
+        return y
+    if part is not None and not dev.nsplit:  # no split slice: y′ is whole
+        part = None
+    if part is not None and dev.tile != TILE_COLS:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
+    rhs = () if launcher.endswith("_x2") else (R,)
+    _launch(launcher, y_sorted, invperm, None if part is None else dev.slice_ptr, part,
+            y_sorted, spill, y, nrows, TILE_COLS, *rhs, key="inverse_permute")
     return y
 
 
+def inverse_permute(invperm: torch.Tensor, y_sorted: torch.Tensor, nrows: int, *,
+                    dev: DevPanel | None = None, part: torch.Tensor | None = None,
+                    spill: torch.Tensor | None = None) -> torch.Tensor:
+    """K7, the σ-sorted SELL's epilogue: ``y[i] = v(invperm[i])`` for ``i <
+    nrows``, where ``invperm`` maps an original row to its sorted position
+    and v(p) is row p of the panel's ``y_sorted`` (y′, a vector or an
+    (nrows_pad, R) Y, 1 ≤ R ≤ MULTI_RHS_MAX) — or, given the tile kernel's
+    partials ``part`` of panel plan ``dev``, the sum of a split slice's
+    partials in tile order (y′'s rows of split slices are not read) — plus
+    row p of ``spill`` (the spill part's y′ over the same sorted rows)
+    where given. With neither it is the index gather that undoes the sort
+    and cuts y to ``nrows``. On the card it is a programmatic dependent
+    launch: the kernel ahead of it on the stream writes y′, the partials
+    or the spill, never ``invperm`` or the plan."""
+    return _epilogue("inverse_permute", torch.float32, invperm, y_sorted, nrows,
+                     dev, part, spill)
+
+
 def inverse_permute_reference(invperm: torch.Tensor, y_sorted: torch.Tensor,
-                              nrows: int) -> torch.Tensor:
-    """Plain K7: an index gather (of rows, for an (nrows_pad, R) Y)."""
-    return y_sorted[invperm[:nrows].long()]
+                              nrows: int, *, dev: DevPanel | None = None,
+                              part: torch.Tensor | None = None,
+                              spill: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K7: the plain versions in the order the kernel folds them —
+    plain K5 (K11, K15 by shape and dtype) of the partials into a copy of
+    y′, the spill's y′ added, then an index gather (of rows, for an
+    (nrows_pad, R) Y)."""
+    y = y_sorted
+    if part is not None:
+        y = panel_fixup_reference(dev, y_sorted.clone(), part)
+    if spill is not None:
+        y = y + spill
+    return y[invperm[:nrows].long()]
+
+
+# ---------------------------------------------------------------- sorted SELL
+
+
+def sorted_panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
+                                invperm: torch.Tensor, x: torch.Tensor,
+                                nrows: int) -> torch.Tensor:
+    """y = A·x for a σ-sorted SELL, in original row order and cut to
+    ``nrows``: the panel's tile kernel K4 (K6 for a small plan), the spill
+    part's engine where there is one, then K7, which sums the split slices'
+    partials, adds the spill and gathers in one launch — in place of K5,
+    the torch add and the gather of ``panel_and_spill_spmv``, with the same
+    bits."""
+    y, part = (panel_spmv_fused(dev, x), None) if dev.fused else panel_spmv_partials(dev, x)
+    spill = segmented_spmv(dev_spill, x) if dev_spill is not None else None
+    return inverse_permute(invperm, y, nrows, dev=dev, part=part, spill=spill)
+
+
+def sorted_panel_and_spill_spmm(dev: DevPanel, dev_spill: DevCsr | None,
+                                invperm: torch.Tensor, X: torch.Tensor,
+                                nrows: int) -> torch.Tensor:
+    """``sorted_panel_and_spill_spmv`` for X of shape (ncols, R), 2 ≤ R ≤
+    MULTI_RHS_MAX: K10, the spill's K8 + K9, then K7 over rows of R."""
+    Y, part = panel_spmv_multi_partials(dev, X)
+    spill = segmented_spmv_multi(dev_spill, X) if dev_spill is not None else None
+    return inverse_permute(invperm, Y, nrows, dev=dev, part=part, spill=spill)

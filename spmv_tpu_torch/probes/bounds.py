@@ -18,7 +18,7 @@ import torch
 __all__ = ["HBM_PEAK_BPS", "PEAK_FLOPS", "bound_ms", "nbytes", "seg_tiles_bytes",
            "fixup_bytes", "csr_spmv_bytes", "fused_bytes", "panel_tiles_bytes",
            "panel_fixup_bytes", "panel_fused_bytes", "permute_bytes",
-           "stream_bytes"]
+           "epilogue_bytes", "stream_bytes"]
 
 HBM_PEAK_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -108,6 +108,26 @@ def panel_fused_bytes(pdev) -> int:
 def permute_bytes(n: int, row_bytes: int) -> int:
     """K7: n int32 indices read, n rows of ``row_bytes`` read and written."""
     return n * (4 + 2 * row_bytes)
+
+
+def epilogue_bytes(pdev, invperm: torch.Tensor, nrows: int, R: int = 1,
+                   spill: bool = False) -> int:
+    """K7 with the panel's partials, the sorted SELL's epilogue, at R
+    columns, as this plan's rows need it: ``invperm``'s first ``nrows``
+    entries and ``slice_ptr`` read; per output row, the partial slots of
+    its slice where the slice is split (the tail slot of its first tile and
+    a head slot per later tile), else its row of y′; the spill's y′ row
+    where it adds one; the row of y written. A split slice's rows of y′ are
+    never read. (Without partials it is the gather alone,
+    ``permute_bytes``.)"""
+    es = pdev.vals.element_size()
+    scol = pdev.slice_ptr.long().cpu() // 32
+    s = pdev.split_slices.long().cpu()
+    spans = torch.zeros(scol.numel() - 1, dtype=torch.long)
+    spans[s] = (scol[s + 1] - 1) // pdev.tile - scol[s] // pdev.tile + 1
+    reads = spans[invperm[:nrows].long().cpu() // 32].clamp(min=1)
+    return (nbytes(pdev.slice_ptr) + 4 * nrows
+            + (int(reads.sum()) + nrows * (2 if spill else 1)) * es * R)
 
 
 def stream_bytes(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor | None = None) -> int:

@@ -1,7 +1,7 @@
 """Two checkouts' tile kernels, timed in turns on one card.
 
     python -m spmv_tpu_torch.probes.turns OTHER_ROOT [OTHER_ROOT ...]
-        [--out DIR] [--only seg|panel|spmm] [--probe NAME:MATRIX ...]
+        [--out DIR] [--only seg|panel|spmm|sorted] [--probe NAME:MATRIX ...]
         [--rounds N]
 
 Measures a change to the segmented tile kernel K1/K12/K8 and its fix-ups
@@ -14,7 +14,7 @@ OTHER, OTHER2, ..., THIS, THIS, ..., OTHER2, OTHER, and every time is
 also given against the first. Each turn is a fresh
 process that imports ``spmv_tpu_torch`` from one checkout, so it builds and
 launches that checkout's kernels through that checkout's wrappers, and
-(``--only`` keeps one of the three engines):
+(``--only`` keeps one of the four engines):
 
 * runs K1 and K12 on cant, ``pl_big``, ``pl_wide`` and band-1024, and K4
   and K14 on the SELL panels of cant (as the split builds it), pl-32768
@@ -38,6 +38,15 @@ launches that checkout's kernels through that checkout's wrappers, and
   (``kernels.probes.launch_floor``, a kernel that does nothing) and K1 with
   K2 folded into its last block (``kernels.probes.segmented_spmv_fold``,
   its y checked against K1 + K2's bit for bit);
+* with the ``sorted`` engine, the public calls on the σ-sorted SELL
+  builds of ``SORTED_BUILDS`` (cant, pl-32768 and ``pl_big`` whole, and
+  pl-32768 with a spill part, under ``forced_split``: K4, K1 + K2, K7):
+  ``SellMatrix.matvec``, ``spmm`` at each R of
+  ``SPMM_RHS`` and the fp64-grade ``X2Matrix.matvec``, each timed by graph
+  replay and its output saved, so that a change to the sorted path's chain
+  (K4, K10, K14, the spill's kernels and K7) is held to the other
+  checkout's bits; the same calls, untimed, on ``common.PANEL_SHAPES`` as
+  σ-sorted SELL panels (σ = 128) on K4's partials;
 * then runs each ``--probe NAME:MATRIX`` (``python -m spmv_tpu_torch.probes``)
   in that checkout, its output saved beside the arrays.
 
@@ -52,6 +61,7 @@ without a card, and when two outputs differ.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -69,6 +79,43 @@ TURN_MATRICES = ("cant", "pl_big", "pl_wide", "band")
 PANEL_TURN_MATRICES = ("cant", "pl", "pl_big")
 # the right-hand sides the spmm engine runs K8 and K10 at
 SPMM_RHS = (2, 4, 8)
+# the σ-sorted SELL containers the sorted engine times through the public
+# calls: name → (matrix of ``common.MATRICES``, split, forced): cant as the
+# split builds it (a pure sorted panel), pl-32768 and ``pl_big`` whole
+# (bench.py's ``sell_pure``), and pl-32768 split and called under
+# ``forced_split(**SPILL_PRICES)``, which makes it keep a sorted panel,
+# spill the hub rows' tails and run K4, the spill's K1 + K2, then K7 (not
+# the one-dispatch K6 and K3): the path with a spill part, which the priced
+# split gives none of these matrices
+SORTED_BUILDS = {"cant": ("cant", True, False), "pl": ("pl", False, False),
+                 "pl_big": ("pl_big", False, False), "pl_hyb": ("pl", True, True)}
+# the split's dispatch price and the one-dispatch bound set to 0
+SPILL_PRICES = {"dispatch_s": 0.0, "fused_max": 0}
+
+
+@contextlib.contextmanager
+def forced_split(dispatch_s: float | None = None, fused_max: int | None = None):
+    """Runs its body with the split's dispatch price
+    (``formats.split._DISPATCH_S``) and the one-dispatch bound
+    (``device.FUSED_STREAM_BYTES_MAX``) set as given (None keeps one), and
+    restores both: a dispatch price of 0 makes the split keep a σ-sorted
+    panel and spill the long rows' tails, and a bound of 0 keeps a plan on
+    its tile kernel and fix-up. The bound is read at each call, so a call
+    that should run as built runs inside it too. ``chip_smoke.py``, the
+    ``gpu`` tests and the turns worker (in any checkout: both globals
+    predate the port's sorted path) force a build so."""
+    from spmv_tpu_torch import device as D
+    from spmv_tpu_torch.formats import split as S
+
+    saved = S._DISPATCH_S, D.FUSED_STREAM_BYTES_MAX
+    if dispatch_s is not None:
+        S._DISPATCH_S = dispatch_s
+    if fused_max is not None:
+        D.FUSED_STREAM_BYTES_MAX = fused_max
+    try:
+        yield
+    finally:
+        S._DISPATCH_S, D.FUSED_STREAM_BYTES_MAX = saved
 
 
 def matrix_specs(names=TURN_MATRICES) -> dict:
@@ -181,6 +228,46 @@ def _worker(out_dir: Path, specs: dict) -> dict:
         xh = np.random.default_rng(3).standard_normal(shape).astype(np_dtype)
         return torch.from_numpy(xh).cuda()
 
+    def sorted_sell(name, nrows, ncols, r, c, v, split, spill, **kw):
+        """The float32 and fp64-grade SELL of the triplets, σ-sorted, with
+        a spill part or without, as ``spill`` says."""
+        args = ("sell", nrows, ncols, r, c)
+        a = spmv_tpu_torch.from_coo(*args, v, split=split, device="cuda", **kw)
+        a2 = spmv_tpu_torch.X2Matrix.from_coo(
+            *args, _x2_vals(np.asarray(v, np.float64)), split=split, device="cuda", **kw)
+        if not (a.sorted_rows and a2.sorted_rows) or (a.dev_spill is not None) != spill:
+            raise AssertionError(f"{name}: not the sorted SELL asked for")
+        return a, a2
+
+    def sorted_calls(label, a, a2, ncols, timed):
+        """The public calls on a sorted SELL, float32 and fp64-grade:
+        matvec, spmm at each R of SPMM_RHS, the x2 matvec; their outputs
+        saved and, with ``timed``, their times by graph replay."""
+        calls = {"f32": (a.matvec, vector(ncols, np.float32)),
+                 "f64": (a2.matvec, vector(ncols, np.float64))}
+        calls.update({f"R{R}": (lambda X: spmv_tpu_torch.spmm(a, X),
+                                vector(ncols, np.float32, R)) for R in SPMM_RHS})
+        for key, (fn, x) in calls.items():
+            np.save(out_dir / f"{label.replace(' ', '_')}_{key}_y.npy", fn(x).cpu().numpy())
+            if timed:
+                ms[f"{label} {key} call"] = graph_ms(lambda fn=fn, x=x: fn(x))
+        torch.cuda.synchronize()
+
+    for name, (gen, kwargs, split, forced) in specs.pop("sorted", {}).items():
+        info, r, c, v = getattr(synth, gen)(**kwargs)
+        with forced_split(**(SPILL_PRICES if forced else {})):
+            a, a2 = sorted_sell(name, info.nrows, info.ncols, r, c, v, split, forced)
+            sorted_calls(f"{name} sorted", a, a2, info.ncols, timed=True)
+        del a, a2
+    for name, path in specs.pop("sorted_shapes", {}).items():
+        # the panel shapes as whole SELL panels (σ = 128), on K4's partials
+        # (the one-dispatch K6 bound set to 0), untimed
+        z = np.load(path)
+        nrows, ncols = (int(n) for n in z["shape"])
+        with forced_split(fused_max=0):
+            a, a2 = sorted_sell(name, nrows, ncols, z["r"], z["c"], z["v"], False, False,
+                                sigma=128)
+            sorted_calls(f"{name} sorted shape", a, a2, ncols, timed=False)
     for name, path in specs.pop("shapes", {}).items():
         z = np.load(path)
         nrows, ncols = (int(n) for n in z["shape"])
@@ -238,17 +325,26 @@ def run_specs(only: str | None, out: Path) -> dict:
     ``rhs``, the R of each kernel (1 for the seg and panel engines,
     ``SPMM_RHS`` for spmm); ``seg``, the matrices of the segmented
     kernels; ``panel``, those of the panel kernels with their split;
-    ``shapes``, the panel shapes' triplets, written under ``out``."""
+    ``shapes``, the panel shapes' triplets, written under ``out``;
+    ``sorted``, the sorted SELL builds (``SORTED_BUILDS``) whose public
+    calls the sorted engine times, and ``sorted_shapes``, the panel shapes'
+    triplets, which it runs as sorted SELL panels, untimed."""
     from spmv_tpu_torch.probes.common import PANEL_SPLIT
 
-    rhs = [1] * (only != "spmm") + list(SPMM_RHS) * (only in (None, "spmm"))
+    engines = {"seg", "panel", "spmm", "sorted"} if only is None else {only}
+    rhs = [1] * bool(engines & {"seg", "panel"}) + list(SPMM_RHS) * ("spmm" in engines)
     specs = {"rhs": rhs}
-    if only != "panel":
+    if engines & {"seg", "spmm"}:
         specs["seg"] = matrix_specs()
-    if only != "seg":
+    if engines & {"panel", "spmm"}:
         specs["panel"] = {n: [*spec, PANEL_SPLIT.get(n, False)]
                           for n, spec in matrix_specs(PANEL_TURN_MATRICES).items()}
         specs["shapes"] = shape_specs(out)
+    if "sorted" in engines:
+        named = matrix_specs({m for m, _, _ in SORTED_BUILDS.values()})
+        specs["sorted"] = {n: [*named[m], split, forced]
+                           for n, (m, split, forced) in SORTED_BUILDS.items()}
+        specs["sorted_shapes"] = shape_specs(out)
     return specs
 
 
@@ -282,9 +378,10 @@ def main(argv=None) -> int:
                    "first is the one every time is given against)")
     p.add_argument("--out", default="turns_out",
                    help="directory for the outputs and turns.json")
-    p.add_argument("--only", choices=("seg", "panel", "spmm"),
+    p.add_argument("--only", choices=("seg", "panel", "spmm", "sorted"),
                    help="time one engine's tile kernels only (spmm: K8 and "
-                        "K10 at R = 2, 4, 8)")
+                        "K10 at R = 2, 4, 8; sorted: the public calls on "
+                        "sorted SELL builds)")
     p.add_argument("--probe", action="append", default=[],
                    help="NAME:MATRIX, run in each turn, e.g. ablate:pl_big")
     p.add_argument("--rounds", type=int, default=5, help="rounds of each probe")

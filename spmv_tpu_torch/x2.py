@@ -18,8 +18,10 @@ JAX's: ``--dtype f32x2``.
   spills, an fp64 CSR plan (K12 then K13); the two parts add in fp64 on
   the device.
 * sell (``sell_c_sigma``) adds the σ-sort, decided on the pattern as
-  ``SellMatrix`` decides it; where it applies, K7 gathers the fp64 y back
-  to row order as rows of 2 floats, an exact bit copy.
+  ``SellMatrix`` decides it; where it applies, K14 and the spill's K12 +
+  K13 run in sorted row space and K7 in float64 sums the split slices'
+  partials, adds the spill and gathers y back to row order in one launch
+  (in place of K15, the add and the gather).
 * bsr is refused, as in JAX: its tiles are a dense matmul format.
 
 The split is priced with the float32 constants of ``formats.split``, as
@@ -39,9 +41,9 @@ from spmv_tpu_torch.device import DevCsr, DevPanel, x_to_device
 from spmv_tpu_torch.formats.base import build_csr_plan, csr_ptr
 from spmv_tpu_torch.formats.sell import DEFAULT_SIGMA, sort_and_split
 from spmv_tpu_torch.formats.split import PanelSpill, split_triplets
-from spmv_tpu_torch.kernels.engines_x2 import (inverse_permute_x2,
-                                               panel_and_spill_spmv_x2,
-                                               segmented_spmv_x2)
+from spmv_tpu_torch.kernels.engines_x2 import (panel_and_spill_spmv_x2,
+                                               segmented_spmv_x2,
+                                               sorted_panel_and_spill_spmv_x2)
 
 __all__ = ["X2Matrix", "X2_FORMATS"]
 
@@ -134,9 +136,9 @@ class X2Matrix:
         xt = x_to_device(x, self.ncols, self.device, dtype=torch.float64)
         if self.parts is None:
             return segmented_spmv_x2(self.dev, xt)
-        y = panel_and_spill_spmv_x2(self.dev, self.dev_spill, xt)
-        if not self.sorted_rows:  # identity permutation: no gather
-            return y[:self.nrows]
-        return inverse_permute_x2(self.invperm_dev, y, self.nrows)
+        if not self.sorted_rows:  # identity permutation: no epilogue
+            return panel_and_spill_spmv_x2(self.dev, self.dev_spill, xt)[:self.nrows]
+        return sorted_panel_and_spill_spmv_x2(self.dev, self.dev_spill,
+                                              self.invperm_dev, xt, self.nrows)
 
     __matmul__ = matvec

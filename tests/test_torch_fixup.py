@@ -142,25 +142,38 @@ def test_turns_masks_the_slots_carry_slot_rows_leaves_out(name):
         assert np.array_equal(turns._unused_slots(dev), (E.carry_slot_rows(dev) < 0).numpy())
 
 
+def body_of(src: str, signature: str) -> str:
+    body = src[src.index(signature):]
+    return body[:body.index("\n}\n")]
+
+
 def test_the_fixup_waits_for_the_tile_kernel_before_it_reads_carry():
-    """K2/K13 (``carry_fixup_kernel``) read the row and its offsets, then
+    """K2/K13/K9 (``carry_fixup_kernel``) read the row and its offsets, then
     ``griddepcontrol.wait``, then the carries, never through the read-only
-    path; the launcher sets the programmatic-serialization attribute."""
+    path; the launcher goes through ``launch_programmatic``, which sets the
+    programmatic-serialization attribute; K9 is the kernel's R-wide
+    instantiation, and its own kernel is gone."""
     src = (CSRC / "seg_tile.cuh").read_text()
-    body = src[src.index("carry_fixup_kernel(const int*"):]
-    body = body[:body.index("\n}\n")]
+    body = body_of(src, "carry_fixup_kernel(const int*")
     wait = body.index('asm volatile("griddepcontrol.wait;" ::: "memory")')
     for read in ("__ldg(carry_rows + j)", "__ldg(ptr + r)", "__ldg(ptr + r + 1)"):
         assert body.index(read) < wait, read
-    assert body.index("carry[2 * ta + 1]") > wait and "__ldg(carry +" not in body
+    assert body.index("carry[(2 * ta + 1) * R + col]") > wait and "__ldg(carry +" not in body
     assert re.search(r"const T\* carry,", body)  # no __restrict__: no read-only loads
-    launcher = src[src.index("int launch_carry_fixup("):]
-    launcher = launcher[:launcher.index("\n}\n")]
-    assert "cudaLaunchKernelEx(" in launcher and "<<<" not in launcher
-    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in launcher
-    assert "programmaticStreamSerializationAllowed = 1" in launcher
-    # every fix-up of this template goes through that launcher: K2, K13, the probe's
-    callers = re.findall(r"launch_carry_fixup<(\w+), (\w+)>",
-                         (CSRC / "seg_spmv.cu").read_text() + (CSRC / "probe_spmv.cu").read_text())
-    assert sorted(callers) == sorted([("float", "kTileNnz"), ("double", "kTileNnz"),
-                                      ("float", "128"), ("float", "512"), ("float", "2048")])
+    launcher = body_of(src, "int launch_carry_fixup(")
+    assert "launch_programmatic(" in launcher and "<<<" not in launcher
+    helper = body_of(src, "int launch_programmatic(")
+    assert "cudaLaunchKernelEx(" in helper and "<<<" not in helper
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in helper
+    assert "programmaticStreamSerializationAllowed = 1" in helper
+    # every fix-up of this template goes through that launcher: K2, K13, K9
+    # at R = 2..8 (a macro case each), the probe's
+    seg = (CSRC / "seg_spmv.cu").read_text()
+    callers = re.findall(r"launch_carry_fixup<(\w+), (\w+)(?:, (\w+))?>",
+                         seg + (CSRC / "probe_spmv.cu").read_text())
+    assert sorted(callers) == sorted([("float", "kTileNnz", ""), ("double", "kTileNnz", ""),
+                                      ("float", "kTileNnz", "R"), ("float", "128", ""),
+                                      ("float", "512", ""), ("float", "2048", "")])
+    k9 = body_of(seg, "int carry_fixup_multi(")
+    assert "K9_CASE(2) K9_CASE(3) K9_CASE(4) K9_CASE(5) K9_CASE(6) K9_CASE(7) K9_CASE(8)" in k9
+    assert "carry_fixup_multi_kernel" not in seg and "<<<" not in k9

@@ -23,7 +23,7 @@ from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
 from spmv_tpu_torch.probes.common import MATRICES as MATRICES_OF_PROBES
 from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES, tile_sum_bound
-from spmv_tpu_torch.probes.turns import TURN_MATRICES
+from spmv_tpu_torch.probes.turns import TURN_MATRICES, forced_split
 
 pytestmark = pytest.mark.gpu
 
@@ -672,6 +672,130 @@ def test_fixup_paths_in_a_cuda_graph_equal_the_eager_run(cuda, name):
             g.replay()
             torch.cuda.synchronize()
             assert torch.equal(out, eager), what
+
+
+# ---------------------------------------------------------------- K7
+
+
+def sorted_sell(name, device, free_dispatch):
+    """The σ-sorted SELL build (σ = 128) of a matrix, split; with
+    ``free_dispatch`` the split's dispatch price is 0, which keeps a panel
+    and spills the hub rows' tails on skewed matrices. None where the sort
+    does not apply."""
+    info, r, c, v = MATRICES[name]()
+    with forced_split(dispatch_s=0.0 if free_dispatch else None):
+        a = SellMatrix.from_coo(info.nrows, info.ncols, r, c, v, sigma=128,
+                                device=device)
+    return a if a.sorted_rows else None
+
+
+@pytest.mark.parametrize("free_dispatch", [False, True])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_k7_is_the_fixup_add_and_gather(cuda, name, free_dispatch):
+    """K7 after K4 with its partials, and after K6 without, each with the
+    spill part's y′ where the build spills, at R = 1 and 4 and in fp64:
+    bit for bit the fix-up kernel (K5, K11, K15), a torch add and the
+    gather, with y′'s split-slice rows NaN; the containers' calls are the
+    same bits."""
+    a = sorted_sell(name, cuda, free_dispatch)
+    if a is None:
+        pytest.skip("the σ-sort does not apply to this matrix")
+    dev, ip, n = a.dev, a.invperm_dev, a.nrows
+    rows = (dev.split_slices.long()[:, None] * 32
+            + torch.arange(32, device=cuda)).reshape(-1)
+    rows = rows[rows < dev.nrows]
+    rng = np.random.default_rng(11)
+    for R in (1, 4):
+        shape = (dev.ncols,) if R == 1 else (dev.ncols, R)
+        X = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        tiles, fixup, spmv = ((P.panel_spmv_partials, P.panel_fixup, E.segmented_spmv)
+                              if R == 1 else (P.panel_spmv_multi_partials,
+                                              P.panel_fixup_multi, E.segmented_spmv_multi))
+        y, part = tiles(dev, X)
+        spill = spmv(a.dev_spill, X) if a.dev_spill is not None else None
+        fixed = fixup(dev, y.clone(), part)
+        want = (fixed if spill is None else fixed + spill)[ip[:n].long()]
+        poisoned = y.clone()
+        poisoned[rows] = float("nan")
+        got = P.inverse_permute(ip, poisoned, n, dev=dev, part=part, spill=spill)
+        assert torch.equal(got, want)
+        if R == 1:
+            y6 = P.panel_spmv_fused(dev, X)
+            bare = P.inverse_permute(ip, y6, n, spill=spill)
+            assert torch.equal(bare, (y6 if spill is None else y6 + spill)[ip[:n].long()])
+            assert torch.equal(a.matvec(X), bare if dev.fused else got)
+        else:
+            assert torch.equal(a.matmat(X), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["band_1024", "power_law_32768", "cant_8192"])
+def test_x2_k7_is_k15_and_the_gather(cuda, name):
+    """The fp64 K7 after K14 with its partials: bit for bit K15 and the
+    gather, y′'s split-slice rows unread; the sorted x2 ``matvec`` the same
+    bits."""
+    info, r, c, v = MATRICES[name]()
+    v = np.asarray(v, np.float64) * (1 + 1e-9 * np.arange(r.size))
+    a = X2Matrix.from_coo("sell", info.nrows, info.ncols, r, c, v, sigma=128,
+                          split=False, device=cuda)
+    assert a.sorted_rows
+    dev, ip, n = a.dev, a.invperm_dev, a.nrows
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(info.ncols)).to(cuda)
+    y, part = X2.panel_spmv_x2_partials(dev, x)
+    want = X2.panel_fixup_x2(dev, y.clone(), part)[ip[:n].long()]
+    rows = (dev.split_slices.long()[:, None] * 32 + torch.arange(32, device=cuda)).reshape(-1)
+    poisoned = y.clone()
+    poisoned[rows[rows < dev.nrows]] = float("nan")
+    E.reset_launches()
+    assert torch.equal(X2.inverse_permute_x2(ip, poisoned, n, dev=dev, part=part), want)
+    assert E.LAUNCHES["inverse_permute"] == 1
+    assert torch.equal(a.matvec(x), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["power_law_32768", "cant_8192"])
+def test_sorted_paths_in_a_cuda_graph_equal_the_eager_run(cuda, name):
+    """The sorted paths captured in a CUDA graph (K7 a programmatic
+    dependent there too) and replayed give the eager run's bits: K4 + K7,
+    K10 + K7, and with a spill part."""
+    for free in (False, True):
+        a = sorted_sell(name, cuda, free)
+        if a is None:
+            continue
+        info = MATRICES[name]()[0]
+        x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+            info.ncols).astype(np.float32)).to(cuda)
+        X = torch.stack([x, -x, 2 * x, x * x], dim=1)
+        for path, xx in ((a.matvec, x), (a.matmat, X)):
+            eager = path(xx)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
+                path(xx)
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out = path(xx)
+            for _ in range(3):
+                out.fill_(float("nan"))
+                g.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("name", sorted(FIXUP_MATRICES))
+def test_k9_column_j_is_k2_on_column_j(cuda, name):
+    """K9 at R = 2..8 (K2's kernel at R columns) gives, in column j, K2's
+    bits on K8's column j, which is K1's carry on X[:, j]."""
+    dev, _, x, _ = fixup_plans(name)
+    for R in range(2, 9):
+        X = torch.stack([x * (j + 1) for j in range(R)], dim=1)
+        Y8, c8 = E.segmented_spmv_multi_partials(dev, X)
+        Y9 = E.carry_fixup_multi(dev, Y8.clone(), c8)
+        for j in range(R):
+            y1, c1 = E.segmented_spmv_partials(dev, X[:, j].contiguous())
+            assert torch.equal(Y9[:, j], E.carry_fixup(dev, y1, c1)), (R, j)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------- probes

@@ -460,20 +460,29 @@ def test_turns_name_the_probes_matrices_to_a_worker():
     assert all(np.array_equal(u, w) for u, w in zip(a[1:], b[1:]))
 
 
-@pytest.mark.parametrize("only", [None, "seg", "panel", "spmm"])
+@pytest.mark.parametrize("only", [None, "seg", "panel", "spmm", "sorted"])
 def test_turns_specs_name_each_engines_matrices_and_rhs(tmp_path, only):
     """``turns.run_specs`` hands each worker, through JSON, the R of its
     kernels (1 for seg and panel, 2, 4, 8 for spmm), the segmented
-    kernels' matrices, the SELL panels with their split and the panel
-    shapes' triplets; ``--only`` keeps one engine's."""
+    kernels' matrices, the SELL panels with their split, the panel
+    shapes' triplets and the sorted SELL builds; ``--only`` keeps one
+    engine's."""
     from spmv_tpu_torch.probes import common, turns
 
     specs = json.loads(json.dumps(turns.run_specs(only, tmp_path)))
     assert specs["rhs"] == {None: [1, 2, 4, 8], "seg": [1], "panel": [1],
-                            "spmm": [2, 4, 8]}[only]
+                            "spmm": [2, 4, 8], "sorted": []}[only]
     assert turns.SPMM_RHS == (2, 4, 8)
-    assert ("seg" in specs) == (only != "panel")
-    assert ("panel" in specs) == ("shapes" in specs) == (only != "seg")
+    assert ("seg" in specs) == (only in (None, "seg", "spmm"))
+    assert ("panel" in specs) == ("shapes" in specs) == (only in (None, "panel", "spmm"))
+    assert ("sorted" in specs) == (only in (None, "sorted"))
+    if "sorted" in specs:  # cant split, pl and pl_big whole, pl with a spill
+        assert {n: s[-2:] for n, s in specs["sorted"].items()} == {
+            "cant": [True, False], "pl": [False, False], "pl_big": [False, False],
+            "pl_hyb": [True, True]}
+        assert specs["sorted"]["pl_hyb"][:2] == specs["sorted"]["pl"][:2] == [
+            "power_law", dict(n=32768, avg_nnz_per_row=24, bandwidth=512, seed=0)]
+        assert sorted(specs["sorted_shapes"]) == sorted(common.PANEL_SHAPES)
     if "seg" in specs:
         assert specs["seg"] == json.loads(json.dumps(turns.matrix_specs()))
     if "panel" in specs:

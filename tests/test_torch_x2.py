@@ -381,7 +381,7 @@ def test_wrappers_refuse_the_other_dtype():
                  lambda: P.panel_spmv_partials(p32, x64)):
         with pytest.raises(ValueError, match="expected contiguous"):
             call()
-    with pytest.raises(ValueError, match="float64 vector"):
+    with pytest.raises(ValueError, match="expected contiguous torch.float64"):
         X.inverse_permute_x2(torch.arange(4, dtype=torch.int32), torch.ones(4), 4)
     assert E.LAUNCHES == before
 
