@@ -38,27 +38,37 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    The multi-RHS kernels at R = 2, 4 and 8, each column within the same
    bound and bit for bit the one-vector kernel's on that column (y and
    carries or partials): K8 + K9 on the edge cases, the band matrix, cant,
-   ``pl_big`` and the tile shapes; K10 + K11 on the band matrix's and
-   pl-32768's pure SELL panels, pl-32768's pure ELL panel, cant's split
-   SELL panel and the panel shapes, K10's launcher also into NaN-filled Y
-   and partials on each, with K7 gathering rows of R floats where the
-   panel is σ-sorted. The fp64-grade kernels,
+   ``pl_big`` and the tile shapes; K10 and K7's identity mode on the band
+   matrix's and pl-32768's pure SELL panels, pl-32768's pure ELL panel,
+   cant's split SELL panel and the panel shapes, K10's launcher also into
+   NaN-filled Y and partials on each, with K7 gathering rows of R floats
+   where the panel is σ-sorted. The fp64-grade kernels,
    each twice with the same bits and per row within k·2⁻⁵⁰·Σ|v||x| of its
    plain version (k the longest row), the x2 ``matvec`` against the fp64
    oracle by ``x2_check``: K12 + K13 on the edge cases, band-1024, cant,
-   ``pl_big`` and the three stage extremes; K14 + K15 on band-1024's and
-   pl-32768's pure SELL and ELL panels, cant's split SELL panel and the
-   panel shapes; K7 on an fp64 y against its index gather, bit for bit.
-   K7, the sorted SELL's epilogue, in both modes on every sorted build:
-   gather-only after K6, and with the tile kernel's partials (K4, K10 at
-   R = 2..8, K14) into a y′ whose split-slice rows are NaN, bit for bit the
-   fix-up kernel (K5, K11, K15) and the gather; with a spill part on
-   pl-32768 and ``pl_big`` built with the split's dispatch price set to 0
-   (a sorted panel that spills its hub rows' tails), bit for bit the
-   fix-up kernel, a torch add and the gather, at R = 1..8 and in fp64;
-   each within the bound of its plain version. CUDA-graph replays of K4 +
-   K7, K10 + K7, K14 + K7, the sorted path with a spill and K8 + K9 give
-   the eager bits.
+   ``pl_big`` and the three stage extremes; K14 and K7's fp64 identity
+   mode on band-1024's and pl-32768's pure SELL and ELL panels, cant's
+   split SELL panel and the panel shapes; K7 on an fp64 y against its
+   index gather, bit for bit.
+   K7, every panel's epilogue. Its identity mode (the panels that keep
+   their row order) on every panel above, after K4, K10 and K14: the grid
+   over the split slices' rows and, with a seeded spill's y′, the grid over
+   every row, into a y′ whose split-slice rows are NaN and partials whose
+   unused slots are NaN, in place, bit for bit the plain fix-up (its adds
+   in the kernel's fixed order) and a torch add; and on the HYB of
+   pl-32768 and cant built and called under ``turns.forced_split`` (a
+   panel and a real spill part), at R = 1, 4 and in fp64, where the
+   containers' calls give the same bits. Its sorted mode on every sorted
+   build: gather-only after K6, and with the tile kernel's partials (K4,
+   K10 at R = 2..8, K14) into a y′ whose split-slice rows are NaN, bit for
+   bit the plain fix-up and the gather; with a spill part on pl-32768 and
+   ``pl_big`` built with the split's dispatch price set to 0 (a sorted
+   panel that spills its hub rows' tails), bit for bit the plain fix-up,
+   a torch add and the gather, at R = 1..8 and in fp64; each within the
+   bound of its plain version. CUDA-graph replays of K4 + K7, K10 + K7,
+   K14 + K7, the sorted path with a spill, K8 + K9, ``ell_pure``'s K4 + K7
+   and K10 + K7 and cant's forced HYB (K4 + K1 + K2 + K7) give the eager
+   bits.
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
@@ -74,14 +84,19 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    on cant, csr with ``--x random``, csr and sell with ``--rhs 4``, hyb at
    ``pl_big``, ``ell_pure`` on the 32k power-law matrix, each held to
    ``x2_check``; and ``--format bsr --dtype f32x2``, which must return 2.
+   Then ``run --format hyb`` on the 32k power-law matrix under
+   ``turns.forced_split`` (a panel and a spill part), as float32, with
+   ``--rhs 4`` and with ``--dtype f32x2``.
 4. The launch counters show that each run went through its kernels: the
-   R = 4 runs through K8-K11, the csr one without K1 (the multi path, not
+   R = 4 runs through K8-K10, the csr one without K1 (the multi path, not
    a loop over columns); and BSR's Y is bitwise equal over two calls. The
-   f32x2 runs through K12 + K13 (segmented formats) and K14 + K15 (ell,
+   f32x2 runs through K12 + K13 (segmented formats) and K14 + K7 (ell,
    hyb), and through no float32 tile kernel (K1, K3, K4, K6, K8, K10). The
    sorted SELL runs (sell and sell_pure, sell --rhs 4, f32x2 sell and sell
-   --rhs 4) launch their tile kernel (K4, K10, K14) and K7, and no K5,
-   K11 or K15.
+   --rhs 4) launch their tile kernel (K4, K10, K14) and K7. Every unsorted
+   panel run (``ell_pure`` at f32, R = 4 and fp64, the forced HYB at the
+   same three) launches its tile kernel, the spill's kernels where it has
+   a spill, and K7, and no counter of a panel fix-up kernel is left.
 5. Times per call (CUDA events around one call, median of 30 after warm-up;
    host launch work included) and on the device (CUDA events around a CUDA
    graph of 20 calls for the kernels, the kernel paths and the library
@@ -90,19 +105,20 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    each kernel and its plain version
    at cant scale and on the power-law matrices, the two-dispatch and fused
    shapes of both engines from 512 rows up (the fused threshold), every
-   format's ``matvec`` beside CSR's on the main and power-law suites, K8-K11
-   and their plain versions at R = 4 on cant, ``spmm`` at R = 1, 2, 4, 8, 16
+   format's ``matvec`` beside CSR's on the main and power-law suites, K8-K10
+   and K7 and their plain versions at R = 4 on cant, ``spmm`` at R = 1, 2, 4, 8, 16
    against R ``matvec`` calls for csr and sell on cant, BSR at R = 32 on
-   cant in Gnnz·vec/s, K12-K15 and their plain versions at cant, the x2
+   cant in Gnnz·vec/s, K12-K14 and their plain versions at cant, the x2
    ``matvec`` of all six formats beside the f32 one on cant, and K12 + K13
    at ``pl_big``; then the segmented paths K1 + K2 (cant, ``pl_big``,
    ``pl_wide``, band-1024) and K12 + K13 (cant, ``pl_big``) beside the tile
-   kernel alone; the sorted SELL chains (K4, K10 at R = 4, K14 with the
-   fix-up kernel and K7 as the gather, against the tile kernel and K7)
-   with K7 alone beside its bound (the gather's bytes and the fix-up's), K7
-   with a spill part on ``pl_big`` built at a dispatch price of 0 (the
-   spill's bytes too), K7 gather-only beside ``index_select``, K8 + K9 with
-   K9 alone;
+   kernel alone; the sorted SELL chains (K4, K10 at R = 4, K14, each then
+   K7) with K7 alone beside its bound, K7 with a spill part on ``pl_big``
+   built at a dispatch price of 0 (the spill's bytes too), K7 gather-only
+   beside ``index_select``, K8 + K9 with K9 alone; the unsorted chains,
+   K7's identity mode alone beside its bound, the tile kernel alone and
+   the public call, on pl-32768's ``ell_pure`` (f32, R = 4, fp64) and the
+   forced HYB of pl-32768 and cant (cant at R = 4 and fp64 too);
    and the launch floor (a one-block kernel that does
    nothing, ``kernels.probes.launch_floor``), which the fix-ups' rows carry
    beside their bound. Beside each kernel: its library yardstick (one PyTorch
@@ -148,17 +164,14 @@ KERNELS = {
     "carry_fixup": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:171"),
     "csr_spmv_fused": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:430"),
     "panel_spmv_tiles": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:269"),
-    "panel_fixup": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:171"),
     "panel_spmv_fused": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:283"),
     "inverse_permute": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:719"),
     "seg_spmm_tiles": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:571"),
     "carry_fixup_multi": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:537"),
     "panel_spmm_tiles": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:623"),
-    "panel_fixup_multi": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:537"),
     "seg_spmv_tiles_x2": ("seg_spmv.cu", "spmv_tpu/kernels/engines_x2.py:267"),
     "carry_fixup_x2": ("seg_spmv.cu", "spmv_tpu/kernels/engines_x2.py:267"),
     "panel_spmv_tiles_x2": ("panel_spmv.cu", "spmv_tpu/kernels/engines_x2.py:205"),
-    "panel_fixup_x2": ("panel_spmv.cu", "spmv_tpu/kernels/engines_x2.py:205"),
     # the probes' kernels (phase 6): each replaces a B12 probe
     "seg_spmv_tiles_u16": ("probe_spmv.cu", "scripts/probe_pack.py:147"),
     "seg_spmv_tiles_u16_x2": ("probe_spmv.cu", "scripts/probe_pack.py:147"),
@@ -180,6 +193,10 @@ KERNELS = {
     "panel_ablate_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
     "panel_ablate_x2_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
 }
+# K7 also replaces the panel path's use of the scatter kernels (its identity
+# mode, the fix-up of ELL, HYB and unsorted SELL panels)
+K7_ALSO = ("spmv_tpu/kernels/engines.py:171 and :537 as the panel path's epilogue "
+           "(its identity mode)")
 # seg_ablate's modes cut the stages that all three TPU ablation probes cut
 ABLATE_ALSO = ("scripts/probe_ablate.py:152, scripts/probe_ablate2.py:175, "
                "scripts/probe_ablate3.py:211 and :218")
@@ -187,26 +204,25 @@ PROBE_KERNELS = tuple(k for k, (src, _) in KERNELS.items() if src == "probe_spmv
 # kernels that no single PyTorch call computes alone: the fix-ups, and the
 # stage cuts that reduce per tile
 NO_LIBRARY = {
-    **dict.fromkeys(("carry_fixup", "panel_fixup", "carry_fixup_multi",
-                     "panel_fixup_multi", "carry_fixup_x2", "panel_fixup_x2",
+    **dict.fromkeys(("carry_fixup", "carry_fixup_multi", "carry_fixup_x2",
                      "carry_fixup_t128", "carry_fixup_t512", "carry_fixup_t2048"),
                     "none: no single call computes the carry fix-up alone"),
     **dict.fromkeys(("seg_ablate_noseg", "seg_ablate_dma", "seg_ablate_x2_noseg",
                      "seg_ablate_x2_dma"),
                     "none: no single call sums a stream per 1024-nonzero tile"),
-    "inverse_permute": "none for K7 with the partials (the sorted path's mode): no "
-                       "single call sums the split slices and gathers; the gather-only "
-                       "mode's yardstick, index_select, is under gather_only",
+    "inverse_permute": "none for K7 with the partials (the sorted path's mode, and "
+                       "the identity mode of the unsorted panels): no single call sums "
+                       "the split slices; the gather-only mode's yardstick, "
+                       "index_select, is under gather_only",
 }
 # the fix-ups and the σ gather: separate launches of a few KB each, given the
 # launch floor (a one-block kernel that does nothing) beside their bound
-FIXUPS = ("carry_fixup", "panel_fixup", "inverse_permute", "carry_fixup_multi",
-          "panel_fixup_multi", "carry_fixup_x2", "panel_fixup_x2")
+FIXUPS = ("carry_fixup", "inverse_permute", "carry_fixup_multi", "carry_fixup_x2")
 SEG = ("seg_spmv_tiles", "carry_fixup", "csr_spmv_fused")
-PANEL = ("panel_spmv_tiles", "panel_fixup", "panel_spmv_fused", "inverse_permute")
-MULTI = ("seg_spmm_tiles", "carry_fixup_multi", "panel_spmm_tiles", "panel_fixup_multi")
+PANEL = ("panel_spmv_tiles", "panel_spmv_fused", "inverse_permute")
+MULTI = ("seg_spmm_tiles", "carry_fixup_multi", "panel_spmm_tiles")
 X2_SEG = ("seg_spmv_tiles_x2", "carry_fixup_x2")
-X2_PANEL = ("panel_spmv_tiles_x2", "panel_fixup_x2")
+X2_PANEL = ("panel_spmv_tiles_x2",)
 # the float32 tile kernels: an f32x2 run must launch none of them
 F32_TILES = ("seg_spmv_tiles", "csr_spmv_fused", "panel_spmv_tiles",
              "panel_spmv_fused", "seg_spmm_tiles", "panel_spmm_tiles")
@@ -435,13 +451,63 @@ def split_rows_nan(dev, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def unused_slots_nan(dev, part: torch.Tensor) -> torch.Tensor:
+    """The partials with every slot no row of a split slice uses set to NaN
+    (``part_rows`` marks them -1): K7 reads none of them."""
+    out = part.clone()
+    out[torch.from_numpy(part_rows(dev) < 0).to(part.device)] = float("nan")
+    return out
+
+
+def check_identity(label: str, dev, y: torch.Tensor, part: torch.Tensor,
+                   spill: torch.Tensor | None, scale: np.ndarray, tol, check=None) -> float:
+    """K7's identity mode on panel plan ``dev`` (its row order kept), with
+    the tile kernel's y′ ``y`` and partials ``part``: the grid without a
+    spill (the ``panel_fixup`` wrappers': the split slices' rows alone) and,
+    given the spill part's y′ ``spill``, the grid over every row. Each runs
+    into a y′ whose split-slice rows are NaN and partials whose unused
+    slots are NaN, in place, twice with the same bits, and must give the
+    parent's bits (the plain fix-up, whose adds run in the kernel's order,
+    then a torch add of the spill) within ``tol`` (``check``:
+    ``within_x2``) per entry of ``scale`` too. Returns max |kernel -
+    plain|."""
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+
+    f64 = y.dtype == torch.float64
+    fixup = (X2.panel_fixup_x2 if f64 else P.panel_fixup_multi if y.dim() == 2
+             else P.panel_fixup)
+    epilogue = X2.inverse_permute_x2 if f64 else P.inverse_permute
+    pn = unused_slots_nan(dev, part)
+    plain = P.panel_fixup_reference(dev, y.clone(), part)
+    err = 0.0
+    for sp in (None,) if spill is None else (None, spill):
+        def run(sp=sp):
+            out = split_rows_nan(dev, y)
+            got = (fixup(dev, out, pn) if sp is None else
+                   epilogue(None, out, dev.nrows, dev=dev, part=pn, spill=sp))
+            if got.data_ptr() != out.data_ptr():
+                raise AssertionError(f"{label}: K7's identity mode wrote another tensor")
+            return got
+
+        got = same_bits("inverse_permute identity", run)
+        want = plain if sp is None else plain + sp
+        what = "without a spill" if sp is None else "with a spill"
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: K7's identity mode {what} is not the plain "
+                                 f"fix-up's and the add's bits")
+        err = max(err, (check or within)(f"{label} inverse_permute identity {what}",
+                                         got, want, scale, tol))
+    return err
+
+
 def check_epilogue(label: str, a, y: torch.Tensor, part: torch.Tensor,
                    fixed: torch.Tensor, spill: torch.Tensor | None, scale: np.ndarray,
                    tol, check=None) -> float:
     """K7 with the partials ``part`` of y′ ``y`` (and the spill's y′) on the
     sorted container ``a``, into a y′ whose split-slice rows are NaN: twice
-    the same bits, bit for bit the parent's sequence (``fixed``, the fix-up
-    kernel's y′, then a torch add of the spill, then the gather), and
+    the same bits, bit for bit the parent's sequence (``fixed``, the plain
+    fix-up's y′, then a torch add of the spill, then the gather), and
     within ``tol`` (``check``: ``within_x2``) of the plain K7 per row of
     ``scale`` (original rows). Returns max |kernel - plain|."""
     from spmv_tpu_torch.kernels import engines_x2 as X2
@@ -539,10 +605,12 @@ def build(fmt: str, trip, **kwargs):
 
 
 def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dict:
-    """Phase 2, panel engine, on one matrix's ELL or SELL build: K4-K7
-    against their plain versions and against themselves, and the
-    container's y against the fp64 oracle. Returns the max abs error per
-    kernel."""
+    """Phase 2, panel engine, on one matrix's ELL or SELL build: K4, K6 and
+    K7 (its identity mode with K4's partials and a seeded spill's y′, and
+    on a σ-sorted panel its gather after K6 and its sorted mode with the
+    partials) against their plain versions and against themselves, and
+    the container's y against the fp64 oracle. Returns the max abs error
+    per kernel."""
     from spmv_tpu_torch.kernels import panel as P
     from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
 
@@ -564,22 +632,22 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
     pscale = np.where(owner >= 0, scale[np.maximum(owner, 0)], 0.0)
     e4 = max(within(f"{label} panel_spmv_tiles y", y4, y4r, scale, tol),
              within(f"{label} panel_spmv_tiles part", p4, p4r, pscale, tol))
-    y5 = same_bits("panel_fixup", lambda: P.panel_fixup(dev, y4.clone(), p4))
-    e5 = within(f"{label} panel_fixup", y5,
-                P.panel_fixup_reference(dev, y4.clone(), p4), scale, tol)
+    spill = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal(
+        dev.nrows).astype(np.float32)).cuda()
+    e7 = check_identity(label, dev, y4, p4, spill, scale, tol)
     y6 = same_bits("panel_spmv_fused", lambda: P.panel_spmv_fused(dev, x))
     e6 = within(f"{label} panel_spmv_fused", y6,
                 P.panel_spmv_fused_reference(dev, x), scale, tol)
-    errs = {"panel_spmv_tiles": e4, "panel_fixup": e5, "panel_spmv_fused": e6}
+    errs = {"panel_spmv_tiles": e4, "panel_spmv_fused": e6, "inverse_permute": e7}
     if getattr(a, "sorted_rows", False):  # K7 gather-only after K6, and with K4's partials
         y7 = same_bits("inverse_permute",
                        lambda: P.inverse_permute(a.invperm_dev, y6, info.nrows))
         errs["inverse_permute"] = max(
-            within(f"{label} inverse_permute", y7,
-                   P.inverse_permute_reference(a.invperm_dev, y6, info.nrows),
-                   np.zeros(info.nrows), 0.0),
-            check_epilogue(label, a, y4, p4, y5, None,
-                           scale[a.invperm_dev[:info.nrows].cpu().numpy()], tol))
+            e7, within(f"{label} inverse_permute", y7,
+                       P.inverse_permute_reference(a.invperm_dev, y6, info.nrows),
+                       np.zeros(info.nrows), 0.0),
+            check_epilogue(label, a, y4, p4, P.panel_fixup_reference(dev, y4.clone(), p4),
+                           None, scale[a.invperm_dev[:info.nrows].cpu().numpy()], tol))
     check_oracle(f"{label} {fmt} matvec", trip, a.matvec(x), xh)
     print(f"  {label} {fmt}{kwargs or ''}: shape {a.shape}, sorted "
           f"{getattr(a, 'sorted_rows', False)}, panel nnz {a.panel_nnz} in "
@@ -587,9 +655,10 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
           f"nnz {a.spill_nnz}, tiles {dev.ntiles}, split slices {dev.nsplit}: "
           f"max |kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + "; matvec passes the fp64 oracle; two runs bitwise equal; K4 writes "
-          "every row and slot"
-          + ("; K7 with K4's partials bitwise K5 and the gather, y′'s split rows "
-             "unread" if getattr(a, "sorted_rows", False) else ""))
+          "every row and slot; K7's identity mode, without and with a spill, "
+          "bitwise the plain fix-up and add, y′'s split rows and unused slots unread"
+          + ("; K7 with K4's partials bitwise the plain fix-up and the gather"
+             if getattr(a, "sorted_rows", False) else ""))
     return errs
 
 
@@ -599,7 +668,8 @@ def by_graph(k: str) -> bool:
     compare by one method. The rest sync with the host inside a call: the
     containers' ``matvec`` and ``spmm`` go to the profiler, and a plain
     version (``*_plain``) is timed per call only."""
-    return k in KERNELS or k.startswith(("path ", "library ", "inverse_permute "))
+    return not k.endswith("_plain") and (
+        k in KERNELS or k.startswith(("path ", "library ", "inverse_permute ")))
 
 
 def timed(label: str, fns: dict, card: str, nnz: int, nbytes: int) -> dict:
@@ -672,8 +742,10 @@ def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
 
 
 def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
-    """Phase 5, panel engine: K4-K7, their plain versions (with
-    ``plain``) and the K4+K5 path on one container's panel; with ``csr``
+    """Phase 5, panel engine: K4, K6, K7 (its identity mode without a
+    spill, and on a σ-sorted panel its sorted mode and the gather), their
+    plain versions (with ``plain``) and the K4 + K7 path on one container's
+    panel; with ``csr``
     (the same matrix's CSR plan) the library yardsticks of the panel's y
     (cuSPARSE on that plan) and of K7 (an index gather). The panel's bytes
     under ``plan_bytes``, each kernel's bytes and operations under
@@ -689,18 +761,18 @@ def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
     y6 = P.panel_spmv_fused(dev, x)
     fns = {
         "panel_spmv_tiles": lambda: P.panel_spmv_partials(dev, x),
-        "panel_fixup": lambda: P.panel_fixup(dev, y, part),
+        "inverse_permute identity": lambda: P.panel_fixup(dev, y, part),
         "panel_spmv_fused": lambda: P.panel_spmv_fused(dev, x),
-        "path K4+K5": lambda: P.panel_fixup(dev, *P.panel_spmv_partials(dev, x)),
+        "path K4+K7": lambda: P.panel_fixup(dev, *P.panel_spmv_partials(dev, x)),
     }
     if sorted_:  # K7 with K4's partials (the main path's), gather-only after K6
-        fns.update(sorted_fns(a, x, P.panel_spmv_partials, P.panel_fixup, "K4", "K5"))
+        fns.update(sorted_fns(a, x, P.panel_spmv_partials, "K4"))
         fns["inverse_permute gather"] = lambda: P.inverse_permute(a.invperm_dev, y6,
                                                                   a.nrows)
     if plain:
         fns.update({
             "panel_spmv_tiles_plain": lambda: P.panel_spmv_partials_reference(dev, x),
-            "panel_fixup_plain": lambda: P.panel_fixup_reference(dev, y, part),
+            "inverse_permute identity_plain": lambda: P.panel_fixup_reference(dev, y, part),
             "panel_spmv_fused_plain": lambda: P.panel_spmv_fused_reference(dev, x),
         })
         if sorted_:
@@ -719,22 +791,21 @@ def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
     t = timed(label, fns, card, a.panel_nnz, dev.stream_bytes)
     t["plan_bytes"] = dev.stream_bytes
     t["bytes"] = {"panel_spmv_tiles": B.panel_tiles_bytes(dev),
-                  "panel_fixup": B.panel_fixup_bytes(dev),
+                  "inverse_permute identity": B.epilogue_bytes(dev, None, dev.nrows),
                   "panel_spmv_fused": B.panel_fused_bytes(dev),
                   "inverse_permute gather": B.permute_bytes(a.nrows, 4)}
     if sorted_:
         t["bytes"]["inverse_permute"] = B.epilogue_bytes(dev, a.invperm_dev, a.nrows)
-    t["flops"] = {"panel_spmv_tiles": 2 * a.panel_nnz, "panel_fixup": 0,
+    t["flops"] = {"panel_spmv_tiles": 2 * a.panel_nnz, "inverse_permute identity": 0,
                   "panel_spmv_fused": 2 * a.panel_nnz, "inverse_permute": 0,
                   "inverse_permute gather": 0}
     return t
 
 
-def sorted_fns(a, x, tiles, fixup, tname: str, fname: str, sfx: str = "") -> dict:
-    """Phase 5, a σ-sorted SELL's chains at one x (an (ncols, R) X): K7
-    alone with the tile kernel's partials, the tile kernel then K7 (the
-    sorted path), and the parent's chain, the tile kernel, the fix-up
-    kernel ``fixup`` (K5, K11, K15) and K7 as the gather."""
+def sorted_fns(a, x, tiles, tname: str, sfx: str = "") -> dict:
+    """Phase 5, a σ-sorted SELL's chain at one x (an (ncols, R) X): K7
+    alone with the tile kernel's partials, and the tile kernel then K7
+    (the sorted path)."""
     from spmv_tpu_torch.kernels import engines_x2 as X2
     from spmv_tpu_torch.kernels import panel as P
 
@@ -747,8 +818,7 @@ def sorted_fns(a, x, tiles, fixup, tname: str, fname: str, sfx: str = "") -> dic
         return epilogue(ip, yt, n, dev=dev, part=pt)
 
     return {f"inverse_permute{sfx}": lambda: epilogue(ip, y, n, dev=dev, part=part),
-            f"path {tname}+K7": path,
-            f"path {tname}+{fname}+K7": lambda: epilogue(ip, fixup(dev, *tiles(dev, x)), n)}
+            f"path {tname}+K7": path}
 
 
 def time_formats(label: str, trip, builds: dict, card: str) -> dict:
@@ -826,7 +896,8 @@ def check_multi(label: str, trip, seed: int, R: int) -> dict:
 def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
                       **kwargs) -> dict:
     """Phase 2, multi-RHS panel kernels on one matrix's ELL or SELL panel:
-    K10 and K11 against their plain versions and against themselves, K7
+    K10 and K7's identity mode over rows of R (with a seeded spill too)
+    against their plain versions and against themselves, K7's other modes
     over rows of R where the panel is σ-sorted, and the container's
     ``matmat`` against the fp64 oracle column by column."""
     from spmv_tpu_torch.kernels import panel as P
@@ -849,18 +920,19 @@ def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
     pscale = np.where(owner[..., None] >= 0, scale[np.maximum(owner, 0)], 0.0)
     e10 = max(within(f"{label} R={R} panel_spmm_tiles Y", Y10, Y10r, scale, tol),
               within(f"{label} R={R} panel_spmm_tiles part", p10, p10r, pscale, tol))
-    Y11 = same_bits("panel_fixup_multi", lambda: P.panel_fixup_multi(dev, Y10.clone(), p10))
-    e11 = within(f"{label} R={R} panel_fixup_multi", Y11,
-                 P.panel_fixup_multi_reference(dev, Y10.clone(), p10), scale, tol)
-    errs = {"panel_spmm_tiles": e10, "panel_fixup_multi": e11}
+    spill = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal(
+        (dev.nrows, R)).astype(np.float32)).cuda()
+    e7 = check_identity(f"{label} R={R}", dev, Y10, p10, spill, scale, tol)
+    errs = {"panel_spmm_tiles": e10, "inverse_permute": e7}
     if getattr(a, "sorted_rows", False):  # K7 gather-only, and with K10's partials
+        Yf = P.panel_fixup_multi_reference(dev, Y10.clone(), p10)
         Y7 = same_bits("inverse_permute",
-                       lambda: P.inverse_permute(a.invperm_dev, Y11, info.nrows))
+                       lambda: P.inverse_permute(a.invperm_dev, Yf, info.nrows))
         errs["inverse_permute"] = max(
-            within(f"{label} R={R} inverse_permute", Y7,
-                   P.inverse_permute_reference(a.invperm_dev, Y11, info.nrows),
-                   np.zeros((info.nrows, R)), 0.0),
-            check_epilogue(f"{label} R={R}", a, Y10, p10, Y11, None,
+            e7, within(f"{label} R={R} inverse_permute", Y7,
+                       P.inverse_permute_reference(a.invperm_dev, Yf, info.nrows),
+                       np.zeros((info.nrows, R)), 0.0),
+            check_epilogue(f"{label} R={R}", a, Y10, p10, Yf, None,
                            scale[a.invperm_dev[:info.nrows].cpu().numpy()], tol))
     check_oracle_columns(f"{label} R={R} {fmt} matmat", trip, a.matmat(X), Xh)
     for j in range(R):  # column j of K10 against K4 on X[:, j]
@@ -873,14 +945,14 @@ def check_panel_multi(label: str, trip, seed: int, R: int, fmt: str = "sell",
           f"|kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + "; matmat passes the fp64 oracle per column; two runs bitwise "
           "equal; K10 writes every row and slot; each column's y and partials "
-          "bitwise K4's"
-          + ("; K7 with K10's partials bitwise K11 and the gather"
+          "bitwise K4's; K7's identity mode bitwise the plain fix-up and add"
+          + ("; K7 with K10's partials bitwise the plain fix-up and the gather"
              if getattr(a, "sorted_rows", False) else ""))
     return errs
 
 
 def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
-    """Phase 5, multi-RHS kernels: K8, K9 on the CSR plan and K10, K11 on
+    """Phase 5, multi-RHS kernels: K8, K9 on the CSR plan and K10, K7 on
     the SELL panel of one matrix at R columns, their plain versions, and
     each engine's two-kernel path."""
     from spmv_tpu_torch.kernels import engines as E
@@ -905,14 +977,13 @@ def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
     }
     panel = {
         "panel_spmm_tiles": lambda: P.panel_spmv_multi_partials(pdev, X),
-        "panel_fixup_multi": lambda: P.panel_fixup_multi(pdev, Y10, p10),
-        "path K10+K11": lambda: P.panel_spmv_multi(pdev, X),
+        f"inverse_permute identity R={R}": lambda: P.panel_fixup_multi(pdev, Y10, p10),
         "panel_spmm_tiles_plain": lambda: P.panel_spmv_multi_partials_reference(pdev, X),
-        "panel_fixup_multi_plain": lambda: P.panel_fixup_multi_reference(pdev, Y10, p10),
+        f"inverse_permute identity R={R}_plain":
+            lambda: P.panel_fixup_multi_reference(pdev, Y10, p10),
     }
     if a_sell.sorted_rows:  # K7 over rows of R with K10's partials
-        panel.update(sorted_fns(a_sell, X, P.panel_spmv_multi_partials,
-                                P.panel_fixup_multi, "K10", "K11", f" R={R}"))
+        panel.update(sorted_fns(a_sell, X, P.panel_spmv_multi_partials, "K10", f" R={R}"))
     print(f"  {label} R={R} csr plan {dev.stream_bytes} B, split rows "
           f"{dev.ncarry}; sell panel {pdev.stream_bytes} B, split slices "
           f"{pdev.nsplit}  [{card}]")
@@ -921,13 +992,13 @@ def time_multi(label: str, trip, a_sell, card: str, R: int) -> dict:
     t["bytes"] = {"seg_spmm_tiles": B.seg_tiles_bytes(dev, R),
                   "carry_fixup_multi": B.fixup_bytes(dev, R),
                   "panel_spmm_tiles": B.panel_tiles_bytes(pdev, R),
-                  "panel_fixup_multi": B.panel_fixup_bytes(pdev, R)}
+                  f"inverse_permute identity R={R}": B.panel_fixup_bytes(pdev, R)}
     if a_sell.sorted_rows:
         t["bytes"][f"inverse_permute R={R}"] = B.epilogue_bytes(
             pdev, a_sell.invperm_dev, a_sell.nrows, R)
     t["flops"] = {"seg_spmm_tiles": 2 * dev.nnz * R, "carry_fixup_multi": 0,
-                  "panel_spmm_tiles": 2 * a_sell.panel_nnz * R, "panel_fixup_multi": 0,
-                  f"inverse_permute R={R}": 0}
+                  "panel_spmm_tiles": 2 * a_sell.panel_nnz * R,
+                  f"inverse_permute identity R={R}": 0, f"inverse_permute R={R}": 0}
     return t
 
 
@@ -1026,10 +1097,11 @@ def check_x2_seg(label: str, trip, seed: int) -> dict:
 
 
 def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dict:
-    """Phase 2, K14 + K15 on one matrix's fp64 ELL or SELL panel: against
-    their plain versions and against themselves; K7 on the fp64 y against
-    its index gather, bit for bit, where the panel is σ-sorted; the x2
-    ``matvec`` against the fp64 oracle."""
+    """Phase 2, K14 and K7's fp64 identity mode (with a seeded spill too) on
+    one matrix's fp64 ELL or SELL panel: against their plain versions and
+    against themselves; K7 on the fp64 y against its index gather, bit for
+    bit, where the panel is σ-sorted; the x2 ``matvec`` against the fp64
+    oracle."""
     from spmv_tpu_torch import X2Matrix
     from spmv_tpu_torch.kernels import engines_x2 as X2
 
@@ -1051,10 +1123,11 @@ def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> 
     pscale = np.where(owner >= 0, sscale[np.maximum(owner, 0)], 0.0)
     e14 = max(within_x2(f"{label} panel_spmv_tiles_x2 y", y14, y14r, sscale, k),
               within_x2(f"{label} panel_spmv_tiles_x2 part", p14, p14r, pscale, k))
-    y15 = same_bits("panel_fixup_x2", lambda: X2.panel_fixup_x2(dev, y14.clone(), p14))
-    e15 = within_x2(f"{label} panel_fixup_x2", y15,
-                    X2.panel_fixup_x2_reference(dev, y14.clone(), p14), sscale, k)
-    errs = {"panel_spmv_tiles_x2": e14, "panel_fixup_x2": e15}
+    spill = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal(
+        dev.nrows)).cuda()
+    e7 = check_identity(f"{label} x2", dev, y14, p14, spill, sscale, k, within_x2)
+    y15 = X2.panel_fixup_x2_reference(dev, y14.clone(), p14)
+    errs = {"panel_spmv_tiles_x2": e14, "inverse_permute": e7}
     if a.sorted_rows:  # the fp64 K7 gather-only, and with K14's partials
         y7 = same_bits("inverse_permute x2",
                        lambda: X2.inverse_permute_x2(a.invperm_dev, y15, info.nrows))
@@ -1062,17 +1135,17 @@ def check_x2_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> 
         plain = X2.inverse_permute_x2_reference(a.invperm_dev, y15, info.nrows)
         if not (torch.equal(y7, want) and torch.equal(y7, plain)):
             raise AssertionError(f"{label}: the fp64 K7 gather is not a bit copy")
-        errs["inverse_permute"] = check_epilogue(f"{label} x2", a, y14, p14, y15, None,
-                                                 scale, k, within_x2)
+        errs["inverse_permute"] = max(e7, check_epilogue(f"{label} x2", a, y14, p14, y15,
+                                                         None, scale, k, within_x2))
     check_oracle_x2(f"{label} x2 {fmt} matvec", trip, v, a.matvec(xh), xh, scale)
     print(f"  {label} x2 {fmt}{kwargs or ''}: shape {a.shape}, sorted "
           f"{a.sorted_rows}, fp64 panel {dev.stream_bytes} B, tiles {dev.ntiles}, "
           f"split slices {dev.nsplit}: max |kernel - plain| "
           + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + "; matvec passes x2_check; two runs bitwise equal; K14 writes every row "
-          "and slot"
+          "and slot; K7's fp64 identity mode bitwise the plain fix-up and add"
           + ("; fp64 K7 gather bitwise the index gather, K7 with K14's partials "
-             "bitwise K15 and the gather" if a.sorted_rows else ""))
+             "bitwise the plain fix-up and the gather" if a.sorted_rows else ""))
     return errs
 
 
@@ -1117,8 +1190,8 @@ def check_sorted_spill(label: str, trip, seed: int) -> dict:
     scale = row_scale(info.nrows, rows, cols, vals.astype(np.float32), xh)
     y4, p4 = P.panel_spmv_partials(dev, x)
     sp = E.segmented_spmv(a.dev_spill, x)
-    err = check_epilogue(label, a, y4, p4, P.panel_fixup(dev, y4.clone(), p4), sp,
-                         scale, tol)
+    err = check_epilogue(label, a, y4, p4, P.panel_fixup_reference(dev, y4.clone(), p4),
+                         sp, scale, tol)
     y6 = P.panel_spmv_fused(dev, x)
     y7 = same_bits("inverse_permute", lambda: P.inverse_permute(a.invperm_dev, y6,
                                                                 info.nrows, spill=sp))
@@ -1134,7 +1207,8 @@ def check_sorted_spill(label: str, trip, seed: int) -> dict:
         X = torch.from_numpy(Xh).cuda()
         Y10, p10 = P.panel_spmv_multi_partials(dev, X)
         err = max(err, check_epilogue(
-            f"{label} R={R}", a, Y10, p10, P.panel_fixup_multi(dev, Y10.clone(), p10),
+            f"{label} R={R}", a, Y10, p10,
+            P.panel_fixup_multi_reference(dev, Y10.clone(), p10),
             E.segmented_spmv_multi(a.dev_spill, X), column_scales(trip, Xh), tol))
         check_oracle_columns(f"{label} R={R} sell with a spill, spmm", trip,
                              spmv_tpu_torch.spmm(a, X), Xh)
@@ -1143,24 +1217,94 @@ def check_sorted_spill(label: str, trip, seed: int) -> dict:
     y14, p14 = X2.panel_spmv_x2_partials(a2.dev, x64)
     k = a2.dev.max_width + a2.dev_spill.max_row_nnz
     err64 = check_epilogue(f"{label} x2", a2, y14, p14,
-                           X2.panel_fixup_x2(a2.dev, y14.clone(), p14),
+                           X2.panel_fixup_x2_reference(a2.dev, y14.clone(), p14),
                            X2.segmented_spmv_x2(a2.dev_spill, x64), scale64, k, within_x2)
     check_oracle_x2(f"{label} x2 sell with a spill, matvec", trip, v64, a2.matvec(xh64),
                     xh64, scale64)
     print(f"  {label} sell with a spill (dispatch price 0): sorted {a.sorted_rows}, "
           f"panel nnz {a.panel_nnz}, spill nnz {a.spill_nnz}, split slices "
           f"{dev.nsplit}: K7 with the partials and the spill (R = 1..8, fp64) and "
-          f"after K6 with the spill bitwise the fix-up kernels, a torch add and the "
+          f"after K6 with the spill bitwise the plain fix-up, a torch add and the "
           f"gather, y′'s split rows unread; max |K7 - plain| {err:.3e}, fp64 "
           f"{err64:.3e}; matvec, spmm and the x2 matvec pass the fp64 oracle")
     return {"inverse_permute": err}
 
 
+def check_forced_hyb(label: str, trip, seed: int) -> dict:
+    """Phase 2, K7's identity mode with a spill part: the float32 and
+    fp64-grade HYB of ``trip`` built and called under
+    ``turns.forced_split`` (the split's dispatch price and the one-dispatch
+    bound at 0: a panel on K4, K10, K14 and a spill on K1 + K2, K8 + K9,
+    K12 + K13), at R = 1 and 4 and in fp64: ``check_identity`` with the
+    spill's y′, and the containers' ``matvec``, ``spmm`` and x2 ``matvec``
+    bit for bit the parent's sequence (the plain fix-up, then a torch add)
+    and within the fp64 oracle."""
+    import spmv_tpu_torch
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
+    from spmv_tpu_torch.probes.turns import SPILL_PRICES, forced_split
+
+    info, rows, cols, vals = trip
+    v64, xh64, scale64 = x2_inputs(trip, seed)
+    err = 0.0
+    with forced_split(**SPILL_PRICES):
+        a = build("hyb", trip)
+        a2 = X2Matrix.from_coo("hyb", info.nrows, info.ncols, rows, cols, v64, device="cuda")
+        if a.dev_spill is None or a2.dev_spill is None or not a.dev.nslots:
+            raise AssertionError(f"{label}: the forced HYB keeps no panel and spill")
+        dev = a.dev
+        tol = fp32_rel_tol(dev.max_width + a.dev_spill.max_row_nnz)
+        for R in (1, 4):
+            Xh = np.random.default_rng(seed + R).standard_normal(
+                (info.ncols, R)).astype(np.float32)
+            if R == 1:
+                Xh = Xh[:, 0].copy()
+                scale = row_scale(info.nrows, rows, cols, vals.astype(np.float32), Xh)
+                tiles, spmv = P.panel_spmv_partials, E.segmented_spmv
+            else:
+                scale = column_scales(trip, Xh)
+                tiles, spmv = P.panel_spmv_multi_partials, E.segmented_spmv_multi
+            X = torch.from_numpy(Xh).cuda()
+            y, part = tiles(dev, X)
+            sp = spmv(a.dev_spill, X)
+            err = max(err, check_identity(f"{label} hyb R={R}", dev, y, part, sp, scale, tol))
+            got = a.matvec(X) if R == 1 else spmv_tpu_torch.spmm(a, X)
+            if not torch.equal(got, P.panel_fixup_reference(dev, y.clone(), part) + sp):
+                raise AssertionError(f"{label} hyb R={R}: the call is not the plain "
+                                     f"fix-up's and the add's bits")
+            if R == 1:
+                check_oracle(f"{label} hyb with a spill, matvec", trip, got, Xh)
+            else:
+                check_oracle_columns(f"{label} hyb with a spill, spmm", trip, got, Xh)
+        x64 = torch.from_numpy(xh64).cuda()
+        y14, p14 = X2.panel_spmv_x2_partials(a2.dev, x64)
+        sp64 = X2.segmented_spmv_x2(a2.dev_spill, x64)
+        k = a2.dev.max_width + a2.dev_spill.max_row_nnz
+        err64 = check_identity(f"{label} x2 hyb", a2.dev, y14, p14, sp64, scale64, k,
+                               within_x2)
+        got = a2.matvec(xh64)
+        if not torch.equal(got, X2.panel_fixup_x2_reference(a2.dev, y14.clone(), p14) + sp64):
+            raise AssertionError(f"{label} x2 hyb: the call is not the plain fix-up's "
+                                 f"and the add's bits")
+        check_oracle_x2(f"{label} x2 hyb with a spill, matvec", trip, v64, got, xh64, scale64)
+    print(f"  {label} hyb with a spill (forced split): panel nnz {a.panel_nnz} in "
+          f"{dev.nslots} slots, split slices {dev.nsplit}, spill nnz {a.spill_nnz}: "
+          f"K7's identity mode (R = 1, 4, fp64), without and with the spill, bitwise the "
+          f"plain fix-up and a torch add, y′'s split rows and unused slots unread; "
+          f"matvec, spmm and the x2 matvec the same bits and pass the fp64 oracle; max "
+          f"|K7 - plain| {err:.3e}, fp64 {err64:.3e}")
+    return {"inverse_permute": max(err, err64)}
+
+
 def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
     """Phase 5, fp64-grade kernels at one matrix: K12, K13 on the fp64 CSR
-    plan and (with ``panel``) K14, K15 on the fp64 SELL panel the split
-    builds there, their plain versions and each engine's two-kernel
-    path."""
+    plan and (with ``panel``) K14 and the fp64 K7 (its identity mode, and
+    its sorted mode where the panel is sorted) on the fp64 SELL panel the
+    split builds there, their plain versions and the segmented engine's
+    two-kernel path."""
     from spmv_tpu_torch import X2Matrix
     from spmv_tpu_torch.kernels import engines_x2 as X2
     from spmv_tpu_torch.probes import bounds as B
@@ -1195,25 +1339,107 @@ def time_x2(label: str, trip, card: str, panel: bool = True) -> dict:
     yp, part = X2.panel_spmv_x2_partials(pdev, x)
     panel_fns = {
         "panel_spmv_tiles_x2": lambda: X2.panel_spmv_x2_partials(pdev, x),
-        "panel_fixup_x2": lambda: X2.panel_fixup_x2(pdev, yp, part),
-        "path K14+K15": lambda: X2.panel_spmv_x2(pdev, x),
+        "inverse_permute identity x2": lambda: X2.panel_fixup_x2(pdev, yp, part),
         "panel_spmv_tiles_x2_plain": lambda: X2.panel_spmv_x2_partials_reference(pdev, x),
-        "panel_fixup_x2_plain": lambda: X2.panel_fixup_x2_reference(pdev, yp, part),
+        "inverse_permute identity x2_plain":
+            lambda: X2.panel_fixup_x2_reference(pdev, yp, part),
     }
     if sell.sorted_rows:  # K7 in fp64 with K14's partials
-        panel_fns.update(sorted_fns(sell, x, X2.panel_spmv_x2_partials, X2.panel_fixup_x2,
-                                    "K14", "K15", " x2"))
+        panel_fns.update(sorted_fns(sell, x, X2.panel_spmv_x2_partials, "K14", " x2"))
     print(f"  {label} x2: sell fp64 panel {pdev.stream_bytes} B (shape "
           f"{sell.shape}, sorted {sell.sorted_rows}), split slices "
           f"{pdev.nsplit}  [{card}]")
     t.update(timed(label, panel_fns, card, sell.panel_nnz, pdev.stream_bytes))
     t["bytes"].update({"panel_spmv_tiles_x2": B.panel_tiles_bytes(pdev),
-                       "panel_fixup_x2": B.panel_fixup_bytes(pdev)})
+                       "inverse_permute identity x2": B.panel_fixup_bytes(pdev)})
     if sell.sorted_rows:
         t["bytes"]["inverse_permute x2"] = B.epilogue_bytes(pdev, sell.invperm_dev,
                                                             sell.nrows)
-    t["flops"].update({"panel_spmv_tiles_x2": 2 * sell.panel_nnz, "panel_fixup_x2": 0,
-                       "inverse_permute x2": 0})
+    t["flops"].update({"panel_spmv_tiles_x2": 2 * sell.panel_nnz,
+                       "inverse_permute identity x2": 0, "inverse_permute x2": 0})
+    return t
+
+
+def time_unsorted(pl, cant, card: str, floor: float) -> dict:
+    """Phase 5, the panels that keep their row order, K7 in its identity
+    mode: on pl-32768's ``ell_pure`` (float32, R = 4, fp64) the grid
+    without a spill alone, the tile kernel alone and the public call (tile
+    kernel + K7); on the HYB of pl-32768 and cant built and called under
+    ``turns.forced_split`` (float32; cant also at R = 4 and fp64) the grid
+    with the spill alone, the tile kernel, the spill's kernels and the
+    public call (tile kernel + spill + K7); each K7 beside its bound
+    (``bounds.epilogue_bytes`` with no row order) and the launch floor.
+    Keys ``inverse_permute identity <case>`` and ``path <case>``; the
+    bytes under ``bytes``."""
+    import spmv_tpu_torch
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.probes import bounds as B
+    from spmv_tpu_torch.probes.turns import SPILL_PRICES, forced_split
+
+    t = {"bytes": {}, "dtype": {}, "where": {}}
+    print(f"unsorted panel paths, K7's identity mode, device µs (CUDA-graph replay): "
+          f"K7 alone beside its bound and the launch floor {floor * 1e3:.2f} µs, the "
+          f"tile kernel alone, the public call  [{card}]")
+
+    def case(name, a, X, spill_of=None):
+        dev = a.dev
+        R = X.shape[1] if X.dim() == 2 else 1
+        f64 = X.dtype == torch.float64
+        tiles = (X2.panel_spmv_x2_partials if f64 else
+                 P.panel_spmv_multi_partials if R > 1 else P.panel_spmv_partials)
+        y, part = tiles(dev, X)
+        call = (a.matvec if R == 1 else lambda X: spmv_tpu_torch.spmm(a, X))
+        fns = {f"tiles {name}": lambda: tiles(dev, X), f"path {name}": lambda: call(X)}
+        if spill_of is None:  # the grid over the split slices' rows
+            fixup = X2.panel_fixup_x2 if f64 else P.panel_fixup_multi if R > 1 else P.panel_fixup
+            fns[f"inverse_permute identity {name}"] = lambda: fixup(dev, y, part)
+            nbytes = B.epilogue_bytes(dev, None, dev.nrows, R)
+        else:  # the grid over every row, with the spill's y′
+            sp = spill_of(a.dev_spill, X)
+            epilogue = X2.inverse_permute_x2 if f64 else P.inverse_permute
+            fns[f"inverse_permute identity {name}"] = lambda: epilogue(
+                None, y, dev.nrows, dev=dev, part=part, spill=sp)
+            fns[f"spill {name}"] = lambda: spill_of(a.dev_spill, X)
+            nbytes = B.epilogue_bytes(dev, None, dev.nrows, R, spill=True)
+        got = {k: graph_device_ms(k, fn) for k, fn in fns.items()}
+        t.update(got)
+        k7 = f"inverse_permute identity {name}"
+        t["bytes"][k7], t["dtype"][k7] = nbytes, X.dtype
+        t["where"][k7] = (f"{dev.nrows} rows, {dev.nsplit} split slices"
+                          + ("" if spill_of is None else f", spill nnz {a.spill_nnz}"))
+        bound = B.bound_ms(nbytes, 0, X.dtype)[0]
+        spill = "" if spill_of is None else f"  spill {got[f'spill {name}'] * 1e3:8.2f}"
+        print(f"  {name:28s} K7 alone {got[k7] * 1e3:6.2f} against its bound "
+              f"{bound * 1e3:.3f} ({t['where'][k7]})  tiles "
+              f"{got[f'tiles {name}'] * 1e3:8.2f}{spill}  call {got[f'path {name}'] * 1e3:8.2f}"
+              f"  [{card}]")
+
+    rng = np.random.default_rng(3)
+
+    def vec(n, R=1, dtype=np.float32):
+        shape = (n,) if R == 1 else (n, R)
+        return torch.from_numpy(rng.standard_normal(shape).astype(dtype)).cuda()
+
+    info, rows, cols, vals = pl
+    ell = build("ell", pl, split=False)
+    ell64 = X2Matrix.from_coo("ell", info.nrows, info.ncols, rows, cols, vals,
+                              split=False, device="cuda")
+    case("pl-32768 ell_pure", ell, vec(info.ncols))
+    case("pl-32768 ell_pure R=4", ell, vec(info.ncols, 4))
+    case("pl-32768 ell_pure x2", ell64, vec(info.ncols, dtype=np.float64))
+    del ell, ell64
+    with forced_split(**SPILL_PRICES):
+        case("pl-32768 hyb spill", build("hyb", pl), vec(info.ncols), E.segmented_spmv)
+        ci = cant[0]
+        hyb = build("hyb", cant)
+        hyb64 = X2Matrix.from_coo("hyb", ci.nrows, ci.ncols, *cant[1:], device="cuda")
+        case(f"cant-{CANT_N} hyb spill", hyb, vec(ci.ncols), E.segmented_spmv)
+        case(f"cant-{CANT_N} hyb spill R=4", hyb, vec(ci.ncols, 4), E.segmented_spmv_multi)
+        case(f"cant-{CANT_N} hyb spill x2", hyb64, vec(ci.ncols, dtype=np.float64),
+             X2.segmented_spmv_x2)
     return t
 
 
@@ -1456,7 +1682,7 @@ LIBRARY_CALLS = {
         "float32: the y of K1 + K2 and of K3")),
     **dict.fromkeys(("panel_spmv_tiles", "panel_spmv_fused"), (
         "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE) on the same "
-        "matrix's CSR plan, float32: the y of K4 + K5 and of K6")),
+        "matrix's CSR plan, float32: the y of K4 + K7 and of K6")),
     **dict.fromkeys(("seg_spmm_tiles", "panel_spmm_tiles"), (
         "library csr@X", "torch.sparse_csr_tensor @ X (cuSPARSE), float32, R = 4")),
     **dict.fromkeys(("seg_spmv_tiles_x2", "panel_spmv_tiles_x2"), (
@@ -1514,6 +1740,7 @@ def main() -> int:
     from spmv_tpu_torch.probes import run_probe
     from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES
     from spmv_tpu_torch.probes.timing import card_line
+    from spmv_tpu_torch.probes.turns import SPILL_PRICES, forced_split
 
     t_start = time.perf_counter()
     # 1. the card and the build
@@ -1591,7 +1818,7 @@ def main() -> int:
     for R in (3, 5, 6, 7):  # K8 + K9's and K10 + K7's other instantiations
         keep_max(check_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
         keep_max(check_panel_multi(f"cant-{CANT_N}", cant, seed=R, R=R))
-    # the fp64-grade kernels (K12-K15, and K7 on an fp64 y)
+    # the fp64-grade kernels (K12-K14, and K7 on an fp64 y)
     for name in sorted(synth.EDGE_CASES):
         keep_max(check_x2_seg(name, synth.edge_case(name), seed=11))
     keep_max(check_x2_seg("band-1024", band, seed=12))
@@ -1605,9 +1832,13 @@ def main() -> int:
     keep_max(check_x2_panel(f"cant-{CANT_N}", cant, seed=16))
     for name, shape in panel_shapes.items():
         keep_max(check_x2_panel(name, shape, seed=18, fmt="ell", split=False))
-    # K7 with a spill part: sorted SELL builds that keep a panel and spill
+    # K7 with a spill part: sorted SELL builds that keep a panel and spill,
+    # and its identity mode on HYB builds that do (pl-32768's panel one
+    # column wide, cant's with split slices)
     keep_max(check_sorted_spill("pl-32768", pl, seed=19))
     keep_max(check_sorted_spill("pl_big-524288", pl_big, seed=20))
+    keep_max(check_forced_hyb("pl-32768", pl, seed=22))
+    keep_max(check_forced_hyb(f"cant-{CANT_N}", cant, seed=23))
     # the programmatic edges in a CUDA graph: K4 + K7 and K10 + K7 on cant's
     # sorted SELL, the sorted path with a spill part, K14 + K7, K8 + K9
     xc = torch.from_numpy(np.random.default_rng(21).standard_normal(
@@ -1624,8 +1855,20 @@ def main() -> int:
                       lambda: pl_spill.matvec(xc[:pl[0].ncols].contiguous())),
                      ("K8 + K9", lambda: E.segmented_spmv_multi(cant_csr, Xc))):
         graph_equals_eager(what, fn)
+    # the unsorted paths: ell_pure (K4 + K7, K10 + K7) and cant's HYB with a
+    # spill (K4 + K1 + K2 + K7), K7 in its identity mode
+    xp = xc[:pl[0].ncols].contiguous()
+    pl_ell = build("ell", pl, split=False)
+    graph_equals_eager("ell_pure K4 + K7", lambda: pl_ell.matvec(xp))
+    graph_equals_eager("ell_pure K10 + K7",
+                       lambda: spmv_tpu_torch.spmm(pl_ell, Xc[:pl[0].ncols].contiguous()))
+    with forced_split(**SPILL_PRICES):
+        cant_hyb = build("hyb", cant)
+        graph_equals_eager("HYB with a spill", lambda: cant_hyb.matvec(xc))
+    del pl_ell, cant_hyb
     print("  CUDA-graph replays of K4 + K7, K10 + K7, K14 + K7, the sorted SELL "
-          "with a spill and K8 + K9 give the eager bits")
+          "with a spill, K8 + K9, and the unsorted ell_pure (K4 + K7, K10 + K7) and "
+          "HYB with a spill (K4 + K1 + K2 + K7) give the eager bits")
     torch.cuda.synchronize()
     print(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1678,8 +1921,8 @@ def main() -> int:
         if cli.main(["run", "--format", fmt, "--rhs", "4", *cant_args]) != 0:
             raise SystemExit(f"run --format {fmt} --rhs 4 on cant failed")
         rhs_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
-    # bench.py's ell_pure at R = 4: K10 + K11 on an unsorted panel (cant's
-    # ell and hyb spill everything, and its sell is sorted: K10 + K7)
+    # bench.py's ell_pure at R = 4: K10 + K7 on an unsorted panel (cant's
+    # ell and hyb spill everything, and its sell is sorted)
     before = dict(E.LAUNCHES)
     Xp = np.random.default_rng(4).standard_normal((pl[0].ncols, 4)).astype(np.float32)
     check_oracle_columns("pl-32768 ell_pure R=4", pl,
@@ -1708,7 +1951,7 @@ def main() -> int:
     for fmt in ("csr", "sell"):
         run_x2(f"{fmt} --rhs 4", ["--format", fmt, "--rhs", "4", *cant_args])
     run_x2("hyb pl_big", trip=pl_big, fmt="hyb")
-    # ell_pure in fp64 on pl-32768: K14 + K15 on an unsorted panel
+    # ell_pure in fp64 on pl-32768: K14 + K7 on an unsorted panel
     E.reset_launches()
     v64, xh64, scale64 = x2_inputs(pl, 7)
     ell64 = spmv_tpu_torch.X2Matrix.from_coo("ell", pl[0].nrows, pl[0].ncols, pl[1], pl[2],
@@ -1716,6 +1959,17 @@ def main() -> int:
     check_oracle_x2("pl-32768 x2 ell_pure", pl, v64, ell64.matvec(xh64), xh64, scale64)
     torch.cuda.synchronize()
     x2_launches["ell_pure pl-32768"] = {k: n for k, n in E.LAUNCHES.items() if n}
+    # HYB with a spill part on pl-32768 (the split forced: a panel on K4, a
+    # spill on K1 + K2, K7's identity mode), float32, R = 4 and fp64
+    hyb_launches = {}
+    with forced_split(**SPILL_PRICES):
+        for key, kw in (("f32", {}), ("--rhs 4", {"rhs": 4}), ("f32x2", {"dtype": "f32x2"})):
+            E.reset_launches()
+            rc = cli.run_spmv("hyb", *pl, device="cuda", **kw)
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise SystemExit(f"hyb {key} with a spill on pl-32768 failed ({rc})")
+            hyb_launches[key] = {k: n for k, n in E.LAUNCHES.items() if n}
     E.reset_launches()
     rc = cli.main(["run", "--format", "bsr", "--dtype", "f32x2", *cant_args])
     if rc != 2 or any(E.LAUNCHES.values()):
@@ -1755,8 +2009,7 @@ def main() -> int:
     for fmt in ("csr", "coo", "cmrs", "csr --x random", "csr --rhs 4"):
         if any(k not in x2_launches[fmt] for k in X2_SEG):
             raise SystemExit(f"f32x2 {fmt} did not launch K12 and K13")
-    # the σ-sorted SELL runs: the tile kernel, then K7 as the one epilogue,
-    # with no fix-up kernel of the panel (K5, K11, K15) behind it
+    # the σ-sorted SELL runs: the tile kernel, then K7 as the one epilogue
     sorted_runs = {"sell on cant": (panel_runs["sell"], "panel_spmv_tiles"),
                    "sell_pure on pl-32768": (pure_launches["sell"], "panel_spmv_tiles"),
                    "sell --rhs 4 on cant": (rhs_launches["sell"], "panel_spmm_tiles"),
@@ -1766,17 +2019,36 @@ def main() -> int:
     for what, (ran, tiles) in sorted_runs.items():
         if ran.get(tiles, 0) < 1 or ran.get("inverse_permute", 0) < 1:
             raise SystemExit(f"{what} did not launch {tiles} and K7: {ran}")
-        fixups = [k for k in ("panel_fixup", "panel_fixup_multi", "panel_fixup_x2")
-                  if ran.get(k, 0)]
-        if fixups:
-            raise SystemExit(f"{what} launched {fixups} beside K7: {ran}")
-    print(f"  sorted SELL runs launch their tile kernel and K7, no K5, K11 or K15: "
-          f"{', '.join(sorted_runs)}")
-    if not x2_launches["ell_pure pl-32768"].get("panel_fixup_x2", 0):
-        raise SystemExit("f32x2 ell_pure on pl-32768 did not launch K15")
+    print(f"  sorted SELL runs launch their tile kernel and K7: {', '.join(sorted_runs)}")
+    # the unsorted panel runs: the tile kernel, the spill's kernels where
+    # there is a spill, then K7 in its identity mode; no panel fix-up kernel
+    # is left to launch
+    print(f"  hyb with a spill on pl-32768, launches per run: {hyb_launches}")
+    unsorted_runs = {
+        "ell_pure on pl-32768": (pure_launches["ell"], "panel_spmv_tiles", ()),
+        "ell_pure --rhs 4 on pl-32768": (rhs_launches["ell_pure pl-32768"],
+                                         "panel_spmm_tiles", ()),
+        "f32x2 ell_pure on pl-32768": (x2_launches["ell_pure pl-32768"],
+                                       "panel_spmv_tiles_x2", ()),
+        "hyb with a spill on pl-32768": (hyb_launches["f32"], "panel_spmv_tiles",
+                                         ("seg_spmv_tiles", "carry_fixup")),
+        "hyb --rhs 4 with a spill on pl-32768": (hyb_launches["--rhs 4"], "panel_spmm_tiles",
+                                                 ("seg_spmm_tiles", "carry_fixup_multi")),
+        "f32x2 hyb with a spill on pl-32768": (hyb_launches["f32x2"], "panel_spmv_tiles_x2",
+                                               ("seg_spmv_tiles_x2", "carry_fixup_x2"))}
+    for what, (ran, tiles, spill) in unsorted_runs.items():
+        missing = [k for k in (tiles, *spill, "inverse_permute") if ran.get(k, 0) < 1]
+        if missing:
+            raise SystemExit(f"{what} did not launch {missing}: {ran}")
+    left = [k for k in E.LAUNCHES if k.startswith("panel_fixup")]
+    if left:
+        raise SystemExit(f"a panel fix-up kernel is still counted: {left}")
+    print(f"  unsorted panel runs launch their tile kernel, the spill's kernels and "
+          f"K7 (identity), no panel_fixup kernel: {', '.join(unsorted_runs)}")
     x2_total = {k: sum(r.get(k, 0) for r in x2_launches.values()) for k in KERNELS}
+    hyb_total = {k: sum(r.get(k, 0) for r in hyb_launches.values()) for k in KERNELS}
     launches = {k: seg_launches[k] + panel_launches[k] + multi_launches[k]
-                + x2_total[k] for k in KERNELS}
+                + x2_total[k] + hyb_total[k] for k in KERNELS}
     print(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. times
@@ -1819,8 +2091,8 @@ def main() -> int:
               f"{t['path K1+K2'][0]:.4f} | {fmt_ms(t['path K1+K2'][1])}  K3 "
               f"{t['csr_spmv_fused'][0]:.4f} | {fmt_ms(t['csr_spmv_fused'][1])}")
     for label, t in ptimes.items():
-        print(f"  {label:24s} panel {t['plan_bytes']:10d} B  K4+K5 "
-              f"{t['path K4+K5'][0]:.4f} | {fmt_ms(t['path K4+K5'][1])}  K6 "
+        print(f"  {label:24s} panel {t['plan_bytes']:10d} B  K4+K7 "
+              f"{t['path K4+K7'][0]:.4f} | {fmt_ms(t['path K4+K7'][1])}  K6 "
               f"{t['panel_spmv_fused'][0]:.4f} | {fmt_ms(t['panel_spmv_fused'][1])}")
     print(f"formats: matvec per format, ms per call | device  [{card}]")
     suites = {
@@ -1875,25 +2147,22 @@ def main() -> int:
               f"{bound_fields(k2, t)['bound_ms'] * 1e3:.3f} and the floor "
               f"{floor * 1e3:.2f}  [{card}]")
     print(f"sorted SELL paths, device µs (CUDA-graph replay): the tile kernel alone, "
-          f"the parent's chain (tile kernel, fix-up kernel, K7 as the gather), the "
-          f"sorted path (tile kernel, K7), and K7 alone with the partials beside its "
-          f"bound and the launch floor {floor * 1e3:.2f} µs; K7 gather-only (after K6) "
-          f"beside index_select  [{card}]")
-    for label, t, tiles, fix, k7, dtype in (
-            (f"{cl} sell", tp, "K4", "K5", "inverse_permute", torch.float32),
-            ("pl-32768 sell_pure", ptimes["pl-32768 sell_pure"], "K4", "K5",
+          f"the sorted path (tile kernel, K7), and K7 alone with the partials beside "
+          f"its bound and the launch floor {floor * 1e3:.2f} µs; K7 gather-only (after "
+          f"K6) beside index_select  [{card}]")
+    for label, t, tiles, k7, dtype in (
+            (f"{cl} sell", tp, "K4", "inverse_permute", torch.float32),
+            ("pl-32768 sell_pure", ptimes["pl-32768 sell_pure"], "K4",
              "inverse_permute", torch.float32),
-            ("pl_big-524288 sell_pure", ptimes["pl_big-524288 sell_pure"], "K4", "K5",
+            ("pl_big-524288 sell_pure", ptimes["pl_big-524288 sell_pure"], "K4",
              "inverse_permute", torch.float32),
-            (f"{cl} sell R=4", tm, "K10", "K11", "inverse_permute R=4", torch.float32),
-            (f"{cl} sell x2", tx, "K14", "K15", "inverse_permute x2", torch.float64)):
+            (f"{cl} sell R=4", tm, "K10", "inverse_permute R=4", torch.float32),
+            (f"{cl} sell x2", tx, "K14", "inverse_permute x2", torch.float64)):
         tile_key = {"K4": "panel_spmv_tiles", "K10": "panel_spmm_tiles",
                     "K14": "panel_spmv_tiles_x2"}[tiles]
-        old_path, new_path, alone = (t[k][1] * 1e3 for k in (
-            f"path {tiles}+{fix}+K7", f"path {tiles}+K7", k7))
+        path, alone = (t[k][1] * 1e3 for k in (f"path {tiles}+K7", k7))
         bound = B.bound_ms(t["bytes"][k7], 0, dtype)[0] * 1e3
-        print(f"  {label:26s} {tiles} {t[tile_key][1] * 1e3:8.2f}  {tiles}+{fix}+K7 "
-              f"{old_path:8.2f}  {tiles}+K7 {new_path:8.2f} ({new_path - old_path:+.2f})"
+        print(f"  {label:26s} {tiles} {t[tile_key][1] * 1e3:8.2f}  {tiles}+K7 {path:8.2f}"
               f"  K7 alone {alone:.2f} against its bound {bound:.3f}  [{card}]")
     # K7 with the partials and a spill part: pl_big's sorted SELL built at a
     # dispatch price of 0 (K4, the spill's K1 + K2, K7)
@@ -1919,6 +2188,7 @@ def main() -> int:
           f"{tm['carry_fixup_multi'][1] * 1e3:.2f} against its bound "
           f"{bound_fields('carry_fixup_multi', tm)['bound_ms'] * 1e3:.3f} and the floor "
           f"{floor * 1e3:.2f}  [{card}]")
+    tu = time_unsorted(pl, cant, card, floor)
     print(f"f32x2 against f32 matvec per format at cant, ms per call | "
           f"device  [{card}]")
     xh64 = np.random.default_rng(3).standard_normal(cant[0].ncols)
@@ -1969,7 +2239,7 @@ def main() -> int:
     print(f"  phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # 7. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
-    # SELL-C-σ panel the split builds there, K8-K11 on both at R = 4, the
+    # SELL-C-σ panel the split builds there, K8-K10 on both at R = 4, the
     # probe kernels on the CSR plans), K1 and K12 at pl_big too
     errs.update(perrs)
     lib_f32 = {k: tc for k in ("seg_spmv_tiles_u16", "seg_spmv_tiles_t128",
@@ -1999,7 +2269,26 @@ def main() -> int:
             row["also_replaces"] = ABLATE_ALSO
         if k in FIXUPS:
             row["launch_floor_ms"] = floor
-        if k == "inverse_permute":  # timed with K4's partials; the gather-only mode too
+        if k == "inverse_permute":  # timed with K4's partials; the other modes too
+            row["also_replaces"] = K7_ALSO
+            # the identity mode: the grid over the split slices' rows on
+            # cant's panel (f32, R = 4, fp64), and on the unsorted paths
+            row["identity"] = {
+                f"{cl} sell panel{sfx}": {
+                    "ms": t_[key][0], "device_ms": t_[key][1],
+                    "plain_ms": t_[f"{key}_plain"][0], "bytes": t_["bytes"][key],
+                    "bound_ms": B.bound_ms(t_["bytes"][key], 0, dtype)[0]}
+                for sfx, t_, key, dtype in (
+                    ("", tp, "inverse_permute identity", torch.float32),
+                    (" R=4", tm, "inverse_permute identity R=4", torch.float32),
+                    (" x2", tx, "inverse_permute identity x2", torch.float64))}
+            row["identity"].update({
+                key[len("inverse_permute identity "):]: {
+                    "device_ms": tu[key], "where": tu["where"][key],
+                    "bound_ms": B.bound_ms(tu["bytes"][key], 0, tu["dtype"][key])[0],
+                    "bytes": tu["bytes"][key], "path_device_ms":
+                        tu["path " + key[len("inverse_permute identity "):]]}
+                for key in tu["bytes"]})
             g, lib = tp["inverse_permute gather"], tp["library index_select"]
             row["gather_only"] = {
                 "ms": g[0], "device_ms": g[1],

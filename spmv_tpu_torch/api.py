@@ -88,7 +88,7 @@ def spmm(a, X) -> torch.Tensor:
     The branches of ``spmv_tpu/api.py:145-176``: BSR runs its batched
     matmul for any R. The engine formats run one multi-RHS pass over each
     plan for 2 ≤ R ≤ ``MULTI_RHS_MAX`` (``matmat``: K8 + K9 on CSR plans and
-    spill parts, K10 + K11 on panels, K10 then one K7 for a σ-sorted SELL), and one
+    spill parts, K10 then one K7 on panels, σ-sorted or not), and one
     ``matvec`` per column for R = 1 or R > ``MULTI_RHS_MAX`` — the JAX
     envelope, not a fallback: a kernel that fails raises. An ``X2Matrix``
     keeps X in float64 and runs one fp64 ``matvec`` per column, as
@@ -100,12 +100,20 @@ def spmm(a, X) -> torch.Tensor:
         return a.matmat(X)
     if getattr(a, "x2", False):  # before any float32 cast of X
         X = X_to_device(X, a.ncols, a.dev.device, dtype=torch.float64)
-        return torch.stack([a.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)
+        return _stack_columns(a, X, "need at least one array to stack")
     X = X_to_device(X, a.ncols, a.dev.device)
-    R = X.shape[1]
-    if 2 <= R <= MULTI_RHS_MAX:
+    if 2 <= X.shape[1] <= MULTI_RHS_MAX:
         return a.matmat(X)
-    return torch.stack([a.matvec(X[:, j]) for j in range(R)], dim=1)
+    return _stack_columns(a, X, "Need at least one array to stack.")
+
+
+def _stack_columns(a, X: torch.Tensor, empty: str) -> torch.Tensor:
+    """One ``matvec`` per column of X, stacked. X with no columns raises
+    the ``ValueError`` the JAX package's stack raises there (``empty``:
+    ``jnp.stack``'s message, or ``np.stack``'s for an ``X2Matrix``)."""
+    if X.shape[1] == 0:
+        raise ValueError(empty)
+    return torch.stack([a.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)
 
 
 def from_reference(a, device):

@@ -22,7 +22,7 @@ __all__ = ["DevCsr", "DevPanel", "FUSED_STREAM_BYTES_MAX", "x_to_device",
 
 # Plans of at most this many bytes run the one-dispatch kernel (K3
 # ``csr_spmv_fused``, K6 ``panel_spmv_fused``); larger plans run the
-# two-dispatch shape (K1 + K2, K4 + K5). The JAX package's threshold
+# two-dispatch shape (K1 + K2, K4 + K7). The JAX package's threshold
 # (``spmv_tpu/device.py:68``, for both engines) was the starting point;
 # PERF.md records the H100 times at the shapes ``chip_smoke.py`` runs.
 FUSED_STREAM_BYTES_MAX = 4 * 1024 * 1024

@@ -41,8 +41,9 @@ columns into tiles of ``tile`` columns, as K1 cuts nonzeros, so a very wide
 slice spreads over many tiles. A slice that crosses a tile boundary is
 *split*: each tile it touches leaves 32 partials (one per row) in the
 tile's head slot ``part[2t]`` (the slice began in an earlier tile) or tail
-slot ``part[2t+1]`` (it runs on into later tiles), and K5
-(``panel_fixup``) adds them in tile order, exactly as K2 does for rows.
+slot ``part[2t+1]`` (it runs on into later tiles), and K7
+(``inverse_permute``, the panel's epilogue) adds them in tile order,
+exactly as K2 does for rows.
 
 K4 writes all of y and of ``part``, so neither needs clearing. Each slice
 has one owning tile, the tile of its first column: tile ``t`` owns slices
@@ -50,7 +51,7 @@ has one owning tile, the tile of its first column: tile ``t`` owns slices
 it, and the last tile also owns the empty slices after the final column.
 The owning tile writes the slice's rows of y: the sum of a slice that lies
 wholly in the tile, and +0.0 for an empty slice or a split one (whose rows
-K5 then overwrites). Every tile writes both its partial slots, +0.0 where
+K7 then writes from the partials). Every tile writes both its partial slots, +0.0 where
 no split slice uses one.
 """
 

@@ -141,8 +141,9 @@ class BSRMatrix:
                 tiles[t, rr, cc].astype(np.float64))
 
     def matmat(self, X) -> torch.Tensor:
-        """Y = A·X for X of shape (ncols, R), any R ≥ 1, as a float32
-        (nrows, R) tensor on the container's device."""
+        """Y = A·X for X of shape (ncols, R), any R ≥ 0 (R = 0 gives an
+        empty (nrows, 0) Y, as JAX's BSR does), as a float32 (nrows, R)
+        tensor on the container's device."""
         X = X_to_device(X, self.ncols, self.device)
         R = X.shape[1]
         ns = cdiv(max(self.ncols, 1), BLOCK)
@@ -155,7 +156,7 @@ class BSRMatrix:
             P = torch.bmm(self.tiles, Xg)  # (T, 128, R)
         Y = torch.segment_reduce(P, "sum", lengths=self.blk_tiles, axis=0,
                                  initial=0.0)  # (nb, 128, R), tiles in order
-        return Y.reshape(-1, R)[:self.nrows]
+        return Y.reshape(Y.shape[0] * BLOCK, R)[:self.nrows]  # R may be 0
 
     def matvec(self, x) -> torch.Tensor:
         """y = A·x as a float32 tensor on the container's device."""

@@ -5,9 +5,10 @@ Counterpart of ``spmv_tpu/formats/hyb.py``: the byte-priced split
 (``formats.split``) is the format. Each 32-row slice of the panel is capped
 at its byte-optimal width, the rest of each row spills to a CSR plan on the
 segmented engine, and the split keeps the cheapest of pure panel, capped
-panel plus spill, and pure spill. ``matvec`` runs the parts it has and adds
-their y with a torch add (``kernels.panel.panel_and_spill_spmv``). A matrix
-with no elements is an empty panel and launches nothing.
+panel plus spill, and pure spill. ``matvec`` runs the parts it has, and
+K7 adds the spill's y into the panel's (``kernels.panel.
+panel_and_spill_spmv``). A matrix with no elements is an empty panel and
+launches nothing.
 """
 
 from __future__ import annotations

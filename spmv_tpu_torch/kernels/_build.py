@@ -58,23 +58,19 @@ SIGNATURES = {
     # slice_ptr, cols, vals, tile_slice0, tile_own0, x, y, part, ncolumns,
     # ntiles, tile, nrows, stream
     "panel_spmv_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # slice_ptr, split_slices, part, y, nsplit, tile, nrows, stream
-    "panel_fixup": (_P, _P, _P, _P, _I, _I, _I, _P),
     # slice_ptr, cols, vals, x, y, nslices, nrows, stream
     "panel_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # invperm, slice_ptr, part, y_sorted, spill, y, nrows, tile, rhs, stream
-    # (slice_ptr, part and spill may be null)
-    "inverse_permute": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # invperm, slice_ptr, split_slices, part, y_sorted, spill, y, nrows,
+    # nsplit, tile, rhs, stream (invperm, slice_ptr, split_slices, part and
+    # spill may be null; without invperm y is y_sorted, updated in place)
+    "inverse_permute": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # slice_ptr, cols, vals, tile_slice0, tile_own0, X, Y, part, ncolumns,
     # ntiles, tile, nrows, rhs, stream
     "panel_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # slice_ptr, split_slices, part, Y, nsplit, tile, nrows, rhs, stream
-    "panel_fixup_multi": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # K4 and K5 in float64: the arguments of panel_spmv_tiles and panel_fixup
+    # K4 in float64: the arguments of panel_spmv_tiles
     "panel_spmv_tiles_x2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "panel_fixup_x2": (_P, _P, _P, _P, _I, _I, _I, _P),
     # K7 in float64: the arguments of inverse_permute but rhs (1)
-    "inverse_permute_x2": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "inverse_permute_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # fp64 (0 or 1), rhs: K4's, K14's or K10's resident blocks per SM
     "panel_tiles_occupancy": (_I, _I),
     # probe_spmv.cu

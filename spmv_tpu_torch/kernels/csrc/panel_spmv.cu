@@ -3,28 +3,27 @@
 // fp64-grade mode), and the SELL-C-σ epilogue that sums the split slices,
 // adds the spill and undoes the row sort.
 //
-// Eight kernels, each replacing one Pallas kernel of the JAX package's
+// Five kernels, each replacing one Pallas kernel of the JAX package's
 // panel engine (spmv_tpu/kernels/engines.py, engines_x2.py):
 //
 //   K4 panel_spmv_tiles   replaces _panel_kernel         (panel_spmv_partials)
-//   K5 panel_fixup        replaces _scatter_kernel       (_window_scatter, as
-//                         panel_spmv_partials' epilogue)
 //   K6 panel_spmv_fused   replaces _panel_kernel_fused   (panel_spmv_fused)
-//   K7 inverse_permute    replaces _perm_kernel          (inverse_permute_blocks;
-//                         on a σ-sorted SELL it also does K5/K11/K15's work)
+//   K7 inverse_permute    replaces _perm_kernel          (inverse_permute_blocks),
+//                         and _scatter_kernel and _scatter_kernel_multi as
+//                         the panel path's epilogue (_window_scatter): every
+//                         panel's one epilogue, the split slices' sums, the
+//                         spill's add and, on a σ-sorted SELL, the gather
 //   K10 panel_spmm_tiles  replaces _panel_kernel_multi   (panel_spmv_multi)
-//   K11 panel_fixup_multi replaces _scatter_kernel_multi (_window_scatter_multi,
-//                         as panel_spmv_multi's epilogue)
-//   K14 panel_spmv_tiles_x2  replaces _panel_kernel_x2    (panel_spmv_x2),
-//   K15 panel_fixup_x2       with its epilogue folded in there
+//   K14 panel_spmv_tiles_x2  replaces _panel_kernel_x2   (panel_spmv_x2),
+//                         with its epilogue (K7 in double) folded in there
 //
-// K14 and K15 are K4 and K5 instantiated for double (both are templates on
-// the value type), and K10 is K4 at R right-hand sides, so the tile and
-// slot rules stay in one place. B11's hi
+// K14 is K4 instantiated for double and K10 is K4 at R right-hand sides
+// (panel_tile.cuh), so the tile and slot rules stay in one place, and K7's
+// grids share one body and one sum of a split slice (sum_split_row). B11's hi
 // and lo f32 planes and its TwoSum chains answer the TPU's missing FMA;
 // Hopper has native fp64 FMA, so K14 reads fp64 values and x and sums each
 // row in fp64. A slot then streams 12 B and gathers 8 B of x: bytes still
-// bound it. The sorted SELL's epilogue in fp64 is K7 built for double.
+// bound it. The fp64-grade panel's epilogue is K7 built for double.
 //
 // The plan (spmv_tpu_torch/formats/base.py:build_panel_plan): slices of
 // kC = 32 rows. Slice s holds 32·K_s slots from slot slice_ptr[s], stored
@@ -71,7 +70,7 @@
 namespace {
 
 // kC, kTileCols, kWarpsPerBlock and kPanelThreads: panel_tile.cuh.
-// K5, K7 and K11 block size.
+// K7's block size.
 constexpr int kThreads = 256;
 
 // K6 — replaces _panel_kernel_fused (spmv_tpu/kernels/engines.py:283).
@@ -79,7 +78,7 @@ constexpr int kThreads = 256;
 // One warp per slice, one lane per row. The lane walks its K_s slots in
 // column order and stores y[row] once, 0 for an empty row, so y needs no
 // clearing. A warp serializes its slice's width: one hub row makes its
-// whole slice as slow as itself, which is what K4 + K5 are for.
+// whole slice as slow as itself, which is what K4 and K7 are for.
 __global__ void __launch_bounds__(kPanelThreads)
 panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
                         const int* __restrict__ cols,
@@ -101,96 +100,119 @@ panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
 
 // K4, K10 and K14: panel_spmv_tiles_kernel in panel_tile.cuh.
 
-// K5 — replaces _scatter_kernel (spmv_tpu/kernels/engines.py:171) as the
-// panel path's epilogue; K2 (seg_spmv.cu) cannot take the job unchanged,
-// since its carries are one float per tile and its ranges come from a
-// nonzero row pointer. K15 (T = double) is the epilogue of _panel_kernel_x2
-// (engines_x2.py:205), which the TPU kernel folds into its one dispatch.
+// K7 — replaces _perm_kernel (spmv_tpu/kernels/engines.py:719), and
+// _scatter_kernel (:171) and _scatter_kernel_multi (:537) as the panel
+// path's epilogue (_window_scatter) — is every panel's one epilogue after
+// its tile kernel: the fix-up of the split slices, the add of the spill
+// part's y′ and, on a σ-sorted SELL, the gather back to row order, in one
+// launch. Three grids (K7Rows), one body:
+//   kSorted (invperm given: the σ-sorted SELL): one thread per output row
+//     i < nrows, p = invperm[i], y a tensor of its own;
+//   kIdentity (no invperm, a spill given: ELL, HYB and unsorted SELL with a
+//     spill part): one thread per row p = i of the panel, y = y′ in place;
+//   kSplitRows (no invperm, no spill: the same panels without one): one
+//     thread per row of a split slice, nsplit × 32 threads from
+//     split_slices, y = y′ in place; the rows of whole slices are not
+//     touched, so no copy of y′ is made.
 //
-// One thread per (split slice, row): the tail slot of the tile where the
-// slice begins, then the head slot of every later tile it reaches, in tile
-// order. 32 neighbouring threads read 32 neighbouring partials.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-panel_fixup_kernel(const int* __restrict__ slice_ptr,
-                   const int* __restrict__ split_slices,
-                   const T* __restrict__ part, T* __restrict__ y,
-                   int nsplit, int nrows) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= nsplit * kC) return;
-  const int lane = i & (kC - 1);
-  const int s = __ldg(split_slices + i / kC);
-  const int ta = __ldg(slice_ptr + s) / kC / kTileCols;
-  const int tb = (__ldg(slice_ptr + s + 1) / kC - 1) / kTileCols;
-  T v = part[(2 * ta + 1) * kC + lane];
-  for (int t = ta + 1; t <= tb; ++t) v += part[(2 * t) * kC + lane];
-  const int row = s * kC + lane;
-  if (row < nrows) y[row] = v;
-}
-
-// K7 — replaces _perm_kernel (spmv_tpu/kernels/engines.py:719) — is the
-// σ-sorted SELL's one epilogue: the fix-up of the split slices (K5, K11 or
-// K15's work), the add of the spill part's y′ and the gather back to row
-// order, in one launch.
-//
-// y′ (y_sorted) is the panel's y in sorted row space, (nrows_pad, R): K4's,
-// K10's or K14's, whose rows of split slices hold +0.0, or K6's, whole.
-// One thread per output row i < nrows, carrying its R columns:
-//   p = invperm[i], the sorted position; slice s = p / 32, lane p % 32;
+// y′ (y_sorted) is the panel's y, (nrows_pad, R) in sorted row space or
+// (nrows, R) as built: K4's, K10's or K14's, whose rows of split slices
+// hold +0.0, or K6's, whole. For row p (slice s = p / 32, lane p % 32):
 //   with partials: slice s is split iff it spans more than one tile
-//     (formats/base.py's rule on slice_ptr[s] / 32 and slice_ptr[s+1] / 32);
-//     then v is its partials summed as K5 sums them: the tail slot of its
-//     first tile, then the head slot of every later tile, in tile order;
-//     y′'s row of a split slice is never read;
+//     (split_tiles); then v is its partials summed by sum_split_row, the
+//     tail slot of its first tile, then the head slot of every later tile,
+//     in tile order; y′'s row of a split slice is never read;
 //   else v = y′[p] (no partials: K6's y′, or a plan with no split slice);
-//   with a spill's y′ (sorted rows too), v = v + spill[p], the single
-//     rounding of the parent's y′ += spill;
-//   y[i, :] = v, written once.
-// So the bits are those of K5 (K11, K15), the torch add and the gather in
-// turn, and on a plan with no spill or no split slice the kernel is the
-// gather alone. R = 1..8 columns in float32; double (the fp64-grade mode,
-// R = 1) reads fp64 y′, partials and spill and adds in fp64.
+//   with a spill's y′ (the same rows), v = v + spill[p], the single
+//     rounding of a torch add y′ += spill;
+//   y[i, :] = v (y′[p] in place for the identity), written once.
+// So the bits are those of the split slices' sum, the torch add and the
+// gather in turn; on a sorted plan with no spill or no split slice the
+// kernel is the gather alone. R = 1..8 columns in float32; double (the
+// fp64-grade mode, R = 1) reads fp64 y′, partials and spill and adds in
+// fp64.
 //
 // Bytes are few (the rows of y read and written, ~0.25 MB at cant, and
 // the split slices' partials) and the work a few adds: what costs is the
-// launch, the chain behind the kernel ahead of it, and per row the three
-// dependent loads (invperm, slice_ptr, then y′ or the partials). So it is a
-// programmatic dependent launch (launch_programmatic, seg_tile.cuh): each
-// thread reads invperm[i] and its slice's two slice_ptr entries, plan data
-// that no kernel writes, and decides the slice's tile range before
-// griddepcontrol.wait; y′, the partials and the spill are read after it,
-// through coherent loads (no __restrict__ on them, no __ldg): the kernel
-// ahead writes them while this grid may already be resident. A row's R
-// values move as one 16-byte (8-byte) access where R allows (x_rows.cuh's
-// load_row with CoherentLoad, and store_row). On an H100
-// (probes.turns, PERF.md §6) a thread per row beat a thread per (row,
-// column), the gather's layout, by 6-11% at R = 2..8 on pl_big's 524k
-// rows, where the per-column threads repeated each row's plan reads and
-// index work R times and lost 1-5% to the three launches they replaced; it
-// lost 10% to it at R = 8 on pl-32768, whose 32k threads fill fewer
-// blocks than the card has SMs; a thread per 16 bytes of a row tied the
-// row layout over all the sorted calls timed. The sources of 32
-// neighbouring rows lie within one σ window (≤ 1024 rows), so their
-// slice_ptr entries and partials are L1 and L2 hits; the TPU kernel's 8x128
-// windows and whi/idx tables bound its sublane gather, which this card
-// does not have.
-template <typename T, int R>
+// launch, the chain behind the kernel ahead of it, and per row the
+// dependent loads (invperm or split_slices, slice_ptr, then y′ or the
+// partials). So it is a programmatic dependent launch (launch_programmatic,
+// seg_tile.cuh): each thread reads invperm[i] (split_slices[i / 32]) and
+// its slice's two slice_ptr entries, plan data that no kernel writes, and
+// decides the slice's tile range before griddepcontrol.wait; y′, the
+// partials and the spill are read after it, through coherent loads (no
+// __restrict__ on them, no __ldg): the kernel ahead writes them while this
+// grid may already be resident. That kernel is the tile kernel (K4, K10,
+// K14; K6) where there is no spill, else the spill part's last kernel (K2,
+// K9 or K13; K3): the wait returns when it has finished, and the tile
+// kernel's y′ and partials are complete by then because the spill's first
+// kernel (K1, K8, K12; K3) is an ordinary launch, which starts only after
+// the tile kernel has finished. A row's R values move as one 16-byte
+// (8-byte) access where R allows (x_rows.cuh's load_row with CoherentLoad,
+// and store_row). On an H100 (probes.turns, PERF.md §6) a thread per row
+// beat a thread per (row, column), the gather's layout, by 6-11% at R =
+// 2..8 on pl_big's 524k rows, where the per-column threads repeated each
+// row's plan reads and index work R times and lost 1-5% to the three
+// launches they replaced; it lost 10% to it at R = 8 on pl-32768, whose 32k
+// threads fill fewer blocks than the card has SMs; a thread per 16 bytes
+// of a row tied the row layout over all the sorted calls timed. The
+// sources of 32 neighbouring rows lie within one σ window (≤ 1024 rows),
+// so their slice_ptr entries and partials are L1 and L2 hits; the TPU
+// kernel's 8x128 windows and whi/idx tables bound its sublane gather, which
+// this card does not have.
+enum K7Rows { kSorted, kIdentity, kSplitRows };
+
+// The tiles [ta, tb] of slice s where it is split (it spans more than one
+// tile: formats/base.py's rule on slice_ptr[s] / 32 and slice_ptr[s+1] /
+// 32); else ta and tb are left as they are.
+__device__ __forceinline__ void split_tiles(const int* __restrict__ slice_ptr, int s,
+                                            int& ta, int& tb) {
+  const int cs = __ldg(slice_ptr + s) / kC;
+  const int ce = __ldg(slice_ptr + s + 1) / kC;
+  if (ce > cs && cs / kTileCols != (ce - 1) / kTileCols) {
+    ta = cs / kTileCols;
+    tb = (ce - 1) / kTileCols;
+  }
+}
+
+// Row `lane` of a split slice over tiles [ta, tb] from the tile kernel's
+// partials (2·ntiles, 32, R), into v: the tail slot of tile ta, then the
+// head slot of every later tile, in tile order. The one place of the
+// panel's fix-up order: every K7 grid sums a split slice here.
+template <int R, typename T>
+__device__ __forceinline__ void sum_split_row(const T* part, int ta, int tb, int lane,
+                                              bool vec, T (&v)[R]) {
+  load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * ta + 1) * kC + lane) * R,
+                            vec, v);
+  for (int t = ta + 1; t <= tb; ++t) {
+    T w[R];
+    load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * t) * kC + lane) * R,
+                              vec, w);
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[j] += w[j];
+  }
+}
+
+template <typename T, int R, int kRows>
 __global__ void __launch_bounds__(kThreads)
 inverse_permute_kernel(const int* __restrict__ invperm,
-                       const int* __restrict__ slice_ptr, const T* part,
-                       const T* y_sorted, const T* spill, T* y, int nrows) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  if (row >= nrows) return;
-  const int p = __ldg(invperm + row);
-  int ta = 0, tb = -1;  // the tiles of a split slice; none
-  if (part != nullptr) {
-    const int s = p / kC;
-    const int cs = __ldg(slice_ptr + s) / kC;
-    const int ce = __ldg(slice_ptr + s + 1) / kC;
-    if (ce > cs && cs / kTileCols != (ce - 1) / kTileCols) {
-      ta = cs / kTileCols;
-      tb = (ce - 1) / kTileCols;
-    }
+                       const int* __restrict__ slice_ptr,
+                       const int* __restrict__ split_slices, const T* part,
+                       const T* y_sorted, const T* spill, T* y, int nthreads,
+                       int nrows) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= nthreads) return;
+  int p, row;            // the row of y′ read, the row of y written
+  int ta = 0, tb = -1;   // the tiles of a split slice; none
+  if constexpr (kRows == kSplitRows) {
+    const int s = __ldg(split_slices + i / kC);
+    p = row = s * kC + (i & (kC - 1));
+    if (row >= nrows) return;  // past the cut last slice
+    split_tiles(slice_ptr, s, ta, tb);
+  } else {
+    row = i;
+    p = kRows == kSorted ? __ldg(invperm + row) : row;
+    if (part != nullptr) split_tiles(slice_ptr, p / kC, ta, tb);
   }
   asm volatile("griddepcontrol.wait;" ::: "memory");
   // every row starts at a multiple of R, so the base pointers decide
@@ -201,21 +223,12 @@ inverse_permute_kernel(const int* __restrict__ invperm,
                     (kAlign - 1)) == 0;
   const long long at = static_cast<long long>(p) * R;
   T v[R];
-  if (tb >= 0) {
-    const int lane = p & (kC - 1);
-    load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * ta + 1) * kC + lane) * R,
-                              vec, v);
-    for (int t = ta + 1; t <= tb; ++t) {
-      T w[R];
-      load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * t) * kC + lane) * R,
-                                vec, w);
-#pragma unroll
-      for (int j = 0; j < R; ++j) v[j] += w[j];
-    }
+  if (kRows == kSplitRows || tb >= 0) {
+    sum_split_row<R>(part, ta, tb, p & (kC - 1), vec, v);
   } else {
     load_row<R, CoherentLoad>(y_sorted + at, vec, v);
   }
-  if (spill != nullptr) {
+  if (kRows != kSplitRows && spill != nullptr) {
     T w[R];
     load_row<R, CoherentLoad>(spill + at, vec, w);
 #pragma unroll
@@ -225,22 +238,38 @@ inverse_permute_kernel(const int* __restrict__ invperm,
 }
 
 // Launches one K7 instantiation as a programmatic dependent of the kernel
-// ahead of it; part and spill may be null (no partials, no spill). Refuses
-// (cudaErrorInvalidValue, nothing launched) an empty or too large grid, and
-// partials without slice_ptr or for a tile it was not built for.
+// ahead of it; part and spill may be null (no partials, no spill). With
+// invperm the sorted grid; without it the identity, in place (y must be
+// y_sorted): every row where there is a spill, else the nsplit split
+// slices' rows (split_slices and part needed). Refuses
+// (cudaErrorInvalidValue, nothing launched) an empty or too large grid,
+// partials without slice_ptr or for a tile it was not built for, and an
+// identity with nothing to do.
 template <typename T, int R>
 int launch_inverse_permute(const void* invperm, const void* slice_ptr,
-                           const void* part, const void* y_sorted, const void* spill,
-                           void* y, int nrows, int tile, void* stream) {
+                           const void* split_slices, const void* part,
+                           const void* y_sorted, const void* spill, void* y, int nrows,
+                           int nsplit, int tile, void* stream) {
   if (nrows <= 0 || nrows > INT_MAX - kThreads ||
       (part != nullptr && (slice_ptr == nullptr || tile != kTileCols))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_programmatic(
-      inverse_permute_kernel<T, R>, blocks_for(nrows, kThreads), kThreads, stream,
-      static_cast<const int*>(invperm), static_cast<const int*>(slice_ptr),
-      static_cast<const T*>(part), static_cast<const T*>(y_sorted),
-      static_cast<const T*>(spill), static_cast<T*>(y), nrows);
+  const auto launch = [&](auto kernel, int nthreads) {
+    return launch_programmatic(
+        kernel, blocks_for(nthreads, kThreads), kThreads, stream,
+        static_cast<const int*>(invperm), static_cast<const int*>(slice_ptr),
+        static_cast<const int*>(split_slices), static_cast<const T*>(part),
+        static_cast<const T*>(y_sorted), static_cast<const T*>(spill), static_cast<T*>(y),
+        nthreads, nrows);
+  };
+  if (invperm != nullptr) return launch(inverse_permute_kernel<T, R, kSorted>, nrows);
+  if (y != y_sorted) return static_cast<int>(cudaErrorInvalidValue);
+  if (spill != nullptr) return launch(inverse_permute_kernel<T, R, kIdentity>, nrows);
+  if (part == nullptr || split_slices == nullptr || nsplit <= 0 ||
+      nsplit > (INT_MAX - kThreads) / kC) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(inverse_permute_kernel<T, R, kSplitRows>, nsplit * kC);
 }
 
 // ---------------------------------------------------------------- R > 1
@@ -257,49 +286,6 @@ int launch_inverse_permute(const void* invperm, const void* slice_ptr,
 // and its ownership: every row of Y the tile owns and both partial slots,
 // so the wrapper allocates Y and the partials without a zero fill.
 
-// K11 — replaces _scatter_kernel_multi (spmv_tpu/kernels/engines.py:537) as
-// the panel path's epilogue.
-//
-// K5 per column: one thread per (split slice, row, column), in that order,
-// so neighbouring threads read neighbouring partials. It adds the tail slot
-// of the tile where the slice begins, then the head slot of every later
-// tile it reaches, in tile order.
-__global__ void __launch_bounds__(kThreads)
-panel_fixup_multi_kernel(const int* __restrict__ slice_ptr,
-                         const int* __restrict__ split_slices,
-                         const float* __restrict__ part, float* __restrict__ Y,
-                         int nsplit, int nrows, int rhs) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(nsplit) * kC * rhs) return;
-  const int j = static_cast<int>(i % rhs);
-  const int lane = static_cast<int>(i / rhs) & (kC - 1);
-  const int s = __ldg(split_slices + i / rhs / kC);
-  const int ta = __ldg(slice_ptr + s) / kC / kTileCols;
-  const int tb = (__ldg(slice_ptr + s + 1) / kC - 1) / kTileCols;
-  float v = part[(static_cast<long long>(2 * ta + 1) * kC + lane) * rhs + j];
-  for (int t = ta + 1; t <= tb; ++t) {
-    v += part[(static_cast<long long>(2 * t) * kC + lane) * rhs + j];
-  }
-  const int row = s * kC + lane;
-  if (row < nrows) Y[static_cast<long long>(row) * rhs + j] = v;
-}
-
-template <typename T>
-int launch_panel_fixup(const void* slice_ptr, const void* split_slices,
-                       const void* part, void* y, int nsplit, int tile,
-                       int nrows, void* stream) {
-  if (tile != kTileCols || nsplit <= 0 || nrows <= 0 ||
-      nsplit > (1 << 30) / kC) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  panel_fixup_kernel<T><<<blocks_for(nsplit * kC, kThreads), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(slice_ptr),
-      static_cast<const int*>(split_slices), static_cast<const T*>(part),
-      static_cast<T*>(y), nsplit, nrows);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -314,14 +300,6 @@ int panel_spmv_tiles(const void* slice_ptr, const void* cols, const void* vals,
   return launch_panel_spmv_tiles<float>(slice_ptr, cols, vals, tile_slice0, tile_own0,
                                         x, y, part, ncolumns, ntiles, tile, nrows,
                                         stream);
-}
-
-// K5: y[r] = the sum of a split slice's partials for row r, in tile order.
-int panel_fixup(const void* slice_ptr, const void* split_slices,
-                const void* part, void* y, int nsplit, int tile, int nrows,
-                void* stream) {
-  return launch_panel_fixup<float>(slice_ptr, split_slices, part, y, nsplit, tile,
-                                   nrows, stream);
 }
 
 // K14: K4 in float64 — fp64 vals, x, y and partials.
@@ -350,14 +328,6 @@ int panel_tiles_occupancy(int fp64, int rhs) {
   }
 }
 
-// K15: K5 in float64.
-int panel_fixup_x2(const void* slice_ptr, const void* split_slices,
-                   const void* part, void* y, int nsplit, int tile, int nrows,
-                   void* stream) {
-  return launch_panel_fixup<double>(slice_ptr, split_slices, part, y, nsplit, tile,
-                                    nrows, stream);
-}
-
 // K6: y = A·x in one dispatch, one warp per slice.
 int panel_spmv_fused(const void* slice_ptr, const void* cols, const void* vals,
                      const void* x, void* y, int nslices, int nrows,
@@ -373,18 +343,22 @@ int panel_spmv_fused(const void* slice_ptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7: y[i, :] for i < nrows from sorted position invperm[i]: the split
-// slices' partials summed in tile order where part is given (else y′'s
-// row), plus the spill's y′ where spill is given; rows of rhs = 1..8
-// floats. A programmatic dependent launch.
-int inverse_permute(const void* invperm, const void* slice_ptr, const void* part,
-                    const void* y_sorted, const void* spill, void* y, int nrows,
-                    int tile, int rhs, void* stream) {
+// K7: every panel's epilogue, on rows of rhs = 1..8 floats. With invperm
+// (the σ-sorted SELL), y[i, :] for i < nrows from sorted position
+// invperm[i]; without it (ELL, HYB, unsorted SELL), y′ updated in place (y
+// is y_sorted): every row where spill is given, else only the rows of the
+// nsplit split slices listed in split_slices. A row is its split slice's
+// partials summed in tile order where part is given (else y′'s row), plus
+// the spill's row where spill is given. A programmatic dependent launch.
+int inverse_permute(const void* invperm, const void* slice_ptr, const void* split_slices,
+                    const void* part, const void* y_sorted, const void* spill, void* y,
+                    int nrows, int nsplit, int tile, int rhs, void* stream) {
   switch (rhs) {
 #define K7_CASE(R)                                                                   \
   case R:                                                                            \
-    return launch_inverse_permute<float, R>(invperm, slice_ptr, part, y_sorted,      \
-                                            spill, y, nrows, tile, stream);
+    return launch_inverse_permute<float, R>(invperm, slice_ptr, split_slices, part,  \
+                                            y_sorted, spill, y, nrows, nsplit, tile, \
+                                            stream);
     K7_CASE(1) K7_CASE(2) K7_CASE(3) K7_CASE(4) K7_CASE(5) K7_CASE(6) K7_CASE(7)
     K7_CASE(8)
 #undef K7_CASE
@@ -393,12 +367,13 @@ int inverse_permute(const void* invperm, const void* slice_ptr, const void* part
   }
 }
 
-// K7 in float64 (R = 1): the fp64-grade SELL's epilogue, K15's sums in fp64.
-int inverse_permute_x2(const void* invperm, const void* slice_ptr, const void* part,
-                       const void* y_sorted, const void* spill, void* y, int nrows,
-                       int tile, void* stream) {
-  return launch_inverse_permute<double, 1>(invperm, slice_ptr, part, y_sorted, spill,
-                                           y, nrows, tile, stream);
+// K7 in float64 (R = 1): the fp64-grade panel's epilogue, its sums and add
+// in fp64.
+int inverse_permute_x2(const void* invperm, const void* slice_ptr, const void* split_slices,
+                       const void* part, const void* y_sorted, const void* spill, void* y,
+                       int nrows, int nsplit, int tile, void* stream) {
+  return launch_inverse_permute<double, 1>(invperm, slice_ptr, split_slices, part,
+                                           y_sorted, spill, y, nrows, nsplit, tile, stream);
 }
 
 // K10: K4 at R = 2..8 right-hand sides: Y (nrows, R) for the rows of every
@@ -420,25 +395,6 @@ int panel_spmm_tiles(const void* slice_ptr, const void* cols, const void* vals,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// K11: Y[r, j] = the sum of a split slice's partials for row r, column j,
-// in tile order.
-int panel_fixup_multi(const void* slice_ptr, const void* split_slices,
-                      const void* part, void* Y, int nsplit, int tile,
-                      int nrows, int rhs, void* stream) {
-  if (tile != kTileCols || nsplit <= 0 || nrows <= 0 || rhs <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long blocks =
-      (static_cast<long long>(nsplit) * kC * rhs + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  panel_fixup_multi_kernel<<<static_cast<int>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(slice_ptr),
-      static_cast<const int*>(split_slices), static_cast<const float*>(part),
-      static_cast<float*>(Y), nsplit, nrows, rhs);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -117,8 +117,8 @@ __device__ __forceinline__ double fma_rn(double v, double x, double run) {
 // tile writes y for every slice it owns (tile_own0[t] .. tile_own0[t+1] -
 // 1, the slices whose first column lies in it, and for the last tile the
 // empty slices after the final column): the sum of a slice wholly inside
-// it, +0.0 for an empty slice or one that runs on into later tiles (K5
-// overwrites those rows). It writes both its partial slots: the head (the
+// it, +0.0 for an empty slice or one that runs on into later tiles (K7
+// sums those rows from the partials and never reads them). It writes both its partial slots: the head (the
 // slice began in an earlier tile), the tail (it runs on), +0.0 if unused.
 // At R > 1 a row of y and a lane's row of a slot are R floats (Y (nrows,
 // R), part (2·ntiles, 32, R)).
@@ -176,7 +176,7 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
     T v[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) v[j] = run[j];
-    if (ce > g1) {  // runs on into later tiles: K5 writes its rows
+    if (ce > g1) {  // runs on into later tiles: K7 writes its rows
       store_row<R>(row_of<R>(part, (2 * t + 1) * kC + lane), run);
       wrote_tail = true;
 #pragma unroll
@@ -224,15 +224,16 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
       }
     }
   }
-  // Release the programmatic dependent launched after this kernel (K7 on
-  // a σ-sorted SELL) once every warp has walked its tile: its grid may then
-  // start while this kernel's last stores drain, and does its plan reads
-  // before it waits for this kernel to finish. On an H100 this placement
-  // made the sorted SELL calls 0.3-1.3 µs faster than no trigger; one at
-  // the kernel's top or after the first batch tied it over all the calls
-  // timed and was 1.3-1.6 µs slower at cant with R = 4 (probes.turns, with
-  // K7's earlier thread per column; PERF.md §6). It does nothing when
-  // the next launch is an ordinary one (K5 on the other panel paths).
+  // Release the programmatic dependent launched after this kernel (K7,
+  // every panel's epilogue, where the panel has no spill part) once every
+  // warp has walked its tile: its grid may then start while this kernel's
+  // last stores drain, and does its plan reads before it waits for this
+  // kernel to finish. On an H100 this placement made the sorted SELL calls
+  // 0.3-1.3 µs faster than no trigger; one at the kernel's top or after the
+  // first batch tied it over all the calls timed and was 1.3-1.6 µs slower
+  // at cant with R = 4 (probes.turns, with K7's earlier thread per column;
+  // PERF.md §6). It does nothing when the next launch is an ordinary one
+  // (the spill part's first kernel, K1, K8, K12 or K3).
   asm volatile("griddepcontrol.launch_dependents;");
   emit();
   if (!wrote_head) store_row<R>(row_of<R>(part, (2 * t) * kC + lane), zero);

@@ -29,8 +29,8 @@
 //                           epilogue of scripts/probe_ablate3.py:211).
 //   launch_floor            a one-block kernel that does nothing: the least
 //                           time a separate launch takes in a CUDA graph,
-//                           beside which the fix-ups (K2, K5, K7, K9, K13,
-//                           K15) are timed. It replaces no TPU kernel.
+//                           beside which the fix-ups (K2, K7, K9, K13) are
+//                           timed. It replaces no TPU kernel.
 //   panel_ablate_nogather   K4 (float32) and K14 (float64) with x(c) =
 //   panel_ablate_x2_nogather (c & 1023)·2⁻¹⁰ computed in registers: the
 //                           panel tile kernel of panel_tile.cuh without the

@@ -47,11 +47,9 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
 # probes' kernels (``kernels.probes``) add their own keys. The plain
 # versions never touch them.
 LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0,
-            "panel_spmv_tiles": 0, "panel_fixup": 0, "panel_spmv_fused": 0,
-            "inverse_permute": 0, "seg_spmm_tiles": 0, "carry_fixup_multi": 0,
-            "panel_spmm_tiles": 0, "panel_fixup_multi": 0,
-            "seg_spmv_tiles_x2": 0, "carry_fixup_x2": 0,
-            "panel_spmv_tiles_x2": 0, "panel_fixup_x2": 0}
+            "panel_spmv_tiles": 0, "panel_spmv_fused": 0, "inverse_permute": 0,
+            "seg_spmm_tiles": 0, "carry_fixup_multi": 0, "panel_spmm_tiles": 0,
+            "seg_spmv_tiles_x2": 0, "carry_fixup_x2": 0, "panel_spmv_tiles_x2": 0}
 
 # The widest X the multi-RHS kernels take (K8 and K10 are built for R = 2..8;
 # ``spmv_tpu/kernels/engines.py:74``). ``api.spmm`` runs one ``matvec`` per

@@ -1,4 +1,4 @@
-"""The panel engine: wrappers of the six CUDA kernels of
+"""The panel engine: wrappers of the four CUDA kernels of
 ``csrc/panel_spmv.cu``, each with its plain PyTorch version beside it.
 
 Counterpart of ``spmv_tpu/kernels/engines.py:326-372``, ``:689`` and
@@ -8,26 +8,31 @@ Counterpart of ``spmv_tpu/kernels/engines.py:326-372``, ``:689`` and
 wrapper                     kernel (csrc/)          replaces (spmv_tpu/kernels/)
 ==========================  ======================  =====================================
 panel_spmv_partials         K4 panel_spmv_tiles     engines.py:269 ``_panel_kernel``
-panel_fixup                 K5 panel_fixup          engines.py:171 ``_scatter_kernel``
 panel_spmv_fused            K6 panel_spmv_fused     engines.py:283 ``_panel_kernel_fused``
-inverse_permute             K7 inverse_permute      engines.py:719 ``_perm_kernel``
+inverse_permute             K7 inverse_permute      engines.py:719 ``_perm_kernel``; as
+                                                    the panel's fix-up, engines.py:171
+                                                    ``_scatter_kernel`` and :537
+                                                    ``_scatter_kernel_multi``
 panel_spmv_multi_partials   K10 panel_spmm_tiles    engines.py:623 ``_panel_kernel_multi``
-panel_fixup_multi           K11 panel_fixup_multi   engines.py:537 ``_scatter_kernel_multi``
 ==========================  ======================  =====================================
 
+K7 is every panel's one epilogue after its tile kernel. It sums the split
+slices' partials in tile order and adds the spill part's y, and on a
+σ-sorted SELL it also gathers back to row order. Without a row order
+(``invperm`` None) it updates the panel's y′ in place: ``panel_fixup``
+(``panel_fixup_multi``; ``engines_x2.panel_fixup_x2``) is that identity mode
+without a spill, which rewrites the split slices' rows alone.
+
 ``panel_spmv`` picks K6 for plans of at most
-``device.FUSED_STREAM_BYTES_MAX`` bytes and K4 then K5 otherwise — the JAX
+``device.FUSED_STREAM_BYTES_MAX`` bytes and K4 then K7 otherwise — the JAX
 engine's fused and two-dispatch shapes, on the segmented engine's
 predicate. ``panel_and_spill_spmv`` adds a CSR spill part to the panel's y
-(the panel/spill split of ELL, HYB and unsorted SELL-C-σ).
-``panel_spmv_multi`` (K10 then K11) and ``panel_and_spill_spmm`` are the
-same for X of shape (ncols, R), 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``.
-
-A σ-sorted SELL takes ``sorted_panel_and_spill_spmv`` (``_spmm``) instead:
-K4 (K6 for a small plan; K10 at R columns), the spill part's engine where
-there is one, then K7, the one epilogue that sums the split slices'
-partials, adds the spill's y and gathers back to row order, where the
-shared path would run K5 (K11), a torch add and the gather.
+(the panel/spill split of ELL, HYB and unsorted SELL-C-σ): the tile kernel,
+the spill part's engine, then K7's identity mode with the spill, no torch
+add. ``panel_spmv_multi`` (K10 then K7) and ``panel_and_spill_spmm`` are
+the same for X of shape (ncols, R), 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``.
+A σ-sorted SELL takes ``sorted_panel_and_spill_spmv`` (``_spmm``): the
+same chain with K7 given the row order.
 
 Routing, as in ``kernels.engines``: CPU tensors run the plain version
 (``*_reference``), CUDA tensors launch the kernel or raise, and each
@@ -71,7 +76,7 @@ def _slice_rows(dev: DevPanel, slices: torch.Tensor):
     return rows, rows < dev.nrows
 
 
-# ---------------------------------------------------------------- K4 + K5
+# ---------------------------------------------------------------- K4
 
 
 def _panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel, x: torch.Tensor):
@@ -103,19 +108,18 @@ def _launch_panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel,
     return y, part
 
 
-def _panel_fixup(kernel: str, dtype: torch.dtype, dev: DevPanel,
+def _panel_fixup(launcher: str, dtype: torch.dtype, dev: DevPanel,
                  y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
-    """K5 (float32) or K15 (float64): the wrapper both share."""
-    if y.shape != (dev.nrows,) or part.shape != (2 * dev.ntiles, _C):
+    """K7's identity mode without a spill, in float32 (``launcher``
+    ``inverse_permute``) or float64 (``inverse_permute_x2``): the wrapper
+    of ``panel_fixup``, ``panel_fixup_multi`` and ``panel_fixup_x2``."""
+    tail = y.shape[1:] if y.dim() == 2 else ()
+    if (y.dim() not in (1, 2) or y.shape[0] != dev.nrows
+            or part.shape != (2 * dev.ntiles, _C, *tail)):
         raise ValueError("y or part does not match the plan")
-    if not _on_cuda(dev, y, part, dtype=dtype):
-        return panel_fixup_reference(dev, y, part)
-    if dev.tile != TILE_COLS:
-        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
-    if dev.nsplit:  # no slice crosses a tile boundary: nothing to launch
-        _launch(kernel, dev, dev.slice_ptr, dev.split_slices, part, y,
-                dev.nsplit, dev.tile, dev.nrows)
-    return y
+    if tail == (0,):  # no columns: nothing to sum
+        return y
+    return _epilogue(launcher, dtype, None, y, dev.nrows, dev, part, None)
 
 
 def panel_spmv_partials(dev: DevPanel, x: torch.Tensor):
@@ -127,9 +131,10 @@ def panel_spmv_partials(dev: DevPanel, x: torch.Tensor):
 
 
 def panel_fixup(dev: DevPanel, y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
-    """K5: adds each split slice's partials, in tile order, into ``y``.
-    Updates ``y`` in place and returns it."""
-    return _panel_fixup("panel_fixup", torch.float32, dev, y, part)
+    """Each split slice's rows of ``y`` from its partials, summed in tile
+    order: K7's identity mode without a spill (a launch of
+    ``inverse_permute``). Updates ``y`` in place and returns it."""
+    return _panel_fixup("inverse_permute", torch.float32, dev, y, part)
 
 
 def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
@@ -168,24 +173,23 @@ def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
 
 def panel_fixup_reference(dev: DevPanel, y: torch.Tensor,
                           part: torch.Tensor) -> torch.Tensor:
-    """Plain K5: gathers each split slice's slots and sums them in tile
-    order with ``index_add_``; updates ``y`` in place. Given (nrows, R) Y
-    and (2·ntiles, 32, R) partials it is plain K11; in float64, plain
-    K15."""
+    """Plain ``panel_fixup``: each split slice's rows of ``y`` summed from
+    its partial slots in tile order (the tail slot of its first tile, then
+    the head slot of each later tile), one later tile at a time for all
+    split slices at once; updates ``y`` in place. Every add is an
+    elementwise one in a fixed order, so on either device it gives the
+    kernel's bits. Given (nrows, R) Y and (2·ntiles, 32, R) partials it is
+    plain ``panel_fixup_multi``; in float64, plain ``panel_fixup_x2``."""
     if dev.nsplit == 0:
         return y
-    dv = dev.device
     s = dev.split_slices.long()
     scol = dev.slice_ptr.long() // _C
     ta = scol[s] // dev.tile
-    tb = (scol[s + 1] - 1) // dev.tile
-    counts = tb - ta + 1
-    owner = torch.repeat_interleave(torch.arange(dev.nsplit, device=dv), counts)
-    first = torch.cumsum(counts, 0) - counts
-    t = ta[owner] + torch.arange(owner.numel(), device=dv) - first[owner]
-    slot = 2 * t + (t == ta[owner]).long()
-    acc = torch.zeros((dev.nsplit, _C, *y.shape[1:]), dtype=y.dtype, device=dv)
-    acc.index_add_(0, owner, part[slot])
+    span = (scol[s + 1] - 1) // dev.tile - ta + 1  # tiles each slice touches
+    acc = part[2 * ta + 1]
+    for k in range(1, int(span.max())):
+        later = span > k
+        acc[later] += part[2 * (ta[later] + k)]
     rows, real = _slice_rows(dev, s)
     y[rows[real]] = acc[real]
     return y
@@ -210,7 +214,10 @@ def panel_spmv_fused(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
 
 def panel_spmv_fused_reference(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
     """Plain K6: the products as (slice column, row) rows, summed per slice
-    (``segment_reduce`` over each slice's K_s columns)."""
+    (``segment_reduce`` over each slice's K_s columns). A plan with no
+    slots or no rows gives zeros, as the kernel's wrapper does."""
+    if dev.nslots == 0 or dev.nrows == 0:
+        return torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
     prod = (dev.vals * x[dev.cols.long()]).view(-1, _C)
     widths = torch.diff(dev.slice_ptr.long()) // _C
     per_slice = torch.segment_reduce(prod, "sum", lengths=widths, axis=0,
@@ -223,7 +230,7 @@ def panel_spmv_fused_reference(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
 
 def panel_spmv(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
     """y = A·x over the panel: K6 for small plans (``dev.fused``), else K4
-    then K5."""
+    then K7's identity mode on the split slices."""
     if dev.fused:
         return panel_spmv_fused(dev, x)
     y, part = panel_spmv_partials(dev, x)
@@ -232,18 +239,22 @@ def panel_spmv(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
 
 def panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
                          x: torch.Tensor) -> torch.Tensor:
-    """y = panel part + spill part, two plans over the same rows. An empty
-    part launches nothing. The add is a torch add, in place on the panel's
-    y (JAX adds the two engines' y with an XLA add, not a Pallas kernel)."""
+    """y = panel part + spill part, two plans over the same rows: the
+    panel's tile kernel K4 (K6 for a small plan), the spill part's engine,
+    then K7's identity mode, which sums the split slices' partials and adds
+    the spill's y into the panel's y in place, one rounding per row as a
+    torch add gives (JAX adds the two engines' y with an XLA add, not a
+    Pallas kernel). An empty part launches nothing."""
     if dev_spill is None:
         return panel_spmv(dev, x)
     if dev.nslots == 0:  # pure spill: no dispatch for an empty panel
         return segmented_spmv(dev_spill, x)
-    y = panel_spmv(dev, x)
-    return y.add_(segmented_spmv(dev_spill, x))
+    y, part = (panel_spmv_fused(dev, x), None) if dev.fused else panel_spmv_partials(dev, x)
+    spill = segmented_spmv(dev_spill, x)
+    return inverse_permute(None, y, dev.nrows, dev=dev, part=part, spill=spill)
 
 
-# ---------------------------------------------------------------- K10 + K11
+# ---------------------------------------------------------------- K10
 
 
 def panel_spmv_multi_partials(dev: DevPanel, X: torch.Tensor):
@@ -259,29 +270,24 @@ def panel_spmv_multi_partials(dev: DevPanel, X: torch.Tensor):
 
 
 def panel_fixup_multi(dev: DevPanel, Y: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
-    """K11: adds each split slice's partials, in tile order and column by
-    column, into ``Y``. Updates ``Y`` in place and returns it."""
-    R = Y.shape[-1] if Y.dim() == 2 else 0
-    if Y.shape != (dev.nrows, R) or part.shape != (2 * dev.ntiles, _C, R):
+    """``panel_fixup`` at R columns: each split slice's rows of ``Y``
+    (nrows, R) from K10's partials, summed in tile order, by K7's identity
+    mode without a spill (one thread per row carrying R sums). Updates
+    ``Y`` in place and returns it."""
+    if Y.dim() != 2:
         raise ValueError("Y or part does not match the plan")
-    if not _on_cuda(dev, Y, part):
-        return panel_fixup_multi_reference(dev, Y, part)
-    if dev.tile != TILE_COLS:
-        raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
-    if dev.nsplit and R:  # no slice crosses a tile boundary: nothing to launch
-        _launch("panel_fixup_multi", dev, dev.slice_ptr, dev.split_slices, part,
-                Y, dev.nsplit, dev.tile, dev.nrows, R)
-    return Y
+    return _panel_fixup("inverse_permute", torch.float32, dev, Y, part)
 
 
-# Plain K10 and K11: plain K4 and K5, which take a trailing R axis.
+# Plain K10 and its fix-up: plain K4 and ``panel_fixup``, which take a
+# trailing R axis.
 panel_spmv_multi_partials_reference = panel_spmv_partials_reference
 panel_fixup_multi_reference = panel_fixup_reference
 
 
 def panel_spmv_multi(dev: DevPanel, X: torch.Tensor) -> torch.Tensor:
     """Y = A·X over the panel for X of shape (ncols, R), 2 ≤ R ≤
-    MULTI_RHS_MAX: K10, then K11."""
+    MULTI_RHS_MAX: K10, then K7's identity mode on the split slices."""
     Y, part = panel_spmv_multi_partials(dev, X)
     return panel_fixup_multi(dev, Y, part)
 
@@ -289,86 +295,110 @@ def panel_spmv_multi(dev: DevPanel, X: torch.Tensor) -> torch.Tensor:
 def panel_and_spill_spmm(dev: DevPanel, dev_spill: DevCsr | None,
                          X: torch.Tensor) -> torch.Tensor:
     """Y = panel part + spill part for X of shape (ncols, R): one
-    multi-RHS pass over each plan (K10 + K11, K8 + K9), added with a torch
-    add, as ``panel_and_spill_spmv`` does for one vector."""
+    multi-RHS pass over each plan (K10, K8 + K9), then K7's identity mode
+    over rows of R, as ``panel_and_spill_spmv`` does for one vector."""
     if dev_spill is None:
         return panel_spmv_multi(dev, X)
     if dev.nslots == 0:  # pure spill: no dispatch for an empty panel
         return segmented_spmv_multi(dev_spill, X)
-    Y = panel_spmv_multi(dev, X)
-    return Y.add_(segmented_spmv_multi(dev_spill, X))
+    Y, part = panel_spmv_multi_partials(dev, X)
+    spill = segmented_spmv_multi(dev_spill, X)
+    return inverse_permute(None, Y, dev.nrows, dev=dev, part=part, spill=spill)
 
 
 # ---------------------------------------------------------------- K7
 
 
-def _epilogue(launcher: str, dtype: torch.dtype, invperm: torch.Tensor,
+def _epilogue(launcher: str, dtype: torch.dtype, invperm: torch.Tensor | None,
               y_sorted: torch.Tensor, nrows: int, dev: DevPanel | None,
               part: torch.Tensor | None, spill: torch.Tensor | None) -> torch.Tensor:
     """K7 in float32 (``inverse_permute``) or float64 (``launcher``
     ``inverse_permute_x2``): the wrapper both share, counted under
-    ``inverse_permute``."""
-    if invperm.dtype != torch.int32 or not invperm.is_contiguous():
+    ``inverse_permute``. ``invperm`` None is the identity, in place on
+    ``y_sorted``."""
+    identity = invperm is None
+    if not identity and (invperm.dtype != torch.int32 or not invperm.is_contiguous()):
         raise ValueError(f"invperm must be contiguous int32, got {invperm.dtype}")
+    rows = y_sorted.shape[0] if identity else invperm.numel()
     R = y_sorted.shape[1] if y_sorted.dim() == 2 else 1
-    if (invperm.dim() != 1 or y_sorted.dim() not in (1, 2)
-            or y_sorted.shape[0] != invperm.numel() or not 1 <= R <= MULTI_RHS_MAX
-            or not 0 <= nrows <= invperm.numel()):
-        raise ValueError(f"invperm {tuple(invperm.shape)}, y_sorted "
+    if ((not identity and invperm.dim() != 1) or y_sorted.dim() not in (1, 2)
+            or y_sorted.shape[0] != rows or not 1 <= R <= MULTI_RHS_MAX
+            or not (nrows == rows if identity else 0 <= nrows <= rows)):
+        shown = "identity" if identity else tuple(invperm.shape)
+        raise ValueError(f"invperm {shown}, y_sorted "
                          f"{tuple(y_sorted.shape)} and nrows {nrows} do not match")
+    if launcher.endswith("_x2") and y_sorted.dim() != 1:
+        raise ValueError(f"the float64 K7 takes one column, y_sorted is "
+                         f"{tuple(y_sorted.shape)}")
     if spill is not None and spill.shape != y_sorted.shape:
         raise ValueError(f"spill {tuple(spill.shape)} is not y_sorted's "
                          f"{tuple(y_sorted.shape)}")
     if part is not None and (
-            dev is None or dev.nrows != invperm.numel()
+            dev is None or dev.nrows != rows
             or part.shape != (2 * dev.ntiles, _C, *y_sorted.shape[1:])):
         raise ValueError("partials need the panel plan they belong to")
-    if invperm.device != y_sorted.device:
+    if not identity and invperm.device != y_sorted.device:
         raise ValueError(f"invperm on {invperm.device}, y_sorted on {y_sorted.device}")
     extra = tuple(t for t in (part, spill) if t is not None)
-    if not _on_cuda(dev if part is not None else invperm, y_sorted, *extra,
-                    dtype=dtype):
+    anchor = dev if part is not None else y_sorted if identity else invperm
+    if not _on_cuda(anchor, y_sorted, *extra, dtype=dtype):
         return inverse_permute_reference(invperm, y_sorted, nrows, dev=dev,
                                          part=part, spill=spill)
-    y = torch.empty((nrows, *y_sorted.shape[1:]), dtype=dtype, device=y_sorted.device)
-    if not nrows:  # a zero-sized grid is refused
-        return y
     if part is not None and not dev.nsplit:  # no split slice: y′ is whole
         part = None
     if part is not None and dev.tile != TILE_COLS:
         raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
+    if identity:
+        y = y_sorted
+        if part is None and spill is None:  # nothing to sum or add: y′ is y
+            return y
+    else:
+        y = torch.empty((nrows, *y_sorted.shape[1:]), dtype=dtype, device=y_sorted.device)
+    if not nrows:  # a zero-sized grid is refused
+        return y
     rhs = () if launcher.endswith("_x2") else (R,)
-    _launch(launcher, y_sorted, invperm, None if part is None else dev.slice_ptr, part,
-            y_sorted, spill, y, nrows, TILE_COLS, *rhs, key="inverse_permute")
+    slice_ptr, split_slices, nsplit = ((None, None, 0) if part is None else
+                                       (dev.slice_ptr, dev.split_slices, dev.nsplit))
+    _launch(launcher, y_sorted, invperm, slice_ptr, split_slices, part, y_sorted, spill, y,
+            nrows, nsplit, TILE_COLS, *rhs, key="inverse_permute")
     return y
 
 
-def inverse_permute(invperm: torch.Tensor, y_sorted: torch.Tensor, nrows: int, *,
+def inverse_permute(invperm: torch.Tensor | None, y_sorted: torch.Tensor, nrows: int, *,
                     dev: DevPanel | None = None, part: torch.Tensor | None = None,
                     spill: torch.Tensor | None = None) -> torch.Tensor:
-    """K7, the σ-sorted SELL's epilogue: ``y[i] = v(invperm[i])`` for ``i <
+    """K7, every panel's epilogue: ``y[i] = v(invperm[i])`` for ``i <
     nrows``, where ``invperm`` maps an original row to its sorted position
     and v(p) is row p of the panel's ``y_sorted`` (y′, a vector or an
     (nrows_pad, R) Y, 1 ≤ R ≤ MULTI_RHS_MAX) — or, given the tile kernel's
     partials ``part`` of panel plan ``dev``, the sum of a split slice's
     partials in tile order (y′'s rows of split slices are not read) — plus
-    row p of ``spill`` (the spill part's y′ over the same sorted rows)
-    where given. With neither it is the index gather that undoes the sort
-    and cuts y to ``nrows``. On the card it is a programmatic dependent
-    launch: the kernel ahead of it on the stream writes y′, the partials
-    or the spill, never ``invperm`` or the plan."""
+    row p of ``spill`` (the spill part's y′ over the same rows) where
+    given. With neither it is the index gather that undoes the sort and
+    cuts y to ``nrows``. ``invperm`` None is the identity (p = i, ``nrows``
+    all of y′'s rows): y′ is updated in place and returned, every row where
+    a spill is given, else only the split slices' rows. On the card it is a
+    programmatic dependent launch: the kernel ahead of it on the stream
+    writes y′, the partials or the spill, never ``invperm`` or the plan."""
     return _epilogue("inverse_permute", torch.float32, invperm, y_sorted, nrows,
                      dev, part, spill)
 
 
-def inverse_permute_reference(invperm: torch.Tensor, y_sorted: torch.Tensor,
+def inverse_permute_reference(invperm: torch.Tensor | None, y_sorted: torch.Tensor,
                               nrows: int, *, dev: DevPanel | None = None,
                               part: torch.Tensor | None = None,
                               spill: torch.Tensor | None = None) -> torch.Tensor:
     """Plain K7: the plain versions in the order the kernel folds them —
-    plain K5 (K11, K15 by shape and dtype) of the partials into a copy of
-    y′, the spill's y′ added, then an index gather (of rows, for an
-    (nrows_pad, R) Y)."""
+    plain ``panel_fixup`` (at R columns, in float64, by shape and dtype) of
+    the partials into a copy of y′, the spill's y′ added, then an index
+    gather (of rows, for an (nrows_pad, R) Y). ``invperm`` None is the
+    identity: the same steps in place on y′, no gather."""
+    if invperm is None:
+        if part is not None:
+            panel_fixup_reference(dev, y_sorted, part)
+        if spill is not None:
+            y_sorted.add_(spill)
+        return y_sorted
     y = y_sorted
     if part is not None:
         y = panel_fixup_reference(dev, y_sorted.clone(), part)
@@ -386,9 +416,8 @@ def sorted_panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
     """y = A·x for a σ-sorted SELL, in original row order and cut to
     ``nrows``: the panel's tile kernel K4 (K6 for a small plan), the spill
     part's engine where there is one, then K7, which sums the split slices'
-    partials, adds the spill and gathers in one launch — in place of K5,
-    the torch add and the gather of ``panel_and_spill_spmv``, with the same
-    bits."""
+    partials, adds the spill and gathers in one launch: the chain of
+    ``panel_and_spill_spmv`` with the row order given to K7."""
     y, part = (panel_spmv_fused(dev, x), None) if dev.fused else panel_spmv_partials(dev, x)
     spill = segmented_spmv(dev_spill, x) if dev_spill is not None else None
     return inverse_permute(invperm, y, nrows, dev=dev, part=part, spill=spill)

@@ -90,8 +90,9 @@ def panel_tiles_bytes(pdev, R: int = 1, x_itemsize: int | None = None) -> int:
 
 
 def panel_fixup_bytes(pdev, R: int = 1) -> int:
-    """K5 (K11, K15): each split slice's 32-row partials read, its entry,
-    two slice_ptr entries and its 32 rows of y written."""
+    """K7's identity mode without a spill (``panel_fixup``, at R columns,
+    in float64): each split slice's 32-row partials read, its entry, two
+    slice_ptr entries and its 32 rows of y written."""
     es = pdev.vals.element_size()
     s = pdev.split_slices.long().cpu()
     scol = pdev.slice_ptr.long().cpu() // 32
@@ -110,23 +111,28 @@ def permute_bytes(n: int, row_bytes: int) -> int:
     return n * (4 + 2 * row_bytes)
 
 
-def epilogue_bytes(pdev, invperm: torch.Tensor, nrows: int, R: int = 1,
+def epilogue_bytes(pdev, invperm: torch.Tensor | None, nrows: int, R: int = 1,
                    spill: bool = False) -> int:
-    """K7 with the panel's partials, the sorted SELL's epilogue, at R
-    columns, as this plan's rows need it: ``invperm``'s first ``nrows``
-    entries and ``slice_ptr`` read; per output row, the partial slots of
-    its slice where the slice is split (the tail slot of its first tile and
-    a head slot per later tile), else its row of y′; the spill's y′ row
-    where it adds one; the row of y written. A split slice's rows of y′ are
-    never read. (Without partials it is the gather alone,
-    ``permute_bytes``.)"""
+    """K7 with the panel's partials, every panel's epilogue, at R columns,
+    as this plan's rows need it: ``invperm``'s first ``nrows`` entries and
+    ``slice_ptr`` read; per output row, the partial slots of its slice
+    where the slice is split (the tail slot of its first tile and a head
+    slot per later tile), else its row of y′; the spill's y′ row where it
+    adds one; the row of y written. A split slice's rows of y′ are never
+    read. ``invperm`` None is the identity (row p = i of y′, ``nrows`` all
+    of them, y written in place): no ``invperm`` read, and without a spill
+    only the split slices' rows, ``panel_fixup_bytes``. (Without partials
+    it is the gather alone, ``permute_bytes``.)"""
+    if invperm is None and not spill:
+        return panel_fixup_bytes(pdev, R)
     es = pdev.vals.element_size()
     scol = pdev.slice_ptr.long().cpu() // 32
     s = pdev.split_slices.long().cpu()
     spans = torch.zeros(scol.numel() - 1, dtype=torch.long)
     spans[s] = (scol[s + 1] - 1) // pdev.tile - scol[s] // pdev.tile + 1
-    reads = spans[invperm[:nrows].long().cpu() // 32].clamp(min=1)
-    return (nbytes(pdev.slice_ptr) + 4 * nrows
+    src = torch.arange(nrows) if invperm is None else invperm[:nrows].long().cpu()
+    reads = spans[src // 32].clamp(min=1)
+    return (nbytes(pdev.slice_ptr) + (0 if invperm is None else 4 * nrows)
             + (int(reads.sum()) + nrows * (2 if spill else 1)) * es * R)
 
 

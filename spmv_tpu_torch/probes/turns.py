@@ -30,7 +30,9 @@ launches that checkout's kernels through that checkout's wrappers, and
   on the SELL and the shapes' ELL panels, their Y and carries or partials
   saved;
 * times each tile kernel and its path with the fix-up (K1 + K2, K12 + K13,
-  K4 + K5, K14 + K15, K8 + K9, K10 + K11; ``timing.graph_ms``: CUDA-graph
+  K8 + K9; K4, K14 and K10 with each checkout's ``panel_fixup``,
+  ``panel_fixup_x2`` and ``panel_fixup_multi``: K7's identity mode here,
+  K5, K15 and K11 in a checkout from before it; ``timing.graph_ms``: CUDA-graph
   replay, warm), and cuSPARSE on the same matrix's CSR plan in float32
   and float64 (``torch.sparse_csr_tensor @ x``, ``@ X`` for R columns, a
   yardstick the port never calls), beside each kernel's HBM-peak bound
@@ -38,6 +40,13 @@ launches that checkout's kernels through that checkout's wrappers, and
   (``kernels.probes.launch_floor``, a kernel that does nothing) and K1 with
   K2 folded into its last block (``kernels.probes.segmented_spmv_fold``,
   its y checked against K1 + K2's bit for bit);
+* with the ``panel`` and ``spmm`` engines, the public calls on the panels
+  of ``UNSORTED_BUILDS``, which keep their row order (pl-32768's
+  ``ell_pure``; its HYB and ELL split and cant's HYB under
+  ``forced_split``: the tile kernel, the spill's K1 + K2, the epilogue): ``matvec`` and the
+  fp64-grade ``X2Matrix.matvec`` with ``panel``, ``spmm`` at each R of
+  ``SPMM_RHS`` with ``spmm``, each timed by graph replay and its output
+  saved;
 * with the ``sorted`` engine, the public calls on the σ-sorted SELL
   builds of ``SORTED_BUILDS`` (cant, pl-32768 and ``pl_big`` whole, and
   pl-32768 with a spill part, under ``forced_split``: K4, K1 + K2, K7):
@@ -91,6 +100,17 @@ SORTED_BUILDS = {"cant": ("cant", True, False), "pl": ("pl", False, False),
                  "pl_big": ("pl_big", False, False), "pl_hyb": ("pl", True, True)}
 # the split's dispatch price and the one-dispatch bound set to 0
 SPILL_PRICES = {"dispatch_s": 0.0, "fused_max": 0}
+# the panels that keep their row order whose public calls the panel and
+# spmm engines time: name → (matrix of ``common.MATRICES``, format, split,
+# forced): bench.py's ``ell_pure`` on pl-32768 (the tile kernel, then its
+# fix-up), and the HYB and split ELL of pl-32768 and the HYB of cant built
+# and called under ``forced_split(**SPILL_PRICES)``, which keeps a panel and
+# a spill part on their tile kernels (the tile kernel, the spill's K1 + K2,
+# the epilogue; cant's panel has split slices, pl-32768's one column none)
+UNSORTED_BUILDS = {"pl_ell_pure": ("pl", "ell", False, False),
+                   "pl_hyb": ("pl", "hyb", True, True),
+                   "pl_ell_spill": ("pl", "ell", True, True),
+                   "cant_hyb": ("cant", "hyb", True, True)}
 
 
 @contextlib.contextmanager
@@ -253,6 +273,29 @@ def _worker(out_dir: Path, specs: dict) -> dict:
                 ms[f"{label} {key} call"] = graph_ms(lambda fn=fn, x=x: fn(x))
         torch.cuda.synchronize()
 
+    for name, (gen, kwargs, fmt, split, forced) in specs.pop("unsorted", {}).items():
+        # the public calls on a panel that keeps its row order
+        info, r, c, v = getattr(synth, gen)(**kwargs)
+        kw = {} if fmt == "hyb" else {"split": split}
+        with forced_split(**(SPILL_PRICES if forced else {})):
+            a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, r, c, v,
+                                        device="cuda", **kw)
+            a2 = spmv_tpu_torch.X2Matrix.from_coo(fmt, info.nrows, info.ncols, r, c,
+                                                  _x2_vals(np.asarray(v, np.float64)),
+                                                  device="cuda", **kw)
+            if (a.dev_spill is not None) != forced or a.dev.fused:
+                raise AssertionError(f"{name}: not the panel asked for")
+            calls = {}
+            if 1 in rhs:
+                calls = {"f32": (a.matvec, vector(info.ncols, np.float32)),
+                         "f64": (a2.matvec, vector(info.ncols, np.float64))}
+            calls.update({f"R{R}": (lambda X: spmv_tpu_torch.spmm(a, X),
+                                    vector(info.ncols, np.float32, R)) for R in multi})
+            for key, (fn, x) in calls.items():
+                np.save(out_dir / f"{name}_unsorted_{key}_y.npy", fn(x).cpu().numpy())
+                ms[f"{name} unsorted {key} call"] = graph_ms(lambda fn=fn, x=x: fn(x))
+            torch.cuda.synchronize()
+        del a, a2
     for name, (gen, kwargs, split, forced) in specs.pop("sorted", {}).items():
         info, r, c, v = getattr(synth, gen)(**kwargs)
         with forced_split(**(SPILL_PRICES if forced else {})):
@@ -326,9 +369,11 @@ def run_specs(only: str | None, out: Path) -> dict:
     ``SPMM_RHS`` for spmm); ``seg``, the matrices of the segmented
     kernels; ``panel``, those of the panel kernels with their split;
     ``shapes``, the panel shapes' triplets, written under ``out``;
-    ``sorted``, the sorted SELL builds (``SORTED_BUILDS``) whose public
-    calls the sorted engine times, and ``sorted_shapes``, the panel shapes'
-    triplets, which it runs as sorted SELL panels, untimed."""
+    ``unsorted``, the panels of ``UNSORTED_BUILDS`` whose public calls the
+    panel and spmm engines time; ``sorted``, the sorted SELL builds
+    (``SORTED_BUILDS``) whose public calls the sorted engine times, and
+    ``sorted_shapes``, the panel shapes' triplets, which it runs as sorted
+    SELL panels, untimed."""
     from spmv_tpu_torch.probes.common import PANEL_SPLIT
 
     engines = {"seg", "panel", "spmm", "sorted"} if only is None else {only}
@@ -340,6 +385,9 @@ def run_specs(only: str | None, out: Path) -> dict:
         specs["panel"] = {n: [*spec, PANEL_SPLIT.get(n, False)]
                           for n, spec in matrix_specs(PANEL_TURN_MATRICES).items()}
         specs["shapes"] = shape_specs(out)
+        named = matrix_specs({m for m, *_ in UNSORTED_BUILDS.values()})
+        specs["unsorted"] = {n: [*named[m], fmt, split, forced]
+                             for n, (m, fmt, split, forced) in UNSORTED_BUILDS.items()}
     if "sorted" in engines:
         named = matrix_specs({m for m, _, _ in SORTED_BUILDS.values()})
         specs["sorted"] = {n: [*named[m], split, forced]

@@ -8,20 +8,21 @@ double-single arithmetic (f32 hi and lo planes, ``kernels/engines_x2.py``),
 because its TPU has no FMA on the VPU and bf16 on the MXU. Hopper has
 native fp64 FMA, so the port computes in **fp64**: fp64 plan values (at
 least as precise as hi + lo), fp64 x, every product and sum in fp64
-(K12-K15, ``kernels/engines_x2.py``), fp64 y. The user-facing name stays
+(K12-K14 and K7, ``kernels/engines_x2.py``), fp64 y. The user-facing name stays
 JAX's: ``--dtype f32x2``.
 
 * csr, coo and cmrs build one fp64 CSR plan (coo lexsorts it; duplicates
   sum) and run K12 then K13.
 * ell and hyb run the port's byte-priced split on the pattern, as their
-  float32 containers do, into an fp64 panel (K14 then K15) and, where it
-  spills, an fp64 CSR plan (K12 then K13); the two parts add in fp64 on
-  the device.
+  float32 containers do, into an fp64 panel (K14) and, where it spills,
+  an fp64 CSR plan (K12 then K13); then K7 in float64, with no row order,
+  sums the panel's split slices and adds the spill in fp64 on the
+  device, in place on the panel's y.
 * sell (``sell_c_sigma``) adds the σ-sort, decided on the pattern as
   ``SellMatrix`` decides it; where it applies, K14 and the spill's K12 +
   K13 run in sorted row space and K7 in float64 sums the split slices'
-  partials, adds the spill and gathers y back to row order in one launch
-  (in place of K15, the add and the gather).
+  partials, adds the spill and gathers y back to row order in one
+  launch.
 * bsr is refused, as in JAX: its tiles are a dense matmul format.
 
 The split is priced with the float32 constants of ``formats.split``, as

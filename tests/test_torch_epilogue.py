@@ -423,22 +423,28 @@ def body_of(src: str, signature: str) -> str:
 
 
 def test_k7_reads_the_plan_before_it_waits_and_launches_as_a_dependent():
-    """K7 reads invperm and its slice's two slice_ptr entries, then
-    ``griddepcontrol.wait``, then y′, the partials and the spill, never
-    through the read-only path; both entry points launch through
-    ``launch_programmatic`` (``cudaLaunchKernelEx`` with the
-    programmatic-serialization attribute), and the panel tile kernel
-    ahead of it releases it."""
+    """K7 reads invperm (or, on the split slices' grid, split_slices) and
+    its slice's two slice_ptr entries, then ``griddepcontrol.wait``, then
+    y′, the partials and the spill, never through the read-only path; both
+    entry points launch each of its grids through ``launch_programmatic``
+    (``cudaLaunchKernelEx`` with the programmatic-serialization
+    attribute), and the panel tile kernel ahead of it releases it."""
     src = (CSRC / "panel_spmv.cu").read_text()
     body = body_of(src, "inverse_permute_kernel(const int*")
     wait = body.index('asm volatile("griddepcontrol.wait;" ::: "memory")')
-    for read in ("__ldg(invperm + row)", "__ldg(slice_ptr + s)",
-                 "__ldg(slice_ptr + s + 1)"):
+    for read in ("__ldg(invperm + row)", "__ldg(split_slices + i / kC)",
+                 "split_tiles(slice_ptr, s, ta, tb)",
+                 "split_tiles(slice_ptr, p / kC, ta, tb)"):
         assert body.index(read) < wait, read
-    for name in ("part", "y_sorted", "spill"):
-        assert body.index(f"load_row<R, CoherentLoad>({name} +") > wait, name
-        assert f"__ldg({name}" not in body, name
+    tiles = body_of(src, "void split_tiles(const int* __restrict__ slice_ptr")
+    assert "__ldg(slice_ptr + s)" in tiles and "__ldg(slice_ptr + s + 1)" in tiles
+    rule = body_of(src, "void sum_split_row(const T* part")
+    for name, where in (("part", rule), ("y_sorted", body), ("spill", body)):
+        assert f"load_row<R, CoherentLoad>({name} +" in where, name
+        assert f"__ldg({name}" not in body + rule, name
         assert re.search(rf"const T\* {name},", body), name  # no __restrict__
+    assert body.index("sum_split_row<R>(part,") > wait
+    assert body.index("load_row<R, CoherentLoad>(y_sorted +") > wait
     # the loads after the wait are plain (coherent) ones
     rows = (CSRC / "x_rows.cuh").read_text()
     coherent = rows[rows.index("struct CoherentLoad {"):]
@@ -448,6 +454,8 @@ def test_k7_reads_the_plan_before_it_waits_and_launches_as_a_dependent():
     assert "__ldg" not in loads and "__restrict__" not in loads
     launcher = body_of(src, "int launch_inverse_permute(")
     assert "launch_programmatic(" in launcher and "<<<" not in launcher
+    for grid in ("kSorted", "kIdentity", "kSplitRows"):
+        assert f"launch(inverse_permute_kernel<T, R, {grid}>" in launcher, grid
     entries = src[src.index('extern "C" {'):]
     assert re.findall(r"launch_inverse_permute<(\w+), (\w+)>", entries) == [
         ("float", "R"), ("double", "1")]

@@ -171,18 +171,20 @@ def test_each_launch_counts_once(cuda):
     KP.segmented_spmv_fold(dev, x)
     KP.segmented_spmv_fold_reference(dev, x)
     KP.launch_floor(cuda)
+    # K7: the gather, and its identity mode after K4, K10 and K14 where the
+    # panel has split slices (panel_fixup, panel_spmv_multi, panel_spmv_x2)
+    k7 = 1 + 2 * bool(a.dev.nsplit) + bool(pdev64.nsplit)
     assert E.LAUNCHES == {k: 1 for k in (
         "seg_spmv_tiles", "carry_fixup", "csr_spmv_fused", "panel_spmv_tiles",
-        "panel_fixup", "panel_spmv_fused", "inverse_permute", "seg_spmm_tiles",
-        "carry_fixup_multi", "panel_spmm_tiles", "panel_fixup_multi",
+        "panel_spmv_fused", "seg_spmm_tiles", "carry_fixup_multi", "panel_spmm_tiles",
         "seg_spmv_tiles_x2", "carry_fixup_x2", "panel_spmv_tiles_x2",
-        "panel_fixup_x2", "seg_spmv_tiles_u16", "seg_spmv_tiles_u16_x2",
+        "seg_spmv_tiles_u16", "seg_spmv_tiles_u16_x2",
         "seg_spmv_tiles_t128", "seg_spmv_tiles_t512", "seg_spmv_tiles_t2048",
         "carry_fixup_t128", "carry_fixup_t512", "carry_fixup_t2048",
         "seg_ablate_nogather", "seg_ablate_noseg", "seg_ablate_dma",
         "seg_ablate_x2_nogather", "seg_ablate_x2_noseg", "seg_ablate_x2_dma",
         "seg_ablate_x2_x32", "panel_ablate_nogather", "panel_ablate_x2_nogather",
-        "seg_spmv_tiles_fold", "launch_floor")}
+        "seg_spmv_tiles_fold", "launch_floor")} | {"inverse_permute": k7}
 
 
 def test_empty_plans_launch_nothing(cuda):
@@ -278,7 +280,7 @@ def test_panel_tile_kernel_writes_every_row_and_slot(cuda, name, dtype):
     with the same bits into NaN-poisoned allocations, against the plain
     version per entry, the launcher itself into NaN-filled y and partials
     (every row and slot written, with the wrapper's bits), and the path
-    with K5 / K15 against the plain path."""
+    with K7's fix-up against the plain path."""
     info, r, c, v = PANEL_SHAPES[name](1)
     f32 = dtype == torch.float32
     v = v if f32 else v * (1 + 1e-9 * np.arange(v.size))
@@ -352,8 +354,8 @@ def unaligned_copy(X):
 @pytest.mark.parametrize("R", [2, 3, 4, 8])
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_multi_kernels_match_plain_versions_and_repeat_bitwise(cuda, name, R):
-    """K8 + K9 on the CSR plan, K10 + K11 on the pure SELL panel, and K7
-    over rows of R: against their plain versions, twice with the same
+    """K8 + K9 on the CSR plan, K10 + K7's fix-up on the pure SELL panel,
+    and K7 over rows of R: against their plain versions, twice with the same
     bits, and column j against the one-vector kernels on X[:, j]."""
     info, r, c, v = MATRICES[name]()
     Xh = np.random.default_rng(R).standard_normal((info.ncols, R)).astype(np.float32)
@@ -459,7 +461,8 @@ def x2_bound(dev, x, k):
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_x2_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
-    """K12 + K13 on the fp64 CSR plan and K14 + K15 on the fp64 panel:
+    """K12 + K13 on the fp64 CSR plan and K14 + K7's fix-up on the fp64
+    panel:
     twice with the same bits, and within k·2⁻⁵⁰·Σ|v||x| of the plain
     versions."""
     dev, pdev, x = setup_x2(name, cuda)
@@ -522,8 +525,7 @@ def test_x2_matvec_on_the_card(cuda, fmt):
     assert y.dtype == torch.float64 and y.device.type == "cuda"
     ran = {k for k, n in E.LAUNCHES.items() if n}
     assert ran and ran <= {"seg_spmv_tiles_x2", "carry_fixup_x2",
-                           "panel_spmv_tiles_x2", "panel_fixup_x2",
-                           "inverse_permute"}, ran
+                           "panel_spmv_tiles_x2", "inverse_permute"}, ran
     scale = row_scale(info.nrows, r, c, v, xh)
     k = int(np.bincount(r, minlength=info.nrows).max())
     err = np.abs(y.cpu().numpy() - golden_spmv(info.nrows, r, c, v, xh))
@@ -693,10 +695,9 @@ def sorted_sell(name, device, free_dispatch):
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_k7_is_the_fixup_add_and_gather(cuda, name, free_dispatch):
     """K7 after K4 with its partials, and after K6 without, each with the
-    spill part's y′ where the build spills, at R = 1 and 4 and in fp64:
-    bit for bit the fix-up kernel (K5, K11, K15), a torch add and the
-    gather, with y′'s split-slice rows NaN; the containers' calls are the
-    same bits."""
+    spill part's y′ where the build spills, at R = 1 and 4: bit for bit the
+    fix-up (K7's identity mode), a torch add and the gather, with y′'s
+    split-slice rows NaN; the containers' calls are the same bits."""
     a = sorted_sell(name, cuda, free_dispatch)
     if a is None:
         pytest.skip("the σ-sort does not apply to this matrix")
@@ -731,9 +732,9 @@ def test_k7_is_the_fixup_add_and_gather(cuda, name, free_dispatch):
 
 @pytest.mark.parametrize("name", ["band_1024", "power_law_32768", "cant_8192"])
 def test_x2_k7_is_k15_and_the_gather(cuda, name):
-    """The fp64 K7 after K14 with its partials: bit for bit K15 and the
-    gather, y′'s split-slice rows unread; the sorted x2 ``matvec`` the same
-    bits."""
+    """The fp64 K7 after K14 with its partials: bit for bit the fp64
+    fix-up (K7's identity mode) and the gather, y′'s split-slice rows
+    unread; the sorted x2 ``matvec`` the same bits."""
     info, r, c, v = MATRICES[name]()
     v = np.asarray(v, np.float64) * (1 + 1e-9 * np.arange(r.size))
     a = X2Matrix.from_coo("sell", info.nrows, info.ncols, r, c, v, sigma=128,
@@ -781,6 +782,125 @@ def test_sorted_paths_in_a_cuda_graph_equal_the_eager_run(cuda, name):
                 g.replay()
                 torch.cuda.synchronize()
                 assert torch.equal(out, eager)
+
+
+def unsorted_panel(name, fmt, device, x2=False):
+    """A panel that keeps its row order: ``ell_pure`` (ELL whole), or HYB
+    built with the split's dispatch price at 0 (a panel and a spill part);
+    both kept on the tile kernel (the one-dispatch bound at 0 when called
+    inside ``forced_split(fused_max=0)``)."""
+    import spmv_tpu_torch
+
+    info, r, c, v = MATRICES[name]()
+    if x2:
+        v = np.asarray(v, np.float64) * (1 + 1e-9 * np.arange(r.size))
+    make = X2Matrix.from_coo if x2 else spmv_tpu_torch.from_coo
+    kw = {"split": False} if fmt == "ell" else {}
+    with forced_split(dispatch_s=0.0 if fmt == "hyb" else None):
+        return make(fmt, info.nrows, info.ncols, r, c, v, device=device, **kw), info
+
+
+def unused_nan(dev, part):
+    """The partials with every slot no split slice uses set to NaN: K7
+    reads none of them."""
+    scol = dev.slice_ptr.long().cpu() // 32
+    used = torch.zeros(part.shape[0], dtype=torch.bool)
+    for s in dev.split_slices.long().cpu().tolist():
+        ta, tb = int(scol[s]) // dev.tile, (int(scol[s + 1]) - 1) // dev.tile
+        used[2 * ta + 1] = True
+        used[2 * torch.arange(ta + 1, tb + 1)] = True
+    out = part.clone()
+    out[~used.to(part.device)] = float("nan")
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["ell", "hyb"])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_k7_identity_is_the_parents_fixup_and_add(cuda, name, fmt):
+    """K7's identity mode after K4, K10 (R = 4, 8) and K14: without a spill
+    the split slices' rows of y′ alone, with one every row plus the spill;
+    bit for bit the plain fix-up (its adds in a fixed order) and a torch
+    add, the parent's sequence, into a y′ whose split-slice rows and
+    partials no slice uses are NaN, in place; the containers' calls the
+    same bits; after K6 (a small plan), y′ plus the spill."""
+    for R in (1, 4, 8, "x2"):
+        a, info = unsorted_panel(name, fmt, cuda, x2=R == "x2")
+        dev, n = a.dev, a.dev.nrows
+        rng = np.random.default_rng(3)
+        if R == "x2":
+            X = torch.from_numpy(rng.standard_normal(info.ncols)).to(cuda)
+            tiles, fixup, epi, spmv = (X2.panel_spmv_x2_partials, X2.panel_fixup_x2,
+                                       X2.inverse_permute_x2, X2.segmented_spmv_x2)
+        else:
+            shape = (info.ncols,) if R == 1 else (info.ncols, R)
+            X = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+            tiles, fixup, spmv = ((P.panel_spmv_partials, P.panel_fixup, E.segmented_spmv)
+                                  if R == 1 else (P.panel_spmv_multi_partials,
+                                                  P.panel_fixup_multi,
+                                                  E.segmented_spmv_multi))
+            epi = P.inverse_permute
+        with forced_split(fused_max=0):
+            y, part = tiles(dev, X)
+            spill = spmv(a.dev_spill, X) if a.dev_spill is not None else None
+            parent = P.panel_fixup_reference(dev, y.clone(), part)
+            if spill is not None:
+                parent.add_(spill)
+            E.reset_launches()
+            poisoned = split_rows_nan(dev, y)
+            got = (fixup(dev, poisoned, unused_nan(dev, part)) if spill is None else
+                   epi(None, poisoned, n, dev=dev, part=unused_nan(dev, part),
+                       spill=spill))
+            assert got.data_ptr() == poisoned.data_ptr()
+            assert torch.equal(got, parent), R
+            assert E.LAUNCHES["inverse_permute"] == int(bool(dev.nsplit) or spill is not None)
+            call = a.matvec if R in (1, "x2") else a.matmat
+            assert torch.equal(call(X), parent[:a.nrows]), R
+        if R == 1 and spill is not None and dev.fused:  # K6's y′, no partials
+            y6 = P.panel_spmv_fused(dev, X)
+            spill = spmv(a.dev_spill, X)  # as the call runs it: K3 on a small plan
+            want = y6 + spill
+            assert torch.equal(P.inverse_permute(None, y6, n, spill=spill), want)
+            assert torch.equal(a.matvec(X), want[:a.nrows])
+    torch.cuda.synchronize()
+
+
+def split_rows_nan(dev, y):
+    out = y.clone()
+    rows = (dev.split_slices.long()[:, None] * 32
+            + torch.arange(32, device=y.device)).reshape(-1)
+    out[rows[rows < dev.nrows]] = float("nan")
+    return out
+
+
+@pytest.mark.parametrize("name", ["power_law_32768", "cant_8192", "hub_slice"])
+def test_unsorted_paths_in_a_cuda_graph_equal_the_eager_run(cuda, name):
+    """The unsorted panel paths captured in a CUDA graph (K7's identity
+    mode a programmatic dependent there too) and replayed give the eager
+    run's bits: K4 + K7, K10 + K7, K14 + K7, and with a spill part K4 +
+    the spill's kernels + K7."""
+    info = MATRICES[name]()[0]
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        info.ncols).astype(np.float32)).to(cuda)
+    X = torch.stack([x, -x, 2 * x, x * x], dim=1)
+    for fmt in ("ell", "hyb"):
+        a, _ = unsorted_panel(name, fmt, cuda)
+        b, _ = unsorted_panel(name, fmt, cuda, x2=True)
+        with forced_split(fused_max=0):
+            for path, xx in ((a.matvec, x), (a.matmat, X), (b.matvec, x.double())):
+                eager = path(xx)
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
+                    path(xx)
+                torch.cuda.current_stream().wait_stream(side)
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    out = path(xx)
+                for _ in range(3):
+                    out.fill_(float("nan"))
+                    g.replay()
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, eager), (fmt, path)
 
 
 @pytest.mark.parametrize("name", sorted(FIXUP_MATRICES))

@@ -465,7 +465,8 @@ def test_turns_specs_name_each_engines_matrices_and_rhs(tmp_path, only):
     """``turns.run_specs`` hands each worker, through JSON, the R of its
     kernels (1 for seg and panel, 2, 4, 8 for spmm), the segmented
     kernels' matrices, the SELL panels with their split, the panel
-    shapes' triplets and the sorted SELL builds; ``--only`` keeps one
+    shapes' triplets, the unsorted panels whose public calls the panel
+    and spmm engines time and the sorted SELL builds; ``--only`` keeps one
     engine's."""
     from spmv_tpu_torch.probes import common, turns
 
@@ -476,6 +477,7 @@ def test_turns_specs_name_each_engines_matrices_and_rhs(tmp_path, only):
     assert ("seg" in specs) == (only in (None, "seg", "spmm"))
     assert ("panel" in specs) == ("shapes" in specs) == (only in (None, "panel", "spmm"))
     assert ("sorted" in specs) == (only in (None, "sorted"))
+    assert ("unsorted" in specs) == (only in (None, "panel", "spmm"))
     if "sorted" in specs:  # cant split, pl and pl_big whole, pl with a spill
         assert {n: s[-2:] for n, s in specs["sorted"].items()} == {
             "cant": [True, False], "pl": [False, False], "pl_big": [False, False],
@@ -490,6 +492,13 @@ def test_turns_specs_name_each_engines_matrices_and_rhs(tmp_path, only):
         assert {n: s[-1] for n, s in specs["panel"].items()} == {
             "cant": True, "pl": False, "pl_big": False}
         assert sorted(specs["shapes"]) == sorted(common.PANEL_SHAPES)
+        # pl-32768's ell_pure, its HYB and split ELL and cant's HYB with a
+        # forced spill
+        assert {n: s[2:] for n, s in specs["unsorted"].items()} == {
+            "pl_ell_pure": ["ell", False, False], "pl_hyb": ["hyb", True, True],
+            "pl_ell_spill": ["ell", True, True], "cant_hyb": ["hyb", True, True]}
+        assert all(s[:2] == specs["panel"][n.split("_")[0]][:2]
+                   for n, s in specs["unsorted"].items())
         for name, path in specs["shapes"].items():
             z = np.load(path)
             info, r, c, v = common.PANEL_SHAPES[name]()
