@@ -136,7 +136,29 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    (ablate, x2, pack, accum, spmm, panel), x2 on band-1024, ablate, x2 and
    panel on ``pl_big``, each checked and timed warm and cold against the
    co-sampled ceiling; the counters must show every probe kernel.
-7. One line per kernel with its time, bound and library time; one JSON
+7. Sym and the solvers at cant, with the counters from zero: the cant
+   proxy's lower triangle (as ``bench.py:268-275`` builds it) through
+   ``sym`` against the expanded CSR of the same triangle: both y and every
+   column of ``spmm`` at R = 4 pass the fp64 oracle on the expanded
+   triplets, two sym runs bitwise equal, sym's ``matvec`` launches
+   2 × (K1 + K2) and its ``spmm`` 2 × (K8 + K9), warm device µs of both by
+   graph replay. Then the SPD proxy (the expanded triangle with each
+   diagonal entry set to 1 + its row's off-diagonal absolute sum; values
+   only) through ``solve.cg`` with ``sym`` and ``csr`` at tol 1e-5, and
+   the general proxy shifted the same way through ``bicgstab`` with
+   ``csr``: each converged by the CLI's rule with the fp64 residual
+   recomputed on the host, a container's first solve the eager loop (by
+   rule) and its second the CUDA graph loop's capture, each the eager
+   loop's iteration count and x bit for bit, two graph runs that reuse the
+   loop the same bits; ms per iteration eager and graph, the graph's device µs per iteration beside its
+   matvecs' (the counters count a graph at capture, not at replay: the
+   printout derives the replays' launches from an eager iteration's);
+   ``power_iteration`` (100 iterations, sym) within 1e-4 of an fp64 host
+   power iteration from the same v0; the sweep of body copies per graph
+   (``SOLVE_CHUNKS``) behind ``solve.GRAPH_CHUNK``; and ``solve --format
+   csr --solver cg`` through the CLI on the SPD proxy written as a
+   symmetric .mtx, twice through one ``--cache-dir``.
+8. One line per kernel with its time, bound and library time; one JSON
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
    ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``, K1
@@ -230,6 +252,8 @@ FORMATS6 = ("csr", "coo", "cmrs", "ell", "sell", "hyb")
 CANT_N = 62_464  # bench.py:84-85
 REPS = 30
 PROBE_ROUNDS = 3  # interleaved rounds of each probe in phase 6
+# body copies per CUDA graph in phase 7's sweep (solve.GRAPH_CHUNK's source)
+SOLVE_CHUNKS = (1, 4, 8, 16, 32)
 
 
 def time_ms(fn) -> float:
@@ -1674,6 +1698,360 @@ def time_probes(label: str, trip, card: str) -> dict:
     return t
 
 
+# ---------------------------------------------------------------- solvers
+
+
+def expand(r, c, v):
+    """General-form triplets of a stored lower triangle."""
+    s = r > c
+    return (np.concatenate([r, c[s]]), np.concatenate([c, r[s]]),
+            np.concatenate([v, v[s]]))
+
+
+def spd_shift(r, c, v, n: int, triangle: bool) -> np.ndarray:
+    """The values with every diagonal entry set to 1 + its row's off-diagonal
+    absolute sum (of the expansion, for a ``triangle``): SPD by Gershgorin
+    where the matrix is symmetric, nonsingular where it is not. The pattern
+    stays; each row must hold exactly one diagonal entry."""
+    d = r == c
+    if d.sum() != n or np.bincount(r[d], minlength=n).max() != 1:
+        raise SystemExit("the SPD shift needs one diagonal entry per row")
+    off = np.abs(v) * ~d
+    rowsum = np.bincount(r, off, n) + (np.bincount(c, off, n) if triangle else 0)
+    out = np.array(v, dtype=np.float64, copy=True)
+    out[d] = 1 + rowsum[r[d]]
+    return out
+
+
+def fp64_residual(trip, x: torch.Tensor, b: np.ndarray) -> float:
+    """‖A·x − b‖ / ‖b‖ in fp64 on the host, as ``cli.cmd_solve`` checks it."""
+    from spmv_tpu_torch.oracle import golden_spmv
+
+    info, rows, cols, vals = trip
+    r64 = golden_spmv(info.nrows, rows, cols, vals, x.cpu().numpy().astype(np.float64))
+    return float(np.linalg.norm(r64 - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def launched() -> dict:
+    from spmv_tpu_torch.kernels.engines import LAUNCHES
+
+    return {k: n for k, n in LAUNCHES.items() if n}
+
+
+
+def recording_loops():
+    """A ``solve._GraphLoop`` that keeps each loop it makes (the list
+    ``made``) and its capture's host seconds (``capture_s``), so the graph
+    can be replayed alone after the solve."""
+    from spmv_tpu_torch import solve
+
+    class Recorded(solve._GraphLoop):
+        made: list = []
+
+        def _capture(self):
+            t0 = time.perf_counter()
+            super()._capture()
+            torch.cuda.synchronize()
+            self.capture_s = time.perf_counter() - t0
+            Recorded.made.append(self)
+
+    return Recorded
+
+
+def loop_device_us(loop, replays: int = 5) -> float:
+    """µs per iteration of a captured loop on the device: CUDA events
+    around ``replays`` back-to-back replays (no host read between them),
+    over ``replays × chunk`` iterations. The state is frozen by then, and
+    each masked body does its full work all the same."""
+    loop.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        loop.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / (replays * loop.chunk)
+
+
+def check_solver(label: str, fn, a, trip, b: np.ndarray, card: str,
+                 mv_us: float, mvs: int, tol: float = 1e-5,
+                 maxiter: int = 1000) -> dict:
+    """Phase 7, one solve at cant: the eager loop, then four solves through
+    the public call: the first runs the eager loop (a container's first
+    solve of a kind), the second captures the graph loop and the others
+    reuse it. Each gives the eager run's iteration count and x bit for bit;
+    the result converges by the CLI's rule (``iters < maxiter`` or the fp64
+    residual, recomputed on the host, within 10·tol), and that residual
+    must be finite and within 10·tol as well (a NaN stops the loop early,
+    which the CLI's rule alone would call converged). Returns the counts
+    and times."""
+    from spmv_tpu_torch import solve
+    from spmv_tpu_torch.kernels.engines import reset_launches
+
+    a.__dict__.pop("_graph_loops", None)
+    fn(a, b, tol=tol, maxiter=maxiter, _graph=False)  # first-call costs, untimed
+    reset_launches()
+    a.matvec(torch.zeros(a.ncols, device=a.dev.device))
+    torch.cuda.synchronize()
+    one_matvec = launched()
+
+    def timed(**kw):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(a, b, tol=tol, maxiter=maxiter, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launched()
+
+    made = len(solve._GraphLoop.made)
+    (x_e, k_e, res_e), eager_s, eager_launches = timed(_graph=False)
+    (x_1, k_1, res_1), first_s, _ = timed()
+    if a._graph_loops != {fn.__name__: None} or len(solve._GraphLoop.made) != made:
+        raise SystemExit(f"{label}: the container's first solve captured a loop")
+    (x_g, k_g, res_g), capture_run_s, capture_launches = timed()
+    loop = a._graph_loops[fn.__name__]
+    reruns = [timed() for _ in range(2)]
+    if (solve._GraphLoop.made[made:] != [loop]
+            or a._graph_loops != {fn.__name__: loop}):
+        raise SystemExit(f"{label}: the loop was not captured once and reused")
+    for x_2, k_2, res_2 in [(x_1, k_1, res_1)] + [r[0] for r in reruns]:
+        if not (k_e == k_g == k_2 and torch.equal(x_e, x_g) and torch.equal(x_g, x_2)
+                and res_e == res_g == res_2):
+            raise SystemExit(f"{label}: the graph loop ({k_g}, {k_2} iterations) is "
+                             f"not the eager loop's bits ({k_e} iterations)")
+    reused_s = statistics.median(r[1] for r in reruns)
+    rel = fp64_residual(trip, x_g, b)
+    converged = (k_g < maxiter or rel <= tol * 10) and np.isfinite(rel)  # the CLI's
+    if not converged or rel > tol * 10:
+        raise SystemExit(f"{label}: not converged ({k_g} iterations, fp64 relative "
+                         f"residual {rel:.3e})")
+    stats = {"chunk": loop.chunk, "replays": loop.replays, "host_reads": loop.host_reads}
+    dev_us = loop_device_us(loop)
+    per_iter = {k: (n - one_matvec.get(k, 0)) / k_e for k, n in eager_launches.items()}
+    print(f"  {label}: {k_g} iterations, device residual {res_g:.3e}, fp64 relative "
+          f"residual {rel:.3e} (converged by the CLI's rule); the first solve (eager "
+          f"by rule), the graph loop's capturing solve and two reusing it are the "
+          f"eager loop bit for bit (k and x)")
+    print(f"    ms per iteration (whole solve / iterations): eager "
+          f"{eager_s * 1e3 / k_e:.4f} (the first solve {first_s * 1e3 / k_1:.4f}); "
+          f"graph {capture_run_s * 1e3 / k_g:.4f} when the solve captures it "
+          f"({loop.capture_s * 1e3:.2f} ms of capture, chunk {loop.chunk}), "
+          f"{reused_s * 1e3 / k_g:.4f} when it reuses it; whole solve eager "
+          f"{eager_s * 1e3:.2f} ms (first {first_s * 1e3:.2f}), graph "
+          f"{capture_run_s * 1e3:.2f} and {reused_s * 1e3:.2f} ms  [{card}]")
+    print(f"    device µs per iteration (back-to-back replays of the captured "
+          f"graph): {dev_us:.2f}, against {mvs} × matvec {mv_us:.2f} = "
+          f"{mvs * mv_us:.2f} µs of SpMV; {loop.replays} replays, "
+          f"{loop.host_reads} host reads per solve  [{card}]")
+    print(f"    launches: eager run {eager_launches} (the first matvec and "
+          f"{k_e} iterations); the capturing run's counters {capture_launches} "
+          f"count at capture (the first matvec, a warm-up body and {loop.chunk} "
+          f"bodies), not at replay, and a reusing run's {reruns[0][2]} only its "
+          f"first matvec: each run's {loop.replays} replays launched "
+          f"{loop.replays * loop.chunk} bodies, i.e. per kernel "
+          f"{ {k: round(n * loop.replays * loop.chunk) for k, n in per_iter.items()} }"
+          f" (an eager iteration's launches × bodies replayed)")
+    return {"iterations": k_g, "rel": rel, "eager_ms_per_iter": eager_s * 1e3 / k_e,
+            "first_solve_ms_per_iter": first_s * 1e3 / k_1,
+            "graph_ms_per_iter_capturing": capture_run_s * 1e3 / k_g,
+            "graph_ms_per_iter_reusing": reused_s * 1e3 / k_g,
+            "capture_ms": loop.capture_s * 1e3, "device_us_per_iter": dev_us,
+            "matvec_us": mv_us, "eager_launches": eager_launches, **stats}
+
+
+def chunk_sweep(label: str, a, b: np.ndarray, card: str, chunks, tol: float = 1e-5,
+                maxiter: int = 1000, rounds: int = 3) -> dict:
+    """Phase 7: cg with ``solve.GRAPH_CHUNK`` set to each of ``chunks`` body
+    copies per graph (and put back after): for each, the host ms of the
+    solve that captures the loop (a container's second), the median of
+    ``rounds`` solves that reuse it, and the graph's device µs per
+    iteration; the eager loop's median ms beside them."""
+    from spmv_tpu_torch import solve
+
+    def timed_solve(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, k, _ = solve.cg(a, b, tol=tol, maxiter=maxiter, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, k
+
+    eager = statistics.median(timed_solve(_graph=False)[0] for _ in range(rounds))
+    out = {"eager_ms": eager * 1e3}
+    kept = solve.GRAPH_CHUNK
+    try:
+        for c in chunks:
+            solve.GRAPH_CHUNK = c
+            a.__dict__.pop("_graph_loops", None)
+            timed_solve()  # the container's first solve: the eager loop
+            first, k = timed_solve()
+            loop = a._graph_loops["cg"]
+            reused = statistics.median(timed_solve()[0] for _ in range(rounds))
+            out[c] = {"capturing_ms": first * 1e3, "reusing_ms": reused * 1e3,
+                      "iterations": k, "capture_ms": loop.capture_s * 1e3,
+                      "device_us_per_iter": loop_device_us(loop),
+                      "replays": loop.replays}
+            print(f"    {label} chunk {c:2d}: solve {first * 1e3:.2f} ms capturing "
+                  f"({loop.capture_s * 1e3:.2f} ms of capture), {reused * 1e3:.2f} "
+                  f"reusing ({k} iterations, {out[c]['replays']} replays); device "
+                  f"{out[c]['device_us_per_iter']:.2f} µs per iteration; eager "
+                  f"{eager * 1e3:.2f} ms  [{card}]")
+    finally:
+        solve.GRAPH_CHUNK = kept
+    a.__dict__.pop("_graph_loops", None)
+    return out
+
+
+def write_symmetric_mtx(path: str, n: int, r, c, v) -> None:
+    """A stored lower triangle as a MatrixMarket ``symmetric`` file."""
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate real symmetric\n{n} {n} {r.size}\n")
+        f.write("".join(f"{i} {j} {x!r}\n" for i, j, x in
+                        zip((r + 1).tolist(), (c + 1).tolist(), v.tolist())))
+
+
+def phase_solvers(cant, card: str) -> dict:
+    """Phase 7: sym against the expanded CSR at cant, cg (sym, csr) and
+    bicgstab (csr) on the SPD-shifted proxy, power iteration (sym), the
+    chunk sweep and ``solve`` through the CLI. Returns the launches of its
+    eager runs and its readings."""
+    import tempfile
+
+    import spmv_tpu_torch
+    from spmv_tpu_torch import cli, solve
+    from spmv_tpu_torch.kernels.engines import reset_launches
+    from spmv_tpu_torch.probes.timing import graph_ms
+
+    info, rows, cols, vals = cant
+    n = info.nrows
+    keep = rows >= cols  # the stored triangle, as bench.py:268-275 builds it
+    tri = (rows[keep], cols[keep], vals[keep])
+    etrip = (dataclasses.replace(info, nnz=0), *expand(*tri))
+    a_sym = build("sym", (info, *tri))
+    a_csr = build("csr", etrip)
+    print(f"  cant triangle: stored {a_sym.stored_nnz}, strict {a_sym.spill_nnz}, "
+          f"expanded {a_sym.nnz}; sym plans {a_sym.dev.stream_bytes} + "
+          f"{a_sym.dev_spill.stream_bytes} B (fused: {a_sym.dev.fused}, "
+          f"{a_sym.dev_spill.fused}), expanded csr {a_csr.stream_bytes} B")
+    xh = np.random.default_rng(71).standard_normal(n).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    launches = {}
+
+    def count(fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, m in launched().items():
+            launches[k] = launches.get(k, 0) + m
+        return out, launched()
+
+    y_sym, sym_launches = count(lambda: same_bits("sym matvec", lambda: a_sym.matvec(x)))
+    if sym_launches != {"seg_spmv_tiles": 4, "carry_fixup": 4}:  # two calls
+        raise SystemExit(f"sym matvec at cant is not 2 × (K1 + K2): {sym_launches}")
+    y_csr = a_csr.matvec(x)
+    check_oracle("cant sym", etrip, y_sym, xh)
+    check_oracle("cant expanded csr", etrip, y_csr, xh)
+    Xh = np.random.default_rng(72).standard_normal((n, 4)).astype(np.float32)
+    Y_sym, spmm_launches = count(lambda: spmv_tpu_torch.spmm(a_sym, Xh))
+    if spmm_launches != {"seg_spmm_tiles": 2, "carry_fixup_multi": 2}:
+        raise SystemExit(f"sym spmm R=4 at cant is not 2 × (K8 + K9): {spmm_launches}")
+    Y_csr = spmv_tpu_torch.spmm(a_csr, Xh)
+    check_oracle_columns("cant sym R=4", etrip, Y_sym, Xh)
+    check_oracle_columns("cant expanded csr R=4", etrip, Y_csr, Xh)
+    Xt = torch.from_numpy(Xh).cuda()
+    t = {"sym matvec": graph_ms(lambda: a_sym.matvec(x)),
+         "csr matvec": graph_ms(lambda: a_csr.matvec(x)),
+         "sym spmm R=4": graph_ms(lambda: spmv_tpu_torch.spmm(a_sym, Xt)),
+         "csr spmm R=4": graph_ms(lambda: spmv_tpu_torch.spmm(a_csr, Xt))}
+    print(f"  sym matvec = 2 × (K1 + K2) per call {sym_launches} over two calls, "
+          f"spmm R=4 = 2 × (K8 + K9) {spmm_launches}; y and every column of Y pass "
+          f"the fp64 oracle on the expanded triplets, as the expanded csr's do; "
+          f"max |sym - csr| {float((y_sym - y_csr).abs().max()):.3e}, R=4 "
+          f"{float((Y_sym - Y_csr).abs().max()):.3e}; two sym runs bitwise equal")
+    print(f"  warm device µs (CUDA-graph replay of 20 calls): sym matvec "
+          f"{t['sym matvec'] * 1e3:.2f}, expanded csr {t['csr matvec'] * 1e3:.2f}; "
+          f"spmm R=4 sym {t['sym spmm R=4'] * 1e3:.2f}, csr "
+          f"{t['csr spmm R=4'] * 1e3:.2f}  [{card}]")
+
+    # the SPD proxy: the expanded triangle, each diagonal entry set to 1 + its
+    # row's off-diagonal absolute sum; the same triplets to sym and csr
+    stri = (tri[0], tri[1], spd_shift(*tri, n, triangle=True))
+    strip = (etrip[0], *expand(*stri))
+    s_sym, s_csr = build("sym", (info, *stri)), build("csr", strip)
+    b = np.random.default_rng(73).standard_normal(n).astype(np.float32)
+    res = {"times_ms": t}
+    solve_loop = solve._GraphLoop
+    solve._GraphLoop = recording_loops()
+    try:
+        for label, a, mv_ms in (("cg sym", s_sym, graph_ms(lambda: s_sym.matvec(x))),
+                                ("cg csr", s_csr, graph_ms(lambda: s_csr.matvec(x)))):
+            res[label] = check_solver(label, solve.cg, a, strip, b, card,
+                                      mv_ms * 1e3, mvs=1)
+            for k, m in res[label]["eager_launches"].items():
+                launches[k] = launches.get(k, 0) + m
+        # bicgstab on the general (nonsymmetric) proxy, shifted the same way
+        g = (rows, cols, spd_shift(rows, cols, vals, n, triangle=False))
+        gtrip = (info, *g)
+        g_csr = build("csr", gtrip)
+        res["bicgstab csr"] = check_solver(
+            "bicgstab csr", solve.bicgstab, g_csr, gtrip, b, card,
+            graph_ms(lambda: g_csr.matvec(x)) * 1e3, mvs=2)
+        for k, m in res["bicgstab csr"]["eager_launches"].items():
+            launches[k] = launches.get(k, 0) + m
+        # power iteration: 100 iterations against fp64 on the host from v0
+        lam_e, v_e = solve.power_iteration(s_sym, iters=100, seed=0, _graph=False)
+        for _ in range(2):  # the first solve (eager), then the graph loop
+            lam, v = solve.power_iteration(s_sym, iters=100, seed=0)
+            if lam != lam_e or not torch.equal(v, v_e):
+                raise SystemExit("power iteration: the graph loop is not the eager bits")
+        loop = s_sym._graph_loops["power_iteration"]
+        power_stats = {"chunk": loop.chunk, "replays": loop.replays,
+                       "host_reads": loop.host_reads}
+        gen = torch.Generator(s_sym.dev.device).manual_seed(0)
+        v64 = torch.randn(n, generator=gen, device=s_sym.dev.device).double().cpu().numpy()
+        r_, c_, w_ = strip[1:]
+
+        def mv64(u):
+            return np.bincount(r_, w_ * u[c_], n)
+
+        for _ in range(100):
+            w = mv64(v64)
+            v64 = w / np.sqrt(w @ w + 1e-30)
+        lam64 = float(v64 @ mv64(v64))
+        if abs(lam - lam64) > 1e-4 * abs(lam64):
+            raise SystemExit(f"power iteration: {lam} against fp64 {lam64}")
+        res["power"] = {"lambda": lam, "lambda_fp64": lam64, **power_stats}
+        print(f"  power iteration (sym, 100 iterations): lambda {lam:.7g}, fp64 host "
+              f"{lam64:.7g} (relative {abs(lam - lam64) / abs(lam64):.2e}); graph = "
+              f"eager bits; {power_stats}")
+        print("  chunk sweep, cg at cant (whole solves, capturing and reusing the "
+              "loop; the graph's device time per iteration):")
+        res["sweep"] = {lab: chunk_sweep(lab, a, b, card, SOLVE_CHUNKS)
+                        for lab, a in (("cg csr", s_csr), ("cg sym", s_sym))}
+        print("  the same, a longer loop: tol 0, so cg runs until its float32 "
+              "residual underflows to 0:")
+        res["sweep"]["cg csr, tol 0"] = chunk_sweep("cg csr", s_csr, b, card,
+                                                    SOLVE_CHUNKS, tol=0.0)
+    finally:
+        solve._GraphLoop = solve_loop
+
+    # solve through the CLI, twice through one --cache-dir (the second run
+    # reads the triplets and both plans back)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".solve_") as d:
+        path = os.path.join(d, "cant_spd.mtx")
+        write_symmetric_mtx(path, n, *stri)
+        argv = ["solve", "--format", "csr", "--solver", "cg", "--tol", "1e-5",
+                "--matrix", path, "--cache-dir", os.path.join(d, "cache")]
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            if rc != 0:
+                raise SystemExit(f"python -m spmv_tpu_torch {' '.join(argv)}: {rc}")
+            print(f"  solve --format csr --solver cg ({run} cache): exit 0 in "
+                  f"{time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, **res}
+
+
 # the library yardstick of each kernel row: the key its timing is under,
 # and what it computes
 LIBRARY_CALLS = {
@@ -2238,7 +2616,21 @@ def main() -> int:
     launches.update({k: probe_launches[k] for k in PROBE_KERNELS})
     print(f"  phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 7. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
+    # 7. sym and the solvers at cant, with the counters from zero
+    print("phase 7: sym and solvers")
+    E.reset_launches()
+    solved = phase_solvers(cant, card)
+    missing = [k for k in ("seg_spmv_tiles", "carry_fixup", "seg_spmm_tiles",
+                           "carry_fixup_multi") if solved["launches"].get(k, 0) < 1]
+    if missing:
+        raise SystemExit(f"phase 7 did not launch {missing}")
+    for k, m in solved["launches"].items():
+        launches[k] += m
+    print(f"  phase 7 launches (sym matvec and spmm, the eager solves): "
+          f"{solved['launches']}")
+    print(f"  phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 8. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
     # SELL-C-σ panel the split builds there, K8-K10 on both at R = 4, the
     # probe kernels on the CSR plans), K1 and K12 at pl_big too
     errs.update(perrs)

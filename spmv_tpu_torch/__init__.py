@@ -7,12 +7,16 @@ CSR, COO and CMRS containers on the segmented engine's kernels
 (``kernels/csrc/seg_spmv.cu``), the ELL, SELL-C-σ and HYB containers on the
 panel engine's (``kernels/csrc/panel_spmv.cu``) with their CSR spill part,
 ``spmm`` (Y = A·X; R = 2..8 right-hand sides in one pass over each plan),
-the BSR container, and the fp64-grade mode (``X2Matrix``: fp64 plans on
-the fp64 kernels of both engines, for csr, coo, cmrs, ell, sell and hyb).
-``ROADMAP.md`` lists what is still to come.
+the BSR container, the fp64-grade mode (``X2Matrix``: fp64 plans on
+the fp64 kernels of both engines, for csr, coo, cmrs, ell, sell and hyb),
+the symmetric container (``SymmetricMatrix``: the lower triangle on two
+passes of the segmented engine), the Krylov solvers (``solve``: cg,
+bicgstab and power iteration, on the card as a CUDA graph of the iteration
+body) and the plan cache (``cache``). ``ROADMAP.md`` lists what is still to
+come.
 """
 
-from spmv_tpu_torch import device, oracle, synth
+from spmv_tpu_torch import cache, device, oracle, solve, synth
 from spmv_tpu_torch.api import (FORMATS, from_coo, from_reference, load, spmm,
                                 spmv)
 from spmv_tpu_torch.errors import ReturnCode
@@ -25,6 +29,7 @@ from spmv_tpu_torch.formats.hyb import HybMatrix
 from spmv_tpu_torch.formats.sell import SellMatrix
 from spmv_tpu_torch.io.mmio import read_coo
 from spmv_tpu_torch.oracle import check_result, default_x, golden_spmv
+from spmv_tpu_torch.sym import SymmetricMatrix
 from spmv_tpu_torch.x2 import X2_FORMATS, X2Matrix
 
 __all__ = [
@@ -42,13 +47,16 @@ __all__ = [
     "EllMatrix",
     "SellMatrix",
     "HybMatrix",
+    "SymmetricMatrix",
     "X2Matrix",
     "X2_FORMATS",
     "read_coo",
     "check_result",
     "default_x",
     "golden_spmv",
+    "cache",
     "device",
     "oracle",
+    "solve",
     "synth",
 ]

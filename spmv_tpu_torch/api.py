@@ -1,6 +1,6 @@
 """High-level API: load → convert → spmv / spmm.
 
-Counterpart of ``spmv_tpu/api.py`` for the formats ported so far.
+Counterpart of ``spmv_tpu/api.py``, for all eight formats.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from spmv_tpu_torch.formats.csr import CSRMatrix
 from spmv_tpu_torch.formats.ell import EllMatrix
 from spmv_tpu_torch.formats.hyb import HybMatrix
 from spmv_tpu_torch.formats.sell import SellMatrix
+from spmv_tpu_torch.sym import SymmetricMatrix
 
 __all__ = ["FORMATS", "NOT_PORTED", "from_coo", "load", "spmv", "spmm",
            "from_reference"]
@@ -29,16 +30,17 @@ FORMATS = {
     "cmrs": CMRSMatrix,
     "hyb": HybMatrix,  # ELL panel + CSR spill (the JAX framework extension)
     "bsr": BSRMatrix,  # 128x128 block-dense SpMM (the JAX framework extension)
+    "sym": SymmetricMatrix,  # lower-triangle storage, two segmented passes
 }
 
-# The JAX package's other formats, still to be ported (ROADMAP.md, queue A).
-NOT_PORTED = ("sym",)
+# The JAX package's formats still to be ported: none.
+NOT_PORTED = ()
 
 # JAX container class → port format name, for ``from_reference``
 _REFERENCE_CLASSES = {"COOMatrix": "coo", "CSRMatrix": "csr",
                       "CMRSMatrix": "cmrs", "EllMatrix": "ell",
                       "SellMatrix": "sell", "HybMatrix": "hyb",
-                      "BSRMatrix": "bsr"}
+                      "BSRMatrix": "bsr", "SymmetricMatrix": "sym"}
 # JAX container class → the construction parameters it carries
 _REFERENCE_KWARGS = {"CMRSMatrix": ("height",), "SellMatrix": ("sigma",),
                      "BSRMatrix": ("precision",)}
@@ -67,11 +69,17 @@ def load(path: str, format: str = "csr", *, device, synth: dict | None = None,
          **kwargs):
     """Read a MatrixMarket file (or synthesize a cant-like matrix when it is
     a git-LFS pointer or missing; ``synth`` kwargs go to
-    ``synth.synthetic_cant``) and convert it."""
+    ``synth.synthetic_cant``) and convert it. ``sym`` reads the stored
+    triangle of a symmetric file (no expansion), as
+    ``spmv_tpu/api.py:62-64`` does; a synthesized matrix, whose pattern is
+    not symmetric, is then folded onto its lower triangle (``sym``'s
+    semantics, kept for parity). The port has no size limit for ``sym``:
+    JAX's VMEM budget has no counterpart here."""
     from spmv_tpu_torch.io.mmio import read_path_or_synthesize
 
-    _format_class(format)  # refuse an unported format before reading
-    info, rows, cols, vals = read_path_or_synthesize(path, **(synth or {}))
+    _format_class(format)  # refuse an unknown format before reading
+    info, rows, cols, vals = read_path_or_synthesize(
+        path, expand_symmetry=format.lower() != "sym", **(synth or {}))
     return from_coo(format, info.nrows, info.ncols, rows, cols, vals,
                     device=device, **kwargs)
 
@@ -120,8 +128,9 @@ def from_reference(a, device):
     """The port's container holding the same matrix as the JAX package's
     container ``a``: its ``to_coo()`` triplets (fresh numpy copies, original
     order for COO) go through the port's ``from_coo``, with the CMRS height,
-    the SELL σ and the BSR precision. Needs no JAX import; the parity tests
-    use it."""
+    the SELL σ and the BSR precision; a ``SymmetricMatrix`` carries its
+    stored triangle (``tri_rows``, ``tri_cols``, ``tri_vals``), not its
+    expansion. Needs no JAX import; the parity tests use it."""
     kind = type(a).__name__
     if kind == "X2Matrix":
         raise NotImplementedError(
@@ -130,7 +139,11 @@ def from_reference(a, device):
     if kind not in _REFERENCE_CLASSES:
         raise NotImplementedError(
             f"{kind} has no PyTorch counterpart yet (see ROADMAP.md)")
-    rows, cols, vals = a.to_coo()
+    if kind == "SymmetricMatrix":
+        rows, cols, vals = (np.array(t, copy=True)
+                            for t in (a.tri_rows, a.tri_cols, a.tri_vals))
+    else:
+        rows, cols, vals = a.to_coo()
     kwargs = {k: getattr(a, k) for k in _REFERENCE_KWARGS.get(kind, ())}
     return from_coo(_REFERENCE_CLASSES[kind], a.nrows, a.ncols, rows, cols,
                     vals, device=device, **kwargs)

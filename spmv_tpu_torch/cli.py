@@ -3,10 +3,12 @@
     python -m spmv_tpu_torch run  --format csr --matrix databases/cant.mtx
     python -m spmv_tpu_torch run  --format sell --rhs 4
     python -m spmv_tpu_torch run  --format csr --dtype f32x2
+    python -m spmv_tpu_torch solve --format csr --solver cg --cache-dir .cache
     python -m spmv_tpu_torch info --matrix m.mtx
     python -m spmv_tpu_torch devices
 
-Counterpart of ``spmv_tpu/cli.py`` (``run``, ``info``, ``devices``). ``run``
+Counterpart of ``spmv_tpu/cli.py`` (``run``, ``solve``, ``info``,
+``devices``; ``bench`` is not ported yet). ``run``
 mirrors one reference driver end to end: load (or synthesize) → convert →
 SpMV on the device → fp64 golden validation → a timed host SpMV beside it,
 with the reference's ``x[i] = i`` input (``coo.c:88-92``) by default. With
@@ -14,7 +16,10 @@ with the reference's ``x[i] = i`` input (``coo.c:88-92``) by default. With
 ``spmv_tpu/cli.py:197`` makes them) and validates every column. With
 ``--dtype f32x2`` it runs the fp64-grade mode (``x2.X2Matrix``; the port
 computes it in fp64) and validates at JAX's x2 criterion (``x2_check``),
-as ``spmv_tpu/cli.py:117-177`` does.
+as ``spmv_tpu/cli.py:117-177`` does. ``solve`` runs ``solve.cg``,
+``bicgstab`` or ``power_iteration`` and checks the residual again in fp64
+on the host, as ``spmv_tpu/cli.py:354-404`` does. ``--cache-dir`` keeps
+the parsed triplets and the built plans as ``.npz`` (``cache``).
 
 ``--device`` defaults to ``cuda``: without a card ``run`` stops with an
 error and does not carry on on the CPU. ``--device cpu`` is the explicit
@@ -33,13 +38,16 @@ import torch
 from spmv_tpu_torch.errors import ReturnCode
 
 FORMATS = ["coo", "csr", "ell", "sell", "cmrs", "hyb", "bsr"]
+# the formats ``solve`` takes: BSR's block-dense container is SpMM-shaped
+# (spmv_tpu/cli.py:384-386)
+SOLVE_FORMATS = FORMATS[:-1]
 
 
 def _load(args):
-    from spmv_tpu_torch.io import mmio
+    from spmv_tpu_torch.cache import load_triplets
 
     synth_kwargs = dict(n=args.synth_n) if args.synth_n else {}
-    return mmio.read_path_or_synthesize(args.matrix, **synth_kwargs)
+    return load_triplets(args.matrix, args.cache_dir, **synth_kwargs)
 
 
 def _make_x(mode: str, ncols: int, seed: int = 0) -> np.ndarray:
@@ -191,6 +199,58 @@ def cmd_run(args) -> int:
                     dtype=args.dtype)
 
 
+def cmd_solve(args) -> int:
+    """An iterative solve, or power iteration, around the format's SpMV
+    kernels (``solve``). One solve on a fresh container: the eager loop,
+    which a one-shot solve runs faster than a CUDA graph it would capture."""
+    import spmv_tpu_torch
+    from spmv_tpu_torch import solve
+    from spmv_tpu_torch.oracle import golden_spmv
+
+    why = _device_error(args.device)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return ReturnCode.DEVICE_ERROR
+    try:
+        info, rows, cols, vals = _load(args)
+    except Exception as e:  # any failure to read is FILE_ERROR, as in JAX
+        print(f"error reading {args.matrix}: {e}", file=sys.stderr)
+        return ReturnCode.FILE_ERROR
+    if info.nrows != info.ncols:
+        print(f"solve requires a square matrix, got "
+              f"{info.nrows}x{info.ncols}", file=sys.stderr)
+        return ReturnCode.OTHER_ERROR
+    try:
+        a = spmv_tpu_torch.from_coo(args.format, info.nrows, info.ncols,
+                                    rows, cols, vals, device=args.device)
+    except Exception as e:
+        print(f"{args.format}: {type(e).__name__}: {e}", file=sys.stderr)
+        return ReturnCode.PROGRAM_ERROR
+
+    if args.solver == "power":
+        t0 = time.perf_counter()
+        lam, _ = solve.power_iteration(a, iters=args.maxiter)
+        dt = time.perf_counter() - t0
+        print(f"power iteration: |lambda_max| ~= {lam:.6e} "
+              f"({args.maxiter} iterations, {dt * 1e3:.1f} ms)")
+        return ReturnCode.SUCCESS
+
+    b = _make_x(args.b, info.nrows, args.seed)
+    fn = solve.cg if args.solver == "cg" else solve.bicgstab
+    t0 = time.perf_counter()
+    x, iters, res = fn(a, b, tol=args.tol, maxiter=args.maxiter)
+    dt = time.perf_counter() - t0
+    r64 = golden_spmv(info.nrows, rows, cols, vals, x.cpu().numpy().astype(np.float64))
+    rel = float(np.linalg.norm(r64 - b) / max(np.linalg.norm(b), 1e-30))
+    # JAX's rule, and a finite residual: a NaN also stops the loop early,
+    # which the rule alone would call converged
+    converged = (iters < args.maxiter or rel <= args.tol * 10) and np.isfinite(rel)
+    print(f"{args.solver}: {iters} iterations, {dt * 1e3:.1f} ms, "
+          f"device residual {res:.3e}, fp64 relative residual {rel:.3e}"
+          f" ({'converged' if converged else 'NOT converged'})")
+    return ReturnCode.SUCCESS if converged else ReturnCode.VALIDATION_FAILED
+
+
 def cmd_info(args) -> int:
     try:
         info, rows, cols, vals = _load(args)
@@ -234,6 +294,8 @@ def main(argv=None) -> int:
                              "synthesized)")
         sp.add_argument("--synth-n", type=int, default=0,
                         help="synthesis size when the matrix file is absent")
+        sp.add_argument("--cache-dir", default="",
+                        help="npz cache of parsed triplets and built plans")
 
     r = sub.add_parser("run", help="one format end-to-end with validation")
     common(r)
@@ -250,6 +312,22 @@ def main(argv=None) -> int:
                    help="cuda (default; fails without a card) or cpu")
     r.set_defaults(fn=cmd_run)
 
+    s = sub.add_parser("solve", help="iterative solve (CG/BiCGSTAB) or power "
+                                     "iteration around the SpMV kernels")
+    common(s)
+    s.add_argument("--format", default="csr", choices=SOLVE_FORMATS)
+    s.add_argument("--solver", default="bicgstab",
+                   choices=["cg", "bicgstab", "power"],
+                   help="cg assumes SPD; bicgstab handles general square")
+    s.add_argument("--b", default="random", choices=["index", "random"],
+                   help="right-hand side")
+    s.add_argument("--tol", type=float, default=1e-5)
+    s.add_argument("--maxiter", type=int, default=1000)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
+    s.set_defaults(fn=cmd_solve)
+
     i = sub.add_parser("info", help="matrix statistics")
     common(i)
     i.set_defaults(fn=cmd_info)
@@ -258,7 +336,10 @@ def main(argv=None) -> int:
     d.set_defaults(fn=cmd_devices)
 
     args = p.parse_args(argv)
-    return int(args.fn(args))
+    from spmv_tpu_torch.cache import plan_cache
+
+    with plan_cache(getattr(args, "cache_dir", "") or None):
+        return int(args.fn(args))
 
 
 if __name__ == "__main__":

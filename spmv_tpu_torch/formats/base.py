@@ -61,6 +61,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from spmv_tpu_torch import cache as _cache
+
 __all__ = ["CsrPlan", "TILE_NNZ", "ROW_STAGE", "build_csr_plan", "csr_ptr",
            "cdiv", "row_spans", "PanelPlan", "SLICE_ROWS", "TILE_COLS",
            "build_panel_plan"]
@@ -144,7 +146,8 @@ def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
     a smaller tile lets the plain versions exercise many tile boundaries
     on a small matrix. ``dtype`` is the values' type: float32, or float64
     for the fp64-grade mode (``x2.X2Matrix``); the pattern arrays do not
-    depend on it.
+    depend on it. While a plan cache is set (``cache.plan_cache``) a plan
+    of the same inputs, tile and dtype is read back instead of built.
     """
     nrows, ncols, tile = int(nrows), int(ncols), int(tile)
     ptr = np.asarray(ptr, dtype=np.int64)
@@ -168,6 +171,11 @@ def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
         raise ValueError(f"{nrows} rows / {nnz} nonzeros exceed int32 "
                          "indexing")
 
+    key = ("csr", (ptr, cols, vals), nrows, ncols,
+           {"tile": tile, "dtype": np.dtype(dtype).name})
+    hit = _cache.plan_lookup(*key, CsrPlan)
+    if hit is not None:
+        return hit
     ntiles = cdiv(nnz, tile)
     if nnz:
         first = np.minimum(np.arange(ntiles + 1, dtype=np.int64) * tile,
@@ -179,7 +187,7 @@ def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
         tile_row0 = np.zeros(1, dtype=np.int64)
     starts, ends = ptr[:-1], ptr[1:]
     split = (ends > starts) & (starts // tile != (ends - 1) // tile)
-    return CsrPlan(
+    plan = CsrPlan(
         nrows=nrows, ncols=ncols,
         ptr=ptr.astype(np.int32),
         cols=np.ascontiguousarray(cols, dtype=np.int32),
@@ -188,6 +196,8 @@ def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
         carry_rows=np.flatnonzero(split).astype(np.int32),
         tile=tile,
     )
+    _cache.plan_store(*key, plan)
+    return plan
 
 
 @dataclass(frozen=True)
@@ -239,7 +249,7 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
     ``tile`` is the K4 tile in slice columns. The CUDA kernel takes only
     ``TILE_COLS``; a smaller tile lets the plain versions exercise many
     tile boundaries on a small matrix. ``dtype`` is the values' type, as
-    in ``build_csr_plan``.
+    in ``build_csr_plan``, and so is the plan cache.
     """
     nrows, ncols, tile = int(nrows), int(ncols), int(tile)
     rows = np.asarray(rows, dtype=np.int64)
@@ -259,6 +269,11 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
     if nnz and (cols.min() < 0 or cols.max() >= ncols):
         raise ValueError("column index out of bounds")
 
+    key = ("panel", (rows, cols, vals), nrows, ncols,
+           {"tile": tile, "dtype": np.dtype(dtype).name})
+    hit = _cache.plan_lookup(*key, PanelPlan)
+    if hit is not None:
+        return hit
     c = SLICE_ROWS
     nslices = cdiv(nrows, c)
     lengths = np.zeros(nslices * c, dtype=np.int64)
@@ -296,9 +311,11 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
     tile_own0 = np.append(np.searchsorted(cs, np.arange(ntiles) * tile, side="left"),
                           nslices)
     split = (ce > cs) & (cs // tile != (ce - 1) // tile)
-    return PanelPlan(
+    plan = PanelPlan(
         nrows=nrows, ncols=ncols, nnz=nnz, slice_ptr=slice_ptr,
         widths=widths, vals=vals_p, cols=cols_p,
         tile_slice0=tile_slice0.astype(np.int32),
         tile_own0=tile_own0.astype(np.int32),
         split_slices=np.flatnonzero(split).astype(np.int32), tile=tile)
+    _cache.plan_store(*key, plan)
+    return plan

@@ -1,5 +1,6 @@
-"""``python -m spmv_tpu_torch``: the run / info / devices commands on the
-CPU route, and no hidden CPU fallback on the default CUDA route."""
+"""``python -m spmv_tpu_torch``: the run / solve / info / devices commands
+on the CPU route, ``--cache-dir``, and no hidden CPU fallback on the
+default CUDA route."""
 
 import subprocess
 import sys
@@ -161,3 +162,172 @@ def test_any_exception_while_loading_returns_file_error(capsys, monkeypatch):
     rc = cli.main([*args, "--device", "cpu"])
     assert "unreadable" in capsys.readouterr().err
     assert rc == spmv_tpu.cli.main(args) == ReturnCode.FILE_ERROR
+
+
+# ---------------------------------------------------------------- solve
+
+
+def spd_file(tmp_path, m=8):
+    """The 5-point Laplacian on an m×m grid plus 0.05·I, as a general .mtx."""
+    n = m * m
+    A = np.zeros((n, n))
+    for i in range(m):
+        for j in range(m):
+            k = i * m + j
+            A[k, k] = 4.05
+            for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                if 0 <= i + di < m and 0 <= j + dj < m:
+                    A[k, (i + di) * m + j + dj] = -1
+    r, c = np.nonzero(A)
+    path = tmp_path / "spd.mtx"
+    path.write_text(f"%%MatrixMarket matrix coordinate real general\n{n} {n} {r.size}\n"
+                    + "".join(f"{i + 1} {j + 1} {float(A[i, j])!r}\n" for i, j in zip(r, c)))
+    return str(path)
+
+
+def _iterations(out: str) -> int:
+    return int(out.split(" iterations")[0].split()[-1])
+
+
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+def test_solve_matches_jax_on_the_cpu_route(capsys, tmp_path, solver):
+    import spmv_tpu.cli
+
+    args = ["solve", "--format", "csr", "--solver", solver, "--matrix",
+            spd_file(tmp_path), "--tol", "1e-6"]
+    assert cli.main([*args, "--device", "cpu"]) == ReturnCode.SUCCESS
+    port = capsys.readouterr().out
+    assert spmv_tpu.cli.main(args) == ReturnCode.SUCCESS
+    jax_out = capsys.readouterr().out
+    assert port.startswith(f"{solver}: ") and "(converged)" in port
+    assert abs(_iterations(port) - _iterations(jax_out)) <= 2
+    rel = float(port.split("fp64 relative residual ")[1].split()[0])
+    assert rel < 1e-5
+
+
+def test_solve_power_matches_jax(capsys, tmp_path):
+    import spmv_tpu.cli
+
+    args = ["solve", "--solver", "power", "--maxiter", "200", "--matrix",
+            spd_file(tmp_path)]
+    assert cli.main([*args, "--device", "cpu"]) == ReturnCode.SUCCESS
+    port = capsys.readouterr().out
+    assert spmv_tpu.cli.main(args) == ReturnCode.SUCCESS
+    jax_out = capsys.readouterr().out
+
+    def lam(text):
+        return float(text.split("~= ")[1].split()[0])
+
+    assert abs(lam(port) - lam(jax_out)) / lam(jax_out) < 1e-3
+    assert "(200 iterations" in port
+
+
+@pytest.mark.parametrize("fmt", cli.SOLVE_FORMATS)
+def test_solve_every_format_in_process(capsys, tmp_path, fmt):
+    rc = cli.main(["solve", "--format", fmt, "--solver", "cg", "--matrix",
+                   spd_file(tmp_path), "--device", "cpu"])
+    assert rc == ReturnCode.SUCCESS
+    assert "(converged)" in capsys.readouterr().out
+
+
+def test_solve_exit_codes_match_jax(capsys, tmp_path, monkeypatch):
+    """OTHER_ERROR (4) for a non-square matrix, VALIDATION_FAILED (5) when
+    neither the count nor the fp64 residual says converged, PROGRAM_ERROR
+    (2) for a conversion error, as ``spmv_tpu/cli.py:354-404`` returns."""
+    import spmv_tpu
+    import spmv_tpu.cli
+
+    rect = tmp_path / "rect.mtx"
+    rect.write_text("%%MatrixMarket matrix coordinate real general\n3 4 2\n1 1 1\n3 4 2\n")
+    spd = spd_file(tmp_path)
+    cases = [
+        (["--matrix", str(rect)], ReturnCode.OTHER_ERROR),
+        (["--matrix", spd, "--solver", "cg", "--tol", "1e-12", "--maxiter", "2"],
+         ReturnCode.VALIDATION_FAILED),
+    ]
+    for extra, code in cases:
+        rc = cli.main(["solve", *extra, "--device", "cpu"])
+        assert rc == spmv_tpu.cli.main(["solve", *extra]) == code, extra
+    assert "solve requires a square matrix, got 3x4" in capsys.readouterr().err
+
+    def refuse(*args, **kwargs):
+        raise ValueError("refused")
+
+    monkeypatch.setattr("spmv_tpu_torch.from_coo", refuse)
+    monkeypatch.setattr(spmv_tpu, "from_coo", refuse)
+    rc = cli.main(["solve", "--matrix", spd, "--device", "cpu"])
+    assert rc == spmv_tpu.cli.main(["solve", "--matrix", spd]) == ReturnCode.PROGRAM_ERROR
+    assert "csr: ValueError: refused" in capsys.readouterr().err
+    for main in (cli.main, spmv_tpu.cli.main):  # BSR is SpMM-shaped
+        with pytest.raises(SystemExit) as e:
+            main(["solve", "--format", "bsr"])
+        assert e.value.code == 2
+    capsys.readouterr()
+
+
+def test_solve_without_a_card_stops(capsys, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    rc = cli.main(["solve", "--matrix", spd_file(tmp_path)])
+    assert rc == ReturnCode.DEVICE_ERROR
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", [["run", "--format", "sell"], ["info"],
+                                 ["solve", "--format", "hyb", "--solver", "cg"]])
+def test_cache_dir_keeps_triplets_and_plans(capsys, tmp_path, monkeypatch, cmd):
+    from spmv_tpu_torch import cache
+    from spmv_tpu_torch.io import mmio
+
+    d = tmp_path / "cache"
+    device = [] if cmd[0] == "info" else ["--device", "cpu"]
+    args = [*cmd, "--matrix", spd_file(tmp_path), "--cache-dir", str(d), *device]
+    assert cli.main(args) == ReturnCode.SUCCESS
+    first = capsys.readouterr().out
+    files = sorted(p.name for p in d.iterdir())
+    assert any("coo-triplets" in f for f in files)
+    assert any(f.startswith("plan-") for f in files) == (cmd[0] != "info")
+    assert cache._PLAN_CACHE_DIR is None  # main restores the setting
+
+    def no_parse(*a, **k):
+        raise AssertionError("parsed again")
+
+    monkeypatch.setattr(mmio, "read_path_or_synthesize", no_parse)
+    assert cli.main(args) == ReturnCode.SUCCESS
+    second = capsys.readouterr().out
+    assert sorted(p.name for p in d.iterdir()) == files
+
+    def strip_times(text):
+        return [ln.split(" ms")[0] if "CPU:" in ln else ln.split(",")[0]
+                for ln in text.splitlines() if "CPU:" not in ln]
+
+    assert strip_times(first) == strip_times(second)
+
+
+def test_solve_on_an_indefinite_matrix_is_not_converged_as_in_jax(capsys, tmp_path):
+    """cg on the indefinite cant proxy: the two packages' float32 paths part
+    after a few iterations (here the port's may overflow to NaN, which
+    stops its loop early, while JAX's stays finite and runs to maxiter);
+    both CLIs return VALIDATION_FAILED."""
+    import spmv_tpu.cli
+
+    args = ["solve", "--format", "csr", "--solver", "cg", "--maxiter", "20",
+            "--synth-n", "3000", "--matrix", str(tmp_path / "missing.mtx")]
+    rc = cli.main([*args, "--device", "cpu"])
+    assert "NOT converged" in capsys.readouterr().out
+    assert rc == spmv_tpu.cli.main(args) == ReturnCode.VALIDATION_FAILED
+
+
+def test_solve_calls_a_nan_residual_not_converged(capsys, tmp_path, monkeypatch):
+    """A NaN stops the loop before maxiter, and JAX's rule alone ("iters <
+    maxiter") would call that converged; the port asks for a finite
+    residual too."""
+    from spmv_tpu_torch import solve
+
+    monkeypatch.setattr(solve, "cg", lambda a, b, **kw: (
+        torch.full((a.nrows,), float("nan")), 3, float("nan")))
+    rc = cli.main(["solve", "--solver", "cg", "--matrix", spd_file(tmp_path),
+                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "cg: 3 iterations" in out and "NOT converged" in out
+    assert rc == ReturnCode.VALIDATION_FAILED

@@ -170,15 +170,22 @@ def test_from_reference_carries_a_jax_container_across(fmt):
 
 
 def test_unported_formats_say_so():
+    """Every JAX format is ported (sym was the last); a JAX container with
+    no counterpart (the tiled and distributed ones) still says so, and an
+    unknown format name is refused."""
     info, r, c, v = synth.edge_case("dense_small")
     sym = spmv_tpu.from_coo("sym", info.nrows, info.ncols, r[r >= c], c[r >= c],
                             v[r >= c])
+    assert type(spmv_tpu_torch.from_reference(sym, device="cpu")).__name__ == \
+        "SymmetricMatrix"
+    assert spmv_tpu_torch.api.NOT_PORTED == ()
+    assert sorted(spmv_tpu_torch.FORMATS) == sorted(spmv_tpu.api.FORMATS)
+
+    class TiledSpmv:  # the name of a JAX container the port has no counterpart of
+        pass
+
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        spmv_tpu_torch.from_reference(sym, device="cpu")
-    assert spmv_tpu_torch.api.NOT_PORTED == ("sym",)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        spmv_tpu_torch.from_coo("sym", info.nrows, info.ncols, r, c, v,
-                                device="cpu")
+        spmv_tpu_torch.from_reference(TiledSpmv(), device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
         spmv_tpu_torch.from_coo("nope", info.nrows, info.ncols, r, c, v,
                                 device="cpu")

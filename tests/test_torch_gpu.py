@@ -1026,3 +1026,109 @@ def test_probe_timing_on_the_card(cuda):
     for m in res["members"].values():
         assert m["warm_ms"] > 0 and m["cold_ms"] > 0 and m["bound_ms"] > 0
     assert res["card"] and all(res["card"] in ln for ln in lines if " warm " in ln)
+
+
+# ---------------------------------------------------------------- solvers
+
+
+def shifted_system(n, nnz_row, seed, sym):
+    """The cant generator's lower triangle, expanded, with each diagonal
+    entry set to 1 + its row's off-diagonal absolute sum: SPD by Gershgorin.
+    ``sym`` gives the stored triangle (sym's input), else the expansion."""
+    info, r, c, v = synth.synthetic_cant(n=n, avg_nnz_per_row=nnz_row,
+                                         bandwidth=min(350, n // 4), seed=seed)
+    low = r > c
+    r, c, v = r[low], c[low], v[low]
+    diag = 1 + np.bincount(r, np.abs(v), n) + np.bincount(c, np.abs(v), n)
+    d = np.arange(n)
+    if sym:
+        return n, np.concatenate([r, d]), np.concatenate([c, d]), np.concatenate([v, diag])
+    return (n, np.concatenate([r, c, d]), np.concatenate([c, r, d]),
+            np.concatenate([v, v, diag]))
+
+
+# "large" plans are over FUSED_STREAM_BYTES_MAX: K1 + K2 (K4 + K7) per matvec
+SOLVE_SIZES = {"small": (2000, 12), "large": (40000, 24)}
+
+
+def solver_container(fmt, size, device):
+    import spmv_tpu_torch
+
+    n, r, c, v = shifted_system(*SOLVE_SIZES[size], seed=4, sym=fmt == "sym")
+    return spmv_tpu_torch.from_coo(fmt, n, n, r, c, v, device=device)
+
+
+@pytest.mark.parametrize("size", sorted(SOLVE_SIZES))
+@pytest.mark.parametrize("fmt", ["csr", "sym", "sell", "hyb"])
+def test_cg_graph_loop_is_the_eager_loops_bits(cuda, monkeypatch, fmt, size):
+    """The CUDA graph of masked iteration bodies gives the eager loop's
+    iteration count, x and residual bit for bit, reading one flag on the
+    host per replay and none inside a chunk. A container's first solve
+    runs the eager loop; the second captures the graph."""
+    import math
+
+    from spmv_tpu_torch import solve
+
+    rng = np.random.default_rng(1)
+    for chunk in (solve.GRAPH_CHUNK, 5):
+        monkeypatch.setattr(solve, "GRAPH_CHUNK", chunk)
+        a = solver_container(fmt, size, cuda)
+        b = rng.standard_normal(a.nrows).astype(np.float32)
+        x0, k0, res0 = solve.cg(a, b, tol=1e-6, _graph=False)
+        solve.cg(a, b, tol=1e-6)  # the first solve: eager, nothing captured
+        assert a._graph_loops == {"cg": None}
+        x1, k1, res1 = solve.cg(a, b, tol=1e-6)
+        assert torch.equal(x0, x1) and k0 == k1 and res0 == res1, (k0, k1)
+        loop = a._graph_loops["cg"]
+        assert (loop.chunk, loop.replays, loop.host_reads) == (
+            chunk, math.ceil(k1 / chunk), math.ceil(k1 / chunk) + 1)
+    assert 0 < k0 < 1000 and x1.device.type == "cuda"
+    b2 = rng.standard_normal(a.nrows).astype(np.float32)  # the loop reused
+    x2, k2, res2 = solve.cg(a, b2, tol=1e-5, maxiter=900)
+    assert a._graph_loops == {"cg": loop}
+    assert (x2, k2, res2)[1:] == solve.cg(a, b2, tol=1e-5, maxiter=900, _graph=False)[1:]
+    assert torch.equal(x2, solve.cg(a, b2, tol=1e-5, maxiter=900, _graph=False)[0])
+    assert torch.equal(x1, x0)  # an earlier x is not the loop's tensor
+
+
+@pytest.mark.parametrize("fmt", ["csr", "sym"])
+def test_bicgstab_and_power_graph_loops_are_the_eager_bits(cuda, fmt):
+    from spmv_tpu_torch import solve
+
+    a = solver_container(fmt, "large", cuda)
+    b = np.random.default_rng(2).standard_normal(a.nrows).astype(np.float32)
+    x0, k0, res0 = solve.bicgstab(a, b, tol=1e-6, _graph=False)
+    for _ in range(2):  # eager, then the captured loop
+        x1, k1, res1 = solve.bicgstab(a, b, tol=1e-6)
+        assert torch.equal(x0, x1) and k0 == k1 and res0 == res1
+    assert a._graph_loops["bicgstab"].replays > 0
+    for iters in (1, 37, 37):  # eager, captured, reused at another count
+        lam0, v0 = solve.power_iteration(a, iters=iters, seed=3, _graph=False)
+        lam1, v1 = solve.power_iteration(a, iters=iters, seed=3)
+        assert lam0 == lam1 and torch.equal(v0, v1)
+    assert a._graph_loops["power_iteration"].host_reads == 0
+
+
+def test_a_failed_capture_raises_and_does_not_fall_back(cuda):
+    """A matvec that reads the device on the host cannot be captured: the
+    solve that captures raises instead of running the eager loop."""
+    from spmv_tpu_torch import solve
+
+    a = solver_container("csr", "small", cuda)
+
+    class Syncing:
+        nrows, ncols, dev = a.nrows, a.ncols, a.dev
+
+        def matvec(self, x):
+            y = a.matvec(x)
+            float(y[0])  # a host read: illegal while the stream is captured
+            return y
+
+    b = np.ones(a.nrows, np.float32)
+    syncing = Syncing()
+    solve.cg(syncing, b, tol=1e-6)  # the first solve runs eagerly
+    with pytest.raises(RuntimeError):
+        solve.cg(syncing, b, tol=1e-6)
+    torch.cuda.synchronize()
+    x, k, _ = solve.cg(a, b, tol=1e-6)  # the card is still usable
+    assert k > 0
