@@ -2,7 +2,8 @@
 kernels for NVIDIA Hopper (H100), ported from the JAX package ``spmv_tpu``.
 
 This package imports ``torch`` and never ``jax`` or ``spmv_tpu``. Ported so
-far: MatrixMarket reading, the synthetic generators, the fp64 oracle, the
+far: MatrixMarket reading and writing (``io.mmio``, with the C++ body
+parser of ``io.native``), the synthetic generators, the fp64 oracle, the
 CSR, COO and CMRS containers on the segmented engine's kernels
 (``kernels/csrc/seg_spmv.cu``), the ELL, SELL-C-σ and HYB containers on the
 panel engine's (``kernels/csrc/panel_spmv.cu``) with their CSR spill part,
@@ -12,8 +13,10 @@ the fp64 kernels of both engines, for csr, coo, cmrs, ell, sell and hyb),
 the symmetric container (``SymmetricMatrix``: the lower triangle on two
 passes of the segmented engine), the Krylov solvers (``solve``: cg,
 bicgstab and power iteration, on the card as a CUDA graph of the iteration
-body) and the plan cache (``cache``). ``ROADMAP.md`` lists what is still to
-come.
+body), the plan cache (``cache``) and the benchmark harness
+(``bench.runner``, ``python -m spmv_tpu_torch bench``). Still to come:
+distribution (sharded containers and ``bench --scaling``, ``ROADMAP.md``
+A.11).
 """
 
 from spmv_tpu_torch import cache, device, oracle, solve, synth

@@ -1,34 +1,54 @@
 """Command-line interface of the PyTorch port.
 
-    python -m spmv_tpu_torch run  --format csr --matrix databases/cant.mtx
-    python -m spmv_tpu_torch run  --format sell --rhs 4
-    python -m spmv_tpu_torch run  --format csr --dtype f32x2
+    python -m spmv_tpu_torch run   --format csr --matrix databases/cant.mtx
+    python -m spmv_tpu_torch run   --format sell --rhs 4
+    python -m spmv_tpu_torch run   --format csr --dtype f32x2 --bench --json r.json
+    python -m spmv_tpu_torch bench --formats all --probe-bw --json out.json
     python -m spmv_tpu_torch solve --format csr --solver cg --cache-dir .cache
-    python -m spmv_tpu_torch info --matrix m.mtx
+    python -m spmv_tpu_torch info  --matrix m.mtx
     python -m spmv_tpu_torch devices
 
-Counterpart of ``spmv_tpu/cli.py`` (``run``, ``solve``, ``info``,
-``devices``; ``bench`` is not ported yet). ``run``
-mirrors one reference driver end to end: load (or synthesize) → convert →
-SpMV on the device → fp64 golden validation → a timed host SpMV beside it,
-with the reference's ``x[i] = i`` input (``coo.c:88-92``) by default. With
-``--rhs R`` it runs ``spmm`` on R columns (column j made with seed + j, as
-``spmv_tpu/cli.py:197`` makes them) and validates every column. With
-``--dtype f32x2`` it runs the fp64-grade mode (``x2.X2Matrix``; the port
-computes it in fp64) and validates at JAX's x2 criterion (``x2_check``),
-as ``spmv_tpu/cli.py:117-177`` does. ``solve`` runs ``solve.cg``,
-``bicgstab`` or ``power_iteration`` and checks the residual again in fp64
-on the host, as ``spmv_tpu/cli.py:354-404`` does. ``--cache-dir`` keeps
-the parsed triplets and the built plans as ``.npz`` (``cache``).
+Counterpart of ``spmv_tpu/cli.py`` (``run``, ``bench``, ``solve``,
+``info``, ``devices``). ``run`` mirrors one reference driver end to end:
+load (or synthesize) → convert → SpMV on the device → fp64 golden
+validation → a timed host SpMV beside it, with the reference's ``x[i] =
+i`` input (``coo.c:88-92``) by default. With ``--rhs R`` it runs ``spmm``
+on R columns (column j made with seed + j, as ``spmv_tpu/cli.py:197``
+makes them) and validates every column. With ``--dtype f32x2`` it runs the
+fp64-grade mode (``x2.X2Matrix``; the port computes it in fp64) and
+validates at JAX's x2 criterion (``x2_check``), as
+``spmv_tpu/cli.py:117-177`` does. ``--bench`` then times the container
+(``bench.runner``; ``spmv_tpu/cli.py:227-250``) and ``--json`` writes the
+result.
 
-``--device`` defaults to ``cuda``: without a card ``run`` stops with an
-error and does not carry on on the CPU. ``--device cpu`` is the explicit
-CPU route, through the kernels' plain PyTorch versions.
+``bench`` (``spmv_tpu/cli.py:254-334``) times ``--formats`` (``all``: the
+six matvec formats, no bsr) interleaved in one rotation, with the
+co-sampled HBM ceiling under ``--probe-bw``; ``--rhs R`` > 1 or ``bsr``
+(R = 128 by default) time ``spmm``; ``--dtype f32x2`` the fp64-grade mode
+of the formats that have one. It prints one header line that names the
+card and its power limit, then JAX's line per format; ``--json`` writes
+``{format: result}``; ``--profile DIR`` writes a ``torch.profiler`` chrome
+trace of the run for viewing (no number is taken from it). JAX's
+``--scaling`` and ``--rows-per-device`` wait for the distribution slice
+(``ROADMAP.md`` A.11).
+
+``solve`` runs ``solve.cg``, ``bicgstab`` or ``power_iteration`` and checks
+the residual again in fp64 on the host, as ``spmv_tpu/cli.py:354-404``
+does. ``--cache-dir`` keeps the parsed triplets and the built plans as
+``.npz`` (``cache``).
+
+``--device`` defaults to ``cuda``: without a card ``run``, ``bench`` and
+``solve`` stop with an error and do not carry on on the CPU. ``--device
+cpu`` is the explicit CPU route, through the kernels' plain PyTorch
+versions; there ``bench`` times with the host clock and names no card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
 import sys
 import time
 
@@ -38,9 +58,11 @@ import torch
 from spmv_tpu_torch.errors import ReturnCode
 
 FORMATS = ["coo", "csr", "ell", "sell", "cmrs", "hyb", "bsr"]
-# the formats ``solve`` takes: BSR's block-dense container is SpMM-shaped
-# (spmv_tpu/cli.py:384-386)
-SOLVE_FORMATS = FORMATS[:-1]
+# JAX's ALL_FORMATS (spmv_tpu/cli.py:27), the matvec suite of ``bench
+# --formats all``; ``solve`` takes the same, as BSR's block-dense container
+# is SpMM-shaped (spmv_tpu/cli.py:384-386)
+ALL_FORMATS = FORMATS[:-1]
+SOLVE_FORMATS = ALL_FORMATS
 
 
 def _load(args):
@@ -108,13 +130,15 @@ def _validate_x2(info, rows, cols, vals, x, y):
 
 def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
              seed: int = 0, device: str = "cuda", rhs: int = 1,
-             dtype: str = "f32") -> int:
+             dtype: str = "f32", bench: bool = False, json_path: str = "") -> int:
     """Convert, run one SpMV (or with ``rhs`` > 1 one SpMM on ``rhs``
     columns) on ``device``, validate against the fp64 oracle and print the
     verdict; the ``run`` command after loading (which has checked that
     ``device`` is usable). ``dtype="f32x2"`` runs the fp64-grade mode:
     ``X2Matrix``, an fp64 x (column j from seed + j), fp64 y, every column
-    held to ``x2_check``."""
+    held to ``x2_check``. ``bench`` then times the container (``spmm`` at
+    ``rhs`` > 1, the fp64-grade ``matvec`` in any case, as JAX's ``run``
+    does) and ``json_path`` receives the result."""
     import spmv_tpu_torch
     from spmv_tpu_torch.kernels import engines
 
@@ -174,14 +198,51 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
         rep = check(info, rows, cols, vals, x, y)
         print(f"{rep}  [f32x2]" if x2 else rep)
         _cpu_comparison(info, rows, cols, vals, x)
-        return ReturnCode.SUCCESS if rep.ok else ReturnCode.VALIDATION_FAILED
-    reps = [check(info, rows, cols, vals, X[:, j], Y[:, j]) for j in range(rhs)]
-    bad = next((j for j, rep in enumerate(reps) if not rep.ok), None)
-    if bad is not None:  # the first failing column, not the last one checked
-        print(f"{reps[bad]}  [{tag}column {bad} of {rhs} right-hand sides]")
-        return ReturnCode.VALIDATION_FAILED
-    print(f"{reps[-1]}  [{tag}{rhs} right-hand sides]")
-    return ReturnCode.SUCCESS
+        ok = rep.ok
+    else:
+        reps = [check(info, rows, cols, vals, X[:, j], Y[:, j]) for j in range(rhs)]
+        bad = next((j for j, rep in enumerate(reps) if not rep.ok), None)
+        if bad is not None:  # the first failing column, not the last one checked
+            print(f"{reps[bad]}  [{tag}column {bad} of {rhs} right-hand sides]")
+        else:
+            print(f"{reps[-1]}  [{tag}{rhs} right-hand sides]")
+        ok = bad is None
+    if bench:
+        _bench_run(a, f"{fmt}/x2" if x2 else fmt, 1 if x2 else rhs, json_path)
+    return ReturnCode.SUCCESS if ok else ReturnCode.VALIDATION_FAILED
+
+
+def _where(card: str | None) -> str:
+    return f"[{card}]" if card else "[host clock, no card]"
+
+
+def _roofline(r) -> str:
+    return ("roofline not measured" if r.roofline_pct is None
+            else f"{r.roofline_pct:4.1f}% roofline")
+
+
+def _bench_run(a, name: str, rhs: int, json_path: str) -> None:
+    """``run --bench``: one container timed (``spmv_tpu/cli.py:227-250``)."""
+    from spmv_tpu_torch.bench.runner import bench_format, bench_spmm
+
+    if rhs > 1:
+        d = bench_spmm(a, name, rhs)
+        print(f"{d['ms_per_spmm']:.3f} ms/SpMM  {d['gnnzvec_per_s']:.2f} Gnnz·vec/s  "
+              f"{d['gflops']:.1f} GFLOP/s (R={rhs}, {d['timing']})  {_where(d['card'])}")
+    else:
+        r = bench_format(a, name)
+        d = r.to_dict()
+        print(f"{r.ms_per_spmv:.3f} ms/SpMV  {r.gnnz_per_s:.2f} Gnnz/s  "
+              f"{r.gflops:.1f} GFLOP/s  {r.effective_gbps:.0f} GB/s effective "
+              f"({_roofline(r)}, cold {_ms(r.cold_ms_per_spmv)}, {r.timing})  "
+              f"{_where(r.card)}")
+    if json_path:
+        with open(json_path, "w") as f:
+            json.dump(d, f, indent=2)
+
+
+def _ms(v: float | None) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def cmd_run(args) -> int:
@@ -196,7 +257,104 @@ def cmd_run(args) -> int:
         return ReturnCode.FILE_ERROR
     return run_spmv(args.format, info, rows, cols, vals, x_mode=args.x,
                     seed=args.seed, device=args.device, rhs=args.rhs,
-                    dtype=args.dtype)
+                    dtype=args.dtype, bench=args.bench, json_path=args.json)
+
+
+def _profiled(directory: str, device: torch.device):
+    """``--profile DIR``: a ``torch.profiler`` chrome trace of the block,
+    written to ``DIR/trace.json`` for viewing; no number is taken from it
+    (on the card's machine it drops kernel records, PERF.md)."""
+    if not directory:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(directory, exist_ok=True)
+    print(f"writing profiler trace to {directory}", file=sys.stderr)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if device.type == "cuda" else [])
+    prof = profile(activities=activities)
+
+    @contextlib.contextmanager
+    def run():
+        with prof:
+            yield
+        prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+    return run()
+
+
+def cmd_bench(args) -> int:
+    """Time ``--formats`` (``bench.runner``) and print JAX's line per format
+    (``spmv_tpu/cli.py:254-334``) after one header line with the card's
+    name and power limit. The matvec formats run interleaved in one
+    rotation (with the co-sampled HBM ceiling under ``--probe-bw``); the
+    ``spmm`` ones (``--rhs`` > 1, or bsr at R = 128) one after another."""
+    from spmv_tpu_torch import from_coo
+    from spmv_tpu_torch.bench.runner import bench_formats_interleaved, bench_spmm
+    from spmv_tpu_torch.probes.timing import card_line
+    from spmv_tpu_torch.x2 import X2_FORMATS, X2Matrix
+
+    why = _device_error(args.device)
+    if why is None and args.probe_bw and torch.device(args.device).type != "cuda":
+        why = "--probe-bw measures the HBM ceiling of a CUDA card"
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return ReturnCode.DEVICE_ERROR
+    try:
+        info, rows, cols, vals = _load(args)
+    except Exception as e:  # any failure to read is FILE_ERROR, as in JAX
+        print(f"error reading {args.matrix}: {e}", file=sys.stderr)
+        return ReturnCode.FILE_ERROR
+    device = torch.device(args.device)
+    formats = ALL_FORMATS if args.formats == "all" else args.formats.split(",")
+    rhs = max(int(args.rhs), 1)
+    x2 = args.dtype == "f32x2"
+    if x2:
+        formats = [f for f in formats if f in X2_FORMATS]
+    card = card_line(device) if device.type == "cuda" else None
+    print(f"bench: {info.nrows} x {info.ncols}, nnz {rows.size}, formats "
+          f"{','.join(formats)}{' f32x2' if x2 else ''} on {device}  {_where(card)}")
+    results, lines = {}, {}
+    try:
+        with _profiled(args.profile, device):
+            spmv = {}
+            for fmt in formats:
+                if x2:
+                    spmv[f"{fmt}/x2"] = X2Matrix.from_coo(
+                        fmt, info.nrows, info.ncols, rows, cols, vals, device=device)
+                    continue
+                a = from_coo(fmt, info.nrows, info.ncols, rows, cols, vals, device=device)
+                if rhs > 1 or fmt == "bsr":
+                    d = bench_spmm(a, fmt, rhs if rhs > 1 else 128)
+                    results[fmt] = d
+                    lines[fmt] = (f"{fmt:5s}: {d['ms_per_spmm']:7.3f} ms  "
+                                  f"{d['gnnzvec_per_s']:6.2f} Gnnz·vec/s "
+                                  f"{d['gflops']:8.1f} GFLOP/s  (R={d['rhs']}, "
+                                  f"{d['timing']})")
+                    del a
+                else:
+                    spmv[fmt] = a
+            if spmv:
+                out = bench_formats_interleaved(spmv, probe=args.probe_bw)
+                timed, bw = out if args.probe_bw else (out, None)
+                if bw is not None:
+                    print(f"HBM ceiling (co-sampled hbm member, warm): {bw / 1e9:.1f} GB/s")
+                for name, r in timed.items():
+                    results[name] = r.to_dict()
+                    label = name if x2 else f"{name:5s}"
+                    lines[name] = (f"{label}: {r.ms_per_spmv:7.3f} ms  "
+                                   f"{r.gnnz_per_s:6.2f} Gnnz/s {r.gflops:8.1f} GFLOP/s  "
+                                   f"{_roofline(r)} (pad "
+                                   f"{r.padded_slots / max(r.nnz, 1):.2f}x; cold "
+                                   f"{_ms(r.cold_ms_per_spmv)}, {r.timing})")
+    except (ValueError, NotImplementedError) as e:  # a matrix a format refuses
+        print(f"error: {e}", file=sys.stderr)
+        return ReturnCode.PROGRAM_ERROR
+    for name in (f"{f}/x2" if x2 else f for f in formats):
+        print(lines[name])
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(results, f, indent=2)
+    return ReturnCode.SUCCESS
 
 
 def cmd_solve(args) -> int:
@@ -310,7 +468,29 @@ def main(argv=None) -> int:
                         "fp64 here), validated at the reference's 1e-6")
     r.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    r.add_argument("--bench", action="store_true",
+                   help="time the container after the check (bench.runner)")
+    r.add_argument("--json", default="", help="write the --bench result here")
     r.set_defaults(fn=cmd_run)
+
+    b = sub.add_parser("bench", help="benchmark formats")
+    common(b)
+    b.add_argument("--formats", default="all",
+                   help="comma-separated, or all (the six matvec formats)")
+    b.add_argument("--probe-bw", action="store_true",
+                   help="co-sample the HBM ceiling for the roofline (a card only)")
+    b.add_argument("--rhs", type=int, default=1,
+                   help="right-hand sides: >1 benches SpMM instead of SpMV "
+                        "(bsr defaults to R=128 even without this flag)")
+    b.add_argument("--dtype", default="f32", choices=["f32", "f32x2"],
+                   help="f32x2 benches the fp64-grade mode (csr/coo/cmrs/ell/"
+                        "sell/hyb)")
+    b.add_argument("--profile", default="",
+                   help="directory for a torch.profiler chrome trace of the bench")
+    b.add_argument("--json", default="")
+    b.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu (host clock)")
+    b.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser("solve", help="iterative solve (CG/BiCGSTAB) or power "
                                      "iteration around the SpMV kernels")

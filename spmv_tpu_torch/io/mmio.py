@@ -1,12 +1,14 @@
-"""MatrixMarket (``.mtx``) reading, pure NumPy.
+"""MatrixMarket (``.mtx``) I/O.
 
-The read half of ``spmv_tpu/io/mmio.py``, copied: that module belongs to
-the JAX package, whose import pulls in JAX. It reads coordinate bodies
-(real, integer, pattern, complex) and expands symmetric, skew-symmetric
-and hermitian storage; ``read_banner`` also accepts dense ``array``
-banners. The body parser is ``np.fromfile(sep=' ')``; the JAX package's
-optional C++ parser (``spmv_tpu/io/native.py``) is not ported yet
-(``ROADMAP.md``). The write path and dense reads are not ported either.
+``spmv_tpu/io/mmio.py``, copied: that module belongs to the JAX package,
+whose import pulls in JAX. It reads coordinate bodies (real, integer,
+pattern, complex) and dense ``array`` bodies (``read_dense``), expands
+symmetric, skew-symmetric and hermitian storage, and writes coordinate
+(``write_coo``) and dense (``write_dense``) files, byte for byte as the JAX
+package writes them, so files move between the two packages. A ``.gz``
+path is read and written through gzip. A coordinate body is parsed by the
+C++ parser (``io.native``) where it builds, else by
+``np.fromfile(sep=' ')``, as in JAX.
 
 Everything returns 0-based indices (the reference decrements in each driver,
 ``coo.c:82-83``).
@@ -25,6 +27,9 @@ __all__ = [
     "MMError",
     "read_banner",
     "read_coo",
+    "write_coo",
+    "read_dense",
+    "write_dense",
     "typecode_str",
     "is_real_mtx",
     "read_path_or_synthesize",
@@ -92,8 +97,20 @@ def _open(path_or_file):
     if str(path_or_file).endswith(".gz"):
         import gzip
 
+        # GzipFile streams, so the body parsers' seekable fromfile path is
+        # skipped; the native parser reads the decompressed buffer whole
         return gzip.open(path_or_file, "rb"), True
     return open(path_or_file, "rb"), True
+
+
+def _open_w(path_or_file):
+    if hasattr(path_or_file, "write"):
+        return path_or_file, False
+    if str(path_or_file).endswith(".gz"):
+        import gzip
+
+        return gzip.open(path_or_file, "wt"), True
+    return open(path_or_file, "w"), True
 
 
 def read_banner(path_or_file) -> MMInfo:
@@ -154,6 +171,22 @@ def _parse_body_tokens(f, count: int) -> np.ndarray:
     return toks
 
 
+def _try_native_body(f, nnz: int, tokens_per_entry: int):
+    """Parse the coordinate body with the C++ parser (``io.native``) when
+    it is available; None otherwise."""
+    from spmv_tpu_torch.io import native
+
+    if nnz == 0 or not native.available():
+        return None
+    buf = f.read()
+    if isinstance(buf, str):
+        buf = buf.encode("ascii", errors="replace")
+    try:
+        return native.parse_body(buf, nnz, tokens_per_entry)
+    except ValueError as e:
+        raise MMError(str(e)) from None
+
+
 def read_coo(
     path_or_file,
     *,
@@ -173,23 +206,37 @@ def read_coo(
         info = _read_banner_open(f)
         if info.format != "coordinate":
             raise MMError("read_coo requires coordinate format, file is "
-                          f"[{typecode_str(info)}]")
+                          f"[{typecode_str(info)}]; use read_dense")
 
         tokens_per_entry = {"real": 3, "integer": 3, "pattern": 2, "complex": 4}[
             info.field
         ]
-        toks = _parse_body_tokens(f, info.nnz * tokens_per_entry)
-        body = toks.reshape(info.nnz, tokens_per_entry)
-        rows = body[:, 0].astype(np.int64) - 1
-        cols = body[:, 1].astype(np.int64) - 1
-        if info.field == "pattern":
-            vals = np.ones(info.nnz, dtype=np.float64)
-        elif info.field == "complex":
-            vals = body[:, 2] + 1j * body[:, 3]
-            if not np.issubdtype(np.dtype(dtype), np.complexfloating):
-                vals = vals.real
+        native_result = _try_native_body(f, info.nnz, tokens_per_entry)
+        if native_result is not None:
+            nrows_, ncols_, nvals_ = native_result
+            rows = nrows_.astype(np.int64) - 1
+            cols = ncols_.astype(np.int64) - 1
+            if info.field == "pattern":
+                vals = np.ones(info.nnz, dtype=np.float64)
+            elif info.field == "complex":
+                vals = nvals_[0::2] + 1j * nvals_[1::2]
+                if not np.issubdtype(np.dtype(dtype), np.complexfloating):
+                    vals = vals.real
+            else:
+                vals = nvals_
         else:
-            vals = body[:, 2]
+            toks = _parse_body_tokens(f, info.nnz * tokens_per_entry)
+            body = toks.reshape(info.nnz, tokens_per_entry)
+            rows = body[:, 0].astype(np.int64) - 1
+            cols = body[:, 1].astype(np.int64) - 1
+            if info.field == "pattern":
+                vals = np.ones(info.nnz, dtype=np.float64)
+            elif info.field == "complex":
+                vals = body[:, 2] + 1j * body[:, 3]
+                if not np.issubdtype(np.dtype(dtype), np.complexfloating):
+                    vals = vals.real
+            else:
+                vals = body[:, 2]
 
         if (
             (rows < 0).any()
@@ -217,6 +264,120 @@ def read_coo(
             cols.astype(index_dtype),
             np.asarray(vals, dtype=dtype),
         )
+    finally:
+        if should_close:
+            f.close()
+
+
+def read_dense(path_or_file, *, dtype=np.float64) -> tuple[MMInfo, np.ndarray]:
+    """Read an ``array``-format (dense, column-major) MatrixMarket body."""
+    f, should_close = _open(path_or_file)
+    try:
+        info = _read_banner_open(f)
+        if info.format != "array":
+            raise MMError("read_dense requires array format, file is "
+                          f"[{typecode_str(info)}]; use read_coo")
+        per = 2 if info.field == "complex" else 1
+        if info.is_symmetric:
+            # Stored entries: lower triangle incl. diagonal, column-major.
+            n = info.nrows
+            stored = n * (n + 1) // 2
+        else:
+            stored = info.nrows * info.ncols
+        toks = _parse_body_tokens(f, stored * per)
+        if info.field == "complex":
+            flat = toks[0::2] + 1j * toks[1::2]
+        else:
+            flat = toks
+        if info.is_symmetric:
+            n = info.nrows
+            a = np.zeros((n, n), dtype=flat.dtype)
+            ii, jj = np.tril_indices(n)
+            order = np.lexsort((ii, jj))  # column-major storage order
+            a[ii[order], jj[order]] = flat
+            if info.symmetry == "skew-symmetric":
+                a = a - a.T
+            elif info.symmetry == "hermitian":
+                a = a + np.conj(np.triu(a.T, 1))
+            else:
+                a = a + np.triu(a.T, 1)
+        else:
+            a = flat.reshape(info.ncols, info.nrows).T
+        if not np.issubdtype(np.dtype(dtype), np.complexfloating):
+            a = a.real
+        return info, np.asarray(a, dtype=dtype)
+    finally:
+        if should_close:
+            f.close()
+
+
+def write_coo(
+    path_or_file,
+    nrows: int,
+    ncols: int,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray | None = None,
+    *,
+    comment: str | None = None,
+) -> None:
+    """Write COO triplets as a *general coordinate* MatrixMarket file.
+
+    The analog of ``mm_write_banner`` + ``mm_write_mtx_crd``
+    (``mmio.c:181-187, 386-440``); 0-based inputs, 1-based on disk.
+    """
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    field = "pattern" if vals is None else (
+        "complex" if np.iscomplexobj(vals) else "real"
+    )
+    f, should_close = _open_w(path_or_file)
+    try:
+        f.write(f"%%MatrixMarket matrix coordinate {field} general\n")
+        if comment:
+            for line in comment.splitlines():
+                f.write(f"%{line}\n")
+        f.write(f"{nrows} {ncols} {rows.size}\n")
+        if vals is None:
+            body = np.column_stack([rows + 1, cols + 1])
+            np.savetxt(f, body, fmt="%d %d")
+        elif field == "complex":
+            for r, c, v in zip(rows, cols, vals):
+                f.write(f"{r + 1} {c + 1} {v.real:.17g} {v.imag:.17g}\n")
+        else:
+            body = np.column_stack(
+                [rows + 1, cols + 1, np.asarray(vals, dtype=np.float64)]
+            )
+            np.savetxt(f, body, fmt="%d %d %.17g")
+    finally:
+        if should_close:
+            f.close()
+
+
+def write_dense(path_or_file, a: np.ndarray, *,
+                comment: str | None = None) -> None:
+    """Write a dense matrix as an ``array``-format MatrixMarket file
+    (column-major body, one value per line) — the analog of
+    ``mm_write_mtx_array_size`` + the dense half of the reference's write
+    path (``mmio.c:249-255, 386-440``). Complex input writes ``real imag``
+    pairs; everything else writes ``real``."""
+    a = np.asarray(a)
+    if a.ndim != 2:
+        raise MMError(f"write_dense requires a 2-D array, got shape {a.shape}")
+    field = "complex" if np.iscomplexobj(a) else "real"
+    f, should_close = _open_w(path_or_file)
+    try:
+        f.write(f"%%MatrixMarket matrix array {field} general\n")
+        if comment:
+            for line in comment.splitlines():
+                f.write(f"%{line}\n")
+        f.write(f"{a.shape[0]} {a.shape[1]}\n")
+        flat = a.T.reshape(-1)  # column-major storage order (mmio.c:417)
+        if field == "complex":
+            body = np.column_stack([flat.real, flat.imag])
+            np.savetxt(f, body, fmt="%.17g %.17g")
+        else:
+            np.savetxt(f, flat.astype(np.float64), fmt="%.17g")
     finally:
         if should_close:
             f.close()

@@ -96,7 +96,8 @@ SIGNATURES = {
 
 
 class BuildError(RuntimeError):
-    """nvcc is missing, or it refused the sources."""
+    """nvcc (or, for the MatrixMarket parser of ``io.native``, the host C++
+    compiler) is missing, or it refused the sources."""
 
 
 @dataclass(frozen=True)

@@ -34,8 +34,8 @@ import torch
 
 from spmv_tpu_torch.probes.bounds import bound_ms
 
-__all__ = ["Member", "Reading", "card_line", "measure", "graph_ms",
-           "synthetic_stream", "l2_bytes", "report", "WARM_LAUNCHES"]
+__all__ = ["Member", "Reading", "card_line", "measure", "graph_ms", "capture",
+           "replay_ms", "synthetic_stream", "l2_bytes", "report", "WARM_LAUNCHES"]
 
 WARM_LAUNCHES = 20
 
@@ -95,7 +95,9 @@ def synthetic_stream(size: int, dtype: torch.dtype, device, ncols: int = 65536,
     return vals, cols
 
 
-def _graph(fn, calls: int) -> torch.cuda.CUDAGraph:
+def capture(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of ``calls`` back-to-back calls of ``fn``, after one
+    call on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
@@ -108,7 +110,8 @@ def _graph(fn, calls: int) -> torch.cuda.CUDAGraph:
     return g
 
 
-def _replay_ms(g: torch.cuda.CUDAGraph) -> float:
+def replay_ms(g: torch.cuda.CUDAGraph) -> float:
+    """ms of one replay of ``g``, by CUDA events around it."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -122,9 +125,9 @@ def graph_ms(fn, calls: int = WARM_LAUNCHES, rounds: int = 5) -> float:
     """ms per call of ``fn`` on the current CUDA device: the median over
     ``rounds`` replays of a CUDA graph of ``calls`` back-to-back calls, after
     one replay (the warm reading of ``measure`` for one function)."""
-    g = _graph(fn, calls)
+    g = capture(fn, calls)
     g.replay()
-    return statistics.median(_replay_ms(g) / calls for _ in range(rounds))
+    return statistics.median(replay_ms(g) / calls for _ in range(rounds))
 
 
 def measure(members: list[Member], device, rounds: int = 5,
@@ -133,7 +136,7 @@ def measure(members: list[Member], device, rounds: int = 5,
     over ``rounds`` rounds; medians."""
     device = _cuda(device)
     with torch.cuda.device(device):
-        graphs = {m.name: (_graph(m.fn, warm_launches), _graph(m.fn, 1))
+        graphs = {m.name: (capture(m.fn, warm_launches), capture(m.fn, 1))
                   for m in members}
         flush = torch.empty(2 * l2_bytes(device), dtype=torch.uint8, device=device)
         warm = {m.name: [] for m in members}
@@ -144,9 +147,9 @@ def measure(members: list[Member], device, rounds: int = 5,
                 m = members[(j + rep) % n]
                 gw, g1 = graphs[m.name]
                 gw.replay()  # the plan into the L2 where it fits
-                warm[m.name].append(_replay_ms(gw) / warm_launches)
+                warm[m.name].append(replay_ms(gw) / warm_launches)
                 flush.fill_(rep % 251)
-                cold[m.name].append(_replay_ms(g1))
+                cold[m.name].append(replay_ms(g1))
         torch.cuda.synchronize(device)
     return {k: Reading(statistics.median(warm[k]), statistics.median(cold[k]))
             for k in warm}

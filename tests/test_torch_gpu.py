@@ -1132,3 +1132,26 @@ def test_a_failed_capture_raises_and_does_not_fall_back(cuda):
     torch.cuda.synchronize()
     x, k, _ = solve.cg(a, b, tol=1e-6)  # the card is still usable
     assert k > 0
+
+
+def test_bench_on_the_card_times_by_graph_against_the_cold_roofline(cuda, tmp_path):
+    """``bench --formats csr,sell --probe-bw --json`` on a 32k-row
+    power-law matrix: CUDA-graph timing, the card named, the roofline share
+    of the cold reading at most 105%."""
+    import json
+
+    from spmv_tpu_torch import cli
+    from spmv_tpu_torch.io import mmio
+
+    info, r, c, v = synth.power_law(n=32768, avg_nnz_per_row=24, bandwidth=512, seed=0)
+    path, out = tmp_path / "pl.mtx", tmp_path / "bench.json"
+    mmio.write_coo(str(path), info.nrows, info.ncols, r, c, v)
+    assert cli.main(["bench", "--formats", "csr,sell", "--probe-bw", "--matrix",
+                     str(path), "--json", str(out)]) == 0
+    res = json.loads(out.read_text())
+    assert set(res) == {"csr", "sell"}
+    for d in res.values():
+        assert d["timing"] == "graph" and d["card"]
+        assert d["ms_per_spmv"] > 0 and d["cold_ms_per_spmv"] > 0
+        assert 0 < d["roofline_pct"] <= 105
+        assert d["hbm_bw_gbps"] > 0

@@ -166,6 +166,7 @@ def test_import_loads_neither_jax_nor_spmv_tpu():
         "import spmv_tpu_torch.kernels.probes, spmv_tpu_torch.probes\n"
         "import spmv_tpu_torch.probes.__main__, spmv_tpu_torch.sym\n"
         "import spmv_tpu_torch.solve, spmv_tpu_torch.cache\n"
+        "import spmv_tpu_torch.bench.runner, spmv_tpu_torch.io.native\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'spmv_tpu'))\n"
         "print(bad)\n"
