@@ -173,7 +173,30 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    the kernels of their paths (``BENCH_LAUNCHES``), the f32x2 one no
    float32 tile kernel; the bench's warm csr and sell at cant lie within
    15% of phase 5's K1 + K2 and K4 + K7 graph times.
-9. One line per kernel with its time, bound and library time; one JSON
+9. Distribution (``spmv_tpu_torch.dist``) through a world-size-1 NCCL group
+   in this process (a TCP store on a free local port), with the NCCL
+   version, at cant: Row × the six formats × gather_x, Col × csr, ell,
+   sell, hyb, Ring × csr, sell, hyb, Chunked csr and sell at C = 4; each
+   against the fp64 oracle, twice with the same bits, Row, Col and Ring
+   bit for bit the single container's y, Chunked within the fp32 bound of
+   it; Row x2 csr and sell and Col x2 csr by ``x2_check`` and bit for bit
+   the single ``X2Matrix``; ``spmm`` R = 4 (Row csr, sell; Col csr; Ring
+   csr, hyb) and Row BSR R = 32 bit for bit the single containers'; cg on
+   Row and Col csr over phase 7's SPD proxy, the single csr's k and x bits
+   (its eager and its graph loop; the sharded ones never capture). Each
+   sharded call runs in a window of the counters of its own, its single
+   container's reference call in another: each form must launch every
+   kernel its single container launches for the same call, only the
+   sharded windows count as the phase's launches, and among them they
+   must launch K1, K2, K4, K7, K8, K9, K12 and K13. Then per-call times
+   (CUDA events) of the Row csr ``matvec`` against the single csr's and of
+   its local form against K1 + K2 (the D = 1 collectives' cost); the
+   scaling bench's chain as a CUDA graph (NCCL captured) against the eager
+   chain, bit for bit, and per step; and ``bench --scaling`` through
+   ``cli.main`` at 16384 and 131072 rows per device: one measured D = 1
+   point each (the graphed step), ``simulated`` false, the card and the
+   modelled NVLink lines.
+10. One line per kernel with its time, bound and library time; one JSON
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
    ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``, K1
@@ -2290,6 +2313,248 @@ def phase_bench(cant, pl_big, card: str, paths: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ distribution
+
+# what phase 9's sharded calls must launch among them: the kernels of its
+# Row/Col/Ring/Chunked forms (each form is also held to its own kernels)
+DIST_LAUNCHES = ("seg_spmv_tiles", "carry_fixup", "panel_spmv_tiles", "inverse_permute",
+                 "seg_spmm_tiles", "carry_fixup_multi", "seg_spmv_tiles_x2",
+                 "carry_fixup_x2")
+SCALING_ROWS = (16384, 131072)  # bench --scaling's default, and about cant's nnz
+
+
+def check_scaling(rep: dict, card: str, rows: int) -> None:
+    """``bench --scaling``'s report at world size 1: one measured point,
+    JAX's keys, the card, the graphed timing, and the modelled NVLink
+    lines."""
+    pts = rep["points"]
+    if (len(pts) != 1 or pts[0]["devices"] != 1 or rep["simulated"]
+            or rep["card"] != card or rep["backend"] != "nccl"
+            or pts[0]["nrows"] != rows or not pts[0]["ms_per_spmv"] > 0
+            or pts[0]["efficiency"] != 1.0 or "CUDA graph" not in rep["timing"]
+            or [m["devices"] for m in rep["modeled_efficiency"]] != [2, 4, 8, 16]
+            or "NVLink" not in rep["modeled"]):
+        raise SystemExit(f"bench --scaling at {rows} rows per device: {rep}")
+
+
+def window(fn):
+    """``fn()`` and the launches it made, from a snapshot of the counters
+    on each side of it."""
+    before = launched()
+    out = fn()
+    return out, {k: n - before.get(k, 0) for k, n in launched().items()
+                 if n > before.get(k, 0)}
+
+
+def phase_dist(cant, card: str) -> dict:
+    """Phase 9: the sharded containers on one card through a world-size-1
+    NCCL group, at cant. Each sharded call runs in its own window of the
+    counters: only those windows (and ``bench --scaling``'s) count as the
+    phase's launches, and each must launch every kernel that its single
+    container launches for the same call (that call, the reference, runs
+    in a window of its own and counts nowhere). Returns the launches and
+    the times."""
+    import tempfile
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    import spmv_tpu_torch
+    from spmv_tpu_torch import cli, solve
+    from spmv_tpu_torch.bench.scaling import _chained, graph_chain
+    from spmv_tpu_torch.dist.mesh import free_port, init_distributed, make_mesh
+    from spmv_tpu_torch.dist.overlap import ChunkedRowSpmv
+    from spmv_tpu_torch.dist.ring import RingShardedSpmv
+    from spmv_tpu_torch.dist.sharded import ColShardedSpmv, RowShardedSpmv
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
+
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    if dist.get_backend() != "nccl":
+        raise SystemExit(f"phase 9: the group's backend is {dist.get_backend()}, not nccl")
+    mesh = make_mesh(1)
+    print(f"  world size 1 through {dist.get_backend()} on {mesh.device}; NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    info, rows, cols, vals = cant
+    n = info.nrows
+    xh = np.random.default_rng(91).standard_normal(n).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    scale = row_scale(n, rows, cols, vals.astype(np.float32), xh)
+    k = int(np.bincount(rows, minlength=n).max())
+    ran = Counter()  # the sharded calls' own launches
+    own = {}  # each form's launches, for the log
+
+    def sharded(label, fn, want):
+        """``fn``, a sharded form's call, twice (the same bits), in its own
+        windows; it must launch every kernel of ``want``."""
+        y, got = window(lambda: same_bits(label, fn))
+        missing = sorted(set(want) - set(got))
+        if missing:
+            raise SystemExit(f"phase 9: {label} did not launch {missing} (its single "
+                             f"container's kernels {sorted(want)}): {got}")
+        ran.update(got)
+        own[label] = got
+        return y
+
+    single = {}
+
+    def one(fmt):
+        if fmt not in single:
+            single[fmt] = build(fmt, cant)
+        return single[fmt]
+
+    args = (n, info.ncols, rows, cols, vals, mesh)
+    cases = ([(f"row {f} gather_x={g}", f, lambda f=f, g=g: RowShardedSpmv(f, *args, gather_x=g))
+              for f in FORMATS6 for g in (True, False)]
+             + [(f"col {f}", f, lambda f=f: ColShardedSpmv(f, *args))
+                for f in ("csr", "ell", "sell", "hyb")]
+             + [(f"ring {f}", f, lambda f=f: RingShardedSpmv(f, *args))
+                for f in ("csr", "sell", "hyb")]
+             + [(f"chunked {f} C=4", f, lambda f=f: ChunkedRowSpmv(f, *args, chunks=4))
+                for f in ("csr", "sell")])
+    forms = {}
+    for label, fmt, make in cases:
+        a = forms[label] = make()
+        want, kernels = window(lambda: one(fmt).matvec(x))
+        y = sharded(label, lambda: a.matvec(x), kernels)
+        check_oracle(f"cant {label}", cant, y, xh)
+        if label.startswith("chunked"):
+            err = within(f"cant {label} against the single {fmt}", y, want, scale,
+                         fp32_rel_tol(k))
+            print(f"  {label}: the fp64 oracle passes; two calls bitwise equal; "
+                  f"max |chunked - single| {err:.3e}, within the fp32 bound")
+        elif not torch.equal(y, want):
+            raise SystemExit(f"phase 9: {label} at D = 1 is not the single {fmt}'s bits")
+    print(f"  row (6 formats × gather_x), col (csr, ell, sell, hyb), ring (csr, "
+          f"sell, hyb): the fp64 oracle passes, two calls bitwise equal, and each "
+          f"is the single container's y bit for bit")
+
+    # the fp64-grade forms
+    v64, x64h, scale64 = x2_inputs(cant, 92)
+    x64 = torch.from_numpy(x64h).cuda()
+    args64 = (n, info.ncols, rows, cols, v64, mesh)
+    for label, fmt, make in (
+            ("row x2 csr", "csr", lambda: RowShardedSpmv("csr", *args64, dtype="f32x2")),
+            ("row x2 sell", "sell", lambda: RowShardedSpmv("sell", *args64, dtype="f32x2")),
+            ("col x2 csr", "csr", lambda: ColShardedSpmv("csr", *args64, dtype="f32x2"))):
+        a = make()
+        ref = spmv_tpu_torch.X2Matrix.from_coo(fmt, n, info.ncols, rows, cols, v64,
+                                               device="cuda")
+        want, kernels = window(lambda: ref.matvec(x64))
+        y = sharded(label, lambda: a.matvec(x64), kernels)
+        check_oracle_x2(f"cant {label}", cant, v64, y, x64h, scale64)
+        if not torch.equal(y, want):
+            raise SystemExit(f"phase 9: {label} at D = 1 is not the single X2Matrix's bits")
+    print("  row x2 (csr, sell), col x2 csr: x2_check against the fp64 oracle, two "
+          "calls bitwise equal, the single X2Matrix's bits")
+
+    # spmm: R = 4 on the engine formats, BSR at R = 32
+    for label, fmt, R in (("row csr gather_x=True", "csr", 4),
+                          ("row sell gather_x=True", "sell", 4),
+                          ("col csr", "csr", 4), ("ring csr", "csr", 4),
+                          ("ring hyb", "hyb", 4), ("row bsr", "bsr", 32)):
+        a = (RowShardedSpmv("bsr", *args) if fmt == "bsr" else forms[label])
+        Xh = np.random.default_rng(93 + R).standard_normal((info.ncols, R)).astype(np.float32)
+        Xt = torch.from_numpy(Xh).cuda()
+        want, kernels = window(lambda: spmv_tpu_torch.spmm(one(fmt), Xt))
+        Y = sharded(f"{label} spmm R={R}", lambda: spmv_tpu_torch.spmm(a, Xt), kernels)
+        check_oracle_columns(f"cant {label} R={R}", cant, Y, Xh)
+        if not torch.equal(Y, want):
+            raise SystemExit(f"phase 9: {label} spmm R={R} is not the single {fmt}'s bits")
+    print("  spmm R=4 (row csr, row sell, col csr, ring csr, ring hyb), row bsr R=32: "
+          "the fp64 oracle per column, two calls bitwise equal, the single "
+          "container's bits")
+
+    # cg on the SPD proxy of phase 7: sharded (eager, by design) against the
+    # single container's eager loop and its graph loop
+    keep = rows >= cols
+    tri = (rows[keep], cols[keep], vals[keep])
+    stri = (tri[0], tri[1], spd_shift(*tri, n, triangle=True))
+    strip = (dataclasses.replace(info, nnz=0), *expand(*stri))
+    s_csr = build("csr", strip)
+    b = np.random.default_rng(73).standard_normal(n).astype(np.float32)
+    want, kernels = window(lambda: solve.cg(s_csr, b, _graph=False))
+    graphs = [solve.cg(s_csr, b) for _ in range(2)]  # the eager first, then the graph
+    for x_, k_, res_ in graphs:
+        if not (k_ == want[1] and res_ == want[2] and torch.equal(x_, want[0])):
+            raise SystemExit("phase 9: the single csr's graph cg is not its eager bits")
+    for cls in (RowShardedSpmv, ColShardedSpmv):
+        sh = cls("csr", n, n, *strip[1:], mesh)
+        label = f"cg on {cls.__name__}"
+        (x_s, k_s, res_s), got = window(lambda: solve.cg(sh, b))
+        if not set(kernels) <= set(got):
+            raise SystemExit(f"phase 9: {label} did not launch {sorted(kernels)}: {got}")
+        ran.update(got)
+        own[label] = got
+        if not (k_s == want[1] and res_s == want[2] and torch.equal(x_s, want[0])):
+            raise SystemExit(f"phase 9: {label} ({k_s} iterations) is not "
+                             f"the single csr's bits ({want[1]} iterations)")
+        if hasattr(sh, "_graph_loops"):
+            raise SystemExit(f"phase 9: {label} captured a graph")
+    rel = fp64_residual(strip, want[0], b)
+    print(f"  cg on row and col csr (SPD proxy): {want[1]} iterations, fp64 relative "
+          f"residual {rel:.3e}, the single csr's k and x bits (its eager loop and its "
+          f"graph loop); no graph captured on a sharded container")
+    missing = [k for k in DIST_LAUNCHES if ran[k] < 1]
+    if missing:
+        raise SystemExit(f"phase 9's sharded calls did not launch {missing}: {dict(ran)}")
+    print(f"  launches per sharded form (two calls each): {own}")
+    print(f"  phase 9 launches (the sharded calls alone): {dict(ran)}")
+
+    # the D = 1 collectives' cost: per call, host work included
+    row, csr = forms["row csr gather_x=True"], one("csr")
+    xs = row._held(x)
+    t = {"row matvec": time_ms(lambda: row.matvec(x)),
+         "single matvec": time_ms(lambda: csr.matvec(x)),
+         "row local": time_ms(lambda: row._local(xs)),
+         "K1+K2": time_ms(lambda: E.segmented_spmv(csr.dev, x)),
+         "col matvec": time_ms(lambda: forms["col csr"].matvec(x)),
+         "ring matvec": time_ms(lambda: forms["ring csr"].matvec(x)),
+         "chunked matvec": time_ms(lambda: forms["chunked csr C=4"].matvec(x))}
+    print(f"  ms per call at cant (CUDA events around each call, median of {REPS}): "
+          f"row csr matvec {t['row matvec']:.4f} against the single csr "
+          f"{t['single matvec']:.4f} (+{t['row matvec'] - t['single matvec']:.4f}: "
+          f"two all-gathers); the local form {t['row local']:.4f} against K1 + K2 "
+          f"{t['K1+K2']:.4f} (+{t['row local'] - t['K1+K2']:.4f}: one); col "
+          f"{t['col matvec']:.4f}, ring {t['ring matvec']:.4f}, chunked C=4 "
+          f"{t['chunked matvec']:.4f}  [{card}]")
+
+    # the scaling bench's chain: a CUDA graph of the steps, NCCL captured,
+    # gives the eager chain's bits; and its step against the eager one
+    steps = 20
+    eager = _chained(row, xs, steps)
+    g, xg = graph_chain(row, xs, steps)
+    g.replay()
+    if not torch.equal(xg, eager):
+        raise SystemExit("phase 9: the graphed chain is not the eager chain's bits")
+    t["chain eager step"] = time_ms(lambda: _chained(row, xs, steps)) / steps
+    t["chain graph step"] = time_ms(g.replay) / steps
+    print(f"  the local chain at cant, {steps} steps: the CUDA graph (NCCL all-gathers "
+          f"captured) replays the eager chain's bits; ms per step: eager "
+          f"{t['chain eager step']:.4f}, graph {t['chain graph step']:.4f}  [{card}]")
+    del g, xg
+
+    # bench --scaling through the CLI, in this process's group
+    scaling = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".scaling_") as d:
+        for rpd in SCALING_ROWS:
+            path = os.path.join(d, f"scaling-{rpd}.json")
+            argv = ["bench", "--scaling", "--rows-per-device", str(rpd), "--json", path]
+            t0 = time.perf_counter()
+            rc, got = window(lambda: cli.main(argv))
+            if rc != 0:
+                raise SystemExit(f"python -m spmv_tpu_torch {' '.join(argv)} failed")
+            ran.update(got)  # a captured launch counts once, not per replay
+            with open(path) as f:
+                rep = json.load(f)
+            check_scaling(rep, card, rpd)
+            scaling[rpd] = rep
+            print(f"  bench --scaling --rows-per-device {rpd}: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s; launches {got}")
+    dist.destroy_process_group()
+    return {"launches": dict(ran), "times_ms": t, "scaling": scaling}
+
+
 # the library yardstick of each kernel row: the key its timing is under,
 # and what it computes
 LIBRARY_CALLS = {
@@ -2876,7 +3141,16 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + m
     print(f"  phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 9. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
+    # 9. distribution: the sharded containers through a world-size-1 NCCL group
+    print("phase 9: distribution")
+    t9 = time.perf_counter()
+    distributed = phase_dist(cant, card)
+    for k, m in distributed["launches"].items():
+        launches[k] = launches.get(k, 0) + m
+    print(f"  phase 9 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t9:.1f} s)")
+
+    # 10. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
     # SELL-C-σ panel the split builds there, K8-K10 on both at R = 4, the
     # probe kernels on the CSR plans), K1 and K12 at pl_big too
     errs.update(perrs)
@@ -2898,6 +3172,7 @@ def main() -> int:
                  (tp, f"synthetic_cant n={CANT_N} sell"))
         row = {"name": k, "route": "cuda", "source": CSRC + src,
                "replaces": replaces, "launches": launches[k],
+               "dist_launches": distributed["launches"].get(k, 0),
                "max_abs_err": errs[k], "ms": t[k][0],
                "plain_ms": t[f"{k}_plain"][0], "device_ms": t[k][1],
                "device_timing": DEVICE_TIMING[k], "at": at}

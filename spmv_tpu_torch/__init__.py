@@ -13,10 +13,11 @@ the fp64 kernels of both engines, for csr, coo, cmrs, ell, sell and hyb),
 the symmetric container (``SymmetricMatrix``: the lower triangle on two
 passes of the segmented engine), the Krylov solvers (``solve``: cg,
 bicgstab and power iteration, on the card as a CUDA graph of the iteration
-body), the plan cache (``cache``) and the benchmark harness
-(``bench.runner``, ``python -m spmv_tpu_torch bench``). Still to come:
-distribution (sharded containers and ``bench --scaling``, ``ROADMAP.md``
-A.11).
+body), the plan cache (``cache``), the benchmark harness
+(``bench.runner``, ``python -m spmv_tpu_torch bench``) and distribution
+(``dist``: the row-, column-, ring- and chunked-gather-sharded containers
+over ``torch.distributed``, one process per device; ``bench.scaling``,
+``bench --scaling``). That is all the JAX package does.
 """
 
 from spmv_tpu_torch import cache, device, oracle, solve, synth

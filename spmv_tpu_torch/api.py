@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.device import X_to_device
+from spmv_tpu_torch.dist.sharded import Sharded
 from spmv_tpu_torch.formats.bsr import BSRMatrix
 from spmv_tpu_torch.formats.cmrs import CMRSMatrix
 from spmv_tpu_torch.formats.coo import COOMatrix
@@ -101,9 +102,14 @@ def spmm(a, X) -> torch.Tensor:
     envelope, not a fallback: a kernel that fails raises. An ``X2Matrix``
     keeps X in float64 and runs one fp64 ``matvec`` per column, as
     ``spmv_tpu/api.py:161-169`` does: the float32 multi-RHS kernels would
-    drop it to fp32 grade."""
+    drop it to fp32 grade. A sharded container (``dist``) runs its own
+    ``spmm``: these branches per shard, or one sharded ``matvec`` per
+    column where the form has no multi-RHS pass (``ChunkedRowSpmv``), as
+    JAX's stack of ``matvec`` calls does there."""
     from spmv_tpu_torch.kernels.engines import MULTI_RHS_MAX
 
+    if isinstance(a, Sharded):
+        return a.spmm(X)
     if isinstance(a, BSRMatrix):
         return a.matmat(X)
     if getattr(a, "x2", False):  # before any float32 cast of X

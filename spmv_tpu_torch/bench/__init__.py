@@ -1,3 +1,2 @@
-"""Benchmarks of the PyTorch port: ``bench.runner`` (the counterpart of
-``spmv_tpu/bench/``; its weak-scaling sweep, ``scaling.py``, comes with the
-distribution slice)."""
+"""Benchmarks of the PyTorch port: ``bench.runner`` and the weak-scaling
+sweep ``bench.scaling``, the counterparts of ``spmv_tpu/bench/``."""

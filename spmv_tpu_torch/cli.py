@@ -4,6 +4,8 @@
     python -m spmv_tpu_torch run   --format sell --rhs 4
     python -m spmv_tpu_torch run   --format csr --dtype f32x2 --bench --json r.json
     python -m spmv_tpu_torch bench --formats all --probe-bw --json out.json
+    python -m spmv_tpu_torch bench --scaling --rows-per-device 16384
+    torchrun --nproc-per-node 2 -m spmv_tpu_torch bench --scaling --device cpu
     python -m spmv_tpu_torch solve --format csr --solver cg --cache-dir .cache
     python -m spmv_tpu_torch info  --matrix m.mtx
     python -m spmv_tpu_torch devices
@@ -28,9 +30,15 @@ co-sampled HBM ceiling under ``--probe-bw``; ``--rhs R`` > 1 or ``bsr``
 of the formats that have one. It prints one header line that names the
 card and its power limit, then JAX's line per format; ``--json`` writes
 ``{format: result}``; ``--profile DIR`` writes a ``torch.profiler`` chrome
-trace of the run for viewing (no number is taken from it). JAX's
-``--scaling`` and ``--rows-per-device`` wait for the distribution slice
-(``ROADMAP.md`` A.11).
+trace of the run for viewing (no number is taken from it). ``bench
+--scaling`` (``spmv_tpu/cli.py:258-280``) runs the weak-scaling sweep of
+``bench.scaling`` on ``--formats`` (one format, default cmrs) at
+``--rows-per-device`` rows per device, over D = 1, 2, 4, … up to the
+process group's size, and prints JAX's lines; under ``torchrun
+--nproc-per-node D -m spmv_tpu_torch bench --scaling`` every rank runs it
+and only rank 0 prints and writes. Without a group it brings up one rank
+on a local port (NCCL on a card, gloo with ``--device cpu``); in a group
+that is up, a ``--device`` of another kind than its ranks' is refused.
 
 ``solve`` runs ``solve.cg``, ``bicgstab`` or ``power_iteration`` and checks
 the residual again in fp64 on the host, as ``spmv_tpu/cli.py:354-404``
@@ -293,6 +301,8 @@ def cmd_bench(args) -> int:
     from spmv_tpu_torch.probes.timing import card_line
     from spmv_tpu_torch.x2 import X2_FORMATS, X2Matrix
 
+    if args.scaling:
+        return _bench_scaling(args)
     why = _device_error(args.device)
     if why is None and args.probe_bw and torch.device(args.device).type != "cuda":
         why = "--probe-bw measures the HBM ceiling of a CUDA card"
@@ -354,6 +364,64 @@ def cmd_bench(args) -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(results, f, indent=2)
+    return ReturnCode.SUCCESS
+
+
+def _bench_scaling(args) -> int:
+    """``bench --scaling``: the weak-scaling sweep (``bench.scaling``) and
+    JAX's lines (``spmv_tpu/cli.py:258-280``), after a header line with the
+    card's name and power limit. It runs on the default process group,
+    and brings up a group of one rank on a local port when there is none
+    (torchrun's environment when it is set); rank 0 prints and writes."""
+    import torch.distributed as dist
+
+    from spmv_tpu_torch.bench.scaling import weak_scaling_report
+    from spmv_tpu_torch.dist.mesh import free_port, init_distributed
+
+    why = _device_error(args.device)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return ReturnCode.DEVICE_ERROR
+    fmt = args.formats if args.formats != "all" else "cmrs"
+    if fmt not in ALL_FORMATS:
+        print(f"error: --scaling takes one of {', '.join(ALL_FORMATS)}, not {fmt!r}",
+              file=sys.stderr)
+        return ReturnCode.PROGRAM_ERROR
+    owned = not dist.is_initialized()
+    if not owned:  # the group's backend fixes the ranks' device (dist.mesh)
+        on = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        if torch.device(args.device).type != on:
+            print(f"error: --device {args.device}, but the process group's "
+                  f"{dist.get_backend()} ranks run on {on}", file=sys.stderr)
+            return ReturnCode.DEVICE_ERROR
+    elif "MASTER_ADDR" in os.environ:  # torchrun's environment
+        init_distributed(device=args.device)
+    else:
+        init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=args.device)
+    try:
+        rank, world, backend = dist.get_rank(), dist.get_world_size(), dist.get_backend()
+        # JAX's CLI's iteration counts (spmv_tpu/cli.py:265-268)
+        rep = weak_scaling_report(format=fmt, rows_per_device=args.rows_per_device,
+                                  iters_a=200, iters_b=1000, repeats=5)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    if rank != 0:
+        return ReturnCode.SUCCESS
+    print(f"bench --scaling: {fmt}, {args.rows_per_device} rows per device, "
+          f"{world} rank(s) ({backend})  {_where(rep['card'])}")
+    tag = " (SIMULATED backend; numbers not meaningful)" if rep["simulated"] else ""
+    for pt in rep["points"]:
+        print(f"D={pt['devices']:3d}: {pt['ms_per_spmv']:7.3f} ms  "
+              f"{pt['gnnz_per_s']:6.2f} Gnnz/s  "
+              f"eff {pt['efficiency']:.2f}{tag}")
+    for m in rep.get("modeled_efficiency", []):
+        print(f"D={m['devices']:3d}: modeled eff "
+              f"{m['eff_no_overlap']:.2f}-{m['eff_overlap']:.2f} "
+              f"(NVLink all-gather {m['t_comm_us']:.1f} us)")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rep, f, indent=2)
     return ReturnCode.SUCCESS
 
 
@@ -479,6 +547,11 @@ def main(argv=None) -> int:
                    help="comma-separated, or all (the six matvec formats)")
     b.add_argument("--probe-bw", action="store_true",
                    help="co-sample the HBM ceiling for the roofline (a card only)")
+    b.add_argument("--scaling", action="store_true",
+                   help="weak-scaling sweep over the process group's ranks "
+                        "(--formats picks ONE format, default cmrs)")
+    b.add_argument("--rows-per-device", type=int, default=16384,
+                   help="rows per device of the --scaling sweep")
     b.add_argument("--rhs", type=int, default=1,
                    help="right-hand sides: >1 benches SpMM instead of SpMV "
                         "(bsr defaults to R=128 even without this flag)")

@@ -36,6 +36,19 @@ Refused, with ``TypeError``: BSR (as JAX's ``_operator`` refuses it) and
 its ``padded_matvec`` reads as a double-single one, and return a wrong x
 without an error; the port's ``X2Matrix`` computes in float64, which
 these float32 loops would drop.
+
+The sharded containers (``dist.RowShardedSpmv``, ``dist.ColShardedSpmv``
+in float32) solve too, as JAX's solvers take them through
+``_matvec_traced``: their ``matvec`` takes the whole x and returns the
+whole y on every rank, so every rank runs the same loop on the same
+vectors and computes the same dots, the same k and the same x. They run
+the eager loop and never capture: their ``matvec`` holds collectives,
+which a gloo group cannot run inside a CUDA graph and which would tie a
+captured NCCL call to one communicator. The choice is made by type
+(``_operator``), never by a capture that fails. Their fp64-grade and BSR
+forms raise JAX's ``NotImplementedError``; ``RingShardedSpmv`` and
+``ChunkedRowSpmv``, which JAX's solvers cannot compose either, its
+``TypeError``.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ import math
 
 import numpy as np
 import torch
+
+from spmv_tpu_torch.dist.sharded import ColShardedSpmv, RowShardedSpmv, Sharded
 
 __all__ = ["cg", "bicgstab", "power_iteration", "GRAPH_CHUNK"]
 
@@ -60,9 +75,22 @@ _EPS = 1e-30
 
 
 def _operator(a):
-    """``(matvec, device)`` of a float32 engine container; ``TypeError``
-    for anything else."""
+    """``(matvec, device, graphable)`` of a float32 engine container or a
+    float32 Row/Col sharded one; ``TypeError`` (``NotImplementedError`` for
+    the sharded fp64-grade and BSR forms) for anything else. ``graphable``:
+    the loop may run as a CUDA graph (an engine container on the card; a
+    sharded one never, by design)."""
     kind = type(a).__name__
+    if isinstance(a, Sharded):
+        if not isinstance(a, (RowShardedSpmv, ColShardedSpmv)):
+            raise TypeError(
+                f"solve requires a jit-composable container (padded_matvec or "
+                f"_matvec_traced); {kind} has neither — use "
+                f"csr/coo/cmrs/ell/sell/hyb")
+        if a.x2 or getattr(a, "_bsr", False):
+            raise NotImplementedError(
+                "traced composition covers the f32 plan-based shardings")
+        return a.matvec, a.device, False
     if getattr(a, "x2", False):
         raise TypeError(
             "solve takes the float32 containers; X2Matrix computes in "
@@ -73,7 +101,8 @@ def _operator(a):
         raise TypeError(
             f"solve requires an engine container with matvec; {kind} is not "
             f"one — use csr/coo/cmrs/ell/sell/hyb/sym")
-    return a.matvec, a.dev.device
+    device = a.dev.device
+    return a.matvec, device, device.type == "cuda"
 
 
 def _vector(v, n: int, device, what: str) -> torch.Tensor:
@@ -191,8 +220,8 @@ class _GraphLoop:
         return self.state
 
 
-def _uses_graph(device: torch.device, graph: bool) -> bool:
-    return graph and device.type == "cuda"
+def _uses_graph(graphable: bool, graph: bool) -> bool:
+    return graph and graphable
 
 
 def _count(n: int, device) -> torch.Tensor:
@@ -208,7 +237,7 @@ def cg(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
     smallish ``tol`` accordingly)."""
     if a.nrows != a.ncols:
         raise ValueError("cg requires a square matrix")
-    mv, device = _operator(a)
+    mv, device, graphable = _operator(a)
     b = _vector(b, a.nrows, device, "b")
     x0 = torch.zeros_like(b) if x0 is None else _vector(x0, a.nrows, device, "x0")
     r0 = b - mv(x0)
@@ -229,7 +258,7 @@ def cg(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
              torch.zeros((), dtype=torch.int32, device=device))
     x, _, _, rs, k = _run(a, "cg", step, active, state,
                           (_tol2(b, tol), _count(maxiter, device)),
-                          _uses_graph(device, _graph))
+                          _uses_graph(graphable, _graph))
     return x.clone(), int(k), float(torch.sqrt(rs))
 
 
@@ -240,7 +269,7 @@ def bicgstab(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
     smoothing step)."""
     if a.nrows != a.ncols:
         raise ValueError("bicgstab requires a square matrix")
-    mv, device = _operator(a)
+    mv, device, graphable = _operator(a)
     b = _vector(b, a.nrows, device, "b")
     x0 = torch.zeros_like(b) if x0 is None else _vector(x0, a.nrows, device, "x0")
     r0 = b - mv(x0)
@@ -266,7 +295,7 @@ def bicgstab(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
     state = (x0, r0, r0, rs0, rs0, torch.zeros((), dtype=torch.int32, device=device))
     x, _, _, _, rs, k = _run(a, "bicgstab", step, active, state,
                              (r0, _tol2(b, tol), _count(maxiter, device)),
-                             _uses_graph(device, _graph))
+                             _uses_graph(graphable, _graph))
     return x.clone(), int(k), float(torch.sqrt(rs))
 
 
@@ -279,7 +308,7 @@ def power_iteration(a, *, iters: int = 100, seed: int = 0, _graph: bool = True):
     ``ceil(iters / GRAPH_CHUNK)`` times with no host read."""
     if a.nrows != a.ncols:
         raise ValueError("power_iteration requires a square matrix")
-    mv, device = _operator(a)
+    mv, device, graphable = _operator(a)
     gen = torch.Generator(device).manual_seed(seed)
     v0 = torch.randn(a.ncols, generator=gen, device=device, dtype=torch.float32)
 
@@ -292,5 +321,5 @@ def power_iteration(a, *, iters: int = 100, seed: int = 0, _graph: bool = True):
 
     state = (v0, torch.zeros((), dtype=torch.int32, device=device))
     v = _run(a, "power_iteration", step, active, state, (_count(iters, device),),
-             _uses_graph(device, _graph), count=iters)[0].clone()
+             _uses_graph(graphable, _graph), count=iters)[0].clone()
     return float(torch.dot(v, mv(v))), v
