@@ -8,17 +8,24 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 1. The card (nvidia-smi name and power limit), and the build of the CUDA
    kernels from ``spmv_tpu_torch/kernels/csrc/`` (one nvcc per source, all
    at once) with nvcc's register and spill lines, and the tile kernels'
-   resident blocks per SM (K1, K12, K4, K14, and K8 and K10 at R = 2..8).
+   resident blocks per SM (K1, K12, K4, K14, and K8 and K10 at R = 2..8)
+   and K3's grid cap (its resident blocks on the card).
 2. Each kernel against its plain PyTorch version on the card, per row
    within ``1e-5 + fp32_rel_tol(max_row_nnz)·Σ|v||x|``, each kernel twice
    with bitwise-equal output. The segmented engine (K1-K3) on the edge
-   cases, a 1024-row band matrix, the cant-scale matrix (``bench.py``'s
+   cases, the one-dispatch sweep of phase 5 (``entry()``'s 512 rows, a
+   1024-row band matrix, cant's generator at 8,192 and 16,384 rows,
+   bench.py's 32k-row power-law matrix with and without its band and with
+   its row lengths capped at two sizes either side of K3's rule), the
+   cant-scale matrix (``bench.py``'s
    ``synthetic_cant(n=62464, avg_nnz_per_row=64, bandwidth=350, seed=0)``)
    two 524,288-row power-law matrices (``bench.py``'s ``pl_big``, and
    the same without its column band: 12,373,741 nnz, above L2) and the
    extremes of K1's row-offset stage (``probes.common.TILE_SHAPES``: a
    tile of 1024 one-nonzero rows, tiles over the stage's cap through runs
-   of empty rows, a hub row over six tiles). The panel
+   of empty rows, a hub row over six tiles, a power-law hub over 22 tiles,
+   runs of empty rows at tile edges, before the first and after the last
+   nonzero). The panel
    engine (K4-K7) on the edge cases, the band matrix, cant (pure ELL, and
    SELL-C-σ as the split builds it), ``bench.py``'s 32k-row power-law
    matrix (SELL and ELL without the split, and SELL as the split builds it)
@@ -34,7 +41,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    on every matrix K1's, K12's and K8's launchers also write into a
    NaN-filled carry, after which K2, K13 and K9 must give the wrappers' y
    bit for bit, so a slot a fix-up reads and the tile kernel leaves
-   unwritten fails.
+   unwritten fails. K3 on every matrix: its launcher in its tile mode,
+   into a NaN-filled y, twice, bit for bit K1 + K2's y (the published words
+   0 again after); in the mode its wrapper picks, into a NaN-filled y, the
+   wrapper's bits; the wrapper's y bit for bit K1 + K2's where that mode is
+   the tiles, and its bits in 3 replays of a captured CUDA graph.
    The multi-RHS kernels at R = 2, 4 and 8, each column within the same
    bound and bit for bit the one-vector kernel's on that column (y and
    carries or partials): K8 + K9 on the edge cases, the band matrix, cant,
@@ -72,8 +83,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
-   file is absent, then CSR on the two power-law matrices and the 512-row
-   matrix of ``__graft_entry__.entry()``; then ``run --format
+   file is absent, then CSR on the two power-law matrices, the 512-row
+   matrix of ``__graft_entry__.entry()`` and bench.py's 32k-row power-law
+   matrix (a 3.7 MB plan: K3's tiles); then ``run --format
    {ell,sell,hyb}`` on cant, SELL and HYB at ``pl_big`` (``bench.py:211-215``),
    bench.py's pure-panel ``ell_pure``/``sell_pure`` builds of the 32k
    power-law matrix, and SELL on the 512-row matrix; then ``run --rhs 4``
@@ -104,7 +116,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    calls; the plain versions, which sync with the host, per call only):
    each kernel and its plain version
    at cant scale and on the power-law matrices, the two-dispatch and fused
-   shapes of both engines from 512 rows up (the fused threshold), every
+   shapes of both engines from 512 rows up (the fused threshold; K3 as its
+   wrapper picks, and in each of its modes through its launcher, beside its
+   bound and cuSPARSE), every
    format's ``matvec`` beside CSR's on the main and power-law suites, K8-K10
    and K7 and their plain versions at R = 4 on cant, ``spmm`` at R = 1, 2, 4, 8, 16
    against R ``matvec`` calls for csr and sell on cant, BSR at R = 32 on
@@ -587,6 +601,25 @@ def check_epilogue(label: str, a, y: torch.Tensor, part: torch.Tensor,
     return (check or within)(f"{label} inverse_permute", got, plain, scale, tol)
 
 
+def fused_mode(dev, x, vec: int, nan: bool = True) -> torch.Tensor:
+    """K3's launcher in one mode (vec 0: K1's tiles; 4-32: lanes per row),
+    outside its wrapper and its count, into a NaN-filled y (``nan``), so a
+    row it leaves unwritten stays NaN; else into an unfilled one."""
+    from spmv_tpu_torch.kernels import _build
+
+    y = (torch.full if nan else torch.empty)(
+        (dev.nrows,), *((float("nan"),) if nan else ()), dtype=torch.float32,
+        device=x.device)
+    rc = _build.library().lib.csr_spmv_fused(
+        dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), dev.fused_words.data_ptr(),
+        dev.nnz, dev.ntiles, dev.nrows, dev.tile, vec,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise AssertionError(f"csr_spmv_fused (vec {vec}): CUDA error {rc}")
+    return y
+
+
 def graph_equals_eager(what: str, fn) -> None:
     """``fn`` captured in a CUDA graph (its programmatic launches there too)
     and replayed into a NaN-filled output gives the eager run's bits."""
@@ -644,8 +677,20 @@ def check_kernels(label: str, trip, seed: int) -> dict:
     e2 = within(f"{label} carry_fixup", y2, y2r, scale, tol)
     fixup_of_nan_carry("seg_spmv_tiles", dev, x, E.carry_fixup, y2)
     y3 = same_bits("csr_spmv_fused", lambda: E.segmented_spmv_fused(dev, x))
+    mode = E.fused_lanes(dev)
+    if dev.nnz:  # K3's tiles on every plan, its sub-warp mode where it runs
+        tiles = same_bits("csr_spmv_fused tiles", lambda: fused_mode(dev, x, 0))
+        if not torch.equal(tiles, y2):
+            raise AssertionError(f"{label}: K3's tiles are not K1 + K2's y bit for bit")
+        if dev.fused_words.any():
+            raise AssertionError(f"{label}: K3 left a published word set")
+        if not torch.equal(fused_mode(dev, x, mode), y3):
+            raise AssertionError(f"{label}: K3 (vec {mode}) left a row unwritten")
+    if mode == 0 and not torch.equal(y3, y2):
+        raise AssertionError(f"{label}: K3 is not K1 + K2's y bit for bit")
     y3r = E.segmented_spmv_fused_reference(dev, x)
     e3 = within(f"{label} csr_spmv_fused", y3, y3r, scale, tol)
+    graph_equals_eager(f"{label} K3", lambda: E.segmented_spmv_fused(dev, x))
     for name, y in (("K1+K2", y2), ("K3", y3)):
         check_oracle(f"{label} {name}", trip, y, xh)
     over = int((row_spans(dev.tile_row0.cpu().numpy()) > ROW_STAGE).sum())
@@ -654,7 +699,10 @@ def check_kernels(label: str, trip, seed: int) -> dict:
           f"{dev.ncarry}: max |kernel - plain| "
           f"K1 {e1:.3e}  K2 {e2:.3e}  K3 {e3:.3e}; K1+K2 and K3 pass the "
           f"fp64 oracle; two runs bitwise equal (carries on used slots); K2 after "
-          f"K1 into a NaN-filled carry gives the same y")
+          f"K1 into a NaN-filled carry gives the same y; K3 "
+          f"({'tiles' if mode == 0 else f'{mode} lanes per row'}) the same bits "
+          f"eagerly and in 3 CUDA-graph replays; K3's tiles, into a NaN-filled y, K1 + "
+          f"K2's y bit for bit, its published words left 0")
     return {"seg_spmv_tiles": e1, "carry_fixup": e2, "csr_spmv_fused": e3}
 
 
@@ -731,7 +779,7 @@ def by_graph(k: str) -> bool:
     containers' ``matvec`` and ``spmm`` go to the profiler, and a plain
     version (``*_plain``) is timed per call only."""
     return not k.endswith("_plain") and (
-        k in KERNELS or k.startswith(("path ", "library ", "inverse_permute ")))
+        k in KERNELS or k.startswith(("path ", "library ", "inverse_permute ", "mode ")))
 
 
 def timed(label: str, fns: dict, card: str, nnz: int, nbytes: int) -> dict:
@@ -763,11 +811,12 @@ def timed(label: str, fns: dict, card: str, nnz: int, nbytes: int) -> dict:
 
 
 def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
-    """Phase 5, segmented engine: K1-K3, their plain versions and the
-    library yardstick (with ``plain``) and the K1+K2 path on one matrix;
+    """Phase 5, segmented engine: K1-K3, their plain versions (with
+    ``plain``), the library yardstick and the K1+K2 path on one matrix;
     the plan's bytes under ``plan_bytes``, each kernel's bytes and
     operations under ``bytes`` and ``flops``."""
     from spmv_tpu_torch import CSRMatrix
+    from spmv_tpu_torch.kernels import _build
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.probes import bounds as B
 
@@ -782,6 +831,9 @@ def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
         "carry_fixup": lambda: E.carry_fixup(dev, y, carry),
         "csr_spmv_fused": lambda: E.segmented_spmv_fused(dev, x),
         "path K1+K2": lambda: E.carry_fixup(dev, *E.segmented_spmv_partials(dev, x)),
+        # K3 in each mode, whichever the wrapper picks: the numbers behind its rule
+        "mode K3 tiles": lambda: fused_mode(dev, x, 0, nan=False),
+        "mode K3 rows": lambda: fused_mode(dev, x, E.row_lanes(dev), nan=False),
     }
     if plain:
         fns.update({
@@ -789,13 +841,18 @@ def time_matrix(label: str, trip, card: str, plain: bool = True) -> dict:
             "carry_fixup_plain": lambda: E.carry_fixup_reference(dev, y, carry),
             "csr_spmv_fused_plain": lambda: E.segmented_spmv_fused_reference(dev, x),
         })
-        A = library_csr(dev)
-        fns["library csr@x"] = lambda: A @ x
+    A = library_csr(dev)
+    fns["library csr@x"] = lambda: A @ x
+    grid = min(dev.ntiles, _build.library().lib.csr_spmv_fused_resident(
+        torch.cuda.current_device()))
     print(f"  {label} csr: {info.nrows} rows, nnz {dev.nnz}, plan "
           f"{dev.stream_bytes} B, tiles {dev.ntiles}, split rows {dev.ncarry}, "
-          f"K3 lanes/row {E.fused_lanes(dev)}  [{card}]")
+          f"longest row {dev.max_row_nnz}, K3 mode "
+          f"{E.fused_lanes(dev) or f'tiles, grid {grid} blocks'} (sub-warp "
+          f"{E.row_lanes(dev)} lanes per row)  [{card}]")
     t = timed(label, fns, card, dev.nnz, dev.stream_bytes)
     t["plan_bytes"] = dev.stream_bytes
+    t["k3_mode"] = E.fused_lanes(dev) and f"{E.fused_lanes(dev)} lanes per row" or "tiles"
     t["bytes"] = {"seg_spmv_tiles": B.seg_tiles_bytes(dev), "carry_fixup": B.fixup_bytes(dev),
                   "csr_spmv_fused": B.fused_bytes(dev)}
     t["flops"] = {"seg_spmv_tiles": 2 * dev.nnz, "carry_fixup": 0,
@@ -2643,7 +2700,9 @@ def main() -> int:
           f"(8 warps each); K4 {lib.panel_tiles_occupancy(0, 1)}, K14 "
           f"{lib.panel_tiles_occupancy(1, 1)} (4 warps each); at R = 2..8, K8 "
           f"{[lib.seg_tiles_occupancy(0, R) for R in range(2, 9)]}, K10 "
-          f"{[lib.panel_tiles_occupancy(0, R) for R in range(2, 9)]}")
+          f"{[lib.panel_tiles_occupancy(0, R) for R in range(2, 9)]}; K3's grid cap "
+          f"(its resident blocks on the card) "
+          f"{lib.csr_spmv_fused_resident(torch.cuda.current_device())}")
 
     # 2. kernels against their plain versions
     print("phase 2: kernels against plain PyTorch versions")
@@ -2654,6 +2713,22 @@ def main() -> int:
     pl_big = synth.power_law(n=524_288, avg_nnz_per_row=24, bandwidth=512, seed=0)
     pl_wide = synth.power_law(n=524_288, avg_nnz_per_row=24, seed=0)
     pl = synth.power_law(n=32768, avg_nnz_per_row=24, bandwidth=512, seed=0)  # bench.py:164
+    entry = synth.synthetic_cant(n=512, avg_nnz_per_row=8, bandwidth=40, seed=0)
+    # the one-dispatch threshold's sweep: the plans K3 runs on the main path
+    # (4 MB or less: entry(), band-1024, pl-32768) and beside them
+    sweep = {"entry-512": entry, "band-1024": band,
+             "cant-8192": synth.synthetic_cant(n=8192),
+             "cant-16384": synth.synthetic_cant(n=16384),
+             # bench.py's 32k-row power-law suite, and without its band
+             "pl-32768": pl,
+             "pl_wide-32768": synth.power_law(n=32768, avg_nnz_per_row=24, seed=0),
+             # the same suite with its Zipf lengths capped before the rescale:
+             # longest rows of 4 and 11 steps of a 32-lane sub-warp, either
+             # side of K3's rule (engines.fused_lanes)
+             "pl_cap16-32768": synth.power_law(n=32768, avg_nnz_per_row=24,
+                                               bandwidth=512, seed=0, max_row=16),
+             "pl_cap96-32768": synth.power_law(n=32768, avg_nnz_per_row=24,
+                                               bandwidth=512, seed=0, max_row=96)}
     # the extremes of K1's and K12's row-offset stage: a tile of 1024
     # one-nonzero rows, tiles over its cap (runs of empty rows), a hub row
     tile_shapes = {name: build_shape() for name, build_shape in TILE_SHAPES.items()}
@@ -2666,7 +2741,8 @@ def main() -> int:
     for name in sorted(synth.EDGE_CASES):
         keep_max(check_kernels(name, synth.edge_case(name), seed=1))
         keep_max(check_panel(name, synth.edge_case(name), seed=1, split=False))
-    keep_max(check_kernels("band-1024", band, seed=2))
+    for label, trip in sweep.items():  # K1-K3 at every shape of the sweep
+        keep_max(check_kernels(label, trip, seed=2))
     keep_max(check_panel("band-1024", band, seed=2, split=False))
     keep_max(check_kernels(f"cant-{CANT_N}", cant, seed=3))
     keep_max(check_panel(f"cant-{CANT_N}", cant, seed=3, fmt="ell", split=False))
@@ -2757,7 +2833,6 @@ def main() -> int:
     print("phase 3: main path")
     cant_args = ["--matrix", os.path.join(ROOT, "databases", "cant.mtx"),
                  "--synth-n", str(CANT_N)]
-    entry = synth.synthetic_cant(n=512, avg_nnz_per_row=8, bandwidth=40, seed=0)
     E.reset_launches()
     for fmt in ("csr", "coo", "cmrs"):
         if cli.main(["run", "--format", fmt, *cant_args]) != 0:
@@ -2768,6 +2843,11 @@ def main() -> int:
             raise SystemExit(f"run on {label} failed")
     if cli.run_spmv("csr", *entry, x_mode="random", seed=1, device="cuda") != 0:
         raise SystemExit("run on the 512-row entry() matrix failed")
+    before = E.LAUNCHES["csr_spmv_fused"]
+    if cli.run_spmv("csr", *pl, device="cuda") != 0:  # bench.py's 32k-row power law
+        raise SystemExit("run on pl-32768 failed")
+    if E.LAUNCHES["csr_spmv_fused"] == before:
+        raise SystemExit("the pl-32768 run (a 3.7 MB plan) did not launch K3")
     torch.cuda.synchronize()
     seg_launches = dict(E.LAUNCHES)
 
@@ -2955,12 +3035,6 @@ def main() -> int:
                   "pl_big-524288 sell_pure", build("sell", pl_big, split=False),
                   card, plain=False)}
     # the fused threshold: both shapes of both engines across plan sizes
-    sweep = {"entry-512": entry, "band-1024": band,
-             "cant-8192": synth.synthetic_cant(n=8192),
-             "cant-16384": synth.synthetic_cant(n=16384),
-             # bench.py's 32k-row power-law suite, and without its band
-             "pl-32768": pl,
-             "pl_wide-32768": synth.power_law(n=32768, avg_nnz_per_row=24, seed=0)}
     for label, trip in sweep.items():
         times[label] = time_matrix(label, trip, card, plain=False)
         ptimes[f"{label} sell_pure"] = time_panel(
@@ -2968,9 +3042,15 @@ def main() -> int:
     print(f"fused threshold: two-dispatch against one-dispatch shape, ms per "
           f"call | device  [{card}]")
     for label, t in times.items():
+        bound = bound_fields("csr_spmv_fused", t)["bound_ms"]
+        k3 = t["csr_spmv_fused"][1]
         print(f"  {label:24s} csr plan {t['plan_bytes']:10d} B  K1+K2 "
               f"{t['path K1+K2'][0]:.4f} | {fmt_ms(t['path K1+K2'][1])}  K3 "
-              f"{t['csr_spmv_fused'][0]:.4f} | {fmt_ms(t['csr_spmv_fused'][1])}")
+              f"({t['k3_mode']}) {t['csr_spmv_fused'][0]:.4f} | {fmt_ms(k3)}, its bound "
+              f"{bound * 1e3:.3f} µs ({bound / k3:.1%} of it); K3's tiles "
+              f"{fmt_ms(t['mode K3 tiles'][1])}, sub-warp rows "
+              f"{fmt_ms(t['mode K3 rows'][1])}; cuSPARSE "
+              f"{t['library csr@x'][0]:.4f} | {fmt_ms(t['library csr@x'][1])}")
     for label, t in ptimes.items():
         print(f"  {label:24s} panel {t['plan_bytes']:10d} B  K4+K7 "
               f"{t['path K4+K7'][0]:.4f} | {fmt_ms(t['path K4+K7'][1])}  K6 "
@@ -3208,6 +3288,16 @@ def main() -> int:
                 "bound_ms": B.bound_ms(tp["bytes"]["inverse_permute gather"], 0)[0],
                 "library_ms": lib[0], "library_device_ms": lib[1],
                 "library_call": "y_sorted.index_select(0, perm), after K6"}
+        if k == "csr_spmv_fused":  # where the main path runs it, and beside
+            row["sweep"] = {
+                label: {"plan_bytes": t_["plan_bytes"], "mode": t_["k3_mode"],
+                        "device_ms": t_[k][1],
+                        "tiles_device_ms": t_["mode K3 tiles"][1],
+                        "rows_device_ms": t_["mode K3 rows"][1],
+                        "path_k1_k2_device_ms": t_["path K1+K2"][1],
+                        "library_device_ms": t_["library csr@x"][1],
+                        **bound_fields(k, t_)}
+                for label, t_ in times.items()}
         if k in ("seg_spmv_tiles", "seg_spmv_tiles_x2"):
             more = ({"pl_big": tc_big, "pl_wide": times["pl_wide-524288"]}
                     if k == "seg_spmv_tiles" else {"pl_big": tx_big})

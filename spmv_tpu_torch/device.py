@@ -51,6 +51,15 @@ class DevCsr:
     tile: int
     max_row_nnz: int
 
+    def __post_init__(self):
+        # K3's published partials (``kernels.engines.segmented_spmv_fused``):
+        # one int64 word per tile on a float32 CUDA plan, zeroed once here,
+        # outside any CUDA-graph capture, and left 0 by every launch. Not a
+        # field, so ``stream_bytes`` does not count it.
+        if self.vals.device.type == "cuda" and self.vals.dtype == torch.float32:
+            object.__setattr__(self, "fused_words", torch.zeros(
+                self.ntiles, dtype=torch.int64, device=self.vals.device))
+
     @classmethod
     def from_plan(cls, plan: CsrPlan, device) -> "DevCsr":
         device = torch.device(device)

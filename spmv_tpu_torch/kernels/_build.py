@@ -43,8 +43,11 @@ SIGNATURES = {
     "seg_spmv_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ptr, carry_rows, carry, y, ncarry, tile, stream
     "carry_fixup": (_P, _P, _P, _P, _I, _I, _P),
-    # ptr, cols, vals, x, y, nrows, vec, stream
-    "csr_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # ptr, cols, vals, tile_row0, x, y, pub (a word per tile), nnz, ntiles,
+    # nrows, tile, vec (0: the tiles; 4-32: lanes per row), stream
+    "csr_spmv_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # device: K3's grid cap there (resident blocks per SM times the SMs)
+    "csr_spmv_fused_resident": (_I,),
     # ptr, cols, vals, tile_row0, X, Y, carry, nnz, ntiles, tile, rhs, stream
     "seg_spmm_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # ptr, carry_rows, carry, Y, ncarry, tile, rhs, stream

@@ -16,12 +16,14 @@
 // fix-up in seg_tile.cuh (templates on the value type, the column type, the
 // block size, the x read and, for K8 and K9, the number of right-hand sides),
 // which probe_spmv.cu instantiates too, so the tile bounds and carry-slot
-// rules stay in one place. The TPU kernel B10 carries hi and lo f32 planes,
-// Dekker splits and TwoSum chains because its VPU has no FMA and its MXU
-// takes bf16; Hopper has native fp64 FMA, so K12 reads fp64 values and x,
-// multiplies and adds in fp64 and writes fp64 y and carries. It streams
-// 12 B per nonzero (an 8-byte value, a 4-byte column) and gathers 8 B of
-// x for 2 flops: still bytes, not fp64 flops, bound it.
+// rules stay in one place; K3 runs the same tile block with outputs of its
+// own (FusedOut) and does K2's adds in the same launch. The TPU kernel B10
+// carries hi and lo f32 planes, Dekker splits and TwoSum chains because its
+// VPU has no FMA and its MXU takes bf16; Hopper has native fp64 FMA, so
+// K12 reads fp64 values and x, multiplies and adds in fp64 and writes fp64
+// y and carries. It streams 12 B per nonzero (an 8-byte value, a 4-byte
+// column) and gathers 8 B of x for 2 flops: still bytes, not fp64 flops,
+// bound it.
 //
 // What bounds them on the H100: bytes. Each nonzero streams 8 B (a float32
 // value and an int32 column) and gathers 4 B of x, for 2 flops: at most
@@ -44,6 +46,7 @@
 // allocates every output, and never calls a launcher with an empty grid.
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -58,23 +61,145 @@ namespace {
 constexpr int kTileThreads = 256;
 constexpr int kTileNnz = kTileThreads * kTileItems;
 
-// K3's block size.
-constexpr int kThreads = 256;
-
 // K3 — replaces _seg_kernel_fused (spmv_tpu/kernels/engines.py:430).
 //
-// One dispatch for small plans: VEC lanes (a sub-warp) per row. Each lane
-// sums the row's nonzeros lane, lane + VEC, ... (coalesced across the
-// sub-warp), then an xor butterfly over the sub-warp adds the lanes; lane 0
-// writes y, including 0 for an empty row. The wrapper picks VEC from the
-// mean row length so that short rows do not leave most lanes idle.
+// y = A·x in one launch, K1's block on K1's tiles of 1024 nonzeros, so no
+// block's work grows with the longest row: a hub row is cut into tiles as
+// K1 cuts it, and the TPU kernel's nonzero-balanced chunks are what it
+// keeps. What K2 does in a second launch is done here by the block that
+// owns a split row's last tile. The other tiles of the row publish their
+// partial of it (FusedOut::emit): the tile where the row begins its tail
+// partial, each tile inside the row its whole sum, the values K1 writes to
+// carry slots 2ta + 1 and 2t. A published partial is one 64-bit word per
+// tile, the float's bits low and 1 high, stored at once, so whoever reads
+// the flag reads the value with it and no fence orders the two. The block
+// of the last tile waits for the words of tiles ta .. t - 1, adds them in
+// tile order and its own head partial last (finish_row): K2's order, so y
+// is K1 + K2's, bit for bit, and which side of the one-dispatch threshold
+// a plan falls on does not change the answer. It then sets each word back
+// to 0: every launch, and every replay of a CUDA graph holding one, finds
+// them all 0, with no memset. Integer flags and plain float adds, no float
+// atomics. That is the mode wherever a row is long; on plans whose rows
+// are all short the launcher runs the second mode below
+// (csr_spmv_rows_kernel), which the wrapper picks from the plan.
+//
+// The waits are safe because every wait goes to a smaller tile and all
+// blocks are resident together: the grid is at most the resident blocks
+// of the card (csr_spmv_fused_resident), each block walks its tiles in
+// increasing order, and a tile publishes before it waits. So the smallest
+// tile not yet done has its block running and waits on no one (the plans
+// under the one-dispatch threshold have fewer tiles than the card holds
+// blocks: one tile per block). Rows with no nonzeros are written 0 by the
+// tile whose span holds them (tile_done), those before the first nonzero
+// by tile 0 and after the last by the last tile, so the wrapper allocates
+// y without a fill.
+//
+// What bounds it on the H100: K1's bytes (8 B per nonzero, a 4-byte x
+// gather, 4 B per row of ptr and y), and 24 B of words (published, read,
+// reset) per tile a split row runs on from; at the sizes it runs (plans of
+// at most 4 MB, under one wave of blocks) mostly latency: one tile's
+// loads, stage, scan and emit, then for a split row one L2 round trip for
+// the words, in the common case published by then (finish_row issues up
+// to kFinishBatch loads at once, so a row over many tiles waits about one
+// round trip per kFinishBatch tiles).
+constexpr unsigned long long kPublished = 1ull << 32;
+constexpr int kFinishBatch = 8;
+
+__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long w) {
+  asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+
+// Split row r's y, in tile t where it ends: the partials tiles ta .. t - 1
+// published, in tile order, then `own`, this tile's partial; each word is
+// waited for, then reset to 0.
+__device__ __forceinline__ float finish_row(unsigned long long* pub, int ta, int t,
+                                            float own) {
+  float s = 0.f;
+  for (int b = ta; b < t; b += kFinishBatch) {
+    unsigned long long w[kFinishBatch];
+#pragma unroll
+    for (int i = 0; i < kFinishBatch; ++i) w[i] = b + i < t ? load_word(pub + b + i) : 0ull;
+#pragma unroll
+    for (int i = 0; i < kFinishBatch; ++i) {
+      if (b + i < t) {
+        while (w[i] < kPublished) w[i] = load_word(pub + b + i);
+        const float v = __uint_as_float(static_cast<unsigned>(w[i]));
+        s = b + i == ta ? v : s + v;
+        store_word(pub + b + i, 0ull);
+      }
+    }
+  }
+  return s + own;
+}
+
+// K3's outputs for seg_tile_body: y, and the published partials. One per
+// thread; a thread that closes a split row's last run keeps it (fin_row)
+// and finishes it in tile_done, after its emits, so that a thread holding
+// both a finishing row and the row that runs on publishes before it waits.
+struct FusedOut {
+  float* __restrict__ y;
+  unsigned long long* pub;  // one word per tile, 0 at launch and at exit
+  int nrows;
+  int ntiles;
+  mutable int fin_row = -1;  // the split row this thread finishes, or -1
+  mutable float fin_own = 0.f;  // and this tile's partial of it
+
+  template <typename Offsets>
+  __device__ __forceinline__ void emit(Offsets off, int r, const float (&v)[1], int t,
+                                       int ts, int te) const {
+    if (off(r + 1) > te) {  // runs on into later tiles
+      store_word(pub + t, kPublished | __float_as_uint(v[0]));
+    } else if (off(r) < ts) {  // began in an earlier tile, ends in this one
+      fin_row = r;
+      fin_own = v[0];
+    } else {
+      y[r] = v[0];
+    }
+  }
+
+  // The empty rows strictly between the tile's first and last rows (both
+  // hold nonzeros), those before row r0 in tile 0 and after r1 in the last
+  // tile; then the split row this thread finishes.
+  template <typename Offsets>
+  __device__ __forceinline__ void tile_done(Offsets off, int r0, int r1, int t) const {
+    const int tid = static_cast<int>(threadIdx.x);
+    for (int q = r0 + 1 + tid; q < r1; q += kTileThreads) {
+      if (off(q) == off(q + 1)) y[q] = 0.f;
+    }
+    if (t == 0) {
+      for (int q = tid; q < r0; q += kTileThreads) y[q] = 0.f;
+    }
+    if (t == ntiles - 1) {
+      for (int q = r1 + 1 + tid; q < nrows; q += kTileThreads) y[q] = 0.f;
+    }
+    if (fin_row >= 0) {
+      y[fin_row] = finish_row(pub, off(fin_row) / kTileNnz, t, fin_own);
+      fin_row = -1;
+    }
+  }
+};
+
+// K3's second mode, for plans whose rows are all short (the wrapper's
+// rule, engines.fused_lanes: no row longer than 3 steps of the sub-warp):
+// VEC lanes (a sub-warp) per row.
+// Each lane sums the row's nonzeros lane, lane + VEC, ... (coalesced across
+// the sub-warp), then an xor butterfly over the sub-warp adds the lanes;
+// lane 0 writes y, including 0 for an empty row. Its order is fixed by the
+// plan and VEC, not K1's: the bits are its own. On such plans it beats the
+// tile mode, whose row tracking and fix-up cost more than a few steps of a
+// sub-warp (1.8-1.9x on an H100 at the sweep's regular plans, 512-16,384
+// rows; PERF.md).
 template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-csr_spmv_fused_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-                      const float* __restrict__ vals,
-                      const float* __restrict__ x, float* __restrict__ y,
-                      int nrows) {
-  const long long gid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(kTileThreads)
+csr_spmv_rows_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
+                     const float* __restrict__ vals, const float* __restrict__ x,
+                     float* __restrict__ y, int nrows) {
+  const long long gid = static_cast<long long>(blockIdx.x) * kTileThreads + threadIdx.x;
   const long long row = gid / VEC;
   const int lane = threadIdx.x & (VEC - 1);
   const bool valid = row < nrows;
@@ -86,6 +211,20 @@ csr_spmv_fused_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 #pragma unroll
   for (int off = VEC / 2; off > 0; off >>= 1) s += __shfl_xor_sync(kFullMask, s, off, VEC);
   if (valid && lane == 0) y[row] = s;
+}
+
+__global__ void __launch_bounds__(kTileThreads)
+csr_spmv_fused_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
+                      const float* __restrict__ vals, const int* __restrict__ tile_row0,
+                      const float* __restrict__ x, float* __restrict__ y,
+                      unsigned long long* pub, int nnz, int ntiles, int nrows) {
+  const FusedOut out{y, pub, nrows, ntiles};
+  const int first = static_cast<int>(blockIdx.x);
+  for (int t = first; t < ntiles; t += static_cast<int>(gridDim.x)) {
+    if (t != first) __syncthreads();  // the stage and the scan's slots are reused
+    seg_tile_body<float, int32_t, kTileThreads, kXGather, float, 1>(
+        ptr, cols, vals, tile_row0, x, out, nnz, t);
+  }
 }
 
 // ---------------------------------------------------------------- R > 1
@@ -179,26 +318,66 @@ int seg_tiles_occupancy(int fp64, int rhs) {
   }
 }
 
-// K3: y = A·x in one dispatch, vec lanes per row (4, 8, 16 or 32).
-int csr_spmv_fused(const void* ptr, const void* cols, const void* vals,
-                   const void* x, void* y, int nrows, int vec, void* stream) {
-  if (nrows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (static_cast<long long>(nrows) * vec + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(ptr);
-  const int* c = static_cast<const int*>(cols);
-  const float* v = static_cast<const float*>(vals);
-  const float* xx = static_cast<const float*>(x);
-  float* yy = static_cast<float*>(y);
-  const int g = static_cast<int>(blocks);
-  switch (vec) {
-    case 4: csr_spmv_fused_kernel<4><<<g, kThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
-    case 8: csr_spmv_fused_kernel<8><<<g, kThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
-    case 16: csr_spmv_fused_kernel<16><<<g, kThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
-    case 32: csr_spmv_fused_kernel<32><<<g, kThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// K3's grid cap on `device`: its resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the SMs, or -1 on
+// an error. Asked once per device.
+int csr_spmv_fused_resident(int device) {
+  constexpr int kDevices = 64;
+  static int known[kDevices] = {};  // 0: not asked yet
+  if (device >= 0 && device < kDevices && known[device] > 0) return known[device];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, csr_spmv_fused_kernel,
+                                                    kTileThreads, 0) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      per_sm <= 0) {
+    return -1;
   }
+  if (device >= 0 && device < kDevices) known[device] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// K3: y = A·x in one launch. vec 0: on K1's tile schedule, `pub` holding
+// one word per tile, all 0 (the kernel leaves them so); vec 4, 8, 16 or
+// 32: that many lanes per row (tile_row0 and pub unread). Refuses
+// (cudaErrorInvalidValue, nothing launched) a tile it was not built for, a
+// schedule that does not cover nnz, or another vec.
+int csr_spmv_fused(const void* ptr, const void* cols, const void* vals,
+                   const void* tile_row0, const void* x, void* y, void* pub, int nnz,
+                   int ntiles, int nrows, int tile, int vec, void* stream) {
+  if (tile != kTileNnz || ntiles <= 0 || nnz <= 0 || nnz > INT_MAX - kTileNnz ||
+      ntiles != (nnz + kTileNnz - 1) / kTileNnz || nrows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec != 0) {
+    const long long blocks = (static_cast<long long>(nrows) * vec + kTileThreads - 1) /
+                             kTileThreads;
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    const int* p = static_cast<const int*>(ptr);
+    const int* c = static_cast<const int*>(cols);
+    const float* v = static_cast<const float*>(vals);
+    const float* xx = static_cast<const float*>(x);
+    float* yy = static_cast<float*>(y);
+    const int g = static_cast<int>(blocks);
+    switch (vec) {
+      case 4: csr_spmv_rows_kernel<4><<<g, kTileThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
+      case 8: csr_spmv_rows_kernel<8><<<g, kTileThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
+      case 16: csr_spmv_rows_kernel<16><<<g, kTileThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
+      case 32: csr_spmv_rows_kernel<32><<<g, kTileThreads, 0, s>>>(p, c, v, xx, yy, nrows); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  int device = 0;
+  const cudaError_t rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int resident = csr_spmv_fused_resident(device);
+  if (resident <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  csr_spmv_fused_kernel<<<std::min(ntiles, resident), kTileThreads, 0, s>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(cols),
+      static_cast<const float*>(vals), static_cast<const int*>(tile_row0),
+      static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<unsigned long long*>(pub), nnz, ntiles, nrows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@
 //
 // seg_tiles_block<T, ColT, kBlockThreads, kX, XT, R> is the body of K1's
 // kernel (seg_spmv_tiles_kernel, R = 1) and of K8's (seg_spmm_tiles_kernel,
-// R = 2..8):
+// R = 2..8); K3 (seg_spmv.cu) runs the same body, seg_tile_body, with
+// outputs of its own:
 //
 //   T             value, x and y type: float (K1) or double (K12)
 //   ColT          column type: int32_t (the plan's) or uint16_t (4 columns
@@ -181,16 +182,37 @@ __device__ __forceinline__ void emit_row(Offsets off, int r, const T (&v)[R], in
   }
 }
 
+// Where a tile block's row sums go. `y` takes every row that begins and
+// ends inside one thread; emit(off, r, v, t, ts, te) takes each other row
+// the tile closes, from the thread where its run ends; tile_done(off, r0,
+// r1, t) runs in every thread after the emits. CarryOut is K1's, K8's and
+// K12's (and the probes'): emit_row, nothing after. K3 has its own
+// (seg_spmv.cu, FusedOut).
+template <typename T, int R>
+struct CarryOut {
+  T* __restrict__ y;
+  T* __restrict__ carry;
+  template <typename Offsets>
+  __device__ __forceinline__ void emit(Offsets off, int r, const T (&v)[R], int t, int ts,
+                                       int te) const {
+    emit_row<T, R>(off, r, v, t, ts, te, y, carry);
+  }
+  template <typename Offsets>
+  __device__ __forceinline__ void tile_done(Offsets, int, int, int) const {}
+};
+
 // Everything of a tile kernel after the loads: the row search, the runs,
 // the block-wide scan and the emit, on the tile's row offsets `off`. `v`
 // holds this thread's values; xrow(k, xr) gives x(c) of its k-th nonzero
-// (X's row for R > 1) as the runs reach it.
-template <typename T, int kBlockThreads, int R, typename Offsets, typename XRow>
+// (X's row for R > 1) as the runs reach it; `out` takes the sums.
+template <typename T, int kBlockThreads, int R, typename Offsets, typename XRow,
+          typename Out>
 __device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
                                           int ts, int te, int e0, int e_end,
                                           const T (&v)[kTileItems], XRow xrow,
-                                          T* __restrict__ y,
-                                          T* __restrict__ carry) {
+                                          const Out& out) {
+  T* __restrict__ y = out.y;
+  const int r0 = lo, r1 = hi;  // the tile's rows; the search moves lo and hi
   constexpr int kWarps = kBlockThreads / kWarp;
   const int lane = threadIdx.x & (kWarp - 1);
 
@@ -302,13 +324,14 @@ __device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
 #pragma unroll
         for (int j = 0; j < R; ++j) head_val[j] = ev[j] + head_val[j];
       }
-      emit_row<T, R>(off, head_row, head_val, t, ts, te, y, carry);
+      out.emit(off, head_row, head_val, t, ts, te);
     }
     // The last run ends here if its row ends at e_end or the tile does.
     if (row_end == e_end || e_end == te) {
-      emit_row<T, R>(off, key, incl, t, ts, te, y, carry);
+      out.emit(off, key, incl, t, ts, te);
     }
   }
+  out.tile_done(off, r0, r1, t);
 }
 
 // Row offsets a block of kBlockThreads threads stages: ptr[r0 .. r1 + 1]
@@ -337,10 +360,11 @@ __host__ __device__ constexpr int row_stage_cap() {
 // scan (warp shuffles driven by run-start flags, then every warp over the
 // warp totals in shared memory) joins them. The thread where a row's run
 // ends in the tile writes it through emit_row. Rows with no nonzeros are
-// never written: the wrapper zeroes y. Nor is a carry slot that no split
-// row uses (a tile whose first row starts at its first nonzero has no
-// head, one whose last row ends inside it no tail): the fix-ups read only
-// the slots written here, so the wrapper allocates carry without a fill.
+// never written: the wrapper zeroes y (K3's tile_done writes them). Nor is
+// a carry slot that no split row uses (a tile whose first row starts at
+// its first nonzero has no head, one whose last row ends inside it no
+// tail): the fix-ups read only the slots written here, so the wrapper
+// allocates carry without a fill.
 //
 // What bounds it on the H100: bytes in principle (8 B per nonzero
 // streamed, 12 in fp64, and a 4- or 8-byte x gather, for 2 flops), but the
@@ -370,14 +394,18 @@ __host__ __device__ constexpr int row_stage_cap() {
 // branch, not ahead of the stage as K1 gathers x: 4·R floats held across
 // the stage raised K8 from 32 to 48 registers at R = 4 and made it 9-14%
 // slower than the kernel it replaced on an H100 (probes.turns, PERF.md).
-template <typename T, typename ColT, int kBlockThreads, int kX, typename XT, int R>
-__device__ __forceinline__ void seg_tiles_block(const int* __restrict__ ptr,
-                                                const ColT* __restrict__ cols,
-                                                const T* __restrict__ vals,
-                                                const int* __restrict__ tile_row0,
-                                                const XT* __restrict__ x,
-                                                T* __restrict__ y,
-                                                T* __restrict__ carry, int nnz) {
+//
+// seg_tile_body is that block on tile t, its sums to `out` (CarryOut for
+// K1, K8 and K12; K3's FusedOut); seg_tiles_block runs it on tile
+// blockIdx.x into y and carry.
+template <typename T, typename ColT, int kBlockThreads, int kX, typename XT, int R,
+          typename Out>
+__device__ __forceinline__ void seg_tile_body(const int* __restrict__ ptr,
+                                              const ColT* __restrict__ cols,
+                                              const T* __restrict__ vals,
+                                              const int* __restrict__ tile_row0,
+                                              const XT* __restrict__ x, const Out& out,
+                                              int nnz, int t) {
   constexpr int kTileNnz = kBlockThreads * kTileItems;
   constexpr int kWarps = kBlockThreads / kWarp;
   constexpr int kStage = row_stage_cap<kBlockThreads>();
@@ -388,7 +416,6 @@ __device__ __forceinline__ void seg_tiles_block(const int* __restrict__ ptr,
                 "R > 1 gathers rows of a float X");
   __shared__ int s_ptr[kStage];
 
-  const int t = blockIdx.x;
   const int ts = t * kTileNnz;
   const int te = min(ts + kTileNnz, nnz);
   const int e0 = ts + threadIdx.x * kTileItems;
@@ -459,11 +486,24 @@ __device__ __forceinline__ void seg_tiles_block(const int* __restrict__ ptr,
       __syncwarp();  // one warp (tile 128): a warp barrier is the block's
     }
     tile_rows<T, kBlockThreads, R>(StagedOffsets{s_ptr, r0}, r0, r1, t, ts, te, e0,
-                                   e_end, v, xrow, y, carry);
+                                   e_end, v, xrow, out);
   } else {
     tile_rows<T, kBlockThreads, R>(GlobalOffsets{ptr}, r0, r1, t, ts, te, e0,
-                                   e_end, v, xrow, y, carry);
+                                   e_end, v, xrow, out);
   }
+}
+
+template <typename T, typename ColT, int kBlockThreads, int kX, typename XT, int R>
+__device__ __forceinline__ void seg_tiles_block(const int* __restrict__ ptr,
+                                                const ColT* __restrict__ cols,
+                                                const T* __restrict__ vals,
+                                                const int* __restrict__ tile_row0,
+                                                const XT* __restrict__ x,
+                                                T* __restrict__ y,
+                                                T* __restrict__ carry, int nnz) {
+  seg_tile_body<T, ColT, kBlockThreads, kX, XT, R>(ptr, cols, vals, tile_row0, x,
+                                                    CarryOut<T, R>{y, carry}, nnz,
+                                                    static_cast<int>(blockIdx.x));
 }
 
 template <typename T, typename ColT, int kBlockThreads, int kX = kXGather,

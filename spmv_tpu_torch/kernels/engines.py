@@ -15,7 +15,10 @@ carry_fixup_multi              K9 carry_fixup_multi   engines.py:537 ``_scatter_
 
 ``segmented_spmv`` picks K3 for plans of at most
 ``device.FUSED_STREAM_BYTES_MAX`` bytes and K1 then K2 otherwise — the
-JAX engine's fused and two-dispatch shapes. ``segmented_spmv_multi`` is
+JAX engine's fused and two-dispatch shapes. K3 runs K1's tiles and does
+K2's adds in the same launch, so both shapes give the same bits, on every
+plan with a long row; on plans of short rows it runs a sub-warp per row
+(``fused_lanes``). ``segmented_spmv_multi`` is
 Y = A·X for 2 ≤ R ≤ ``MULTI_RHS_MAX`` right-hand sides in one pass over
 the plan, K8 then K9, on the same tile schedule: X is row-major
 (ncols, R), Y row-major (nrows, R), carries (2·ntiles, R).
@@ -40,7 +43,8 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
            "segmented_spmv_multi", "segmented_spmv_multi_partials",
            "carry_fixup_multi", "segmented_spmv_multi_partials_reference",
            "carry_fixup_multi_reference", "MULTI_RHS_MAX", "carry_slot_rows",
-           "tile_outputs", "LAUNCHES", "reset_launches", "fused_lanes", "KernelError"]
+           "tile_outputs", "LAUNCHES", "reset_launches", "fused_lanes", "row_lanes",
+           "ROWS_MAX_STEPS", "KernelError"]
 
 # Launch counts per kernel, this engine's, the panel engine's
 # (``kernels.panel``) and the fp64-grade ones (``kernels.engines_x2``); the
@@ -327,35 +331,57 @@ def segmented_spmv_multi(dev: DevCsr, X: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- K3
 
 
-def fused_lanes(dev: DevCsr) -> int:
-    """K3's lanes per row: the smallest of 4, 8, 16, 32 that covers the
-    mean row length (32 for anything longer)."""
+def row_lanes(dev: DevCsr) -> int:
+    """The lanes per row of K3's sub-warp mode: the smallest of 4, 8, 16,
+    32 that covers the mean row length (32 for anything longer)."""
     mean = dev.nnz / max(dev.nrows, 1)
-    for vec in (4, 8, 16):
-        if mean <= vec:
-            return vec
-    return 32
+    return next((v for v in (4, 8, 16) if mean <= v), 32)
+
+
+# The most steps of its sub-warp the longest row may take for K3 to run a
+# sub-warp per row: on an H100 it beat the tiles on every plan whose longest
+# row took 1-3 steps (synthetic_cant at 512-62,464 rows, 1.5-2.0×) and lost
+# on a power-law plan at 4 (1.1×) and on every one above (PERF.md).
+ROWS_MAX_STEPS = 3
+
+
+def fused_lanes(dev: DevCsr) -> int:
+    """K3's mode for a plan: 0 for K1's tiles, else the lanes per row of its
+    sub-warp mode (``row_lanes``), which runs only where no row takes more
+    than ``ROWS_MAX_STEPS`` steps of them."""
+    vec = row_lanes(dev)
+    return vec if dev.max_row_nnz <= ROWS_MAX_STEPS * vec else 0
 
 
 def segmented_spmv_fused(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
-    """K3: y = A·x in one dispatch."""
+    """K3: y = A·x in one launch. On K1's tile schedule (``fused_lanes``
+    0, any plan with a long row) the block of each split row's last tile
+    waits for the partials the row's other tiles publish in
+    ``dev.fused_words`` and adds them in K2's order, so y is K1 + K2's, bit
+    for bit; the words are the plan's, so two K3 launches on one plan must
+    not overlap (one stream, as every caller of the port launches). On a
+    plan of short rows it runs a sub-warp per row, in an order of its own."""
     _check_x(dev, x)
     if not _on_cuda(dev, x):
         return segmented_spmv_fused_reference(dev, x)
-    if dev.nnz == 0 or dev.nrows == 0:  # nothing to launch: y is all zeros
+    if dev.tile != TILE_NNZ:
+        raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
+    for t in (dev.cols, dev.vals):  # 4 nonzeros per step, in 16-byte loads
+        if t.data_ptr() % 16:
+            raise ValueError("plan tensors must be 16-byte aligned")
+    if dev.nnz == 0:  # nothing to launch: y is all zeros
         return torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
     y = torch.empty(dev.nrows, dtype=torch.float32, device=dev.device)
-    _launch("csr_spmv_fused", dev, dev.ptr, dev.cols, dev.vals, x, y,
-            dev.nrows, fused_lanes(dev))
+    _launch("csr_spmv_fused", dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0, x, y,
+            dev.fused_words, dev.nnz, dev.ntiles, dev.nrows, dev.tile, fused_lanes(dev))
     return y
 
 
 def segmented_spmv_fused_reference(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
-    """Plain K3: a row-wise segment sum of the products."""
-    if dev.nnz == 0:
-        return torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
-    prod = dev.vals * x[dev.cols.long()]
-    return torch.segment_reduce(prod, "sum", offsets=dev.ptr, initial=0.0)
+    """Plain K3, its tile mode's structure: plain K1's tile partials, then
+    plain K2's adds in tile order, so plain K1 + K2's y bit for bit. (The
+    sub-warp mode sums in another order, within the kernel bound of it.)"""
+    return carry_fixup_reference(dev, *segmented_spmv_partials_reference(dev, x))
 
 
 # ---------------------------------------------------------------- dispatch

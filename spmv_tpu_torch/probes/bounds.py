@@ -72,9 +72,10 @@ def csr_spmv_bytes(dev, R: int = 1, x_itemsize: int | None = None) -> int:
 
 
 def fused_bytes(dev) -> int:
-    """K3: ptr, columns and values read, x read, y written."""
+    """K3: ptr, columns, values and tile_row0 read, x read, y written; the
+    words a split row's tiles publish stay on the card."""
     es = dev.vals.element_size()
-    return nbytes(dev.ptr, dev.cols, dev.vals) + (dev.ncols + dev.nrows) * es
+    return nbytes(dev.ptr, dev.cols, dev.vals, dev.tile_row0) + (dev.ncols + dev.nrows) * es
 
 
 def panel_tiles_bytes(pdev, R: int = 1, x_itemsize: int | None = None) -> int:

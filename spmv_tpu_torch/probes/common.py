@@ -29,7 +29,10 @@ HBM_STREAM_L2S = 5
 # bench.py's main-suite matrix (bench.py:84-85), its 524k-row power-law
 # matrix (bench.py:211), the same without its column band (12,373,741 nnz,
 # a plan above the 50 MB L2), its 32k-row power-law matrix (bench.py:164)
-# and the 1024-row band matrix of the parity tests; partials, so that
+# and the 1024-row band matrix of the parity tests; then the rest of
+# chip_smoke.py's sweep of the one-dispatch threshold: the 512-row matrix
+# of ``__graft_entry__.entry()``, cant's generator at 8,192 and 16,384 rows
+# and the 32k-row power-law matrix without its band; partials, so that
 # ``probes.turns`` can name them to a checkout of its own
 MATRICES = {
     "cant": partial(synth.synthetic_cant, n=62464, avg_nnz_per_row=64,
@@ -41,6 +44,11 @@ MATRICES = {
                   seed=0),
     "band": partial(synth.synthetic_cant, n=1024, avg_nnz_per_row=16,
                     bandwidth=60, seed=5),
+    "entry": partial(synth.synthetic_cant, n=512, avg_nnz_per_row=8, bandwidth=40,
+                     seed=0),
+    "cant_8192": partial(synth.synthetic_cant, n=8192),
+    "cant_16384": partial(synth.synthetic_cant, n=16384),
+    "pl_wide_32768": partial(synth.power_law, n=32768, avg_nnz_per_row=24, seed=0),
 }
 
 # The SELL panel the ``panel`` probe and ``probes.turns`` run K4 and K14 on:
@@ -90,10 +98,32 @@ def hub_row(seed: int = 0):
     return _triplets([2] * 300 + [5000] + [3] * 300, 6000, seed)
 
 
-# The extreme tiles of the segmented tile kernel (K1, K12), from a seed:
-# the tests, the gpu tests and chip_smoke.py run both engines on them
+def wide_hub(seed: int = 0):
+    """A power-law matrix whose hub row of 22,000 nonzeros spans 22 tiles or
+    more: 1,200 rows of Zipf lengths (α = 1.8, at most 64), the hub in
+    their middle."""
+    tail = np.minimum(np.random.default_rng(seed).zipf(1.8, 1200), 64)
+    return _triplets([*tail[:600], 22_000, *tail[600:]], 24_000, seed)
+
+
+def empty_row_edges(seed: int = 0):
+    """Runs of empty rows at every place a tile can meet one: 30 before the
+    first nonzero; a row of exactly one tile, then 1,500 empty rows at the
+    boundary of tiles 0 and 1 (tile 0's span over the stage's cap); a row
+    of 1,536 over tiles 1 and 2, so tile 1 holds no row of its own; 500
+    empty rows inside tile 2, a row of 512 that ends at its end and 100
+    empty rows at that boundary; 40 rows of 3, then 50 empty rows after the
+    last nonzero."""
+    return _triplets([0] * 30 + [1024] + [0] * 1500 + [1536] + [0] * 500 + [512]
+                     + [0] * 100 + [3] * 40 + [0] * 50, 2000, seed)
+
+
+# The extreme tiles of the segmented tile kernel (K1, K12) and of the
+# one-launch K3's fix-up and zero rows, from a seed: the tests, the gpu
+# tests and chip_smoke.py run both engines on them
 TILE_SHAPES = {"one_nonzero_rows": one_nonzero_rows,
-               "empty_row_gaps": empty_row_gaps, "hub_row": hub_row}
+               "empty_row_gaps": empty_row_gaps, "hub_row": hub_row,
+               "wide_hub": wide_hub, "empty_row_edges": empty_row_edges}
 
 
 def _slices(widths, seed: int, nrows: int | None = None, ncols: int = 500):

@@ -1,7 +1,7 @@
 """Two checkouts' tile kernels, timed in turns on one card.
 
     python -m spmv_tpu_torch.probes.turns OTHER_ROOT [OTHER_ROOT ...]
-        [--out DIR] [--only seg|panel|spmm|sorted] [--probe NAME:MATRIX ...]
+        [--out DIR] [--only seg|panel|spmm|sorted|fused] [--probe NAME:MATRIX ...]
         [--rounds N]
 
 Measures a change to the segmented tile kernel K1/K12/K8 and its fix-ups
@@ -56,6 +56,13 @@ launches that checkout's kernels through that checkout's wrappers, and
   (K4, K10, K14, the spill's kernels and K7) is held to the other
   checkout's bits; the same calls, untimed, on ``common.PANEL_SHAPES`` as
   σ-sorted SELL panels (σ = 128) on K4's partials;
+* with the ``fused`` engine, on the plans of ``FUSED_TURN_MATRICES`` (the
+  sweep of the one-dispatch threshold in ``chip_smoke.py``), the
+  one-dispatch K3 (``segmented_spmv_fused``) beside K1 alone, K1 + K2 and
+  cuSPARSE, each by graph replay, and K3's HBM-peak bound
+  (``bounds.fused_bytes``); K1 + K2's y is saved, and whether K3's y is
+  K1 + K2's bit for bit (and by how much it differs) is kept per turn, since
+  a K3 of another design may sum in another order;
 * then runs each ``--probe NAME:MATRIX`` (``python -m spmv_tpu_torch.probes``)
   in that checkout, its output saved beside the arrays.
 
@@ -88,6 +95,10 @@ TURN_MATRICES = ("cant", "pl_big", "pl_wide", "band")
 PANEL_TURN_MATRICES = ("cant", "pl", "pl_big")
 # the right-hand sides the spmm engine runs K8 and K10 at
 SPMM_RHS = (2, 4, 8)
+# the plans the fused engine times K3 on: chip_smoke.py's sweep of the
+# one-dispatch threshold, the ones under it first
+FUSED_TURN_MATRICES = ("entry", "band", "pl", "cant_8192", "pl_wide_32768",
+                       "cant_16384")
 # the σ-sorted SELL containers the sorted engine times through the public
 # calls: name → (matrix of ``common.MATRICES``, split, forced): cant as the
 # split builds it (a pure sorted panel), pl-32768 and ``pl_big`` whole
@@ -329,6 +340,31 @@ def _worker(out_dir: Path, specs: dict) -> dict:
     floor = getattr(KP, "launch_floor", None)
     if floor is not None:
         ms["launch floor"] = graph_ms(lambda: floor("cuda"))
+    res["fused_bits"] = {}
+    for name, (gen, kwargs) in specs.pop("fused", {}).items():
+        # K3 beside K1, K1 + K2 and cuSPARSE on one plan of the sweep
+        info, r, c, v = getattr(synth, gen)(**kwargs)
+        order = np.lexsort((c, r))
+        dev = DevCsr.from_plan(build_csr_plan(
+            info.nrows, info.ncols, csr_ptr(r[order], info.nrows), c[order],
+            np.asarray(v, np.float64)[order], dtype=np.float32), "cuda")
+        A = torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals, (dev.nrows, dev.ncols))
+        x = vector(info.ncols, np.float32)
+        tiles, fixup = kernels["f32"]
+        y12 = fixup(dev, *tiles(dev, x))
+        y3 = E.segmented_spmv_fused(dev, x)
+        np.save(out_dir / f"{name}_fused_path_y.npy", y12.cpu().numpy())
+        res["fused_bits"][name] = {
+            "equal": bool(torch.equal(y3, y12)),
+            "max_abs": float((y3.double() - y12.double()).abs().max()),
+            "plan_bytes": dev.stream_bytes, "fused": dev.fused}
+        ms[f"{name} fused K3"] = graph_ms(lambda: E.segmented_spmv_fused(dev, x))
+        ms[f"{name} fused K1"] = graph_ms(lambda: tiles(dev, x))
+        ms[f"{name} fused K1+K2"] = graph_ms(lambda: fixup(dev, *tiles(dev, x)))
+        ms[f"{name} fused cusparse"] = graph_ms(lambda: A @ x)
+        ms[f"{name} fused K3 bound"] = B.bound_ms(B.fused_bytes(dev), 2 * dev.nnz)[0]
+        del dev, A
+        torch.cuda.synchronize()
     for engine, named in specs.items():
         for name, (gen, kwargs, *split) in named.items():
             info, r, c, v = getattr(synth, gen)(**kwargs)
@@ -373,12 +409,15 @@ def run_specs(only: str | None, out: Path) -> dict:
     panel and spmm engines time; ``sorted``, the sorted SELL builds
     (``SORTED_BUILDS``) whose public calls the sorted engine times, and
     ``sorted_shapes``, the panel shapes' triplets, which it runs as sorted
-    SELL panels, untimed."""
+    SELL panels, untimed; ``fused``, the plans the fused engine times K3
+    on (``FUSED_TURN_MATRICES``)."""
     from spmv_tpu_torch.probes.common import PANEL_SPLIT
 
-    engines = {"seg", "panel", "spmm", "sorted"} if only is None else {only}
+    engines = {"seg", "panel", "spmm", "sorted", "fused"} if only is None else {only}
     rhs = [1] * bool(engines & {"seg", "panel"}) + list(SPMM_RHS) * ("spmm" in engines)
     specs = {"rhs": rhs}
+    if "fused" in engines:
+        specs["fused"] = matrix_specs(FUSED_TURN_MATRICES)
     if engines & {"seg", "spmm"}:
         specs["seg"] = matrix_specs()
     if engines & {"panel", "spmm"}:
@@ -426,10 +465,11 @@ def main(argv=None) -> int:
                    "first is the one every time is given against)")
     p.add_argument("--out", default="turns_out",
                    help="directory for the outputs and turns.json")
-    p.add_argument("--only", choices=("seg", "panel", "spmm", "sorted"),
+    p.add_argument("--only", choices=("seg", "panel", "spmm", "sorted", "fused"),
                    help="time one engine's tile kernels only (spmm: K8 and "
                         "K10 at R = 2, 4, 8; sorted: the public calls on "
-                        "sorted SELL builds)")
+                        "sorted SELL builds; fused: K3 on the plans of the "
+                        "one-dispatch sweep)")
     p.add_argument("--probe", action="append", default=[],
                    help="NAME:MATRIX, run in each turn, e.g. ablate:pl_big")
     p.add_argument("--rounds", type=int, default=5, help="rounds of each probe")
@@ -493,6 +533,11 @@ def main(argv=None) -> int:
                            for tree in roots if tree != "other" and tree in m
                            and m.get("other"))
         print(f"  {key:34s} {cells}  {ratios}")
+    for t in turns:  # K3 against K1 + K2 in each turn (a design may sum otherwise)
+        if t.get("fused_bits"):
+            print(f"K3 against K1 + K2, {t['tree']}: " + ", ".join(
+                f"{n} {'bit for bit' if b['equal'] else 'max |diff| %.3e' % b['max_abs']}"
+                for n, b in t["fused_bits"].items()))
     n = len(list(dirs["other"][0].glob("*.npy")))
     print(f"bit for bit: {n} outputs of each of {len(turns)} turns; "
           + ("all equal" if not bad else f"{len(bad)} differ: {bad}"))

@@ -53,6 +53,7 @@ forms raise JAX's ``NotImplementedError``; ``RingShardedSpmv`` and
 
 from __future__ import annotations
 
+import gc
 import math
 
 import numpy as np
@@ -192,12 +193,19 @@ class _GraphLoop:
             _masked(self.step, self.active, scratch, self.consts)  # a warm-up body
             # not ``torch.cuda.graph``, which also synchronizes and empties
             # the caching allocator first: in a process that holds many
-            # blocks that costs more than the capture itself
+            # blocks that costs more than the capture itself. No garbage
+            # collection inside the capture: a container and its loops form
+            # a reference cycle, and freeing another loop's graph there
+            # destroys an executable graph, which invalidates the capture.
+            collecting = gc.isenabled()
+            gc.disable()
             self.graph.capture_begin()
             try:
                 self.flag = self._chunk()
             finally:
                 self.graph.capture_end()
+                if collecting:
+                    gc.enable()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.replay = self.graph.replay
 

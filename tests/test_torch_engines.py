@@ -112,6 +112,18 @@ def test_fused_path_matches_jax_fused(name):
     check_against_jax(name, y.numpy(), reference(name)[6])
 
 
+@pytest.mark.parametrize("tile", [TILE_NNZ, 16])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_fused_path_is_the_two_dispatch_path_bit_for_bit(name, tile):
+    """Plain K3 is plain K1's tile partials and plain K2's adds in tile
+    order, as the kernel is: the same bits as plain K1 + K2, so which side
+    of the one-dispatch threshold a plan falls on does not change y."""
+    x = torch.from_numpy(reference(name)[4])
+    dev = port_dev(name, tile)
+    y12 = E.carry_fixup(dev, *E.segmented_spmv_partials(dev, x))
+    assert torch.equal(E.segmented_spmv_fused(dev, x), y12)
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_segmented_spmv_dispatches_on_plan_bytes(monkeypatch, fused):
     calls = []
@@ -157,6 +169,21 @@ def test_fused_lanes_follow_mean_row_length():
                                device="cpu")
         lanes[per_row] = E.fused_lanes(a.dev)
     assert lanes == {3: 4, 8: 8, 12: 16, 40: 32}
+
+
+@pytest.mark.parametrize("longest, mode", [(12, 4), (13, 0), (96, 32), (97, 0)])
+def test_fused_mode_is_the_tiles_wherever_a_row_is_long(longest, mode):
+    """K3 runs a sub-warp per row only while no row takes more than
+    ``ROWS_MAX_STEPS`` (3) steps of it; a longer row sends the plan to the
+    tiles (0)."""
+    assert E.ROWS_MAX_STEPS == 3
+    per_row = 3 if mode == 4 or longest == 13 else 40
+    lengths = np.full(400, per_row)
+    lengths[7] = longest
+    rows = np.repeat(np.arange(400), lengths)
+    cols = np.concatenate([np.arange(k) for k in lengths])
+    a = CSRMatrix.from_coo(400, 200, rows, cols, np.ones(rows.size), device="cpu")
+    assert E.fused_lanes(a.dev) == mode
 
 
 def test_launcher_signatures_match_the_cuda_source():

@@ -82,6 +82,8 @@ def test_kernels_match_plain_versions_and_repeat_bitwise(cuda, name):
     assert ((y.double() - y_plain.double()).abs() <= bound).all()
     y3 = E.segmented_spmv_fused(dev, x)
     assert torch.equal(y3, E.segmented_spmv_fused(dev, x))
+    if E.fused_lanes(dev) == 0:  # K3's tiles: K1 + K2, bit for bit
+        assert torch.equal(y3, y)
     y3_plain = E.segmented_spmv_fused_reference(dev, x)
     assert ((y3.double() - y3_plain.double()).abs() <= bound).all()
     torch.cuda.synchronize()
@@ -232,8 +234,24 @@ def test_refused_launch_raises(cuda):
                             dev.nnz, dev.ntiles, dev.tile,
                             torch.cuda.current_stream().cuda_stream)
     assert rc != 0
-    # K8 is built for R = 2..8 only
+    # and so do K3's wrapper and launcher
+    with pytest.raises(ValueError, match="tile"):
+        E.segmented_spmv_fused(dev, x)
+    rc = lib.csr_spmv_fused(dev.ptr.data_ptr(), dev.cols.data_ptr(),
+                            dev.vals.data_ptr(), dev.tile_row0.data_ptr(),
+                            x.data_ptr(), y.data_ptr(), dev.fused_words.data_ptr(),
+                            dev.nnz, dev.ntiles, dev.nrows, dev.tile, 0,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    # and lanes per row it was not built for
     good = CSRMatrix.from_coo(info.nrows, info.ncols, r, c, v, device=cuda).dev
+    rc = lib.csr_spmv_fused(good.ptr.data_ptr(), good.cols.data_ptr(),
+                            good.vals.data_ptr(), good.tile_row0.data_ptr(),
+                            x.data_ptr(), y.data_ptr(), good.fused_words.data_ptr(),
+                            good.nnz, good.ntiles, good.nrows, good.tile, 64,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    # K8 is built for R = 2..8 only
     X = torch.ones(good.ncols, 9, device=cuda)
     Y = torch.zeros(good.nrows, 9, device=cuda)
     carry = torch.zeros(2 * good.ntiles, 9, device=cuda)
@@ -674,6 +692,60 @@ def test_fixup_paths_in_a_cuda_graph_equal_the_eager_run(cuda, name):
             g.replay()
             torch.cuda.synchronize()
             assert torch.equal(out, eager), what
+
+
+def fused_mode(dev, x, vec):
+    """K3's launcher in one mode (vec 0: K1's tiles; 4-32: lanes per row),
+    outside its wrapper, into a NaN-filled y: a row it leaves unwritten
+    stays NaN."""
+    y = torch.full((dev.nrows,), float("nan"), device=x.device)
+    assert _build.library().lib.csr_spmv_fused(
+        dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), dev.fused_words.data_ptr(),
+        dev.nnz, dev.ntiles, dev.nrows, dev.tile, vec,
+        torch.cuda.current_stream().cuda_stream) == 0
+    return y
+
+
+@pytest.mark.parametrize("name", sorted(FIXUP_MATRICES))
+def test_k3_is_k1_k2_bits_eager_and_in_a_cuda_graph(cuda, name):
+    """K3's tiles, on any plan (cant, pl_big and pl_wide have more tiles
+    than the card holds blocks, so its blocks walk several), give K1 + K2's
+    y bit for bit into a NaN-filled y, twice; so does K3 itself wherever it
+    picks its tiles (every plan here with a long row), and its sub-warp
+    mode, where it picks that, writes every row. K3 gives its eager bits in
+    3 replays of one captured graph. The published words are 0 again after
+    every launch, and they are no part of the plan's bytes."""
+    dev, _, x, _ = fixup_plans(name)
+    want = E.carry_fixup(dev, *E.segmented_spmv_partials(dev, x))
+    for _ in range(2):
+        assert torch.equal(fused_mode(dev, x, 0), want)
+        assert not dev.fused_words.any()
+    mode = E.fused_lanes(dev)
+    assert (mode == 0) == (dev.max_row_nnz > E.ROWS_MAX_STEPS * E.row_lanes(dev))
+    eager = E.segmented_spmv_fused(dev, x)
+    assert torch.equal(fused_mode(dev, x, mode), eager)
+    if mode == 0:
+        assert torch.equal(eager, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
+        E.segmented_spmv_fused(dev, x)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = E.segmented_spmv_fused(dev, x)
+    for _ in range(3):
+        out.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert not dev.fused_words.any()
+    resident = _build.library().lib.csr_spmv_fused_resident(torch.cuda.current_device())
+    assert resident >= torch.cuda.get_device_properties(0).multi_processor_count
+    assert dev.fused_words.shape == (dev.ntiles,)
+    assert dev.stream_bytes == sum(t.numel() * t.element_size() for t in (
+        dev.ptr, dev.cols, dev.vals, dev.tile_row0, dev.carry_rows))
 
 
 # ---------------------------------------------------------------- K7

@@ -11,6 +11,7 @@ from spmv_tpu_torch.formats.base import TILE_NNZ, build_csr_plan, csr_ptr
 from spmv_tpu_torch.io.mmio import MMInfo
 from spmv_tpu_torch.kernels import engines as E
 from spmv_tpu_torch.oracle import golden_spmv, kernel_check, row_scale
+from spmv_tpu_torch.probes.common import empty_row_edges, wide_hub
 
 
 def long_rows(seed=0):
@@ -31,6 +32,9 @@ CASES = {
                                               bandwidth=60, seed=5),
     "power_law_2048": lambda: synth.power_law(n=2048, seed=7),
     "long_rows": long_rows,
+    # a hub over 22 tiles; empty rows at and between tile edges (K3's cases)
+    "wide_hub": wide_hub,
+    "empty_row_edges": empty_row_edges,
 }
 TILES = [TILE_NNZ, 64, 7]
 
@@ -119,6 +123,19 @@ def test_plain_paths_agree_with_each_other_and_the_oracle(case, tile):
         assert rep.ok, rep
     assert kernel_check(y3.numpy().astype(np.float64), y12.numpy(), scale,
                         p.max_row_nnz).ok
+    assert torch.equal(y3, y12)  # K3 is K1's tiles and K2's adds in one launch
+
+
+@pytest.mark.parametrize("shape", [(0, 0), (0, 7), (7, 0), (5, 5), (3000, 20)])
+def test_fused_path_without_nonzeros(shape):
+    """nnz == 0: plain K3 gives every row 0, as plain K1 + K2 does."""
+    nrows, ncols = shape
+    dev = DevCsr.from_plan(build_csr_plan(nrows, ncols, np.zeros(nrows + 1),
+                                          np.zeros(0, np.int32), np.zeros(0)), "cpu")
+    x = torch.ones(ncols)
+    y3 = E.segmented_spmv_fused(dev, x)
+    assert y3.dtype == torch.float32 and y3.tolist() == [0.0] * nrows
+    assert torch.equal(y3, E.carry_fixup(dev, *E.segmented_spmv_partials(dev, x)))
 
 
 def test_duplicates_stay_separate_and_sum():

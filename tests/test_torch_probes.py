@@ -460,19 +460,29 @@ def test_turns_name_the_probes_matrices_to_a_worker():
     assert all(np.array_equal(u, w) for u, w in zip(a[1:], b[1:]))
 
 
-@pytest.mark.parametrize("only", [None, "seg", "panel", "spmm", "sorted"])
+@pytest.mark.parametrize("only", [None, "seg", "panel", "spmm", "sorted", "fused"])
 def test_turns_specs_name_each_engines_matrices_and_rhs(tmp_path, only):
     """``turns.run_specs`` hands each worker, through JSON, the R of its
     kernels (1 for seg and panel, 2, 4, 8 for spmm), the segmented
     kernels' matrices, the SELL panels with their split, the panel
     shapes' triplets, the unsorted panels whose public calls the panel
-    and spmm engines time and the sorted SELL builds; ``--only`` keeps one
+    and spmm engines time, the sorted SELL builds and the plans of the
+    one-dispatch sweep the fused engine times K3 on; ``--only`` keeps one
     engine's."""
+    from spmv_tpu_torch import synth
     from spmv_tpu_torch.probes import common, turns
 
     specs = json.loads(json.dumps(turns.run_specs(only, tmp_path)))
     assert specs["rhs"] == {None: [1, 2, 4, 8], "seg": [1], "panel": [1],
-                            "spmm": [2, 4, 8], "sorted": []}[only]
+                            "spmm": [2, 4, 8], "sorted": [], "fused": []}[only]
+    assert ("fused" in specs) == (only in (None, "fused"))
+    if "fused" in specs:  # the sweep's plans, built as chip_smoke.py builds them
+        assert list(specs["fused"]) == list(turns.FUSED_TURN_MATRICES)
+        assert specs["fused"]["entry"] == ["synthetic_cant", dict(
+            n=512, avg_nnz_per_row=8, bandwidth=40, seed=0)]
+        gen, kwargs = specs["fused"]["cant_8192"]
+        a, b = getattr(synth, gen)(**kwargs), synth.synthetic_cant(n=8192)
+        assert all(np.array_equal(u, w) for u, w in zip(a[1:], b[1:]))
     assert turns.SPMM_RHS == (2, 4, 8)
     assert ("seg" in specs) == (only in (None, "seg", "spmm"))
     assert ("panel" in specs) == ("shapes" in specs) == (only in (None, "panel", "spmm"))

@@ -13,7 +13,12 @@ them too); the tests here check that each reaches the branch it is for:
   rows a tile can hold, whose span is exactly the stage's cap;
 * ``empty_row_gaps``: tiles whose span crosses the cap through thousands of
   empty rows between nonzeros, beside tiles that fit;
-* ``hub_row``: a 5,000-nonzero row over six tiles beside short rows.
+* ``hub_row``: a 5,000-nonzero row over six tiles beside short rows;
+* ``wide_hub``: a power-law matrix whose 22,000-nonzero hub spans 22 tiles,
+  whose last tile K3 finishes from 21 published partials;
+* ``empty_row_edges``: runs of empty rows before the first nonzero, at tile
+  boundaries, inside a tile and after the last nonzero, which K3 writes
+  itself (K1's wrapper zeroes y), and a tile holding no row of its own.
 
 ``test_torch_engines.py`` and ``test_torch_x2.py`` hold the plain K1/K2 and
 K12/K13 paths on them against the JAX package; ``test_torch_gpu.py`` holds
@@ -28,8 +33,9 @@ import pytest
 
 from spmv_tpu_torch.formats.base import (ROW_STAGE, TILE_NNZ, build_csr_plan,
                                          csr_ptr, row_spans)
-from spmv_tpu_torch.probes.common import (TILE_SHAPES, empty_row_gaps, hub_row,
-                                          one_nonzero_rows)
+from spmv_tpu_torch.probes.common import (TILE_SHAPES, empty_row_edges,
+                                          empty_row_gaps, hub_row, one_nonzero_rows,
+                                          wide_hub)
 
 CSRC = Path(__file__).resolve().parents[1] / "spmv_tpu_torch" / "kernels" / "csrc"
 
@@ -70,6 +76,31 @@ def test_hub_row_spans_at_least_four_tiles():
     ptr = p.ptr.astype(np.int64)
     assert (ptr[301] - 1) // TILE_NNZ - ptr[300] // TILE_NNZ + 1 >= 4
     assert 300 in p.carry_rows and (row_spans(p.tile_row0) <= ROW_STAGE).all()
+
+
+def test_wide_hub_spans_at_least_twenty_tiles():
+    p = plan(wide_hub())
+    ptr = p.ptr.astype(np.int64)
+    lengths = np.diff(ptr)
+    hub = int(lengths.argmax())
+    assert lengths[hub] == 22_000 and hub in p.carry_rows
+    assert (ptr[hub + 1] - 1) // TILE_NNZ - ptr[hub] // TILE_NNZ + 1 >= 20
+    assert (lengths[lengths != 22_000] <= 64).all()
+
+
+def test_empty_row_edges_reach_every_place_of_an_empty_row():
+    p = plan(empty_row_edges())
+    ptr = p.ptr.astype(np.int64)
+    empty = np.flatnonzero(np.diff(ptr) == 0)
+    at = ptr[empty]
+    assert (at == 0).sum() == 30  # before the first nonzero
+    assert (empty > p.tile_row0[-1]).sum() == 50  # after the last
+    boundary = at[(at % TILE_NNZ == 0) & (at > 0) & (at < p.nnz)]
+    assert {1024, 3072} <= set(boundary.tolist())  # at tile boundaries
+    assert ((at % TILE_NNZ != 0) & (at < p.nnz)).sum() == 500  # inside a tile
+    assert p.tile_row0[1] == p.tile_row0[2]  # tile 1 holds no row of its own
+    spans = row_spans(p.tile_row0)
+    assert spans[0] > ROW_STAGE and (spans[1:] <= ROW_STAGE).all()
 
 
 def test_row_spans_of_an_empty_plan():
