@@ -34,7 +34,20 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    slice per tile, a hub slice, one-column slices, a cut last slice); on
    every panel, cant's split SELL panel included, the launchers of K4 and
    K14 also write into NaN-filled y and partials, which must equal the
-   wrappers' bits, so a row or slot they leave unwritten fails. The
+   wrappers' bits, so a row or slot they leave unwritten fails. K6 on
+   every panel in each mode through its launcher, into a NaN-filled y: the
+   tile mode twice bit for bit K4 + K7's identity mode, its published
+   words 0 after; the mode its wrapper picks the wrapper's bits, and those
+   in 3 CUDA-graph replays; on every panel of K6's sweep too (bench.py's
+   power-law generator at 2,048-16,384 rows as ``sell_pure``, at 2,048 as
+   ``ell_pure``, at 16,384 with its lengths capped at 16 and 96, and the
+   regular entry-512, band-1024, cant-4096 and cant-8192). Pad slots: with
+   a NaN, then an inf, at x[0] and at a column some row reads, K4 + K7, K6
+   in each mode, K10 + K7 and K14 + K7 on the whole ELL panels of the
+   unread-column matrix (``probes.common.unread_column``: no entry in
+   column 0), pl-2048 and the hub-slice shape, and ell, sell (split and
+   whole), hyb, their f32x2 and ``spmm`` at R = 4 on the unread-column
+   matrix, each NaN and infinity exactly where the fp64 oracle has it. The
    segmented tile kernels (K1, K12, K8) leave the carry slots that no split
    row uses unwritten, and their wrappers do not clear them: their carries
    are compared on the used slots only (``engines.carry_slot_rows``), and
@@ -88,7 +101,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    matrix (a 3.7 MB plan: K3's tiles); then ``run --format
    {ell,sell,hyb}`` on cant, SELL and HYB at ``pl_big`` (``bench.py:211-215``),
    bench.py's pure-panel ``ell_pure``/``sell_pure`` builds of the 32k
-   power-law matrix, and SELL on the 512-row matrix; then ``run --rhs 4``
+   power-law matrix, SELL on the 512-row matrix, and ``sell_pure`` of the
+   16,384-row power-law matrix (a 3.8 MB panel: K6's tile mode, then K7);
+   then ``run --rhs 4``
    (``spmm``) for all six formats on cant and ``spmm`` at R = 4 on the
    32k power-law matrix's ``ell_pure`` build, and ``run --format bsr --rhs
    32`` on cant. Each is validated against the fp64 oracle, every column of an
@@ -133,7 +148,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    K7's identity mode alone beside its bound, the tile kernel alone and
    the public call, on pl-32768's ``ell_pure`` (f32, R = 4, fp64) and the
    forced HYB of pl-32768 and cant (cant at R = 4 and fp64 too);
-   and the launch floor (a one-block kernel that does
+   K6's sweep (the panels above): K6 as it picks and in each mode through
+   its launcher, K4 + K7, cuSPARSE on the same matrix's CSR plan and the
+   bound of the mode K6 picks; and the launch floor (a one-block kernel that does
    nothing, ``kernels.probes.launch_floor``), which the fix-ups' rows carry
    beside their bound. Beside each kernel: its library yardstick (one PyTorch
    call that computes the same y: ``torch.sparse_csr_tensor @ x``, cuSPARSE;
@@ -214,7 +231,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
    ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``, K1
-   at ``pl_wide``);
+   at ``pl_wide``; K6's row at the 16,384-row power-law ``sell_pure``
+   panel, the plan the main path sends it, with its sweep);
    then the result line.
 """
 
@@ -302,6 +320,10 @@ F32_TILES = ("seg_spmv_tiles", "csr_spmv_fused", "panel_spmv_tiles",
              "panel_spmv_fused", "seg_spmm_tiles", "panel_spmm_tiles")
 FORMATS6 = ("csr", "coo", "cmrs", "ell", "sell", "hyb")
 CANT_N = 62_464  # bench.py:84-85
+# the panel K6's row is timed on: the whole SELL panel of bench.py's
+# power-law generator at 16,384 rows (3.6 MB), the largest skewed panel of
+# 4 MB or less that the main path sends K6
+K6_AT = "pl-16384 sell_pure"
 REPS = 30
 PROBE_ROUNDS = 3  # interleaved rounds of each probe in phase 6
 # body copies per CUDA graph in phase 7's sweep (solve.GRAPH_CHUNK's source)
@@ -620,6 +642,156 @@ def fused_mode(dev, x, vec: int, nan: bool = True) -> torch.Tensor:
     return y
 
 
+def k6_launch(dev, x, mode: int, nan: bool = True) -> torch.Tensor:
+    """K6's launcher in one mode (0: a warp per slice; 1: K4's tiles, each
+    split slice finished in the launch), outside its wrapper and its count,
+    into a NaN-filled y (``nan``), so a row it leaves unwritten stays NaN;
+    else into an unfilled one."""
+    from spmv_tpu_torch.kernels import _build
+
+    y = (torch.full if nan else torch.empty)(
+        (dev.nrows,), *((float("nan"),) if nan else ()), dtype=torch.float32,
+        device=x.device)
+    rc = _build.library().lib.panel_spmv_fused(
+        dev.slice_ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_slice0.data_ptr(), dev.tile_own0.data_ptr(), x.data_ptr(), y.data_ptr(),
+        dev.fused_words.data_ptr(), dev.nslices,
+        dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows, mode,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise AssertionError(f"panel_spmv_fused (mode {mode}): CUDA error {rc}")
+    return y
+
+
+def check_k6_modes(label: str, dev, x, y6: torch.Tensor, y47: torch.Tensor) -> None:
+    """K6's launcher in both modes into a NaN-filled y: the tile mode twice
+    bit for bit K4 + K7's identity mode (``y47``), every published word 0
+    after each launch; the mode the wrapper picks gives the wrapper's y ``y6``
+    (so the slice mode too writes every row); and the wrapper's bits in 3
+    replays of a captured CUDA graph, the words 0 after."""
+    from spmv_tpu_torch.kernels import panel as P
+
+    if not (dev.nslots and dev.nrows):  # the wrapper launches nothing
+        return
+    for _ in range(2):
+        if not torch.equal(k6_launch(dev, x, 1), y47):
+            raise AssertionError(f"{label}: K6's tile mode is not K4 + K7's y bit for bit")
+        if dev.fused_words.any():
+            raise AssertionError(f"{label}: K6's tile mode left a published word set")
+    mode = P.fused_mode(dev)
+    if not torch.equal(k6_launch(dev, x, mode), y6):
+        raise AssertionError(f"{label}: K6 (mode {mode}) left a row unwritten")
+    graph_equals_eager(f"{label} K6", lambda: P.panel_spmv_fused(dev, x))
+    torch.cuda.synchronize()
+    if dev.fused_words.any():
+        raise AssertionError(f"{label}: K6's graph replays left a published word set")
+
+
+def same_nonfinite(name: str, got: torch.Tensor, want: np.ndarray, scale: np.ndarray,
+                   atol: float, rtol: float) -> None:
+    """``got`` against the fp64 oracle's ``want`` where x holds a NaN or an
+    inf: NaN in exactly the oracle's NaN rows, the same infinities in its
+    infinite rows, and the finite rows within atol + rtol·scale."""
+    g = got.double().cpu().numpy()
+    nan_g, nan_w = np.isnan(g), np.isnan(want)
+    if (nan_g != nan_w).any():
+        raise AssertionError(f"{name}: {int(nan_g.sum())} NaN entries where the oracle "
+                             f"has {int(nan_w.sum())} ({int((nan_g & ~nan_w).sum())} extra)")
+    inf = np.isinf(want)
+    if (np.isinf(g) != inf).any() or (g[inf] != want[inf]).any():
+        raise AssertionError(f"{name}: infinite entries differ from the oracle's")
+    fin = np.isfinite(want)
+    bad = np.abs(g[fin] - want[fin]) > atol + rtol * scale[fin]
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} finite entries outside the bound")
+
+
+def check_pads(label: str, trip, seed: int) -> int:
+    """Pad slots on the card: with a NaN, then an inf, at x[0] and at a
+    column some row reads (the last nonzero's), on the
+    whole ELL panel (its row order kept): K4 + K7's identity mode, K6 in
+    each mode (its launcher, into a NaN-filled y), K10 at R = 4 (column 0
+    the bad x, the others finite), and K14 + K7 on the fp64 panel, each
+    against the fp64 oracle with ``same_nonfinite``: no row turns NaN for a
+    pad. Returns the number of checks."""
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.kernels import engines_x2 as X2
+    from spmv_tpu_torch.kernels import panel as P
+    from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv, row_scale
+
+    info, rows, cols, vals = trip
+    dev = build("ell", trip, split=False).dev
+    dev64 = X2Matrix.from_coo("ell", info.nrows, info.ncols, rows, cols, vals,
+                              split=False, device="cuda").dev
+    v32 = vals.astype(np.float32)
+    f32 = (KERNEL_TOL_ABS, fp32_rel_tol(max(dev.max_width, 1)))
+    f64 = (1e-6, 1e-9)  # x2_check's bound
+    n = 0
+    for where in (0, int(cols[-1])):
+        for bad in (float("nan"), float("inf")):
+            xh = np.random.default_rng(seed).standard_normal(info.ncols).astype(np.float32)
+            fine = xh.copy()
+            xh[where] = bad
+            want = golden_spmv(info.nrows, rows, cols, v32, xh)
+            scale = row_scale(info.nrows, rows, cols, v32, fine)
+            x = torch.from_numpy(xh).cuda()
+            X = torch.from_numpy(np.stack([xh, fine, -fine, 2 * fine], axis=1)).cuda()
+            what = f"{label} x[{where}] = {bad}"
+            same_nonfinite(f"{what} K4 + K7", P.panel_fixup(
+                dev, *P.panel_spmv_partials(dev, x)), want, scale, *f32)
+            for mode in (0, 1):
+                same_nonfinite(f"{what} K6 mode {mode}", k6_launch(dev, x, mode), want,
+                               scale, *f32)
+            same_nonfinite(f"{what} K10 + K7 column 0",
+                           P.panel_spmv_multi(dev, X)[:, 0].contiguous(), want, scale, *f32)
+            x64 = torch.from_numpy(xh.astype(np.float64)).cuda()
+            want64 = golden_spmv(info.nrows, rows, cols, vals, xh.astype(np.float64))
+            same_nonfinite(f"{what} K14 + K7", X2.panel_spmv_x2(dev64, x64), want64,
+                           row_scale(info.nrows, rows, cols, vals, fine.astype(np.float64)),
+                           *f64)
+            n += 5
+    return n
+
+
+def check_pad_formats(label: str, trip, seed: int) -> int:
+    """The containers on the card with a NaN at x[0] and at a column some
+    row reads: ell, sell (split and whole), hyb, the fp64-grade ell, sell,
+    hyb (split and whole where they take it) and ``spmm`` at R = 4 on each
+    float32 one, against the fp64 oracle with ``same_nonfinite``. Returns
+    the number of checks."""
+    import spmv_tpu_torch
+    from spmv_tpu_torch import X2Matrix
+    from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv, row_scale
+
+    info, rows, cols, vals = trip
+    v32 = vals.astype(np.float32)
+    f32 = (KERNEL_TOL_ABS, fp32_rel_tol(int(np.bincount(rows, minlength=info.nrows).max())))
+    builds = [(fmt, kw) for fmt in ("ell", "sell") for kw in ({}, {"split": False})]
+    builds.append(("hyb", {}))
+    n = 0
+    for where in (0, int(cols[-1])):
+        xh = np.random.default_rng(seed).standard_normal(info.ncols).astype(np.float32)
+        fine = xh.copy()
+        xh[where] = float("nan")
+        want = golden_spmv(info.nrows, rows, cols, v32, xh)
+        scale = row_scale(info.nrows, rows, cols, v32, fine)
+        X = np.stack([xh, fine, -fine, 2 * fine], axis=1)
+        for fmt, kw in builds:
+            a = build(fmt, trip, **kw)
+            what = f"{label} x[{where}] = nan {fmt}{kw or ''}"
+            same_nonfinite(f"{what} matvec", a.matvec(xh), want, scale, *f32)
+            same_nonfinite(f"{what} spmm R=4 column 0",
+                           spmv_tpu_torch.spmm(a, X)[:, 0].contiguous(), want, scale, *f32)
+            a64 = X2Matrix.from_coo(fmt, info.nrows, info.ncols, rows, cols, vals,
+                                    device="cuda", **kw)
+            same_nonfinite(f"{what} f32x2 matvec", a64.matvec(xh.astype(np.float64)),
+                           golden_spmv(info.nrows, rows, cols, vals, xh.astype(np.float64)),
+                           row_scale(info.nrows, rows, cols, vals, fine.astype(np.float64)),
+                           1e-6, 1e-9)
+            n += 3
+    return n
+
+
 def graph_equals_eager(what: str, fn) -> None:
     """``fn`` captured in a CUDA graph (its programmatic launches there too)
     and replayed into a NaN-filled output gives the eager run's bits."""
@@ -748,6 +920,7 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
     y6 = same_bits("panel_spmv_fused", lambda: P.panel_spmv_fused(dev, x))
     e6 = within(f"{label} panel_spmv_fused", y6,
                 P.panel_spmv_fused_reference(dev, x), scale, tol)
+    check_k6_modes(label, dev, x, y6, P.panel_fixup(dev, y4.clone(), p4))
     errs = {"panel_spmv_tiles": e4, "panel_spmv_fused": e6, "inverse_permute": e7}
     if getattr(a, "sorted_rows", False):  # K7 gather-only after K6, and with K4's partials
         y7 = same_bits("inverse_permute",
@@ -762,10 +935,13 @@ def check_panel(label: str, trip, seed: int, fmt: str = "sell", **kwargs) -> dic
     print(f"  {label} {fmt}{kwargs or ''}: shape {a.shape}, sorted "
           f"{getattr(a, 'sorted_rows', False)}, panel nnz {a.panel_nnz} in "
           f"{dev.nslots} slots ({dev.nslots / max(a.panel_nnz, 1):.3f}x), spill "
-          f"nnz {a.spill_nnz}, tiles {dev.ntiles}, split slices {dev.nsplit}: "
+          f"nnz {a.spill_nnz}, tiles {dev.ntiles}, split slices {dev.nsplit}, "
+          f"widest slice {dev.max_width} (K6 mode {P.fused_mode(dev)}): "
           f"max |kernel - plain| " + "  ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + "; matvec passes the fp64 oracle; two runs bitwise equal; K4 writes "
-          "every row and slot; K7's identity mode, without and with a spill, "
+          "every row and slot; K6's tile mode, into a NaN-filled y, K4 + K7's y bit "
+          "for bit, its words 0 after, K6 its own bits in 3 graph replays; K7's "
+          "identity mode, without and with a spill, "
           "bitwise the plain fix-up and add, y′'s split rows and unused slots unread"
           + ("; K7 with K4's partials bitwise the plain fix-up and the gather"
              if getattr(a, "sorted_rows", False) else ""))
@@ -883,6 +1059,9 @@ def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
         "inverse_permute identity": lambda: P.panel_fixup(dev, y, part),
         "panel_spmv_fused": lambda: P.panel_spmv_fused(dev, x),
         "path K4+K7": lambda: P.panel_fixup(dev, *P.panel_spmv_partials(dev, x)),
+        # K6 in each mode, whichever the wrapper picks: the numbers behind its rule
+        "mode K6 slices": lambda: k6_launch(dev, x, 0, nan=False),
+        "mode K6 tiles": lambda: k6_launch(dev, x, 1, nan=False),
     }
     if sorted_:  # K7 with K4's partials (the main path's), gather-only after K6
         fns.update(sorted_fns(a, x, P.panel_spmv_partials, "K4"))
@@ -906,18 +1085,24 @@ def time_panel(label: str, a, card: str, plain: bool = True, csr=None) -> dict:
     print(f"  {label}: {a.nrows} rows, panel nnz {a.panel_nnz} in {dev.nslots} "
           f"slots ({dev.nslots / max(a.panel_nnz, 1):.3f}x), panel "
           f"{dev.stream_bytes} B, tiles {dev.ntiles}, split slices "
-          f"{dev.nsplit}, max width {dev.max_width}, sorted {sorted_}  [{card}]")
+          f"{dev.nsplit}, max width {dev.max_width}, sorted {sorted_}, K6 mode "
+          f"{'tiles' if P.fused_mode(dev) else 'slices'}  [{card}]")
     t = timed(label, fns, card, a.panel_nnz, dev.stream_bytes)
     t["plan_bytes"] = dev.stream_bytes
+    t["k6_mode"] = "tiles" if P.fused_mode(dev) else "slices"
+    t["max_width"] = dev.max_width
     t["bytes"] = {"panel_spmv_tiles": B.panel_tiles_bytes(dev),
                   "inverse_permute identity": B.epilogue_bytes(dev, None, dev.nrows),
                   "panel_spmv_fused": B.panel_fused_bytes(dev),
+                  "mode K6 slices": B.panel_fused_bytes(dev, 0),
+                  "mode K6 tiles": B.panel_fused_bytes(dev, 1),
                   "inverse_permute gather": B.permute_bytes(a.nrows, 4)}
     if sorted_:
         t["bytes"]["inverse_permute"] = B.epilogue_bytes(dev, a.invperm_dev, a.nrows)
     t["flops"] = {"panel_spmv_tiles": 2 * a.panel_nnz, "inverse_permute identity": 0,
                   "panel_spmv_fused": 2 * a.panel_nnz, "inverse_permute": 0,
-                  "inverse_permute gather": 0}
+                  "inverse_permute gather": 0, "mode K6 slices": 2 * a.panel_nnz,
+                  "mode K6 tiles": 2 * a.panel_nnz}
     return t
 
 
@@ -2676,7 +2861,7 @@ def main() -> int:
     from spmv_tpu_torch.kernels import panel as P
     from spmv_tpu_torch.probes import bounds as B
     from spmv_tpu_torch.probes import run_probe
-    from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES
+    from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES, unread_column
     from spmv_tpu_torch.probes.timing import card_line
     from spmv_tpu_torch.probes.turns import SPILL_PRICES, forced_split
 
@@ -2729,6 +2914,21 @@ def main() -> int:
                                                bandwidth=512, seed=0, max_row=16),
              "pl_cap96-32768": synth.power_law(n=32768, avg_nnz_per_row=24,
                                                bandwidth=512, seed=0, max_row=96)}
+    # K6's sweep: the whole SELL panels (and the ELL one under 4 MB) of
+    # bench.py's power-law generator that the main path sends K6, the same
+    # suite at 16,384 rows with its Zipf lengths capped at 16 and 96, and
+    # regular panels (the plan of __graft_entry__.entry(), band-1024, cant's
+    # generator at 4,096 and 8,192 rows)
+    pl_n = {n: synth.power_law(n=n, avg_nnz_per_row=24, bandwidth=512, seed=0)
+            for n in (2048, 4096, 8192, 16384)}
+    k6_sweep = {**{f"pl-{n} sell_pure": (t, "sell") for n, t in pl_n.items()},
+                "pl-2048 ell_pure": (pl_n[2048], "ell"),
+                **{f"pl_cap{m}-16384 sell_pure": (synth.power_law(
+                    n=16384, avg_nnz_per_row=24, bandwidth=512, seed=0, max_row=m), "sell")
+                   for m in (16, 96)},
+                "entry-512 sell_pure": (entry, "sell"), "band-1024 sell_pure": (band, "sell"),
+                "cant-4096 sell_pure": (synth.synthetic_cant(n=4096), "sell"),
+                "cant-8192 sell_pure": (sweep["cant-8192"], "sell")}
     # the extremes of K1's and K12's row-offset stage: a tile of 1024
     # one-nonzero rows, tiles over its cap (runs of empty rows), a hub row
     tile_shapes = {name: build_shape() for name, build_shape in TILE_SHAPES.items()}
@@ -2758,6 +2958,18 @@ def main() -> int:
     panel_shapes = {name: build_shape() for name, build_shape in PANEL_SHAPES.items()}
     for name, shape in panel_shapes.items():
         keep_max(check_panel(name, shape, seed=8, fmt="ell", split=False))
+    for label, (trip, fmt) in k6_sweep.items():  # K6's two modes on its sweep
+        keep_max(check_panel(label, trip, seed=9, fmt=fmt, split=False))
+    # pad slots add nothing: a NaN or an inf in x reaches only the rows that
+    # read its column, in every panel kernel and through the containers
+    unread = unread_column()
+    npads = (check_pads("unread_column", unread, 30) + check_pads("pl-2048", pl_n[2048], 31)
+             + check_pads("hub_slice", panel_shapes["hub_slice"], 32)
+             + check_pad_formats("unread_column", unread, 33))
+    print(f"  pad slots: {npads} calls with a NaN or an inf at x[0] (a column no row "
+          f"reads) and at a column some row reads: K4 + K7, K6 in each mode, K10 + K7, "
+          f"K14 + K7 on whole ELL panels, and ell, sell, hyb (split and whole), their "
+          f"f32x2 and spmm R = 4, each NaN and inf exactly where the fp64 oracle has it")
     for R in (2, 4, 8):
         for name in sorted(synth.EDGE_CASES):
             keep_max(check_multi(name, synth.edge_case(name), seed=R, R=R))
@@ -2872,6 +3084,16 @@ def main() -> int:
               f"{ {k: n for k, n in pure_launches[fmt].items() if n} }")
     if cli.run_spmv("sell", *entry, x_mode="random", seed=1, device="cuda") != 0:
         raise SystemExit("sell on the 512-row entry() matrix failed")
+    # bench.py's power-law generator at 16,384 rows as sell_pure: a skewed
+    # 3.6 MB panel, K6's tile mode, then K7's gather
+    before = dict(E.LAUNCHES)
+    x16 = np.random.default_rng(8).standard_normal(16384).astype(np.float32)
+    pl16 = build("sell", pl_n[16384], split=False)
+    check_oracle("pl-16384 sell_pure", pl_n[16384], pl16.matvec(x16), x16)
+    pure_launches["sell pl-16384"] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+    print(f"sell_pure on pl-16384 (panel {pl16.dev.stream_bytes} B, K6 mode "
+          f"{P.fused_mode(pl16.dev)}): result is ok; launches "
+          f"{ {k: n for k, n in pure_launches['sell pl-16384'].items() if n} }")
     torch.cuda.synchronize()
     panel_launches = dict(E.LAUNCHES)
 
@@ -2980,6 +3202,10 @@ def main() -> int:
     for what, (ran, tiles) in sorted_runs.items():
         if ran.get(tiles, 0) < 1 or ran.get("inverse_permute", 0) < 1:
             raise SystemExit(f"{what} did not launch {tiles} and K7: {ran}")
+    ran = pure_launches["sell pl-16384"]
+    if (not pl16.dev.fused or P.fused_mode(pl16.dev) != 1
+            or ran.get("panel_spmv_fused", 0) < 1 or ran.get("inverse_permute", 0) < 1):
+        raise SystemExit(f"sell_pure on pl-16384 did not run K6's tile mode and K7: {ran}")
     print(f"  sorted SELL runs launch their tile kernel and K7: {', '.join(sorted_runs)}")
     # the unsorted panel runs: the tile kernel, the spill's kernels where
     # there is a spill, then K7 in its identity mode; no panel fix-up kernel
@@ -3054,7 +3280,25 @@ def main() -> int:
     for label, t in ptimes.items():
         print(f"  {label:24s} panel {t['plan_bytes']:10d} B  K4+K7 "
               f"{t['path K4+K7'][0]:.4f} | {fmt_ms(t['path K4+K7'][1])}  K6 "
-              f"{t['panel_spmv_fused'][0]:.4f} | {fmt_ms(t['panel_spmv_fused'][1])}")
+              f"({t['k6_mode']}) {t['panel_spmv_fused'][0]:.4f} | "
+              f"{fmt_ms(t['panel_spmv_fused'][1])}")
+    # K6's sweep: each mode through its launcher, beside K4 + K7, cuSPARSE on
+    # the same matrix's CSR plan and the bound of the mode K6 picks
+    k6_times = {label: time_panel(label, build(fmt, trip, split=False), card,
+                                  plain=label == K6_AT, csr=build("csr", trip).dev)
+                for label, (trip, fmt) in k6_sweep.items()}
+    print(f"K6's sweep, device µs (CUDA-graph replay): K6 as it picks, in each mode, "
+          f"K4 + K7, cuSPARSE; the bound of the mode it picks; the rule: tiles where "
+          f"the widest slice exceeds {P.FUSED_SLICE_COLS_MAX} columns  [{card}]")
+    for label, t in k6_times.items():
+        us = {k: t[k][1] * 1e3 for k in ("panel_spmv_fused", "mode K6 slices",
+                                          "mode K6 tiles", "path K4+K7", "library csr@x")}
+        bound = bound_fields("panel_spmv_fused", t)["bound_ms"] * 1e3
+        print(f"  {label:26s} panel {t['plan_bytes']:9d} B, widest slice "
+              f"{t['max_width']:4d}: K6 ({t['k6_mode']}) {us['panel_spmv_fused']:8.2f}  "
+              f"slices {us['mode K6 slices']:8.2f}  tiles {us['mode K6 tiles']:8.2f}  "
+              f"K4+K7 {us['path K4+K7']:8.2f}  cuSPARSE {us['library csr@x']:8.2f}  "
+              f"bound {bound:.3f} ({bound / us['panel_spmv_fused']:.1%})  [{card}]")
     print(f"formats: matvec per format, ms per call | device  [{card}]")
     suites = {
         cl: (cant, {"csr": build("csr", cant), "coo": build("coo", cant),
@@ -3243,6 +3487,9 @@ def main() -> int:
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         t, at = ((tc, f"synthetic_cant n={CANT_N} csr") if k in SEG else
+                 (k6_times[K6_AT], "power_law n=16384 avg_nnz_per_row=24 bandwidth=512 "
+                                   "seed=0 sell_pure (split=False)")
+                 if k == "panel_spmv_fused" else
                  (tm, f"synthetic_cant n={CANT_N} csr/sell R=4") if k in MULTI else
                  (tx, f"synthetic_cant n={CANT_N} csr/sell fp64")
                  if k in X2_SEG + X2_PANEL else
@@ -3298,6 +3545,17 @@ def main() -> int:
                         "library_device_ms": t_["library csr@x"][1],
                         **bound_fields(k, t_)}
                 for label, t_ in times.items()}
+        if k == "panel_spmv_fused":  # where the main path runs it, and beside
+            row["k6_mode"] = t["k6_mode"]
+            row["sweep"] = {
+                label: {"plan_bytes": t_["plan_bytes"], "max_width": t_["max_width"],
+                        "mode": t_["k6_mode"], "device_ms": t_[k][1],
+                        "slices_device_ms": t_["mode K6 slices"][1],
+                        "tiles_device_ms": t_["mode K6 tiles"][1],
+                        "path_k4_k7_device_ms": t_["path K4+K7"][1],
+                        "library_device_ms": t_["library csr@x"][1],
+                        **bound_fields(k, t_)}
+                for label, t_ in k6_times.items()}
         if k in ("seg_spmv_tiles", "seg_spmv_tiles_x2"):
             more = ({"pl_big": tc_big, "pl_wide": times["pl_wide-524288"]}
                     if k == "seg_spmv_tiles" else {"pl_big": tx_big})

@@ -29,7 +29,7 @@ __all__ = ["NAMESPACE", "cache_key", "save_plan", "load_plan", "plan_cache",
            "plan_lookup", "plan_store", "load_triplets"]
 
 # bump the version when a plan's layout changes
-NAMESPACE = "torch-v1"
+NAMESPACE = "torch-v2"
 
 _PLAN_CACHE_DIR: str | None = None
 

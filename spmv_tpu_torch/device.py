@@ -110,6 +110,16 @@ class DevPanel:
     tile: int  # slice columns per K4 tile
     max_width: int
 
+    def __post_init__(self):
+        # K6's tile mode (``kernels.panel.panel_spmv_fused``): the words its
+        # split slices' pieces are published in, K4's partial slots as int64
+        # (2·ntiles, 32), on a float32 CUDA plan, zeroed once here, outside
+        # any CUDA-graph capture, and left 0 by every launch. Not a field,
+        # so ``stream_bytes`` does not count it.
+        if self.vals.device.type == "cuda" and self.vals.dtype == torch.float32:
+            object.__setattr__(self, "fused_words", torch.zeros(
+                (2 * self.ntiles, 32), dtype=torch.int64, device=self.vals.device))
+
     @classmethod
     def from_plan(cls, plan: PanelPlan, device) -> "DevPanel":
         device = torch.device(device)
@@ -149,7 +159,8 @@ class DevPanel:
     @property
     def fused(self) -> bool:
         """Small plans take the one-dispatch kernel K6 (the predicate of
-        ``DevCsr.fused``, as the JAX engines share theirs)."""
+        ``DevCsr.fused``, as the JAX engines share theirs; K6 picks its own
+        mode, ``kernels.panel.fused_mode``)."""
         return self.stream_bytes <= FUSED_STREAM_BYTES_MAX
 
 

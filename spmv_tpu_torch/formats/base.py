@@ -31,14 +31,17 @@ sliced ELLPACK. Each slice is ``SLICE_ROWS`` = 32 consecutive rows, one
 warp, the reference's own C (``sigma_c.c:48``). Slice ``s`` has width
 ``K_s``, its longest row, and holds ``32·K_s`` slots stored column-major:
 element ``j`` of row ``r`` sits at ``slice_ptr[s] + r % 32 + 32·j``. Pads
-are explicit zeros with column 0. A *slice column* is 32 consecutive slots,
-one per row, so a warp reads each as one 128-byte load of values and one of
-columns.
+hold value 0 and column ``PAD_COL`` (−1): every panel kernel and its plain
+version skips them, so a pad reads no x and adds nothing (a non-finite x
+entry reaches only the rows that read its column). A *slice column* is 32
+consecutive slots, one per row, so a warp reads each as one 128-byte load
+of values and one of columns.
 
-Kernel K6 (``panel_spmv_fused``) walks one slice per warp. For the
-two-dispatch shape, K4 (``panel_spmv_tiles``) cuts the stream of slice
-columns into tiles of ``tile`` columns, as K1 cuts nonzeros, so a very wide
-slice spreads over many tiles. A slice that crosses a tile boundary is
+Kernel K6 (``panel_spmv_fused``) walks one slice per warp, or on a panel
+with a wide slice runs K4's tiles and sums the split slices in the same
+launch. For the two-dispatch shape, K4 (``panel_spmv_tiles``) cuts the
+stream of slice columns into tiles of ``tile`` columns, as K1 cuts
+nonzeros, so a very wide slice spreads over many tiles. A slice that crosses a tile boundary is
 *split*: each tile it touches leaves 32 partials (one per row) in the
 tile's head slot ``part[2t]`` (the slice began in an earlier tile) or tail
 slot ``part[2t+1]`` (it runs on into later tiles), and K7
@@ -64,8 +67,8 @@ import numpy as np
 from spmv_tpu_torch import cache as _cache
 
 __all__ = ["CsrPlan", "TILE_NNZ", "ROW_STAGE", "build_csr_plan", "csr_ptr",
-           "cdiv", "row_spans", "PanelPlan", "SLICE_ROWS", "TILE_COLS",
-           "build_panel_plan"]
+           "check_rows", "cdiv", "row_spans", "PanelPlan", "SLICE_ROWS", "TILE_COLS",
+           "PAD_COL", "build_panel_plan"]
 
 # Nonzeros per K1 tile: 256 threads × 4 consecutive nonzeros each. Fixed by
 # kernels/csrc/seg_spmv.cu (kTileNnz); the CUDA wrapper refuses other tiles.
@@ -82,6 +85,9 @@ SLICE_ROWS = 32
 # Slice columns per K4 tile: 32 columns of 32 slots, the 1024 slots of a
 # K1 tile (panel_spmv.cu kTileCols); the CUDA wrapper refuses other tiles.
 TILE_COLS = 32
+# The column of a panel's pad slots: no x entry, so the kernels skip the
+# slot (kPadCol in kernels/csrc/panel_tile.cuh).
+PAD_COL = -1
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -124,12 +130,20 @@ def row_spans(tile_row0) -> np.ndarray:
     return np.diff(t0) + 2
 
 
+def check_rows(rows, nrows: int) -> np.ndarray:
+    """``rows`` as int64, refused with ``ValueError("row index out of
+    bounds")`` unless every entry lies in ``[0, nrows)``: the check every
+    format runs before it counts row lengths."""
+    rows = np.asarray(rows, dtype=np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= nrows):
+        raise ValueError("row index out of bounds")
+    return rows
+
+
 def csr_ptr(rows_sorted: np.ndarray, nrows: int) -> np.ndarray:
     """Row pointer (int64) of row-sorted triplets; empty rows get empty
     ranges."""
-    rows_sorted = np.asarray(rows_sorted, dtype=np.int64)
-    if rows_sorted.size and (rows_sorted.min() < 0 or rows_sorted.max() >= nrows):
-        raise ValueError("row index out of bounds")
+    rows_sorted = check_rows(rows_sorted, nrows)
     counts = np.bincount(rows_sorted, minlength=nrows)
     ptr = np.zeros(nrows + 1, dtype=np.int64)
     np.cumsum(counts, out=ptr[1:])
@@ -210,7 +224,7 @@ class PanelPlan:
     slice_ptr: np.ndarray  # (nslices+1,) int64 — first slot of each slice
     widths: np.ndarray  # (nslices,) int64 — K_s, the longest row of the slice
     vals: np.ndarray  # (nslots,) float32 (or float64), column-major within each slice
-    cols: np.ndarray  # (nslots,) int32, 0 in pad slots
+    cols: np.ndarray  # (nslots,) int32, PAD_COL (-1) in pad slots
     tile_slice0: np.ndarray  # (ntiles+1,) int32 — slice of each tile's first column
     # (ntiles+1,) int32 — the first slice a tile owns (first column at or past
     # the tile's first); the last entry is nslices
@@ -290,7 +304,7 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
     k = np.arange(nnz, dtype=np.int64) - ptr[rows]  # rank within the row
     pos = slice_ptr[rows // c] + rows % c + c * k
     vals_p = np.zeros(nslots, dtype=dtype)
-    cols_p = np.zeros(nslots, dtype=np.int32)
+    cols_p = np.full(nslots, PAD_COL, dtype=np.int32)
     vals_p[pos] = vals
     cols_p[pos] = cols
 

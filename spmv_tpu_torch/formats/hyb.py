@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.device import X_to_device, x_to_device
-from spmv_tpu_torch.formats.split import PanelSpill, PanelSpillFormat, priced_split
+from spmv_tpu_torch.formats.split import PanelSpill, PanelSpillFormat, split_triplets
 
 __all__ = ["HybMatrix"]
 
@@ -38,7 +38,7 @@ class HybMatrix(PanelSpillFormat):
     @classmethod
     def from_coo(cls, nrows: int, ncols: int, rows, cols, vals, *,
                  device) -> "HybMatrix":
-        r, c, v, keep, shape = priced_split(rows, cols, vals, nrows)
+        r, c, v, keep, shape = split_triplets(rows, cols, vals, nrows)
         return cls(nrows=nrows, ncols=ncols, nnz=r.size,
                    parts=PanelSpill.from_split(nrows, ncols, r, c, v, keep,
                                                shape, device=device),

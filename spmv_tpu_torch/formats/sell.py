@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.device import X_to_device, x_to_device
-from spmv_tpu_torch.formats.base import SLICE_ROWS, cdiv
+from spmv_tpu_torch.formats.base import SLICE_ROWS, cdiv, check_rows
 from spmv_tpu_torch.formats.split import (PanelSpill, PanelSpillFormat,
                                           split_triplets)
 from spmv_tpu_torch.kernels.panel import (sorted_panel_and_spill_spmm,
@@ -83,10 +83,11 @@ def sort_and_split(rows, cols, vals, nrows: int, sigma: int = DEFAULT_SIGMA,
     ``SellMatrix`` and the fp64-grade SELL (``x2.X2Matrix``) build them:
     ``(rows_sorted, sorted_, perm, invperm, nrows_pad, (r, c, v, keep,
     shape))``, the last five from ``split_triplets`` over ``nrows_pad``
-    rows. Both depend only on the pattern; the values ride along."""
+    rows. Both depend only on the pattern; the values ride along. A row
+    outside ``[0, nrows)`` is refused first, with ``csr_ptr``'s message."""
     if sigma % _LANES or sigma <= 0 or sigma > 1024:
         raise ValueError("sigma must be a positive multiple of 128, ≤ 1024")
-    rows = np.asarray(rows, dtype=np.int64)
+    rows = check_rows(rows, nrows)
     rows_sorted, sorted_, perm, invperm, nrows_pad = sigma_sort_tables(
         rows, nrows, sigma)
     # the split runs in sorted row space, so the spill's y' adds to the

@@ -49,7 +49,7 @@ import torch
 from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import (SLICE_ROWS, CsrPlan, PanelPlan,
                                          build_csr_plan, build_panel_plan,
-                                         cdiv, csr_ptr)
+                                         cdiv, check_rows, csr_ptr)
 from spmv_tpu_torch.kernels.panel import (panel_and_spill_spmm,
                                           panel_and_spill_spmv)
 
@@ -133,10 +133,11 @@ def priced_split(rows, cols, vals, nrows: int):
 def split_triplets(rows, cols, vals, nrows: int, split: bool = True):
     """``priced_split``, or with ``split=False`` the whole matrix in the
     panel: ``(r, c, v, keep, shape)`` with the triplets in (row, col)
-    order."""
+    order. A row outside ``[0, nrows)`` is refused first, with
+    ``csr_ptr``'s message, before any row length is counted."""
+    rows = check_rows(rows, nrows)
     if split:
         return priced_split(rows, cols, vals, nrows)
-    rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     order = np.lexsort((cols, rows))
     return (rows[order], cols[order], np.asarray(vals)[order],

@@ -61,8 +61,13 @@ SIGNATURES = {
     # slice_ptr, cols, vals, tile_slice0, tile_own0, x, y, part, ncolumns,
     # ntiles, tile, nrows, stream
     "panel_spmv_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # slice_ptr, cols, vals, x, y, nslices, nrows, stream
-    "panel_spmv_fused": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # slice_ptr, cols, vals, tile_slice0, tile_own0, x, y, words (2·ntiles·32
+    # int64), nslices, ncolumns, ntiles, tile, nrows, mode (0: a warp per
+    # slice; 1: K4's tiles), stream
+    "panel_spmv_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # device: K6's grid cap there in its tile mode (resident blocks per SM
+    # times the SMs)
+    "panel_spmv_fused_resident": (_I,),
     # invperm, slice_ptr, split_slices, part, y_sorted, spill, y, nrows,
     # nsplit, tile, rhs, stream (invperm, slice_ptr, split_slices, part and
     # spill may be null; without invperm y is y_sorted, updated in place)

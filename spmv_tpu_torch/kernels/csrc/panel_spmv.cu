@@ -7,7 +7,9 @@
 // panel engine (spmv_tpu/kernels/engines.py, engines_x2.py):
 //
 //   K4 panel_spmv_tiles   replaces _panel_kernel         (panel_spmv_partials)
-//   K6 panel_spmv_fused   replaces _panel_kernel_fused   (panel_spmv_fused)
+//   K6 panel_spmv_fused   replaces _panel_kernel_fused   (panel_spmv_fused):
+//                         a warp per slice, or K4's tiles with the split
+//                         slices finished in the same launch
 //   K7 inverse_permute    replaces _perm_kernel          (inverse_permute_blocks),
 //                         and _scatter_kernel and _scatter_kernel_multi as
 //                         the panel path's epilogue (_window_scatter): every
@@ -28,14 +30,15 @@
 // The plan (spmv_tpu_torch/formats/base.py:build_panel_plan): slices of
 // kC = 32 rows. Slice s holds 32·K_s slots from slot slice_ptr[s], stored
 // column-major: element j of row r sits at slice_ptr[s] + r % 32 + 32·j.
-// Pads are value 0 with column 0. A slice column is 32 consecutive slots.
+// Pads are value 0 with column kPadCol (−1), and every kernel here skips
+// them: no gather, no add. A slice column is 32 consecutive slots.
 //
 // What bounds them on the H100: bytes. Each slot streams 8 B (a float32
 // value and an int32 column) and gathers 4 B of x, for 2 flops. Lane l of a
 // warp owns row l of its slice, so each column step of a warp reads 128
 // bytes of values and 128 of columns; the lane sums its row in a register,
-// in column order, and stores it once. A pad costs its 8 B and a gather of
-// x[0], which stays in L1. The TPU layout's stripes, depth-8 x windows, u8
+// in column order, and stores it once. A pad costs its 8 B of stream and
+// nothing else. The TPU layout's stripes, depth-8 x windows, u8
 // lo/hi and P-planes answer VMEM and DMA limits that this card does not
 // have, so none of them is here.
 //
@@ -53,7 +56,8 @@
 // sums.
 //
 // No kernel uses float atomics: every row is summed in an order fixed by the
-// plan, so two runs give the same bits.
+// plan, so two runs give the same bits. K6's tile mode passes its split
+// slices' pieces as 64-bit words (a float and its flag), no atomics.
 //
 // Plain C interface for ctypes, as in seg_spmv.cu: device pointers and the
 // stream as void*, launch on that stream, return cudaGetLastError(). The host
@@ -61,6 +65,7 @@
 // allocates every output, and never calls a launcher with an empty grid.
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -75,10 +80,16 @@ constexpr int kThreads = 256;
 
 // K6 — replaces _panel_kernel_fused (spmv_tpu/kernels/engines.py:283).
 //
-// One warp per slice, one lane per row. The lane walks its K_s slots in
-// column order and stores y[row] once, 0 for an empty row, so y needs no
-// clearing. A warp serializes its slice's width: one hub row makes its
-// whole slice as slow as itself, which is what K4 and K7 are for.
+// y = A·x in one launch, in one of two modes the wrapper picks from the
+// plan (kernels/panel.py, fused_mode: the widest slice against
+// FUSED_SLICE_COLS_MAX).
+//
+// Slice mode (panel_spmv_fused_kernel), for panels whose slices are all
+// narrow: one warp per slice, one lane per row. The lane walks its K_s
+// slots in column order, a pad adding nothing (as in K4), and stores
+// y[row] once, 0 for an empty row, so y needs no clearing. A warp
+// serializes its slice's width: one hub row makes its whole slice as slow
+// as itself, and the widest slice sets the time of the launch.
 __global__ void __launch_bounds__(kPanelThreads)
 panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
                         const int* __restrict__ cols,
@@ -92,7 +103,9 @@ panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
   float acc = 0.f;
 #pragma unroll 4
   for (int p = __ldg(slice_ptr + s) + lane; p < end; p += kC) {
-    acc += __ldg(vals + p) * __ldg(x + __ldg(cols + p));
+    const int c = __ldg(cols + p);
+    // a pad reads no x: +0.0 · -0.0 = -0.0, which leaves acc as it is
+    acc += __ldg(vals + p) * (c >= 0 ? __ldg(x + c) : -0.f);
   }
   const int row = s * kC + lane;
   if (row < nrows) y[row] = acc;
@@ -162,6 +175,14 @@ panel_spmv_fused_kernel(const int* __restrict__ slice_ptr,
 // this card does not have.
 enum K7Rows { kSorted, kIdentity, kSplitRows };
 
+// The partial slot of tile t's piece of a split slice whose first tile is
+// ta: the tail slot of tile ta, the head slot of every later tile. With the
+// tile order, the panel's fix-up order: K7 (sum_split_row) and K6's tile
+// mode sum a split slice's pieces over t = ta .. tb in this order.
+__device__ __forceinline__ int split_slot(int t, int ta) {
+  return t == ta ? 2 * ta + 1 : 2 * t;
+}
+
 // The tiles [ta, tb] of slice s where it is split (it spans more than one
 // tile: formats/base.py's rule on slice_ptr[s] / 32 and slice_ptr[s+1] /
 // 32); else ta and tb are left as they are.
@@ -182,14 +203,111 @@ __device__ __forceinline__ void split_tiles(const int* __restrict__ slice_ptr, i
 template <int R, typename T>
 __device__ __forceinline__ void sum_split_row(const T* part, int ta, int tb, int lane,
                                               bool vec, T (&v)[R]) {
-  load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * ta + 1) * kC + lane) * R,
+  load_row<R, CoherentLoad>(part + (static_cast<long long>(split_slot(ta, ta)) * kC + lane) * R,
                             vec, v);
   for (int t = ta + 1; t <= tb; ++t) {
     T w[R];
-    load_row<R, CoherentLoad>(part + (static_cast<long long>(2 * t) * kC + lane) * R,
+    load_row<R, CoherentLoad>(part + (static_cast<long long>(split_slot(t, ta)) * kC + lane) * R,
                               vec, w);
 #pragma unroll
     for (int j = 0; j < R; ++j) v[j] += w[j];
+  }
+}
+
+// K6's tile mode (panel_spmv_fused_tiles_kernel), for a panel with a wide
+// slice: K4's tiles of kTileCols slice columns, one warp each
+// (panel_tile_body), so no warp's work grows with the widest slice. Whole
+// slices and the empty slices a tile owns go to y as K4 writes them. A
+// split slice's pieces but its last tile's are published as 32 words
+// (seg_tile.cuh's store_word: the float and its flag in one 64-bit store,
+// no fence) in K4's slot layout (dev.fused_words, (2·ntiles, 32)); the
+// slice's last tile tb keeps its own piece in a register, walks on, and at
+// the end of its tile waits for the words of tiles ta .. tb - 1
+// (kFinishBatch loads at once; in the common case published by then), adds
+// them and its piece in K7's order (split_slot), writes the slice's rows
+// of y and sets the words back to 0. So y is K4's then K7's identity
+// mode's, bit for bit, on every plan, and every launch, and every replay
+// of a CUDA graph holding one, finds the words 0, with no memset.
+//
+// The waits cannot hang: every wait goes to a smaller tile, and a tile
+// publishes all its pieces before it waits; the grid is at most the
+// resident blocks (panel_spmv_fused_resident) and each warp walks its
+// tiles in increasing order, so the smallest unfinished tile never waits
+// on an unpublished word (a panel of 4 MB or less has at most 512 tiles:
+// one per warp). Two launches on one plan must not overlap (one stream).
+//
+// What bounds it: K4's bytes without the unused partial slots, 24 B of
+// words (published, read, reset) per piece, in the L2; at the sizes it
+// runs (at most 512 tiles, one wave) one tile's walk, then for a split
+// slice one L2 round trip (kFinishBatch 8 was the fastest of 8, 16 and 32
+// on four of the sweep's six skewed panels, within 0.3% on a fifth).
+// Measured and dropped on an H100 (PERF.md §6): every piece in K4's
+// partial slots, a fence and an integer counter per slice, the last
+// arrival summing them (no wait at all): on the sweep's skewed panels it
+// took 0.7-1.8 µs more than K4 + K7 in the runs where the published words
+// took 0.9-2.4 µs less.
+struct FusedPanelOut {
+  static constexpr bool kOwnerZeroesSplit = false;  // the finisher writes them
+  float* __restrict__ y;
+  unsigned long long* words;  // (2·ntiles, 32), 0 at launch and at exit
+  const int* __restrict__ slice_ptr;
+  int nrows;
+  mutable int fin_s = -1;       // the split slice this tile finishes, or -1
+  mutable float fin_own = 0.f;  // and this lane's piece of it
+
+  __device__ __forceinline__ void piece(int t, int tail, int lane, const float (&v)[1], int s,
+                                        bool last) const {
+    if (last) {  // the slice's last tile: keep the piece, finish at the end
+      fin_s = s;
+      fin_own = v[0];
+    } else {
+      store_word(words + (2 * t + tail) * kC + lane, kPublished | __float_as_uint(v[0]));
+    }
+  }
+
+  // After the walk, and so after this tile's own words: slice fin_s from
+  // the words of tiles ta .. t - 1, then this tile's piece, the last.
+  __device__ __forceinline__ void tile_done(int t, int lane, bool, bool, int, int) const {
+    if (fin_s < 0) return;
+    const int ta = __ldg(slice_ptr + fin_s) / kC / kTileCols;
+    float v = 0.f;
+    for (int b = ta; b < t; b += kFinishBatch) {
+      unsigned long long w[kFinishBatch];
+#pragma unroll
+      for (int i = 0; i < kFinishBatch; ++i) {
+        w[i] = b + i < t ? load_word(words + split_slot(b + i, ta) * kC + lane) : 0ull;
+      }
+#pragma unroll
+      for (int i = 0; i < kFinishBatch; ++i) {
+        if (b + i < t) {
+          unsigned long long* p = words + split_slot(b + i, ta) * kC + lane;
+          while (w[i] < kPublished) w[i] = load_word(p);
+          const float f = __uint_as_float(static_cast<unsigned>(w[i]));
+          v = b + i == ta ? f : v + f;
+          store_word(p, 0ull);
+        }
+      }
+    }
+    const int row = fin_s * kC + lane;
+    if (row < nrows) y[row] = v + fin_own;  // tile t's head slot, the last
+    fin_s = -1;
+  }
+};
+
+__global__ void __launch_bounds__(kPanelThreads)
+panel_spmv_fused_tiles_kernel(const int* __restrict__ slice_ptr,
+                              const int* __restrict__ cols,
+                              const float* __restrict__ vals,
+                              const int* __restrict__ tile_slice0,
+                              const int* __restrict__ tile_own0,
+                              const float* __restrict__ x, float* __restrict__ y,
+                              unsigned long long* words, int ncolumns, int ntiles,
+                              int nrows) {
+  const FusedPanelOut out{y, words, slice_ptr, nrows};
+  const int stride = static_cast<int>(gridDim.x) * kWarpsPerBlock;
+  for (int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC; t < ntiles; t += stride) {
+    panel_tile_body<float, kXGather, 1>(slice_ptr, cols, vals, tile_slice0, tile_own0, x,
+                                        out, ncolumns, t, nrows);
   }
 }
 
@@ -328,18 +446,60 @@ int panel_tiles_occupancy(int fp64, int rhs) {
   }
 }
 
-// K6: y = A·x in one dispatch, one warp per slice.
+// K6's grid cap in its tile mode on `device`: the tile kernel's resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the
+// SMs, or -1 on an error. Asked once per device.
+int panel_spmv_fused_resident(int device) {
+  constexpr int kDevices = 64;
+  static int known[kDevices] = {};  // 0: not asked yet
+  if (device >= 0 && device < kDevices && known[device] > 0) return known[device];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_spmv_fused_tiles_kernel,
+                                                    kPanelThreads, 0) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      per_sm <= 0) {
+    return -1;
+  }
+  if (device >= 0 && device < kDevices) known[device] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// K6: y = A·x in one launch. mode 0, the slice mode: one warp per slice
+// (tile_slice0, tile_own0 and words unread); mode 1, the tile mode: K4's
+// tiles, words holding 2·ntiles·32 64-bit words, all 0 (the kernel leaves
+// them so). Refuses (cudaErrorInvalidValue, nothing launched) a tile it was
+// not built for, a schedule that does not cover the columns, or another
+// mode.
 int panel_spmv_fused(const void* slice_ptr, const void* cols, const void* vals,
-                     const void* x, void* y, int nslices, int nrows,
-                     void* stream) {
-  if (nslices <= 0 || nrows <= 0 || nslices != blocks_for(nrows, kC)) {
+                     const void* tile_slice0, const void* tile_own0, const void* x,
+                     void* y, void* words, int nslices, int ncolumns, int ntiles, int tile,
+                     int nrows, int mode, void* stream) {
+  if (nslices <= 0 || nrows <= 0 || nslices != blocks_for(nrows, kC) || ncolumns <= 0 ||
+      tile != kTileCols || ntiles != blocks_for(ncolumns, kTileCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  panel_spmv_fused_kernel<<<blocks_for(nslices, kWarpsPerBlock), kPanelThreads,
-                            0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
-      static_cast<const float*>(vals), static_cast<const float*>(x),
-      static_cast<float*>(y), nslices, nrows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto sp = static_cast<const int*>(slice_ptr);
+  const auto c = static_cast<const int*>(cols);
+  const auto v = static_cast<const float*>(vals);
+  const auto xx = static_cast<const float*>(x);
+  const auto yy = static_cast<float*>(y);
+  if (mode == 0) {
+    panel_spmv_fused_kernel<<<blocks_for(nslices, kWarpsPerBlock), kPanelThreads, 0, s>>>(
+        sp, c, v, xx, yy, nslices, nrows);
+  } else if (mode == 1) {
+    int device = 0;
+    const cudaError_t rc = cudaGetDevice(&device);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    const int resident = panel_spmv_fused_resident(device);
+    if (resident <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    panel_spmv_fused_tiles_kernel<<<std::min(blocks_for(ntiles, kWarpsPerBlock), resident),
+                                    kPanelThreads, 0, s>>>(
+        sp, c, v, static_cast<const int*>(tile_slice0), static_cast<const int*>(tile_own0),
+        xx, yy, static_cast<unsigned long long*>(words), ncolumns, ntiles, nrows);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,10 @@
 // The panel tile kernel and its launcher, shared by panel_spmv.cu (K4, K10,
 // K14) and probe_spmv.cu (the probe's instantiations with a synthesized x).
 //
-// panel_spmv_tiles_kernel<T, kX, R> is K4's body:
+// panel_spmv_tiles_kernel<T, kX, R> is K4's kernel, and panel_tile_body
+// its body on tile t, writing through an output policy (PartOut: K4's y
+// and partial slots; panel_spmv.cu's FusedPanelOut: K6's tile mode, which
+// also finishes the split slices in the same launch):
 //
 //   T    value, x and y type: float (K4, K10) or double (K14)
 //   kX   how x(c) is read: gathered from x (kXGather, production) or
@@ -15,9 +18,10 @@
 //
 // Every instantiation sums each row in the same order, so the probe gives
 // K4's bits on the same x, and column j of K10 gives K4's bits on X[:, j].
-// The host wrapper checks shapes, types and devices, allocates every
-// output with torch.empty (the kernel writes all of it) and never
-// launches an empty grid.
+// A pad slot (column kPadCol) gathers no x and adds nothing, in every
+// instantiation. The host wrapper checks shapes, types and devices,
+// allocates every output with torch.empty (the kernel writes all of it)
+// and never launches an empty grid.
 
 #pragma once
 
@@ -33,6 +37,9 @@
 namespace {
 
 constexpr int kC = 32;  // rows per slice: one warp. Must equal SLICE_ROWS.
+// The column of a pad slot. Must equal PAD_COL in
+// spmv_tpu_torch/formats/base.py. Any negative column is skipped as a pad.
+constexpr int kPadCol = -1;
 // Slice columns per K4 tile. Must equal TILE_COLS in
 // spmv_tpu_torch/formats/base.py.
 constexpr int kTileCols = 32;
@@ -78,9 +85,10 @@ __device__ __forceinline__ double fma_rn(double v, double x, double run) {
 // many narrow slices. Lane l owns row l of every slice the tile touches.
 //
 // What bounds it: bytes. Each slot streams 8 B (12 in fp64) and gathers 4 B
-// (8) of x, for 2 flops; at R right-hand sides (K10) the 8 plan bytes serve
-// R columns and the gather is one row of X, R·4 B. But a cant-sized panel
-// has ~3,900 tiles: one warp each is ~30 warps per SM, a single wave at
+// (8) of x, for 2 flops; a pad slot streams its 8 B and gathers nothing; at
+// R right-hand sides (K10) the 8 plan bytes serve R columns and the gather
+// is one row of X, R·4 B. But a cant-sized panel has ~3,900 tiles: one
+// warp each is ~30 warps per SM, a single wave at
 // under half occupancy, so the kernel takes about one warp's time. The
 // parent's warp walked its 32 columns as a chain: each step loaded a line
 // of values and of columns, then gathered x at those columns, behind a
@@ -92,17 +100,27 @@ __device__ __forceinline__ double fma_rn(double v, double x, double run) {
 //      (tile_own0, below), 32 slices to a ballot;
 //   2. in batches of batch_cols<R>() columns, each lane issues the batch's
 //      loads of values and columns, then every x gather (X-row gather) of
-//      the batch, before the batch's first add, into registers;
+//      the batch but a pad's, before the batch's first add, into registers;
 //   3. the walk runs in registers: run[j] = fma(v, x[j], run[j]) in column
-//      order (the parent's contracted `run += v * x`, so the bits are the
-//      parent's, and column j of K10 is K4's on X[:, j]), stepping to the
-//      next slice, past empty ones, with one slice_ptr load each (an L1 or
-//      L2 hit; a tile steps about 0.5 slices at cant, 1-2 on power-law
-//      panels).
-// ptxas (sm_90a): K4 40 registers, K14 64, K10 48 / 64 / 64 at R = 2 / 4
-// / 8, no shared memory, no spills; 12, 8 and 10 / 8 / 8 blocks of 4 warps
-// resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// panel_tiles_occupancy).
+//      order, a pad skipped (the parent's contracted `run += v * x`, so the
+//      bits are the parent's, and column j of K10 is K4's on X[:, j]),
+//      stepping to the next slice, past empty ones, with one slice_ptr load
+//      each (an L1 or L2 hit; a tile steps about 0.5 slices at cant, 1-2 on
+//      power-law panels).
+// A pad reads no x and adds nothing: a gathered 0·x would not do, since
+// 0·NaN would put a NaN in every row with a pad, and -0.0 + 0·x is +0.0,
+// which a row summed without its pads (the CSR kernels') keeps as -0.0.
+// The walk tests each column for a pad, so the batch's columns stay live
+// through it: K4 takes 56 registers (the parent 40) and runs 0.94-0.98 of
+// the parent's time at cant and pl-32768 on an H100; the forms that kept 40
+// registers (a mask of the batch's pads; a pad's x set to -0.0, whose
+// product -0.0 leaves every sum as it is) were 17-22% slower there
+// (probes.turns; PERF.md §6). K14 is held to 64 registers
+// (panel_spmv_tiles_kernel_x2), as in the parent: at 72 it fits 7 blocks
+// per SM, and cant's 984 blocks no longer fit one wave.
+// ptxas (sm_90a): K4 56 registers, K14 64, K10 56 / 64 / 64 at R = 2 / 4
+// / 8, no shared memory; 9, 8 and 9 / 8 / 8 blocks of 4 warps resident per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, panel_tiles_occupancy).
 // On an H100 it runs at the byte bound at cant in float32 (the plan in the
 // L2) and at 0.41-0.79 of the parent's time on every panel timed (python -m
 // spmv_tpu_torch.probes.turns; PERF.md has the runs); K10 at 0.36-0.38 of
@@ -122,23 +140,48 @@ __device__ __forceinline__ double fma_rn(double v, double x, double run) {
 // slice began in an earlier tile), the tail (it runs on), +0.0 if unused.
 // At R > 1 a row of y and a lane's row of a slot are R floats (Y (nrows,
 // R), part (2·ntiles, 32, R)).
-template <typename T, int kX = kXGather, int R = 1>
-__global__ void __launch_bounds__(kPanelThreads)
-panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
-                        const int* __restrict__ cols,
-                        const T* __restrict__ vals,
-                        const int* __restrict__ tile_slice0,
-                        const int* __restrict__ tile_own0,
-                        const T* __restrict__ x, T* __restrict__ y,
-                        T* __restrict__ part, int ncolumns, int ntiles,
-                        int nrows) {
+//
+// The policy `out` takes the tile's sums: out.y the rows of whole and empty
+// slices; out.piece(t, tail, lane, v, s, last) split slice s's partial, for
+// the head (tail 0) or tail (1) slot of tile t, `last` where s ends in this
+// tile; kOwnerZeroesSplit says whether the owning tile also writes +0.0 to
+// a split slice's rows of y; out.tile_done(t, lane, wrote_head, wrote_tail,
+// head_s, tail_s) runs after the walk, with the slices whose pieces the
+// tile wrote.
+template <typename T, int R>
+struct PartOut {  // K4, K10, K14 and the probes
+  static constexpr bool kOwnerZeroesSplit = true;
+  T* __restrict__ y;
+  T* __restrict__ part;
+  __device__ __forceinline__ void piece(int t, int tail, int lane, const T (&v)[R], int,
+                                        bool) const {
+    store_row<R>(row_of<R>(part, (2 * t + tail) * kC + lane), v);
+  }
+  // +0.0 in the slots no split slice used
+  __device__ __forceinline__ void tile_done(int t, int lane, bool wrote_head, bool wrote_tail,
+                                            int, int) const {
+    T zero[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) zero[j] = T(0);
+    if (!wrote_head) store_row<R>(row_of<R>(part, (2 * t) * kC + lane), zero);
+    if (!wrote_tail) store_row<R>(row_of<R>(part, (2 * t + 1) * kC + lane), zero);
+  }
+};
+
+template <typename T, int kX, int R, typename Out>
+__device__ __forceinline__ void panel_tile_body(const int* __restrict__ slice_ptr,
+                                                const int* __restrict__ cols,
+                                                const T* __restrict__ vals,
+                                                const int* __restrict__ tile_slice0,
+                                                const int* __restrict__ tile_own0,
+                                                const T* __restrict__ x, const Out& out,
+                                                int ncolumns, int t, int nrows) {
   constexpr int kB = batch_cols<R>();
   static_assert(kTileCols % kB == 0, "a tile is whole batches");
   static_assert(R == 1 || (std::is_same_v<T, float> && kX == kXGather),
                 "R > 1 gathers rows of a float X");
   const int lane = threadIdx.x & (kC - 1);
-  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
-  if (t >= ntiles) return;
+  T* __restrict__ y = out.y;
   const int g0 = t * kTileCols;
   const int ncol = min(kTileCols, ncolumns - g0);
   const int g1 = g0 + ncol;
@@ -162,6 +205,7 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
   int ce = __ldg(slice_ptr + s + 1) / kC;  // end column of slice s
   bool head = __ldg(slice_ptr + s) / kC < g0;
   bool wrote_head = false, wrote_tail = false;
+  int head_s = s, tail_s = s;  // the slices of the pieces written
   const bool vec = x_rows_aligned<R>(x);
   T run[R];
 #pragma unroll
@@ -169,16 +213,19 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
   // Stores the tile's sums of slice s for this lane (branches warp-uniform).
   auto emit = [&]() {
     if (head) {
-      store_row<R>(row_of<R>(part, (2 * t) * kC + lane), run);
+      out.piece(t, 0, lane, run, s, ce <= g1);
       wrote_head = true;
+      head_s = s;
       return;
     }
     T v[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) v[j] = run[j];
     if (ce > g1) {  // runs on into later tiles: K7 writes its rows
-      store_row<R>(row_of<R>(part, (2 * t + 1) * kC + lane), run);
+      out.piece(t, 1, lane, run, s, false);
       wrote_tail = true;
+      tail_s = s;
+      if constexpr (!Out::kOwnerZeroesSplit) return;
 #pragma unroll
       for (int j = 0; j < R; ++j) v[j] = T(0);
     }
@@ -193,12 +240,12 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
     for (int i = 0; i < kB; ++i) {
       const bool in = b + i < ncol;
       const int p = (g0 + b + i) * kC + lane;
-      cc[i] = in ? __ldg(cols + p) : 0;
+      cc[i] = in ? __ldg(cols + p) : kPadCol;
       vv[i] = in ? __ldg(vals + p) : T(0);
     }
 #pragma unroll
     for (int i = 0; i < kB; ++i) {
-      if (b + i < ncol) {
+      if (cc[i] >= 0) {  // in the tile and not a pad
         x_row_at<kX, R>(x, cc[i], vec, xv[i]);
       } else {
 #pragma unroll
@@ -219,8 +266,10 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
 #pragma unroll
           for (int j = 0; j < R; ++j) run[j] = T(0);
         }
+        if (cc[i] >= 0) {  // a pad adds nothing
 #pragma unroll
-        for (int j = 0; j < R; ++j) run[j] = fma_rn(vv[i], xv[i][j], run[j]);
+          for (int j = 0; j < R; ++j) run[j] = fma_rn(vv[i], xv[i][j], run[j]);
+        }
       }
     }
   }
@@ -236,8 +285,52 @@ panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
   // (the spill part's first kernel, K1, K8, K12 or K3).
   asm volatile("griddepcontrol.launch_dependents;");
   emit();
-  if (!wrote_head) store_row<R>(row_of<R>(part, (2 * t) * kC + lane), zero);
-  if (!wrote_tail) store_row<R>(row_of<R>(part, (2 * t + 1) * kC + lane), zero);
+  out.tile_done(t, lane, wrote_head, wrote_tail, head_s, tail_s);
+}
+
+template <typename T, int kX = kXGather, int R = 1>
+__global__ void __launch_bounds__(kPanelThreads)
+panel_spmv_tiles_kernel(const int* __restrict__ slice_ptr,
+                        const int* __restrict__ cols,
+                        const T* __restrict__ vals,
+                        const int* __restrict__ tile_slice0,
+                        const int* __restrict__ tile_own0,
+                        const T* __restrict__ x, T* __restrict__ y,
+                        T* __restrict__ part, int ncolumns, int ntiles,
+                        int nrows) {
+  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
+  if (t >= ntiles) return;
+  panel_tile_body<T, kX, R>(slice_ptr, cols, vals, tile_slice0, tile_own0, x,
+                            PartOut<T, R>{y, part}, ncolumns, t, nrows);
+}
+
+// K14 (T = double, and its probe): the same, held to 8 blocks per SM (64
+// registers), as the parent's K14 ran.
+template <int kX>
+__global__ void __launch_bounds__(kPanelThreads, 8)
+panel_spmv_tiles_kernel_x2(const int* __restrict__ slice_ptr,
+                           const int* __restrict__ cols,
+                           const double* __restrict__ vals,
+                           const int* __restrict__ tile_slice0,
+                           const int* __restrict__ tile_own0,
+                           const double* __restrict__ x, double* __restrict__ y,
+                           double* __restrict__ part, int ncolumns, int ntiles,
+                           int nrows) {
+  const int t = blockIdx.x * kWarpsPerBlock + threadIdx.x / kC;
+  if (t >= ntiles) return;
+  panel_tile_body<double, kX, 1>(slice_ptr, cols, vals, tile_slice0, tile_own0, x,
+                                 PartOut<double, 1>{y, part}, ncolumns, t, nrows);
+}
+
+// The kernel of an instantiation: K4, K10 and the float probe; K14 and
+// its probe.
+template <typename T, int kX, int R>
+constexpr auto tiles_kernel() {
+  if constexpr (std::is_same_v<T, double>) {
+    return panel_spmv_tiles_kernel_x2<kX>;
+  } else {
+    return panel_spmv_tiles_kernel<T, kX, R>;
+  }
 }
 
 // Launches one instantiation on the plan's schedule; refuses
@@ -253,8 +346,8 @@ int launch_panel_spmv_tiles(const void* slice_ptr, const void* cols,
       ntiles != blocks_for(ncolumns, kTileCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  panel_spmv_tiles_kernel<T, kX, R><<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads,
-                                      0, static_cast<cudaStream_t>(stream)>>>(
+  tiles_kernel<T, kX, R>()<<<blocks_for(ntiles, kWarpsPerBlock), kPanelThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(slice_ptr), static_cast<const int*>(cols),
       static_cast<const T*>(vals), static_cast<const int*>(tile_slice0),
       static_cast<const int*>(tile_own0), static_cast<const T*>(x),
@@ -269,7 +362,7 @@ template <typename T, int R = 1>
 int panel_tiles_blocks_per_sm() {
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, panel_spmv_tiles_kernel<T, kXGather, R>, kPanelThreads, 0) !=
+          &blocks, tiles_kernel<T, kXGather, R>(), kPanelThreads, 0) !=
       cudaSuccess) {
     return -1;
   }

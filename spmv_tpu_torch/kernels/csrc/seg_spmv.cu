@@ -102,17 +102,7 @@ constexpr int kTileNnz = kTileThreads * kTileItems;
 // the words, in the common case published by then (finish_row issues up
 // to kFinishBatch loads at once, so a row over many tiles waits about one
 // round trip per kFinishBatch tiles).
-constexpr unsigned long long kPublished = 1ull << 32;
-constexpr int kFinishBatch = 8;
-
-__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
-  return w;
-}
-__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long w) {
-  asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
-}
+// kPublished, kFinishBatch, load_word and store_word: seg_tile.cuh.
 
 // Split row r's y, in tile t where it ends: the partials tiles ta .. t - 1
 // published, in tile order, then `own`, this tile's partial; each word is

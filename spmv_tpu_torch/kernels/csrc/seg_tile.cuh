@@ -619,6 +619,23 @@ int launch_seg_tiles(const void* ptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A published partial (K3's rows, K6's slices in its tile mode): one
+// 64-bit word, the float's bits low and 1 high (kPublished), stored at
+// once, so whoever reads the flag reads the value with it and no fence
+// orders the two; the reader waits for the flag and sets the word back to
+// 0. A finisher issues up to kFinishBatch word loads before it waits.
+constexpr unsigned long long kPublished = 1ull << 32;
+constexpr int kFinishBatch = 8;
+
+__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long w) {
+  asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+
 // Launches `kernel` on `stream` as a programmatic dependent of the kernel
 // ahead of it (cudaLaunchKernelEx with
 // cudaLaunchAttributeProgrammaticStreamSerialization): its grid may start

@@ -26,13 +26,19 @@ without a spill, which rewrites the split slices' rows alone.
 ``panel_spmv`` picks K6 for plans of at most
 ``device.FUSED_STREAM_BYTES_MAX`` bytes and K4 then K7 otherwise — the JAX
 engine's fused and two-dispatch shapes, on the segmented engine's
-predicate. ``panel_and_spill_spmv`` adds a CSR spill part to the panel's y
-(the panel/spill split of ELL, HYB and unsorted SELL-C-σ): the tile kernel,
-the spill part's engine, then K7's identity mode with the spill, no torch
-add. ``panel_spmv_multi`` (K10 then K7) and ``panel_and_spill_spmm`` are
+predicate. K6 walks one slice per warp where every slice is narrow, and
+runs K4's tiles, finishing each split slice in the same launch, where one
+is wider than ``FUSED_SLICE_COLS_MAX`` columns (``fused_mode``): there its y
+is K4 + K7's, bit for bit. ``panel_and_spill_spmv`` adds a CSR spill part
+to the panel's y (the panel/spill split of ELL, HYB and unsorted
+SELL-C-σ): the tile kernel, the spill part's engine, then K7's identity
+mode with the spill, no torch add. ``panel_spmv_multi`` (K10 then K7) and ``panel_and_spill_spmm`` are
 the same for X of shape (ncols, R), 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``.
 A σ-sorted SELL takes ``sorted_panel_and_spill_spmv`` (``_spmm``): the
 same chain with K7 given the row order.
+
+Pad slots (column ``formats.base.PAD_COL``) add nothing in any kernel or
+plain version: no x entry is read for them.
 
 Routing, as in ``kernels.engines``: CPU tensors run the plain version
 (``*_reference``), CUDA tensors launch the kernel or raise, and each
@@ -57,16 +63,22 @@ __all__ = ["panel_spmv", "panel_spmv_partials", "panel_fixup",
            "panel_fixup_multi", "panel_and_spill_spmm",
            "panel_spmv_multi_partials_reference",
            "panel_fixup_multi_reference", "sorted_panel_and_spill_spmv",
-           "sorted_panel_and_spill_spmm"]
+           "sorted_panel_and_spill_spmm", "fused_mode", "FUSED_SLICE_COLS_MAX"]
 
 _C = SLICE_ROWS
 
 
-def _check_cuda_panel(dev: DevPanel, x: torch.Tensor | None) -> None:
+def _check_cuda_panel(dev: DevPanel) -> None:
     if dev.tile != TILE_COLS:
         raise ValueError(f"the CUDA kernel takes tile={TILE_COLS}, plan has {dev.tile}")
-    if x is not None and dev.nslots and x.numel() == 0:  # pad slots read x[0]
-        raise ValueError("a panel with slots needs at least one column")
+
+
+def _products(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
+    """Each slot's product v·x[c] (a row of R for an (ncols, R) X), exactly
+    0 for a pad: x is gathered at a clamped column, so no pad reads x[-1]
+    and a non-finite x entry reaches only the slots of its column."""
+    c = dev.cols.long()
+    return (_lead(dev.vals, x) * x[c.clamp(min=0)]).masked_fill_(_lead(c < 0, x), 0.0)
 
 
 def _slice_rows(dev: DevPanel, slices: torch.Tensor):
@@ -95,7 +107,7 @@ def _launch_panel_tiles(kernel: str, dtype: torch.dtype, dev: DevPanel,
     probe's K4 without the gather (``kernels.probes``; x None, not read),
     counted under ``key``. The kernel writes every row of y and every
     partial slot, so neither is filled first."""
-    _check_cuda_panel(dev, x)
+    _check_cuda_panel(dev)
     tail = () if x is None else tuple(x.shape[1:])
     if not (dev.nslots and dev.nrows):  # a zero-sized grid is refused
         return (torch.zeros((dev.nrows, *tail), dtype=dtype, device=dev.device),
@@ -156,7 +168,7 @@ def panel_spmv_partials_reference(dev: DevPanel, x: torch.Tensor):
     head = torch.ones(ncol, dtype=torch.bool, device=dv)
     head[1:] = (sl[1:] != sl[:-1]) | (tile[1:] != tile[:-1])
     seg = torch.cumsum(head, 0) - 1
-    prod = (_lead(dev.vals, x) * x[dev.cols.long()]).view(ncol, _C, *tail)
+    prod = _products(dev, x).view(ncol, _C, *tail)
     sums = torch.zeros((int(head.sum()), _C, *tail), dtype=dt, device=dv)
     sums.index_add_(0, seg, prod)
     ss, st = sl[head], tile[head]
@@ -197,28 +209,59 @@ def panel_fixup_reference(dev: DevPanel, y: torch.Tensor,
 
 # ---------------------------------------------------------------- K6
 
+# The widest slice, in slice columns, on which K6 runs its slice mode (a
+# warp per slice): a panel with a wider one runs K6's tile mode (K4's tiles,
+# each split slice finished by its last tile in the same launch). From
+# chip_smoke.py's sweep on an H100 (PERF.md §6): the slice mode's
+# time grows with the widest slice (2.8 µs at 9 columns, 9.4 at 75, 12.4 at
+# 111, 62 at 672), the tile mode's stays near one tile's walk (6.5-9.1 µs on
+# every panel of 4 MB or less); the tile mode won on every skewed panel
+# (widest slice 111 columns or more), and the cap lies above the widest
+# slice of every regular panel measured (75, cant-8192), which keeps those
+# on the slice mode and its bits.
+FUSED_SLICE_COLS_MAX = 96
+
+
+def fused_mode(dev: DevPanel) -> int:
+    """K6's mode for a panel: 0, a warp per slice, where no slice is wider
+    than ``FUSED_SLICE_COLS_MAX`` columns; else 1, K4's tiles."""
+    return int(dev.max_width > FUSED_SLICE_COLS_MAX)
+
 
 def panel_spmv_fused(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
-    """K6: y = A·x in one dispatch."""
+    """K6: y = A·x in one launch. In its tile mode (``fused_mode`` 1) the
+    last tile of each split slice waits for the pieces the slice's other
+    tiles publish in ``dev.fused_words`` and adds them in K7's order, so y
+    is K4 + K7's, bit for bit; the words are the plan's, so two K6 launches
+    on one plan must not overlap (one stream, as every caller of the port
+    launches). Its slice mode sums each row in column order, as K4 does
+    within a tile."""
     _check_x(dev, x)
     if not _on_cuda(dev, x):
         return panel_spmv_fused_reference(dev, x)
-    _check_cuda_panel(dev, x)
+    _check_cuda_panel(dev)
     if dev.nslots == 0 or dev.nrows == 0:  # nothing to launch: y is all zeros
         return torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
     y = torch.empty(dev.nrows, dtype=torch.float32, device=dev.device)
-    _launch("panel_spmv_fused", dev, dev.slice_ptr, dev.cols, dev.vals, x, y,
-            dev.nslices, dev.nrows)
+    _launch("panel_spmv_fused", dev, dev.slice_ptr, dev.cols, dev.vals, dev.tile_slice0,
+            dev.tile_own0, x, y, dev.fused_words, dev.nslices,
+            dev.nslots // _C, dev.ntiles, dev.tile, dev.nrows, fused_mode(dev))
     return y
 
 
-def panel_spmv_fused_reference(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
-    """Plain K6: the products as (slice column, row) rows, summed per slice
-    (``segment_reduce`` over each slice's K_s columns). A plan with no
-    slots or no rows gives zeros, as the kernel's wrapper does."""
+def panel_spmv_fused_reference(dev: DevPanel, x: torch.Tensor,
+                               mode: int | None = None) -> torch.Tensor:
+    """Plain K6 in ``mode`` (None: the one ``fused_mode`` picks). The slice
+    mode (0): the products as (slice column, row) rows, summed per slice
+    (``segment_reduce`` over each slice's K_s columns). The tile mode (1):
+    plain K4, then plain ``panel_fixup``, so plain K4 + K7's y bit for bit.
+    A plan with no slots or no rows gives zeros, as the kernel's wrapper
+    does."""
     if dev.nslots == 0 or dev.nrows == 0:
         return torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
-    prod = (dev.vals * x[dev.cols.long()]).view(-1, _C)
+    if fused_mode(dev) if mode is None else mode:
+        return panel_fixup_reference(dev, *panel_spmv_partials_reference(dev, x))
+    prod = _products(dev, x).view(-1, _C)
     widths = torch.diff(dev.slice_ptr.long()) // _C
     per_slice = torch.segment_reduce(prod, "sum", lengths=widths, axis=0,
                                      initial=0.0)

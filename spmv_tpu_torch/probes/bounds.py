@@ -101,10 +101,18 @@ def panel_fixup_bytes(pdev, R: int = 1) -> int:
     return parts * 32 * es * R + pdev.nsplit * (3 * 4 + 32 * es * R)
 
 
-def panel_fused_bytes(pdev) -> int:
-    """K6: slice_ptr, columns and values read, x read, y written."""
+def panel_fused_bytes(pdev, mode: int | None = None) -> int:
+    """K6: slice_ptr, columns and values read, x read, y written; in its
+    tile mode (``mode`` 1; None: the mode ``panel.fused_mode`` picks) also
+    tile_slice0 and tile_own0 read. The split slices' partials and
+    counters stay in the L2, as K3's words do."""
+    from spmv_tpu_torch.kernels.panel import fused_mode
+
     es = pdev.vals.element_size()
-    return nbytes(pdev.slice_ptr, pdev.cols, pdev.vals) + (pdev.ncols + pdev.nrows) * es
+    tiles = (pdev.tile_slice0, pdev.tile_own0) if (
+        fused_mode(pdev) if mode is None else mode) else ()
+    return (nbytes(pdev.slice_ptr, pdev.cols, pdev.vals, *tiles)
+            + (pdev.ncols + pdev.nrows) * es)
 
 
 def permute_bytes(n: int, row_bytes: int) -> int:

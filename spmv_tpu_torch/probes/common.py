@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch import synth
-from spmv_tpu_torch.formats.base import TILE_NNZ
+from spmv_tpu_torch.formats.base import PAD_COL, TILE_NNZ
 from spmv_tpu_torch.io.mmio import MMInfo
 from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import (KERNEL_TOL_ABS, fp32_rel_tol, golden_spmv,
@@ -32,8 +32,12 @@ HBM_STREAM_L2S = 5
 # and the 1024-row band matrix of the parity tests; then the rest of
 # chip_smoke.py's sweep of the one-dispatch threshold: the 512-row matrix
 # of ``__graft_entry__.entry()``, cant's generator at 8,192 and 16,384 rows
-# and the 32k-row power-law matrix without its band; partials, so that
-# ``probes.turns`` can name them to a checkout of its own
+# and the 32k-row power-law matrix without its band; then the plans of K6's
+# sweep there: cant's generator at 4,096 rows (a regular panel under 4 MB),
+# bench.py's power-law generator at 2,048-16,384 rows (skewed panels under 4
+# MB as sell_pure) and at 16,384 rows with its Zipf lengths capped at 16 and
+# 96; partials, so that ``probes.turns`` can name them to a checkout of its
+# own
 MATRICES = {
     "cant": partial(synth.synthetic_cant, n=62464, avg_nnz_per_row=64,
                     bandwidth=350, seed=0),
@@ -49,6 +53,11 @@ MATRICES = {
     "cant_8192": partial(synth.synthetic_cant, n=8192),
     "cant_16384": partial(synth.synthetic_cant, n=16384),
     "pl_wide_32768": partial(synth.power_law, n=32768, avg_nnz_per_row=24, seed=0),
+    "cant_4096": partial(synth.synthetic_cant, n=4096),
+    **{f"pl_{n}": partial(synth.power_law, n=n, avg_nnz_per_row=24, bandwidth=512,
+                          seed=0) for n in (2048, 4096, 8192, 16384)},
+    **{f"pl_cap{m}_16384": partial(synth.power_law, n=16384, avg_nnz_per_row=24,
+                                   bandwidth=512, seed=0, max_row=m) for m in (16, 96)},
 }
 
 # The SELL panel the ``panel`` probe and ``probes.turns`` run K4 and K14 on:
@@ -126,6 +135,17 @@ TILE_SHAPES = {"one_nonzero_rows": one_nonzero_rows,
                "wide_hub": wide_hub, "empty_row_edges": empty_row_edges}
 
 
+def unread_column(seed: int = 0):
+    """300 rows over 300 columns, none of them in column 0: row 0 holds 6
+    nonzeros and every other row 1, so the first slice pads 31 rows to 6
+    columns and the others pad nothing. A non-finite x[0] must reach no
+    row; a non-finite entry at a column some row reads (that of the last
+    nonzero), only the rows that read it."""
+    _, rows, cols, vals = _triplets([6] + [1] * 299, 299, seed)
+    info = MMInfo("matrix", "coordinate", "real", "general", 300, 300, rows.size)
+    return info, rows, cols + 1, vals
+
+
 def _slices(widths, seed: int, nrows: int | None = None, ncols: int = 500):
     """Triplets whose 32-row slices have the given widths: the first row of
     each slice holds ``widths[s]`` nonzeros, the other rows up to as many;
@@ -185,14 +205,14 @@ PANEL_SHAPES = {"empty_at_tile_start": empty_at_tile_start,
 
 
 def panel_triplets(dev):
-    """The triplets a panel plan holds, pads included (value 0, column 0),
+    """The triplets a panel plan holds, pads (column ``PAD_COL``) left out,
     in its own row space: row ``s·32 + l`` of slice s, ``nrows`` rows (the
     last slice's rows past it hold only pads)."""
     sp = dev.slice_ptr.long().cpu().numpy()
     slot = np.arange(int(sp[-1]))
     s = np.searchsorted(sp, slot, side="right") - 1
     rows = s * 32 + slot % 32
-    real = rows < dev.nrows
+    real = (rows < dev.nrows) & (dev.cols.cpu().numpy() != PAD_COL)
     info = MMInfo("matrix", "coordinate", "real", "general", dev.nrows, dev.ncols,
                   int(real.sum()))
     return (info, rows[real], dev.cols.cpu().numpy()[real].astype(np.int64),

@@ -62,7 +62,12 @@ launches that checkout's kernels through that checkout's wrappers, and
   cuSPARSE, each by graph replay, and K3's HBM-peak bound
   (``bounds.fused_bytes``); K1 + K2's y is saved, and whether K3's y is
   K1 + K2's bit for bit (and by how much it differs) is kept per turn, since
-  a K3 of another design may sum in another order;
+  a K3 of another design may sum in another order; and on the whole SELL
+  panels of ``PANEL_FUSED_TURN_MATRICES`` (K6's sweep) the one-dispatch K6
+  (``panel_spmv_fused``) beside K4 + its fix-up, by graph replay, with K6's
+  bound; K4 + fix-up's y is saved, and so is K6's where no slice is wider
+  than ``specs["k6_cap"]`` (a warp per slice in both checkouts, so bit for
+  bit), while elsewhere whether K6's y is K4 + fix-up's is kept per turn;
 * then runs each ``--probe NAME:MATRIX`` (``python -m spmv_tpu_torch.probes``)
   in that checkout, its output saved beside the arrays.
 
@@ -99,6 +104,11 @@ SPMM_RHS = (2, 4, 8)
 # one-dispatch threshold, the ones under it first
 FUSED_TURN_MATRICES = ("entry", "band", "pl", "cant_8192", "pl_wide_32768",
                        "cant_16384")
+# and the whole SELL panels it times K6 on: K6's sweep in chip_smoke.py,
+# the regular panels first
+PANEL_FUSED_TURN_MATRICES = ("entry", "band", "cant_4096", "cant_8192", "pl_2048",
+                             "pl_4096", "pl_8192", "pl_16384", "pl_cap16_16384",
+                             "pl_cap96_16384")
 # the σ-sorted SELL containers the sorted engine times through the public
 # calls: name → (matrix of ``common.MATRICES``, split, forced): cant as the
 # split builds it (a pure sorted panel), pl-32768 and ``pl_big`` whole
@@ -365,6 +375,30 @@ def _worker(out_dir: Path, specs: dict) -> dict:
         ms[f"{name} fused K3 bound"] = B.bound_ms(B.fused_bytes(dev), 2 * dev.nnz)[0]
         del dev, A
         torch.cuda.synchronize()
+    res["panel_fused_bits"] = {}
+    k6_cap = specs.pop("k6_cap", 0)
+    for name, (gen, kwargs) in specs.pop("panel_fused", {}).items():
+        # K6 beside K4 + its fix-up on one whole SELL panel of K6's sweep
+        info, r, c, v = getattr(synth, gen)(**kwargs)
+        a = spmv_tpu_torch.from_coo("sell", info.nrows, info.ncols, r, c, v, split=False,
+                                    device="cuda")
+        dev, x = a.dev, vector(info.ncols, np.float32)
+        tiles, fixup = panels["f32"]
+        y47 = fixup(dev, *tiles(dev, x))
+        y6 = P.panel_spmv_fused(dev, x)
+        np.save(out_dir / f"{name}_panel_fused_path_y.npy", y47.cpu().numpy())
+        if dev.max_width <= k6_cap:
+            np.save(out_dir / f"{name}_panel_fused_K6_y.npy", y6.cpu().numpy())
+        res["panel_fused_bits"][name] = {
+            "equal": bool(torch.equal(y6, y47)),
+            "max_abs": float((y6.double() - y47.double()).abs().max()),
+            "plan_bytes": dev.stream_bytes, "max_width": dev.max_width}
+        ms[f"{name} panel K6"] = graph_ms(lambda: P.panel_spmv_fused(dev, x))
+        ms[f"{name} panel K4+fixup"] = graph_ms(lambda: fixup(dev, *tiles(dev, x)))
+        ms[f"{name} panel K6 bound"] = B.bound_ms(B.panel_fused_bytes(dev),
+                                                  2 * a.panel_nnz)[0]
+        del a, dev
+        torch.cuda.synchronize()
     for engine, named in specs.items():
         for name, (gen, kwargs, *split) in named.items():
             info, r, c, v = getattr(synth, gen)(**kwargs)
@@ -417,7 +451,11 @@ def run_specs(only: str | None, out: Path) -> dict:
     rhs = [1] * bool(engines & {"seg", "panel"}) + list(SPMM_RHS) * ("spmm" in engines)
     specs = {"rhs": rhs}
     if "fused" in engines:
+        from spmv_tpu_torch.kernels.panel import FUSED_SLICE_COLS_MAX
+
         specs["fused"] = matrix_specs(FUSED_TURN_MATRICES)
+        specs["panel_fused"] = matrix_specs(PANEL_FUSED_TURN_MATRICES)
+        specs["k6_cap"] = FUSED_SLICE_COLS_MAX
     if engines & {"seg", "spmm"}:
         specs["seg"] = matrix_specs()
     if engines & {"panel", "spmm"}:
@@ -468,8 +506,8 @@ def main(argv=None) -> int:
     p.add_argument("--only", choices=("seg", "panel", "spmm", "sorted", "fused"),
                    help="time one engine's tile kernels only (spmm: K8 and "
                         "K10 at R = 2, 4, 8; sorted: the public calls on "
-                        "sorted SELL builds; fused: K3 on the plans of the "
-                        "one-dispatch sweep)")
+                        "sorted SELL builds; fused: K3 and K6 on the plans of "
+                        "the one-dispatch sweeps)")
     p.add_argument("--probe", action="append", default=[],
                    help="NAME:MATRIX, run in each turn, e.g. ablate:pl_big")
     p.add_argument("--rounds", type=int, default=5, help="rounds of each probe")
@@ -538,6 +576,10 @@ def main(argv=None) -> int:
             print(f"K3 against K1 + K2, {t['tree']}: " + ", ".join(
                 f"{n} {'bit for bit' if b['equal'] else 'max |diff| %.3e' % b['max_abs']}"
                 for n, b in t["fused_bits"].items()))
+        if t.get("panel_fused_bits"):
+            print(f"K6 against K4 + fix-up, {t['tree']}: " + ", ".join(
+                f"{n} {'bit for bit' if b['equal'] else 'max |diff| %.3e' % b['max_abs']}"
+                for n, b in t["panel_fused_bits"].items()))
     n = len(list(dirs["other"][0].glob("*.npy")))
     print(f"bit for bit: {n} outputs of each of {len(turns)} turns; "
           + ("all equal" if not bad else f"{len(bad)} differ: {bad}"))

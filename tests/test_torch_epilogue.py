@@ -464,6 +464,10 @@ def test_k7_reads_the_plan_before_it_waits_and_launches_as_a_dependent():
     assert "cudaLaunchKernelEx(" in helper and "<<<" not in helper
     assert "cudaLaunchAttributeProgrammaticStreamSerialization" in helper
     assert "programmaticStreamSerializationAllowed = 1" in helper
-    tiles = body_of((CSRC / "panel_tile.cuh").read_text(),
-                    "panel_spmv_tiles_kernel(const int*")
+    # the trigger lives in the tile body that K4, K10, K14 (and K6's tile
+    # mode) run, once
+    tile_src = (CSRC / "panel_tile.cuh").read_text()
+    tiles = body_of(tile_src, "void panel_tile_body(const int*")
     assert tiles.count('asm volatile("griddepcontrol.launch_dependents;")') == 1
+    assert "panel_tile_body<T, kX, R>(" in body_of(tile_src,
+                                                   "panel_spmv_tiles_kernel(const int*")

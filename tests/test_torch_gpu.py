@@ -22,7 +22,8 @@ from spmv_tpu_torch.kernels import panel as P
 from spmv_tpu_torch.kernels import probes as KP
 from spmv_tpu_torch.oracle import KERNEL_TOL_ABS, fp32_rel_tol, row_scale
 from spmv_tpu_torch.probes.common import MATRICES as MATRICES_OF_PROBES
-from spmv_tpu_torch.probes.common import PANEL_SHAPES, TILE_SHAPES, tile_sum_bound
+from spmv_tpu_torch.probes.common import (PANEL_SHAPES, TILE_SHAPES, tile_sum_bound,
+                                          unread_column)
 from spmv_tpu_torch.probes.turns import TURN_MATRICES, forced_split
 
 pytestmark = pytest.mark.gpu
@@ -746,6 +747,133 @@ def test_k3_is_k1_k2_bits_eager_and_in_a_cuda_graph(cuda, name):
     assert dev.fused_words.shape == (dev.ntiles,)
     assert dev.stream_bytes == sum(t.numel() * t.element_size() for t in (
         dev.ptr, dev.cols, dev.vals, dev.tile_row0, dev.carry_rows))
+
+
+# ---------------------------------------------------------------- K6
+
+
+def k6_launch(dev, x, mode):
+    """K6's launcher in one mode (0: a warp per slice; 1: K4's tiles, the
+    split slices finished in the launch), outside its wrapper, into a
+    NaN-filled y: a row it leaves unwritten stays NaN."""
+    y = torch.full((dev.nrows,), float("nan"), device=x.device)
+    assert _build.library().lib.panel_spmv_fused(
+        dev.slice_ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_slice0.data_ptr(), dev.tile_own0.data_ptr(), x.data_ptr(), y.data_ptr(),
+        dev.fused_words.data_ptr(), dev.nslices,
+        dev.nslots // 32, dev.ntiles, dev.tile, dev.nrows, mode,
+        torch.cuda.current_stream().cuda_stream) == 0
+    return y
+
+
+def skewed(n):
+    """bench.py's power-law generator at n rows (``bench.py:162-169``)."""
+    return synth.power_law(n=n, avg_nnz_per_row=24, bandwidth=512, seed=0)
+
+
+# whole SELL panels K6 runs on: skewed ones under 4 MB (its tile mode),
+# regular ones (its slice mode), the panel shapes and the unread column
+K6_MATRICES = {"pl_2048": lambda: skewed(2048), "pl_16384": lambda: skewed(16384),
+               "band_1024": MATRICES["band_1024"], "unread_column": unread_column,
+               **PANEL_SHAPES}
+
+
+@pytest.mark.parametrize("name", sorted(K6_MATRICES))
+def test_k6_modes_against_plain_and_the_tile_mode_is_k4_k7_bits(cuda, name):
+    """K6 in each mode through its launcher, twice, into a NaN-filled y:
+    within the bound of its plain version in that mode; the tile mode bit
+    for bit K4 + K7's identity mode, its published words 0 after each
+    launch. The wrapper picks by the widest slice, gives the launcher's bits
+    in that mode, and its bits in 3 replays of a captured graph; the words
+    are no part of the plan's bytes."""
+    info, r, c, v = K6_MATRICES[name]()
+    a = SellMatrix.from_coo(info.nrows, info.ncols, r, c, v, split=False, device=cuda)
+    dev = a.dev
+    xh = np.random.default_rng(7).standard_normal(info.ncols).astype(np.float32)
+    x = torch.from_numpy(xh).to(cuda)
+    xa = x.abs()
+    dabs = dataclasses.replace(dev, vals=dev.vals.abs())
+    k = max(dev.max_width, 1)
+    y47 = P.panel_fixup(dev, *P.panel_spmv_partials(dev, x))
+    for mode in (0, 1):
+        plain = P.panel_spmv_fused_reference(dev, x, mode).double()
+        bound = KERNEL_TOL_ABS + fp32_rel_tol(k) * P.panel_spmv_fused_reference(
+            dabs, xa, mode).double()
+        first = k6_launch(dev, x, mode)
+        assert torch.equal(first, k6_launch(dev, x, mode))
+        assert ((first.double() - plain).abs() <= bound).all()
+        if mode == 1:
+            assert torch.equal(first, y47)
+            assert not dev.fused_words.any()
+    mode = P.fused_mode(dev)
+    assert mode == (dev.max_width > P.FUSED_SLICE_COLS_MAX)
+    eager = P.panel_spmv_fused(dev, x)
+    assert torch.equal(eager, k6_launch(dev, x, mode))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
+        P.panel_spmv_fused(dev, x)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = P.panel_spmv_fused(dev, x)
+    for _ in range(3):
+        out.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert not dev.fused_words.any()
+    assert dev.fused_words.shape == (2 * dev.ntiles, 32)
+    resident = _build.library().lib.panel_spmv_fused_resident(torch.cuda.current_device())
+    assert resident >= torch.cuda.get_device_properties(0).multi_processor_count
+    assert dev.stream_bytes == sum(t.numel() * t.element_size() for t in (
+        dev.slice_ptr, dev.vals, dev.cols, dev.tile_slice0, dev.tile_own0,
+        dev.split_slices))
+
+
+@pytest.mark.parametrize("where", ["x0", "read"])
+def test_a_nan_reaches_only_the_rows_that_read_its_column(cuda, where):
+    """On the unread-column matrix's whole ELL panel (no entry in column 0;
+    31 rows of the first slice padded), a NaN at x[0] or at a column the
+    last row reads: K4 + K7, K6 in each mode, K10 + K7 (column 0 of R =
+    4) and K14 + K7 give NaN exactly in the oracle's NaN rows."""
+    from spmv_tpu_torch.oracle import golden_spmv
+
+    info, r, c, v = unread_column()
+    dev = EllMatrix.from_coo(info.nrows, info.ncols, r, c, v, split=False,
+                             device=cuda).dev
+    dev64 = X2Matrix.from_coo("ell", info.nrows, info.ncols, r, c, v, split=False,
+                              device=cuda).dev
+    xh = np.random.default_rng(3).standard_normal(info.ncols).astype(np.float32)
+    xh[0 if where == "x0" else int(c[-1])] = float("nan")
+    want = np.isnan(golden_spmv(info.nrows, r, c, v, xh))
+    assert want.sum() == (0 if where == "x0" else 2)
+    x = torch.from_numpy(xh).to(cuda)
+    X = torch.stack([x, x.nan_to_num(), -x.nan_to_num(), x.nan_to_num()], dim=1)
+    outs = {"K4 + K7": P.panel_fixup(dev, *P.panel_spmv_partials(dev, x)),
+            "K6 slices": k6_launch(dev, x, 0), "K6 tiles": k6_launch(dev, x, 1),
+            "K10 + K7": P.panel_spmv_multi(dev, X)[:, 0],
+            "K14 + K7": X2.panel_spmv_x2(dev64, x.double())}
+    for what, y in outs.items():
+        assert np.array_equal(torch.isnan(y).cpu().numpy(), want), what
+
+
+def test_refused_k6_launch_raises(cuda):
+    """K6's launcher refuses a mode it has not, and a tile it was not built
+    for; its wrapper refuses the tile first."""
+    info, r, c, v = skewed(2048)
+    good = SellMatrix.from_coo(info.nrows, info.ncols, r, c, v, split=False,
+                               device=cuda).dev
+    x = torch.ones(info.ncols, device=cuda)
+    with pytest.raises(AssertionError):
+        k6_launch(good, x, 2)
+    order = np.lexsort((c, r))
+    bad = DevPanel.from_plan(build_panel_plan(info.nrows, info.ncols, r[order], c[order],
+                                              v[order], tile=3), cuda)
+    with pytest.raises(ValueError, match="tile"):
+        P.panel_spmv_fused(bad, x)
+    with pytest.raises(AssertionError):
+        k6_launch(bad, x, 1)
 
 
 # ---------------------------------------------------------------- K7

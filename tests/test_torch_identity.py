@@ -389,18 +389,22 @@ def test_identity_wrappers_refuse_mismatched_inputs():
 def test_no_fixup_kernel_is_left_and_the_sum_rule_lives_once():
     """``panel_spmv.cu`` defines no ``panel_fixup`` kernel or entry point,
     ``_build`` declares none and ``engines.LAUNCHES`` counts none; the
-    split slices' tile-order sum (the tail slot of the first tile, then the
-    head slots) is written once in the sources, in ``sum_split_row``, which
-    the kernel's body calls once for all three grids."""
+    split slices' slot order (the tail slot of the first tile, then the
+    head slots) is written once in the sources, in ``split_slot``, which
+    ``sum_split_row`` (K7's sum, which the kernel's body calls once for all
+    three grids) and K6's tile mode read."""
     src = (CSRC / "panel_spmv.cu").read_text()
     assert "panel_fixup" not in src
     assert not [k for k in _build.SIGNATURES if k.startswith("panel_fixup")]
     assert not [k for k in E.LAUNCHES if k.startswith("panel_fixup")]
     sources = "".join(p.read_text() for p in sorted(CSRC.glob("*.cu*")))
-    assert sources.count("(2 * ta + 1) * kC") == 1
+    assert sources.count("int split_slot(") == 1
+    assert src.count("2 * ta + 1") == 1
+    slot = body_of(src, "int split_slot(int t, int ta)")
+    assert "t == ta ? 2 * ta + 1 : 2 * t" in slot
     assert sources.count("void sum_split_row(") == 1
     rule = body_of(src, "void sum_split_row(const T* part")
-    assert "(2 * ta + 1) * kC" in rule and "(2 * t) * kC" in rule
+    assert "split_slot(ta, ta)" in rule and "split_slot(t, ta)" in rule
     body = body_of(src, "inverse_permute_kernel(const int*")
     assert body.count("sum_split_row<R>(") == 1
 

@@ -26,7 +26,7 @@ from spmv_tpu.oracle import container_scale, engine_rel_tol
 from spmv_tpu_torch import device, synth
 from spmv_tpu_torch.device import DevPanel
 from spmv_tpu_torch.formats import split as S
-from spmv_tpu_torch.formats.base import (SLICE_ROWS, TILE_COLS,
+from spmv_tpu_torch.formats.base import (PAD_COL, SLICE_ROWS, TILE_COLS,
                                          build_panel_plan)
 from spmv_tpu_torch.formats.sell import sigma_sort_tables
 from spmv_tpu_torch.io.mmio import MMInfo
@@ -95,8 +95,9 @@ def test_panel_plan_slots_and_tile_schedule(case, tile):
     assert p.slice_ptr.tolist() == [0] + np.cumsum(C * p.widths).tolist()
     assert (p.slice_ptr % C == 0).all()
     # every element at slice_ptr[s] + r % 32 + 32·k, every other slot a pad
+    # (value 0, column PAD_COL)
     vals = np.zeros(p.nslots, np.float32)
-    cols = np.zeros(p.nslots, np.int32)
+    cols = np.full(p.nslots, PAD_COL, np.int32)
     for e in range(r.size):
         k = e - np.searchsorted(r, r[e])  # rank within the row
         pos = p.slice_ptr[r[e] // C] + r[e] % C + C * k

@@ -267,7 +267,7 @@ def test_plain_k14_k15_match_jax_x2(name):
 
 
 def test_panel_triplets_are_the_plans_content():
-    """``panel_triplets`` reads back the panel's elements (pads add zeros),
+    """``panel_triplets`` reads back the panel's elements (pads left out),
     so the ``panel`` probe's checks are the plan's own product."""
     info, r, c, v = PANEL_SHAPES["cut_last_slice"](2)
     dev = DevPanel.from_plan(build_panel_plan(info.nrows, info.ncols, r, c, v), "cpu")
