@@ -227,12 +227,28 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``cli.main`` at 16384 and 131072 rows per device: one measured D = 1
    point each (the graphed step), ``simulated`` false, the card and the
    modelled NVLink lines.
-10. One line per kernel with its time, bound and library time; one JSON
+10. The driver benchmark: ``python -m spmv_tpu_torch.bench.suite`` (the
+   port's ``bench.py``) in a subprocess in a temporary directory of the
+   checkout, ``PYTHONPATH`` at the root, with no skip variable set, its
+   process group killed past ``SUITE_TIMEOUT``. It must exit 0 with no line
+   saying FAILED, its last line must hold bench.py's keys and the card,
+   none null, the simulated sweep and the f32x2 error passed, every roofline
+   at most 105%; it must write ``bench_results_torch.json`` and not
+   ``bench_results.json``; each suite must launch its kernels
+   (``SUITE_LAUNCHES``: the counters of the suite's own process, from zero
+   around each suite, which count toward the kernels' launches), and the
+   big cell must read as not L2-resident. Then, in this process, the
+   4.2M-row big cell from the suite's triplet cache: csr, sell and hyb
+   ``matvec`` against ``golden_spmv`` by ``check_result``, each in a window
+   of the counters (csr through K1 + K2, sell through K4 + K7), and K1, K2,
+   K1 + K2, K3 and cuSPARSE on its CSR plan by graph replay beside the
+   bound.
+11. One line per kernel with its time, bound and library time; one JSON
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
    ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``, K1
-   at ``pl_wide``; K6's row at the 16,384-row power-law ``sell_pure``
-   panel, the plan the main path sends it, with its sweep);
+   at ``pl_wide`` and at the big cell; K6's row at the 16,384-row power-law
+   ``sell_pure`` panel, the plan the main path sends it, with its sweep);
    then the result line.
 """
 
@@ -2797,6 +2813,170 @@ def phase_dist(cant, card: str) -> dict:
     return {"launches": dict(ran), "times_ms": t, "scaling": scaling}
 
 
+# ------------------------------------------------------------ the driver benchmark
+
+SUITE_TIMEOUT = 600  # seconds for python -m spmv_tpu_torch.bench.suite
+# the variables that cut the suite short or change its matrix: unset for phase 10
+SUITE_ENV_CUTS = ("SPMV_SKIP_BIG", "SPMV_SKIP_SIM_SWEEP", "SPMV_MATRIX", "SPMV_N")
+# what each suite must launch on the card (the counters of the suite's own
+# process, from zero around each suite): cant's csr, coo, cmrs, and its ell
+# and hyb, which spill everything, run K1 + K2, its sorted sell K4 + K7;
+# pl-32768's six formats run K3 (3.7 MB plans), its pure panels K4 + K7;
+# pl_big's csr, sell and hyb K1 + K2 (all spill); the ceiling is seg_ablate_dma
+SUITE_LAUNCHES = {
+    "main suite": ("seg_spmv_tiles", "carry_fixup", "panel_spmv_tiles", "inverse_permute",
+                   "seg_ablate_dma"),
+    "power-law suite": ("csr_spmv_fused", "panel_spmv_tiles", "inverse_permute",
+                        "seg_ablate_dma"),
+    "power-law-big suite": ("seg_spmv_tiles", "carry_fixup", "seg_ablate_dma"),
+    "f32x2 suite": ("seg_spmv_tiles_x2", "carry_fixup_x2", "seg_ablate_dma"),
+    "symmetric suite": ("seg_spmv_tiles", "carry_fixup", "seg_ablate_dma"),
+    "spmm suite": ("seg_spmm_tiles", "carry_fixup_multi"),
+    "big-matrix suite": ("seg_spmv_tiles", "carry_fixup", "seg_ablate_dma"),
+    "weak-scaling suite": ("seg_spmv_tiles", "carry_fixup"),
+}
+# what the big cell's matvec must launch, by format, in this process
+BIG_LAUNCHES = {"csr": ("seg_spmv_tiles", "carry_fixup"),
+                "sell": ("panel_spmv_tiles", "inverse_permute")}
+
+
+def run_suite(d: str) -> tuple[dict, dict, float]:
+    """``python -m spmv_tpu_torch.bench.suite`` in a subprocess in ``d``,
+    ``PYTHONPATH`` at the root, with no variable of ``SUITE_ENV_CUTS`` set,
+    its whole process group killed past ``SUITE_TIMEOUT``: (its last line,
+    its results file, seconds). Fails unless it exits 0, no line says
+    FAILED, and it wrote its own results file and not JAX's."""
+    import signal
+    import subprocess
+
+    from spmv_tpu_torch.bench import suite as S
+
+    env = {k: v for k, v in os.environ.items() if k not in SUITE_ENV_CUTS}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "spmv_tpu_torch.bench.suite"], cwd=d,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SUITE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        print(err[-4000:])
+        raise SystemExit(f"the bench suite ran past {SUITE_TIMEOUT} s")
+    seconds = time.perf_counter() - t0
+    for line in err.splitlines():
+        print(f"  | {line}")
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"python -m spmv_tpu_torch.bench.suite exited {proc.returncode}: "
+                         f"{out[-2000:]}")
+    if "FAILED" in out or "FAILED" in err:
+        raise SystemExit("a suite of python -m spmv_tpu_torch.bench.suite FAILED")
+    if os.path.exists(os.path.join(d, "bench_results.json")):
+        raise SystemExit("the bench suite wrote bench_results.json, the JAX package's file")
+    with open(os.path.join(d, S.RESULTS_FILE)) as f:
+        return json.loads(lines[-1]), json.load(f), seconds
+
+
+def check_suite_line(line: dict, card: str) -> None:
+    """The suite's last line: bench.py's keys and the card, none null, the
+    sweep and the f32x2 error passed, every roofline at most 105%."""
+    from spmv_tpu_torch.bench import suite as S
+
+    if list(line) != list(S.LAST_LINE_KEYS) or line["card"] != card:
+        raise SystemExit(f"the suite's last line has the keys {list(line)}, card "
+                         f"{line['card']!r}")
+    nulls = [k for k, v in line.items() if v is None]
+    if nulls:
+        raise SystemExit(f"the suite's last line has null keys {nulls}")
+    if line["simulated_sweep_ok"] is not True:
+        raise SystemExit("the simulated sweep did not run every point")
+    if line["x2_csr"]["within_reference_epsilon"] is not True:
+        raise SystemExit(f"f32x2 csr is not within EPSILON: {line['x2_csr']}")
+    rooflines = {**line["roofline_pct_per_format"],
+                 "bsr_spmm_r32": line["bsr_spmm_r32"]["roofline_pct"]}
+    over = {k: v for k, v in rooflines.items() if v > 105}
+    if over:
+        raise SystemExit(f"suite rooflines over 105%: {over}")
+    if any(v > 100 for v in rooflines.values()):
+        print(f"  suite rooflines over 100%: "
+              f"{ {k: v for k, v in rooflines.items() if v > 100} }")
+
+
+def phase_suite(card: str) -> dict:
+    """Phase 10: the driver benchmark (``spmv_tpu_torch.bench.suite``) in a
+    subprocess in a temporary directory, every suite, its last line and
+    results file checked, each suite's launches; then in this process the
+    big cell (read from the suite's triplet cache): csr, sell and hyb
+    ``matvec`` against ``golden_spmv`` by ``check_result``, each in a window
+    of the counters, and K1, K2, K1 + K2, K3 and cuSPARSE on its CSR plan by
+    graph replay. Returns the launches (the suite's and the big cell's)
+    and the big cell's times."""
+    import tempfile
+
+    from spmv_tpu_torch.bench import suite as S
+    from spmv_tpu_torch.probes.bounds import bound_ms
+    from spmv_tpu_torch.probes.timing import l2_bytes
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".suite_") as d:
+        line, results, seconds = run_suite(d)
+        print(f"  bench suite: exit 0 in {seconds:.1f} s  [{card}]")
+        print(f"  bench suite last line: {json.dumps(line)}")
+        check_suite_line(line, card)
+        suites = results["__suites__"]
+        launches: dict = {}
+        for name, s in suites.items():
+            print(f"  {name}: {s['seconds']:.1f} s, launches {s['launches']}")
+            missing = [k for k in SUITE_LAUNCHES.get(name, ()) if k not in s["launches"]]
+            if missing:
+                raise SystemExit(f"the bench suite's {name} did not launch {missing}")
+            for k, n in s["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        big_r = results["__big__"]
+        if big_r["l2_resident"] or big_r["roofline_pct"] > 105:
+            raise SystemExit(f"the big cell: L2-resident {big_r['l2_resident']}, roofline "
+                             f"{big_r['roofline_pct']:.2f}%")
+        print(f"  big cell in the suite: {big_r['ms_per_spmv']:.4f} ms warm, "
+              f"{big_r['cold_ms_per_spmv']:.4f} ms cold, {big_r['gnnz_per_s']:.2f} Gnnz/s, "
+              f"roofline {big_r['roofline_pct']:.2f}% of {big_r['hbm_bw_gbps']:.1f} GB/s "
+              f"(cold), {big_r['plan_bytes']} B against the L2's {l2_bytes()} B, "
+              f"{big_r['tiles']} tiles; {big_r['check']}  [{card}]")
+        t0 = time.perf_counter()
+        big, cached = S.big_triplets(cache_dir=os.path.join(d, S.CACHE_DIR))
+        if not cached:
+            raise SystemExit("the big cell's triplets were not in the suite's cache")
+        print(f"  big cell triplets from the suite's cache in "
+              f"{time.perf_counter() - t0:.1f} s: {big[0].nrows} rows, {big[1].size} nnz")
+    for fmt in ("csr", "sell", "hyb"):
+        t0 = time.perf_counter()
+        a = build(fmt, big)
+        t_build = time.perf_counter() - t0
+        rep, ran = window(lambda: S.check_matvec(a, big))
+        shape = f", split {a.shape}" if getattr(a, "parts", None) is not None else ""
+        print(f"  big cell {fmt}{shape}: plan {a.stream_bytes} B built in {t_build:.1f} s; "
+              f"{rep}; launches {ran}  [{card}]")
+        if not rep.ok:
+            raise SystemExit(f"the big cell's {fmt} matvec against golden_spmv: {rep}")
+        missing = [k for k in BIG_LAUNCHES.get(fmt, ()) if k not in ran]
+        if missing:
+            raise SystemExit(f"the big cell's {fmt} matvec did not launch {missing}: {ran}")
+        for k, n in ran.items():
+            launches[k] = launches.get(k, 0) + n
+        del a
+        torch.cuda.empty_cache()
+    tb = time_matrix("big-4.2M", big, card, plain=False)
+    path_bytes = tb["bytes"]["seg_spmv_tiles"] + tb["bytes"]["carry_fixup"]
+    bound = bound_ms(path_bytes, 2 * big[1].size)[0]
+    path, lib = tb["path K1+K2"][1], tb["library csr@x"][1]
+    print(f"  big cell K1 + K2 {path * 1e3:.2f} µs (K1 {tb['seg_spmv_tiles'][1] * 1e3:.2f}, "
+          f"K2 {tb['carry_fixup'][1] * 1e3:.2f}) against its bound {bound * 1e3:.2f} µs "
+          f"({bound / path:.1%}; {path_bytes} B at the HBM peak) and cuSPARSE "
+          f"{lib * 1e3:.2f} µs, by CUDA-graph replay  [{card}]")
+    tb["path_bound_ms"] = bound
+    return {"launches": launches, "times": tb, "seconds": seconds, "line": line}
+
+
 # the library yardstick of each kernel row: the key its timing is under,
 # and what it computes
 LIBRARY_CALLS = {
@@ -3474,7 +3654,17 @@ def main() -> int:
     print(f"  phase 9 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t9:.1f} s)")
 
-    # 10. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
+    # 10. the driver benchmark in its own process, then the big cell here
+    print("phase 10: python -m spmv_tpu_torch.bench.suite, and the 4.2M-row big cell")
+    t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    suited = phase_suite(card)
+    for k, m in suited["launches"].items():
+        launches[k] = launches.get(k, 0) + m
+    print(f"  phase 10 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t10:.1f} s; the suite {suited['seconds']:.1f} s)")
+
+    # 11. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
     # SELL-C-σ panel the split builds there, K8-K10 on both at R = 4, the
     # probe kernels on the CSR plans), K1 and K12 at pl_big too
     errs.update(perrs)
@@ -3563,6 +3753,14 @@ def main() -> int:
                 row[where] = {"ms": big[k][0], "device_ms": big[k][1],
                               "plain_ms": big[f"{k}_plain"][0],
                               **bound_fields(k, big), **library_fields(k, big)}
+        if k == "seg_spmv_tiles":  # the big cell: no plain version timed there
+            tb = suited["times"]
+            row["big_cell"] = {"at": "synthetic_cant n=4200000 avg_nnz_per_row=8 "
+                                     "bandwidth=300 seed=0 csr",
+                               "ms": tb[k][0], "device_ms": tb[k][1],
+                               "path_k1_k2_device_ms": tb["path K1+K2"][1],
+                               "path_bound_ms": tb["path_bound_ms"],
+                               **bound_fields(k, tb), **library_fields(k, tb)}
         kernels.append(row)
     for row in kernels:  # ms per call | on the device, the bound in µs
         lib = row["library_ms"]
@@ -3572,7 +3770,7 @@ def main() -> int:
               f"{row['bound_ms'] * 1e3:.3f} µs (by {row['bound_by']}), plain "
               f"{row['plain_ms']:.4f}, library {lib} ({row['library_call']}); "
               f"{row['launches']} launches  [{card}]")
-        for where in ("pl_big", "pl_wide"):
+        for where in ("pl_big", "pl_wide", "big_cell"):
             if where in row:
                 w = row[where]
                 print(f"  {row['name']:24s} {where}: {w['ms']:.4f} | "

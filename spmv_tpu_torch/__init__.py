@@ -14,10 +14,12 @@ the symmetric container (``SymmetricMatrix``: the lower triangle on two
 passes of the segmented engine), the Krylov solvers (``solve``: cg,
 bicgstab and power iteration, on the card as a CUDA graph of the iteration
 body), the plan cache (``cache``), the benchmark harness
-(``bench.runner``, ``python -m spmv_tpu_torch bench``) and distribution
+(``bench.runner``, ``python -m spmv_tpu_torch bench``), distribution
 (``dist``: the row-, column-, ring- and chunked-gather-sharded containers
 over ``torch.distributed``, one process per device; ``bench.scaling``,
-``bench --scaling``). That is all the JAX package does.
+``bench --scaling``) and the driver benchmark (``bench.suite``, ``python
+-m spmv_tpu_torch.bench.suite``: the root ``bench.py``'s suites, the
+4.2M-row big cell included). That is all the JAX package does.
 """
 
 from spmv_tpu_torch import cache, device, oracle, solve, synth

@@ -87,16 +87,6 @@ def _make_x(mode: str, ncols: int, seed: int = 0) -> np.ndarray:
     return rng.standard_normal(ncols).astype(np.float32)
 
 
-def _validate(info, rows, cols, vals, x, y):
-    from spmv_tpu_torch.oracle import golden_spmv, kernel_check, row_scale
-
-    expected = golden_spmv(info.nrows, rows, cols, vals, x)
-    scale = row_scale(info.nrows, rows, cols, vals, x)
-    lengths = (np.bincount(rows, minlength=max(info.nrows, 1)) if rows.size
-               else np.zeros(1, np.int64))
-    return kernel_check(expected, y, scale, int(lengths.max()))
-
-
 def _cpu_comparison(info, rows, cols, vals, x) -> None:
     """Timed host SpMV beside the device verdict — reference parity with
     ``compute_using_cpu`` and its GFLOP/s print (``coo.c:280-300``)."""
@@ -128,12 +118,12 @@ def _device_error(device: str) -> str | None:
     return None
 
 
-def _validate_x2(info, rows, cols, vals, x, y):
+def _validate_x2(nrows, rows, cols, vals, x, y):
     """JAX's f32x2 verdict (``spmv_tpu/cli.py:145-151``)."""
     from spmv_tpu_torch.oracle import golden_spmv, row_scale, x2_check
 
-    return x2_check(golden_spmv(info.nrows, rows, cols, vals, x), y,
-                    row_scale(info.nrows, rows, cols, vals, x))
+    return x2_check(golden_spmv(nrows, rows, cols, vals, x), y,
+                    row_scale(nrows, rows, cols, vals, x))
 
 
 def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
@@ -200,15 +190,17 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
         st = a.row_length_stats
         print(f"row length: average {st['average']:.2f}, "
               f"shortest {st['shortest']}, longest {st['longest']}")
-    check = _validate_x2 if x2 else _validate
+    from spmv_tpu_torch.oracle import spmv_check
+
+    check = _validate_x2 if x2 else spmv_check
     tag = "f32x2, " if x2 else ""
     if rhs == 1:
-        rep = check(info, rows, cols, vals, x, y)
+        rep = check(info.nrows, rows, cols, vals, x, y)
         print(f"{rep}  [f32x2]" if x2 else rep)
         _cpu_comparison(info, rows, cols, vals, x)
         ok = rep.ok
     else:
-        reps = [check(info, rows, cols, vals, X[:, j], Y[:, j]) for j in range(rhs)]
+        reps = [check(info.nrows, rows, cols, vals, X[:, j], Y[:, j]) for j in range(rhs)]
         bad = next((j for j, rep in enumerate(reps) if not rep.ok), None)
         if bad is not None:  # the first failing column, not the last one checked
             print(f"{reps[bad]}  [{tag}column {bad} of {rhs} right-hand sides]")

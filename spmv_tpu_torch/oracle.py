@@ -20,7 +20,7 @@ import numpy as np
 
 __all__ = ["golden_spmv", "check_result", "CheckReport", "default_x",
            "EPSILON", "fp32_rel_tol", "KERNEL_TOL_ABS", "row_scale",
-           "kernel_check", "X2_TOL_REL", "x2_check"]
+           "kernel_check", "spmv_check", "X2_TOL_REL", "x2_check"]
 
 # Reference absolute tolerance (helper_functions.h:11) — valid for its fp64
 # path.  The port computes in fp32, so ``check_result`` also supports a
@@ -142,6 +142,17 @@ def kernel_check(expected, actual, scale, max_row_nnz: int) -> CheckReport:
     and usually √k·eps·Σ|v||x|; ``fp32_rel_tol`` allows 32·√k·eps."""
     return check_result(expected, actual, tol_abs=KERNEL_TOL_ABS,
                         tol_rel=fp32_rel_tol(max_row_nnz), scale=scale)
+
+
+def spmv_check(nrows: int, rows, cols, vals, x, y) -> CheckReport:
+    """``kernel_check`` of an fp32 ``y`` against ``golden_spmv`` of the COO
+    triplets, at the longest row's length: the verdict of ``run`` and of
+    the benchmark suite."""
+    expected = golden_spmv(nrows, rows, cols, vals, x)
+    scale = row_scale(nrows, rows, cols, vals, x)
+    lengths = (np.bincount(rows, minlength=max(nrows, 1)) if rows.size
+               else np.zeros(1, np.int64))
+    return kernel_check(expected, y, scale, int(lengths.max()))
 
 
 def x2_check(expected, actual, scale) -> CheckReport:

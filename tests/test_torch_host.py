@@ -169,8 +169,9 @@ def test_import_loads_neither_jax_nor_spmv_tpu():
         "import spmv_tpu_torch.bench.runner, spmv_tpu_torch.io.native\n"
         "import spmv_tpu_torch.dist.sharded, spmv_tpu_torch.dist.ring\n"
         "import spmv_tpu_torch.dist.overlap, spmv_tpu_torch.bench.scaling\n"
+        "import spmv_tpu_torch.bench.suite\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'spmv_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'spmv_tpu', 'bench'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -179,6 +180,8 @@ def test_import_loads_neither_jax_nor_spmv_tpu():
 
 
 def test_port_sources_never_import_jax():
+    """Nor the root ``bench.py`` (module ``bench``), which imports the JAX
+    package."""
     files = sorted((REPO / "spmv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -189,5 +192,5 @@ def test_port_sources_never_import_jax():
             else:
                 continue
             for n in names:
-                assert n.split(".")[0] not in ("jax", "jaxlib", "spmv_tpu"), (
+                assert n.split(".")[0] not in ("jax", "jaxlib", "spmv_tpu", "bench"), (
                     f"{f.relative_to(REPO)} imports {n}")
