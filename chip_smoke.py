@@ -243,7 +243,22 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    of the counters (csr through K1 + K2, sell through K4 + K7), and K1, K2,
    K1 + K2, K3 and cuSPARSE on its CSR plan by graph replay beside the
    bound.
-11. One line per kernel with its time, bound and library time; one JSON
+11. ``TiledSpmv`` (``spmv_tpu_torch.big``), the port past one plan's int32
+   index range, on the big cell's triplets (phase 10's): (a) at JAX's bench
+   tiling (``rps = cps = 524,288``, ``bench.py:408`` with
+   ``spmv_tpu/big.py``'s defaults: a 9 × 9 grid, its nonempty tiles built),
+   csr and sell, each by ``check_result`` against ``golden_spmv`` and within
+   the fp32 bound of the ordinary csr container's y, a CUDA graph of its
+   ``matvec`` replayed into NaN giving the eager bits, its launches per
+   call, and its time by graph replay beside the ordinary container's; (b)
+   ``api.load``'s routing with the plan bound (``formats.base.
+   plan_entry_limit``) lowered to ``TILED_BOUND`` nonzeros and put back
+   after: the big cell synthesized through ``load`` must come back as a
+   ``TiledSpmv`` with DC = 1 and DR ≥ 5, every tile within the bound, y by
+   ``check_result`` and within the fp32 bound of the ordinary container,
+   timed the same way; cant through ``load`` under the same bound must come
+   back as the plain CSRMatrix. Its launches count toward the kernels'.
+12. One line per kernel with its time, bound and library time; one JSON
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
    ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``, K1
@@ -2974,7 +2989,141 @@ def phase_suite(card: str) -> dict:
           f"({bound / path:.1%}; {path_bytes} B at the HBM peak) and cuSPARSE "
           f"{lib * 1e3:.2f} µs, by CUDA-graph replay  [{card}]")
     tb["path_bound_ms"] = bound
-    return {"launches": launches, "times": tb, "seconds": seconds, "line": line}
+    return {"launches": launches, "times": tb, "seconds": seconds, "line": line,
+            "trip": big}
+
+
+# ------------------------------------------------------------ TiledSpmv
+
+# JAX's bench tiling of the big cell (bench.py:408 with spmv_tpu/big.py's
+# defaults: 4 MB of f32 slots, half each to a slab and a panel)
+JAX_BIG_TILE = 524_288
+# the plan bound phase 11 lowers to for the routing check (nonzeros or slots)
+TILED_BOUND = 8_000_000
+# what each tiled matvec must launch: at JAX's tiling the big cell's band
+# gives diagonal tiles of about 4.6M nonzeros (CSR plans over 4 MB: K1 + K2;
+# SELL panels: K4 + K7) and off-diagonal ones of a few hundred rows (K3);
+# under the lowered bound, slabs of up to 8M nonzeros (K1 + K2)
+TILED_LAUNCHES = {"csr": ("seg_spmv_tiles", "carry_fixup", "csr_spmv_fused"),
+                  "sell": ("panel_spmv_tiles", "inverse_permute"),
+                  "routed": ("seg_spmv_tiles", "carry_fixup")}
+
+
+def check_tiled(label: str, a, trip, y_single: torch.Tensor, single_ms: float,
+                card: str) -> dict:
+    """A ``TiledSpmv``'s ``matvec`` against ``golden_spmv`` (``check_result``)
+    and within the fp32 bound of the ordinary container's ``y_single``; a
+    CUDA graph of it replayed into NaN gives the eager bits; its launches per
+    call (one call in a window of the counters); its time by graph replay
+    beside ``single_ms``. Returns the launches and the readings."""
+    from spmv_tpu_torch.bench import suite as S
+    from spmv_tpu_torch.oracle import kernel_check, row_scale
+    from spmv_tpu_torch.probes.timing import graph_ms
+
+    info, rows, cols, vals = trip
+    rep, ran = window(lambda: S.check_matvec(a, trip))
+    if not rep.ok:
+        raise SystemExit(f"phase 11: {label} against golden_spmv: {rep}")
+    x = np.random.default_rng(3).standard_normal(info.ncols).astype(np.float32)
+    xd = torch.from_numpy(x).cuda()
+    y = a.matvec(xd)
+    k = int(np.bincount(rows, minlength=info.nrows).max())
+    close = kernel_check(y_single.cpu().numpy(), y.cpu().numpy(),
+                         row_scale(info.nrows, rows, cols, vals, x), k)
+    if not close.ok:
+        raise SystemExit(f"phase 11: {label} against the ordinary csr container: {close}")
+    graph_equals_eager(label, lambda: a.matvec(xd))
+    ms = graph_ms(lambda: a.matvec(xd))
+    print(f"  {label}: {a.DR} x {a.DC} grid, {a.n_tiles} tiles (nvalid "
+          f"{a.nvalid.tolist()}), rps {a.rps}, cps {a.cps}; {rep}; against the "
+          f"ordinary csr: {close}; graph = eager bits; launches per call {ran}; "
+          f"{ms * 1e3:.2f} µs by graph replay against the ordinary csr container's "
+          f"{single_ms * 1e3:.2f} ({ms / single_ms:.3f}×), aux {a.aux_traffic_bytes} B  "
+          f"[{card}]")
+    return {"launches": ran, "ms": ms, "tiles": a.n_tiles, "DR": a.DR, "DC": a.DC,
+            "check": str(rep), "vs_single": str(close)}
+
+
+def phase_tiled(big, card: str) -> dict:
+    """Phase 11: ``TiledSpmv`` on the big cell at JAX's bench tiling (csr,
+    sell), then ``api.load``'s routing under a plan bound lowered to
+    ``TILED_BOUND`` (restored after). Returns the launches of the checked
+    calls, which count toward the kernels', and the readings."""
+    import tempfile
+
+    import spmv_tpu_torch
+    from spmv_tpu_torch.formats import base
+    from spmv_tpu_torch.probes.timing import graph_ms
+
+    info, rows, cols, vals = big
+    single = build("csr", big)
+    x = np.random.default_rng(3).standard_normal(info.ncols).astype(np.float32)
+    xd = torch.from_numpy(x).cuda()
+    y_single = single.matvec(xd)
+    single_ms = graph_ms(lambda: single.matvec(xd))
+    print(f"  ordinary csr container of the big cell: {single_ms * 1e3:.2f} µs by graph "
+          f"replay  [{card}]")
+    launches: dict = {}
+    out = {"single_ms": single_ms}
+
+    def count(ran: dict, kind: str, label: str) -> None:
+        missing = [k for k in TILED_LAUNCHES[kind] if k not in ran]
+        if missing:
+            raise SystemExit(f"phase 11: {label} did not launch {missing}: {ran}")
+        for k, n in ran.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for fmt in ("csr", "sell"):
+        t0 = time.perf_counter()
+        a = spmv_tpu_torch.TiledSpmv(fmt, info.nrows, info.ncols, rows, cols, vals,
+                                     device="cuda", slab_rows=JAX_BIG_TILE,
+                                     panel_cols=JAX_BIG_TILE)
+        t_build = time.perf_counter() - t0
+        if (a.DR, a.DC) != (9, 9) or not 9 <= a.n_tiles < 81:
+            raise SystemExit(f"phase 11: JAX's tiling gave {a.DR} x {a.DC}, "
+                             f"{a.n_tiles} tiles")
+        print(f"  tiled {fmt} at JAX's bench tiling built in {t_build:.1f} s")
+        r = check_tiled(f"tiled {fmt} (JAX's tiling)", a, big, y_single, single_ms, card)
+        count(r["launches"], fmt, f"tiled {fmt}")
+        out[f"jax_tiling_{fmt}"] = r
+        del a
+        torch.cuda.empty_cache()
+
+    real = base.plan_entry_limit
+    base.plan_entry_limit = lambda tile, slice_rows=1: TILED_BOUND
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix=".tiled_") as d:
+            t0 = time.perf_counter()
+            a = spmv_tpu_torch.load(os.path.join(d, "missing.mtx"), "csr", device="cuda",
+                                    synth=dict(n=info.nrows, avg_nnz_per_row=8,
+                                               bandwidth=300, seed=0))
+            t_load = time.perf_counter() - t0
+            small = spmv_tpu_torch.load(os.path.join(d, "missing.mtx"), "csr",
+                                        device="cuda", synth=dict(n=CANT_N, seed=0))
+        if not isinstance(a, spmv_tpu_torch.TiledSpmv) or a.DC != 1 or a.DR < 5:
+            raise SystemExit(f"phase 11: load under a bound of {TILED_BOUND} gave "
+                             f"{type(a).__name__} {getattr(a, 'DR', '')} x "
+                             f"{getattr(a, 'DC', '')}")
+        over = [c.nnz for slab in a.tiles for _, c in slab if c.nnz > TILED_BOUND]
+        if over:
+            raise SystemExit(f"phase 11: tiles past the bound of {TILED_BOUND}: {over}")
+        if type(small).__name__ != "CSRMatrix":
+            raise SystemExit(f"phase 11: cant under the bound came back as "
+                             f"{type(small).__name__}")
+        print(f"  load under a plan bound of {TILED_BOUND}: TiledSpmv, {a.DR} slabs of "
+              f"{[int(n) for n in np.diff(a.row_bounds)]} rows, "
+              f"{[c.nnz for slab in a.tiles for _, c in slab]} nonzeros, in "
+              f"{t_load:.1f} s (the triplets synthesized); cant ({small.nnz} nnz) "
+              f"a plain CSRMatrix")
+        r = check_tiled("routed csr (lowered bound)", a, big, y_single, single_ms, card)
+        count(r["launches"], "routed", "routed csr")
+        out["routed_csr"] = r
+        del a, small
+    finally:
+        base.plan_entry_limit = real
+    del single
+    torch.cuda.empty_cache()
+    return {"launches": launches, **out}
 
 
 # the library yardstick of each kernel row: the key its timing is under,
@@ -3664,7 +3813,18 @@ def main() -> int:
     print(f"  phase 10 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t10:.1f} s; the suite {suited['seconds']:.1f} s)")
 
-    # 11. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
+    # 11. TiledSpmv: JAX's tiling of the big cell, and load's routing past a
+    # lowered plan bound
+    print("phase 11: TiledSpmv on the big cell, and load's routing past a lowered bound")
+    t11 = time.perf_counter()
+    tiled = phase_tiled(suited.pop("trip"), card)
+    for k, m in tiled["launches"].items():
+        launches[k] = launches.get(k, 0) + m
+    print(f"  phase 11 launches: {tiled['launches']}")
+    print(f"  phase 11 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t11:.1f} s)")
+
+    # 12. results: times at cant scale (K1-K3 on the CSR plan, K4-K7 on the
     # SELL-C-σ panel the split builds there, K8-K10 on both at R = 4, the
     # probe kernels on the CSR plans), K1 and K12 at pl_big too
     errs.update(perrs)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spmv_tpu_torch.big import TiledSpmv, fits_single_plan
 from spmv_tpu_torch.device import X_to_device
 from spmv_tpu_torch.dist.sharded import Sharded
 from spmv_tpu_torch.formats.bsr import BSRMatrix
@@ -19,7 +20,7 @@ from spmv_tpu_torch.formats.hyb import HybMatrix
 from spmv_tpu_torch.formats.sell import SellMatrix
 from spmv_tpu_torch.sym import SymmetricMatrix
 
-__all__ = ["FORMATS", "NOT_PORTED", "from_coo", "load", "spmv", "spmm",
+__all__ = ["FORMATS", "NOT_PORTED", "from_coo", "route", "load", "spmv", "spmm",
            "from_reference"]
 
 FORMATS = {
@@ -34,7 +35,8 @@ FORMATS = {
     "sym": SymmetricMatrix,  # lower-triangle storage, two segmented passes
 }
 
-# The JAX package's formats still to be ported: none.
+# The JAX package's formats still to be ported: none (``format`` names in
+# it would be refused with NotImplementedError).
 NOT_PORTED = ()
 
 # JAX container class → port format name, for ``from_reference``
@@ -66,23 +68,42 @@ def from_coo(format: str, nrows: int, ncols: int, rows, cols, vals, *, device,
                         np.asarray(vals), device=device, **kwargs)
 
 
+def route(format: str, nrows: int, ncols: int, rows, cols, vals, *, device,
+          **kwargs):
+    """``load``'s conversion, as ``spmv_tpu/api.py:65-71`` routes: the
+    slab-tiled ``TiledSpmv`` where one plan of the format cannot hold the
+    matrix (``big.fits_single_plan``: the port's bound is a plan's int32
+    index range, JAX's the TPU's VMEM), else ``from_coo``'s container.
+    ``sym`` past the bound raises ``NotImplementedError``, as in JAX."""
+    _format_class(format)
+    if not fits_single_plan(format, nrows, ncols, rows, cols):
+        if format.lower() == "sym":
+            raise NotImplementedError(
+                "symmetric triangle storage is a single-kernel container; "
+                "use TiledSpmv/dist on the expanded form for this size")
+        return TiledSpmv(format, nrows, ncols, rows, cols, vals, device=device,
+                         **kwargs)
+    return from_coo(format, nrows, ncols, rows, cols, vals, device=device, **kwargs)
+
+
 def load(path: str, format: str = "csr", *, device, synth: dict | None = None,
          **kwargs):
     """Read a MatrixMarket file (or synthesize a cant-like matrix when it is
     a git-LFS pointer or missing; ``synth`` kwargs go to
-    ``synth.synthetic_cant``) and convert it. ``sym`` reads the stored
-    triangle of a symmetric file (no expansion), as
+    ``synth.synthetic_cant``) and convert it (``route``): a matrix past one
+    plan's int32 index range comes back as a ``TiledSpmv``, as JAX's ``load``
+    tiles one past its VMEM budget; ``from_coo`` itself never tiles. ``sym``
+    reads the stored triangle of a symmetric file (no expansion), as
     ``spmv_tpu/api.py:62-64`` does; a synthesized matrix, whose pattern is
     not symmetric, is then folded onto its lower triangle (``sym``'s
-    semantics, kept for parity). The port has no size limit for ``sym``:
-    JAX's VMEM budget has no counterpart here."""
+    semantics, kept for parity)."""
     from spmv_tpu_torch.io.mmio import read_path_or_synthesize
 
     _format_class(format)  # refuse an unknown format before reading
     info, rows, cols, vals = read_path_or_synthesize(
         path, expand_symmetry=format.lower() != "sym", **(synth or {}))
-    return from_coo(format, info.nrows, info.ncols, rows, cols, vals,
-                    device=device, **kwargs)
+    return route(format, info.nrows, info.ncols, rows, cols, vals, device=device,
+                 **kwargs)
 
 
 def spmv(a, x):
@@ -105,7 +126,9 @@ def spmm(a, X) -> torch.Tensor:
     drop it to fp32 grade. A sharded container (``dist``) runs its own
     ``spmm``: these branches per shard, or one sharded ``matvec`` per
     column where the form has no multi-RHS pass (``ChunkedRowSpmv``), as
-    JAX's stack of ``matvec`` calls does there."""
+    JAX's stack of ``matvec`` calls does there. A ``TiledSpmv`` takes the
+    engine formats' branches, each tile's pass summed per slab (JAX stacks
+    its ``matvec``s)."""
     from spmv_tpu_torch.kernels.engines import MULTI_RHS_MAX
 
     if isinstance(a, Sharded):
@@ -115,7 +138,7 @@ def spmm(a, X) -> torch.Tensor:
     if getattr(a, "x2", False):  # before any float32 cast of X
         X = X_to_device(X, a.ncols, a.dev.device, dtype=torch.float64)
         return _stack_columns(a, X, "need at least one array to stack")
-    X = X_to_device(X, a.ncols, a.dev.device)
+    X = X_to_device(X, a.ncols, a.device if isinstance(a, TiledSpmv) else a.dev.device)
     if 2 <= X.shape[1] <= MULTI_RHS_MAX:
         return a.matmat(X)
     return _stack_columns(a, X, "Need at least one array to stack.")
@@ -136,15 +159,19 @@ def from_reference(a, device):
     order for COO) go through the port's ``from_coo``, with the CMRS height,
     the SELL σ and the BSR precision; a ``SymmetricMatrix`` carries its
     stored triangle (``tri_rows``, ``tri_cols``, ``tri_vals``), not its
-    expansion. Needs no JAX import; the parity tests use it."""
+    expansion. A ``TiledSpmv`` becomes the port's on the same grid (``rps``,
+    ``cps``): its tiles' triplets, shifted back to the matrix's rows and
+    columns. Needs no JAX import; the parity tests use it."""
     kind = type(a).__name__
     if kind == "X2Matrix":
         raise NotImplementedError(
             "the JAX X2Matrix keeps no triplets (it has no to_coo): build "
             "spmv_tpu_torch.X2Matrix.from_coo from the same triplets instead")
+    if kind == "TiledSpmv":
+        return _tiled_from_reference(a, device)
     if kind not in _REFERENCE_CLASSES:
         raise NotImplementedError(
-            f"{kind} has no PyTorch counterpart yet (see ROADMAP.md)")
+            f"{kind} has no PyTorch counterpart (see ROADMAP.md, queue A)")
     if kind == "SymmetricMatrix":
         rows, cols, vals = (np.array(t, copy=True)
                             for t in (a.tri_rows, a.tri_cols, a.tri_vals))
@@ -153,3 +180,20 @@ def from_reference(a, device):
     kwargs = {k: getattr(a, k) for k in _REFERENCE_KWARGS.get(kind, ())}
     return from_coo(_REFERENCE_CLASSES[kind], a.nrows, a.ncols, rows, cols,
                     vals, device=device, **kwargs)
+
+
+def _tiled_from_reference(a, device) -> TiledSpmv:
+    """The port's ``TiledSpmv`` of a JAX one: every tile's ``to_coo()``
+    shifted by its slab's and panel's first row and column, on JAX's grid,
+    with the tiles' CMRS height or SELL σ."""
+    parts, kwargs = [], {}
+    for d, slab in enumerate(a.tiles):
+        for j, c in slab:
+            r, col, v = c.to_coo()
+            parts.append((np.asarray(r, np.int64) + d * a.rps,
+                          np.asarray(col, np.int64) + j * a.cps, np.asarray(v)))
+            kwargs = {k: getattr(c, k)
+                      for k in _REFERENCE_KWARGS.get(type(c).__name__, ())}
+    rows, cols, vals = (np.concatenate(t) for t in zip(*parts))
+    return TiledSpmv(a.format, a.nrows, a.ncols, rows, cols, vals, device=device,
+                     slab_rows=a.rps, panel_cols=a.cps, **kwargs)

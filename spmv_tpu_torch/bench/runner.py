@@ -44,6 +44,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from spmv_tpu_torch.big import TiledSpmv
 from spmv_tpu_torch.formats.bsr import BSRMatrix
 from spmv_tpu_torch.formats.cmrs import CMRSMatrix
 from spmv_tpu_torch.formats.coo import COOMatrix
@@ -65,9 +66,11 @@ __all__ = ["BenchResult", "bench_format", "bench_formats_interleaved",
 # wrappers allocate with torch.empty and launch; the solvers replay the same
 # matvec in their graph, solve.py). "events": BSR's torch.segment_reduce
 # reads its lengths on the host (formats/bsr.py:156), which a capture refuses.
+# A TiledSpmv runs its tiles' containers' calls and torch adds: it captures.
 TIMING = {CSRMatrix: "graph", COOMatrix: "graph", CMRSMatrix: "graph",
           EllMatrix: "graph", SellMatrix: "graph", HybMatrix: "graph",
-          SymmetricMatrix: "graph", X2Matrix: "graph", BSRMatrix: "events"}
+          SymmetricMatrix: "graph", X2Matrix: "graph", BSRMatrix: "events",
+          TiledSpmv: "graph"}
 
 
 @dataclass
@@ -98,7 +101,7 @@ class BenchResult:
 
 
 def _device(a) -> torch.device:
-    return a.device if isinstance(a, BSRMatrix) else a.dev.device
+    return a.device if isinstance(a, (BSRMatrix, TiledSpmv)) else a.dev.device
 
 
 def _method(a, device: torch.device) -> str:
@@ -340,9 +343,13 @@ def traffic_model(a) -> tuple[int, float]:
     bytes and K7's bytes (``probes.bounds.epilogue_bytes`` after the tile
     kernel; after K6 the rows K7 reads and writes). A pure-spill panel
     container never dispatches its empty panel, so its spill plan alone is
-    billed, as in JAX. BSR: its dense tile slots and ``stream_bytes``."""
+    billed, as in JAX. BSR: its dense tile slots and ``stream_bytes``. A
+    ``TiledSpmv``: the sum of its tiles' models, plus the tiling's own y
+    traffic (``aux_traffic_bytes``)."""
     if isinstance(a, BSRMatrix):
         return a.tiles.numel(), float(a.stream_bytes)
+    if isinstance(a, TiledSpmv):
+        return a.element_slots, float(a.stream_bytes + a.aux_traffic_bytes)
     if isinstance(a, SymmetricMatrix):
         plans = (a.dev, a.dev_spill) if a.spill_nnz else (a.dev,)
         return sum(d.nnz for d in plans), float(sum(d.stream_bytes for d in plans))

@@ -19,7 +19,9 @@ on R columns (column j made with seed + j, as ``spmv_tpu/cli.py:197``
 makes them) and validates every column. With ``--dtype f32x2`` it runs the
 fp64-grade mode (``x2.X2Matrix``; the port computes it in fp64) and
 validates at JAX's x2 criterion (``x2_check``), as
-``spmv_tpu/cli.py:117-177`` does. ``--bench`` then times the container
+``spmv_tpu/cli.py:117-177`` does. A matrix past one plan's int32 index
+range runs as a ``TiledSpmv`` (``api.route``, as ``load`` routes; JAX's
+``run`` does not tile). ``--bench`` then times the container
 (``bench.runner``; ``spmv_tpu/cli.py:227-250``) and ``--json`` writes the
 result.
 
@@ -148,9 +150,9 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
         if x2:
             a = spmv_tpu_torch.X2Matrix.from_coo(fmt, info.nrows, info.ncols,
                                                  rows, cols, vals, device=device)
-        else:
-            a = spmv_tpu_torch.from_coo(fmt, info.nrows, info.ncols, rows, cols,
-                                        vals, device=device)
+        else:  # tiled past one plan's int32 index range, as load routes
+            a = spmv_tpu_torch.route(fmt, info.nrows, info.ncols, rows, cols,
+                                     vals, device=device)
         before = dict(engines.LAUNCHES)
         if rhs > 1:
             X = np.stack([_make_x(x_mode, info.ncols, seed + j).astype(x_type)
@@ -170,12 +172,15 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
         print(f"kernel error: {type(e).__name__}: {e}", file=sys.stderr)
         return ReturnCode.PROGRAM_ERROR
     ran = [k for k, n in engines.LAUNCHES.items() if n > before[k]]
-    on = a.device if isinstance(a, spmv_tpu_torch.BSRMatrix) else a.dev.device
+    on = (a.device if isinstance(a, (spmv_tpu_torch.BSRMatrix, spmv_tpu_torch.TiledSpmv))
+          else a.dev.device)
     where = (torch.cuda.get_device_name(on) if on.type == "cuda"
              else "plain PyTorch versions")
     if getattr(a, "parts", None) is not None:
         extra = (f" (split: {a.shape}, panel {a.panel_nnz} + spill "
                  f"{a.spill_nnz} nnz)")
+    elif isinstance(a, spmv_tpu_torch.TiledSpmv):
+        extra = f" (tiled: {a.DR} x {a.DC} grid, {a.n_tiles} tiles)"
     elif isinstance(a, spmv_tpu_torch.BSRMatrix):
         extra = (f" ({a.tiles.shape[0]} tiles, fill {a.fill:.2f}x, precision "
                  f"{a.precision}; batched matmul, no kernel of the port)")
@@ -186,7 +191,8 @@ def run_spmv(fmt: str, info, rows, cols, vals, *, x_mode: str = "index",
     print(f"{fmt}: {info.nrows} x {info.ncols}, nnz {rows.size}, plan "
           f"{a.stream_bytes / 1e6:.2f} MB{extra} on {on} ({where}); "
           f"kernels: {' + '.join(ran) or 'none'}")
-    if fmt == "ell" and not x2:  # parity with ell.c:103-104, spmv_tpu/cli.py:207-210
+    # parity with ell.c:103-104, spmv_tpu/cli.py:207-210 (a tiled ELL has no one K)
+    if fmt == "ell" and not x2 and hasattr(a, "row_length_stats"):
         st = a.row_length_stats
         print(f"row length: average {st['average']:.2f}, "
               f"shortest {st['shortest']}, longest {st['longest']}")
@@ -287,8 +293,9 @@ def cmd_bench(args) -> int:
     (``spmv_tpu/cli.py:254-334``) after one header line with the card's
     name and power limit. The matvec formats run interleaved in one
     rotation (with the co-sampled HBM ceiling under ``--probe-bw``); the
-    ``spmm`` ones (``--rhs`` > 1, or bsr at R = 128) one after another."""
-    from spmv_tpu_torch import from_coo
+    ``spmm`` ones (``--rhs`` > 1, or bsr at R = 128) one after another. A
+    matrix past one plan's int32 index range is tiled, as ``run`` tiles it."""
+    from spmv_tpu_torch import route
     from spmv_tpu_torch.bench.runner import bench_formats_interleaved, bench_spmm
     from spmv_tpu_torch.probes.timing import card_line
     from spmv_tpu_torch.x2 import X2_FORMATS, X2Matrix
@@ -324,7 +331,7 @@ def cmd_bench(args) -> int:
                     spmv[f"{fmt}/x2"] = X2Matrix.from_coo(
                         fmt, info.nrows, info.ncols, rows, cols, vals, device=device)
                     continue
-                a = from_coo(fmt, info.nrows, info.ncols, rows, cols, vals, device=device)
+                a = route(fmt, info.nrows, info.ncols, rows, cols, vals, device=device)
                 if rhs > 1 or fmt == "bsr":
                     d = bench_spmm(a, fmt, rhs if rhs > 1 else 128)
                     results[fmt] = d

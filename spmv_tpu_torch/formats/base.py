@@ -68,7 +68,8 @@ from spmv_tpu_torch import cache as _cache
 
 __all__ = ["CsrPlan", "TILE_NNZ", "ROW_STAGE", "build_csr_plan", "csr_ptr",
            "check_rows", "cdiv", "row_spans", "PanelPlan", "SLICE_ROWS", "TILE_COLS",
-           "PAD_COL", "build_panel_plan"]
+           "PAD_COL", "build_panel_plan", "plan_entry_limit", "check_plan_range",
+           "is_row_major"]
 
 # Nonzeros per K1 tile: 256 threads × 4 consecutive nonzeros each. Fixed by
 # kernels/csrc/seg_spmv.cu (kTileNnz); the CUDA wrapper refuses other tiles.
@@ -94,6 +95,44 @@ _INT32_MAX = np.iinfo(np.int32).max
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def plan_entry_limit(tile: int, slice_rows: int = 1) -> int:
+    """The most entries one device plan may index: nonzeros of a CSR plan
+    (``slice_rows`` 1, K1 tiles of ``tile`` nonzeros) or slots of a panel
+    (``slice_rows`` ``SLICE_ROWS``, K4 tiles of ``tile`` slice columns).
+    Plans index with int32, and the kernels' tile arithmetic stays below
+    2^31. The one bound of both builders (``check_plan_range``) and of
+    ``big.TiledSpmv``'s slabs, which cut a matrix past it."""
+    return _INT32_MAX - slice_rows * tile
+
+
+def check_plan_range(nrows: int, entries: int, tile: int, what: str,
+                     slice_rows: int = 1) -> None:
+    """Refuse a plan of ``entries`` ``what`` (nonzeros, panel slots) over
+    ``nrows`` rows past ``plan_entry_limit``, or with rows past int32."""
+    if (entries > plan_entry_limit(tile, slice_rows)
+            or nrows > _INT32_MAX - slice_rows):
+        raise ValueError(f"{nrows} rows / {entries} {what} exceed int32 indexing")
+
+
+def is_row_major(rows, cols=None, chunk: int = 1 << 24) -> bool:
+    """True when the triplets are in row order, and given ``cols`` in column
+    order within each row: what a stable (row, col) sort leaves as it is.
+    Checked ``chunk`` entries at a time, so billions of entries need no
+    temporary of their size."""
+    rows = np.asarray(rows)
+    last = rows.size - 1
+    for lo in range(0, max(last, 0), chunk):
+        hi = min(lo + chunk, last)
+        r0, r1 = rows[lo:hi], rows[lo + 1:hi + 1]
+        if (r1 < r0).any():
+            return False
+        if cols is not None:
+            same = r1 == r0
+            if (cols[lo + 1:hi + 1][same] < cols[lo:hi][same]).any():
+                return False
+    return True
 
 
 @dataclass(frozen=True)
@@ -180,10 +219,7 @@ def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
         raise ValueError(f"cols {cols.shape} and vals {vals.shape} differ")
     if nnz and (cols.min() < 0 or cols.max() >= ncols):
         raise ValueError("column index out of bounds")
-    # int32 device indices, and K1's tile arithmetic stays below 2^31
-    if nnz > _INT32_MAX - tile or nrows >= _INT32_MAX:
-        raise ValueError(f"{nrows} rows / {nnz} nonzeros exceed int32 "
-                         "indexing")
+    check_plan_range(nrows, nnz, tile, "nonzeros")
 
     key = ("csr", (ptr, cols, vals), nrows, ncols,
            {"tile": tile, "dtype": np.dtype(dtype).name})
@@ -296,10 +332,7 @@ def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
     slice_ptr = np.zeros(nslices + 1, dtype=np.int64)
     np.cumsum(c * widths, out=slice_ptr[1:])
     nslots = int(slice_ptr[-1])
-    # int32 device indices, and K4's tile arithmetic stays below 2^31
-    if nslots > _INT32_MAX - c * tile or nrows > _INT32_MAX - c:
-        raise ValueError(f"{nrows} rows / {nslots} panel slots exceed int32 "
-                         "indexing")
+    check_plan_range(nrows, nslots, tile, "panel slots", c)
 
     k = np.arange(nnz, dtype=np.int64) - ptr[rows]  # rank within the row
     pos = slice_ptr[rows // c] + rows % c + c * k

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.device import DevCsr, X_to_device, x_to_device
-from spmv_tpu_torch.formats.base import CsrPlan, build_csr_plan, csr_ptr
+from spmv_tpu_torch.formats.base import (CsrPlan, build_csr_plan, csr_ptr,
+                                         is_row_major)
 from spmv_tpu_torch.kernels.engines import (segmented_spmv,
                                             segmented_spmv_multi)
 
@@ -34,11 +35,21 @@ class CSRMatrix:
     @classmethod
     def from_coo(cls, nrows: int, ncols: int, rows, cols, vals, *,
                  device) -> "CSRMatrix":
-        rows = np.asarray(rows, dtype=np.int64)
+        """Triplets in (row, col) order are taken as they are (no sort, no
+        copy: the order a stable sort would give, so the same plan); any
+        other order is sorted first. Taken as they are, int32 columns and
+        the values stay the caller's arrays (as ``from_csr``'s do): the
+        container's host ``cols``/``vals`` and its plan share their memory
+        (on the CPU its tensors too), so a caller that changes them
+        afterwards changes the container. A card's tensors are copies."""
+        rows = np.asarray(rows)
         cols = np.asarray(cols)
-        order = np.lexsort((cols, rows))
-        return cls.from_csr(nrows, ncols, csr_ptr(rows[order], nrows),
-                            cols[order], np.asarray(vals)[order], device=device)
+        vals = np.asarray(vals)
+        if not is_row_major(rows, cols):
+            order = np.lexsort((cols, rows))
+            rows, cols, vals = rows[order], cols[order], vals[order]
+        return cls.from_csr(nrows, ncols, csr_ptr(rows, nrows), cols, vals,
+                            device=device)
 
     @classmethod
     def from_csr(cls, nrows: int, ncols: int, ptr, cols, vals, *,

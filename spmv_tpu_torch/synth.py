@@ -11,8 +11,10 @@ All generators return ``(info, rows, cols, vals)`` in the same shape as
 ``spmv_tpu_torch.io.mmio.read_coo`` so they are drop-in file substitutes.
 
 A copy of ``spmv_tpu/synth.py``, kept so that both packages build the same
-triplets bit for bit from the same seed (``tests/test_torch_host.py``
-checks it); the port cannot import the original without importing JAX.
+triplets bit for bit from the same seed (``tests/test_torch_host.py`` and
+``tests/test_torch_big.py`` check it); the port cannot import the original
+without importing JAX. ``synthetic_cant`` reaches the same arrays by
+another route, without a sort (its docstring says how).
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import numpy as np
 
 from spmv_tpu_torch.io.mmio import MMInfo
 
-__all__ = ["synthetic_cant", "random_coo", "power_law", "EDGE_CASES",
-           "edge_case"]
+__all__ = ["synthetic_cant", "random_coo", "power_law", "EDGE_CASES", "edge_case"]
+
+# source vertices per pass of ``synthetic_cant`` (its peak working memory)
+_CHUNK_VERTICES = 1 << 20
 
 
 def _as_result(nrows, ncols, rows, cols, vals, index_dtype=np.int32, dtype=np.float64):
@@ -32,6 +36,41 @@ def _as_result(nrows, ncols, rows, cols, vals, index_dtype=np.int32, dtype=np.fl
     vals = np.ascontiguousarray(vals[order], dtype=dtype)
     info = MMInfo("matrix", "coordinate", "real", "general", nrows, ncols, rows.size)
     return info, rows, cols, vals
+
+
+def _cant_grid(n: int, avg_nnz_per_row: int, bandwidth: int):
+    """``synthetic_cant``'s mesh: ``(nx, ny, nz, offs)``, the (nx, ny, nz)
+    vertex grid and the stencil offsets in the greedy (distance) order in
+    which the JAX generator makes its triplets."""
+    n = int(n)
+    nodes = max(-(-n // 3), 1)
+    a = max(int(round((max(bandwidth, 3) / 3.0) ** 0.5)), 1)
+    ny = nz = min(a, nodes)
+    nx = max(-(-nodes // (ny * nz)), 1)
+
+    # Candidate stencil offsets sorted by distance (then lexicographic for
+    # determinism); radius grows until the box can hold avg/3 neighbors.
+    r = 1
+    while (2 * r + 1) ** 3 * 3 < 2 * avg_nnz_per_row and r < 8:
+        r += 1
+    d = np.arange(-r, r + 1)
+    dx, dy, dz = np.meshgrid(d, d, d, indexing="ij")
+    offs = np.stack([dx.ravel(), dy.ravel(), dz.ravel()], axis=1)
+    order = np.lexsort((offs[:, 2], offs[:, 1], offs[:, 0],
+                        (offs ** 2).sum(axis=1)))
+    offs = offs[order]
+    # Greedy: include nearest offsets until expected nnz reaches target
+    # (each valid vertex pair contributes a 3x3 dof block).
+    valid_count = ((np.maximum(nx - np.abs(offs[:, 0]), 0))
+                   * np.maximum(ny - np.abs(offs[:, 1]), 0)
+                   * np.maximum(nz - np.abs(offs[:, 2]), 0))
+    target_pairs = n * avg_nnz_per_row / 9.0
+    csum = np.cumsum(valid_count)
+    k = int(np.searchsorted(csum, target_pairs)) + 1
+    k = min(max(k, 1), offs.shape[0])
+    offs = offs[:k]
+
+    return nx, ny, nz, offs
 
 
 def synthetic_cant(
@@ -67,71 +106,86 @@ def synthetic_cant(
     * ``sorted_by_row_length=True`` mimics ``cant-sorted.mtx`` (rows
       reordered by descending length — the offline σ-sort the reference
       relies on, SURVEY.md §2.2 SELL-C-σ).
+
+    The JAX generator makes the vertex pairs offset by offset, expands
+    them to 3 × 3 dof blocks in int64 and sorts the triplets by (row,
+    col); this one gives the same arrays bit for bit without those
+    temporaries or the sort, so it also serves matrices of billions of
+    nonzeros (16 B each as int32/int32/float64). Each nonzero's place is
+    known before it is made: a row is one of the 3 dofs of a mesh vertex,
+    its columns come vertex block by vertex block in the order of their
+    stencil offset's vertex shift, and the values are drawn in the JAX
+    generator's order (offset by offset, vertex by vertex, 3 × 3 per
+    pair), ``_CHUNK_VERTICES`` source vertices at a time. Besides the
+    result it holds one uint16 per (vertex, offset). Only
+    ``sorted_by_row_length`` sorts.
     """
     rng = np.random.default_rng(seed)
     n = int(n)
-    nodes = max(-(-n // 3), 1)
-    a = max(int(round((max(bandwidth, 3) / 3.0) ** 0.5)), 1)
-    ny = nz = min(a, nodes)
-    nx = max(-(-nodes // (ny * nz)), 1)
+    nx, ny, nz, offs = _cant_grid(n, avg_nnz_per_row, bandwidth)
+    nodes = max(-(-n // 3), 1)  # vertices with a row; the rest of the grid has none
+    shift = offs[:, 0] * (ny * nz) + offs[:, 1] * nz + offs[:, 2]
+    by_shift = np.argsort(shift, kind="stable")
+    chunk = _CHUNK_VERTICES
 
-    # Candidate stencil offsets sorted by distance (then lexicographic for
-    # determinism); radius grows until the box can hold avg/3 neighbors.
-    r = 1
-    while (2 * r + 1) ** 3 * 3 < 2 * avg_nnz_per_row and r < 8:
-        r += 1
-    d = np.arange(-r, r + 1)
-    dx, dy, dz = np.meshgrid(d, d, d, indexing="ij")
-    offs = np.stack([dx.ravel(), dy.ravel(), dz.ravel()], axis=1)
-    order = np.lexsort((offs[:, 2], offs[:, 1], offs[:, 0],
-                        (offs ** 2).sum(axis=1)))
-    offs = offs[order]
-    # Greedy: include nearest offsets until expected nnz reaches target
-    # (each valid vertex pair contributes a 3x3 dof block).
-    valid_count = ((np.maximum(nx - np.abs(offs[:, 0]), 0))
-                   * np.maximum(ny - np.abs(offs[:, 1]), 0)
-                   * np.maximum(nz - np.abs(offs[:, 2]), 0))
-    target_pairs = n * avg_nnz_per_row / 9.0
-    csum = np.cumsum(valid_count)
-    k = int(np.searchsorted(csum, target_pairs)) + 1
-    k = min(max(k, 1), offs.shape[0])
-    offs = offs[:k]
+    def coords(v0, v1):
+        v = np.arange(v0, v1, dtype=np.int64)
+        return v, v // (ny * nz), (v // nz) % ny, v % nz
 
-    # Vertex adjacency (vectorized over offsets), then expand to 3x3 dof
-    # blocks.  Vertex id = x·(ny·nz) + y·nz + z.
-    vx, vy, vz = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
-                             indexing="ij")
-    vid = (vx * (ny * nz) + vy * nz + vz).ravel()
-    vx, vy, vz = vx.ravel(), vy.ravel(), vz.ravel()
-    src, dst = [], []
-    for ox, oy, oz in offs:
-        m = ((vx + ox >= 0) & (vx + ox < nx) & (vy + oy >= 0)
-             & (vy + oy < ny) & (vz + oz >= 0) & (vz + oz < nz))
-        src.append(vid[m])
-        dst.append(vid[m] + ox * (ny * nz) + oy * nz + oz)
-    src = np.concatenate(src).astype(np.int64)
-    dst = np.concatenate(dst).astype(np.int64)
+    def valid(k, vx, vy, vz):
+        ox, oy, oz = offs[k]
+        return ((vx + ox >= 0) & (vx + ox < nx) & (vy + oy >= 0) & (vy + oy < ny)
+                & (vz + oz >= 0) & (vz + oz < nz))
 
-    # dof-level 3x3 blocks; clip to the requested n (the last vertex may
-    # carry fewer than 3 dofs when 3 ∤ n, and the grid may overshoot).
-    da = np.arange(3, dtype=np.int64)
-    shape = (src.size, 3, 3)
-    rows = np.broadcast_to(3 * src[:, None, None] + da[None, :, None],
-                           shape).ravel()
-    cols = np.broadcast_to(3 * dst[:, None, None] + da[None, None, :],
-                           shape).ravel()
-    keep = (rows < n) & (cols < n)
-    rows, cols = rows[keep], cols[keep]
+    # pass 1: each vertex's row length and, per offset, the entries its
+    # lower-shift neighbours put before that offset's block in the row
+    rank = np.zeros((nodes, offs.shape[0]), dtype=np.uint16)
+    length = np.zeros(nodes, dtype=np.int64)
+    for v0 in range(0, nodes, chunk):
+        v, vx, vy, vz = coords(v0, min(v0 + chunk, nodes))
+        run = np.zeros(v.size, dtype=np.int64)
+        for k in by_shift:
+            rank[v0:v0 + v.size, k] = run
+            run += valid(k, vx, vy, vz) * np.clip(n - 3 * (v + shift[k]), 0, 3)
+        length[v0:v0 + v.size] = run
+    nrows_of = np.clip(n - 3 * np.arange(nodes, dtype=np.int64), 0, 3)
+    vstart = np.zeros(nodes + 1, dtype=np.int64)
+    np.cumsum(nrows_of * length, out=vstart[1:])
+    nnz = int(vstart[-1])
+    rows = np.empty(nnz, dtype=index_dtype)
+    cols = np.empty(nnz, dtype=index_dtype)
+    vals = np.empty(nnz, dtype=dtype)
+
+    # pass 2: the JAX generator's order, each entry to its place
+    ab = np.arange(3, dtype=np.int64)
+    for k in range(offs.shape[0]):
+        for v0 in range(0, nodes, chunk):
+            v, vx, vy, vz = coords(v0, min(v0 + chunk, nodes))
+            src = v[valid(k, vx, vy, vz)]
+            if not src.size:
+                continue
+            dst = src + shift[k]
+            r = 3 * src[:, None, None] + ab[None, :, None]
+            c = np.broadcast_to(3 * dst[:, None, None] + ab[None, None, :], r.shape[:2] + (3,))
+            r = np.broadcast_to(r, c.shape)
+            pos = (vstart[src][:, None, None] + ab[None, :, None] * length[src][:, None, None]
+                   + rank[src, k].astype(np.int64)[:, None, None] + ab[None, None, :])
+            if 3 * (src[-1] + 1) <= n and 3 * (dst.max() + 1) <= n:  # every entry kept
+                pos, r, c = pos.reshape(-1), r.reshape(-1), c.reshape(-1)
+            else:
+                keep = (r < n) & (c < n)
+                pos, r, c = pos[keep], r[keep], c[keep]
+            rows[pos] = r
+            cols[pos] = c
+            vals[pos] = rng.standard_normal(pos.size)
 
     if sorted_by_row_length:
-        lengths = np.bincount(rows, minlength=n)
+        lengths = np.repeat(length, nrows_of)
         perm = np.argsort(-lengths, kind="stable")  # new order of old rows
         inv = np.empty(n, dtype=np.int64)
         inv[perm] = np.arange(n, dtype=np.int64)
-        rows = inv[rows]
-
-    vals = rng.standard_normal(rows.size)
-    return _as_result(n, n, rows, cols, vals, index_dtype, dtype)
+        return _as_result(n, n, inv[rows], cols, vals, index_dtype, dtype)
+    return MMInfo("matrix", "coordinate", "real", "general", n, n, nnz), rows, cols, vals
 
 
 def power_law(

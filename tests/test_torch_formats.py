@@ -170,9 +170,12 @@ def test_from_reference_carries_a_jax_container_across(fmt):
 
 
 def test_unported_formats_say_so():
-    """Every JAX format is ported (sym was the last); a JAX container with
-    no counterpart (the tiled and distributed ones) still says so, and an
-    unknown format name is refused."""
+    """Every JAX format is ported (sym was the last), and so is the tiled
+    container (a real JAX ``TiledSpmv`` goes through ``from_reference``); a
+    JAX container with no counterpart still says so, and an unknown format
+    name is refused."""
+    from spmv_tpu.big import TiledSpmv as RefTiled
+
     info, r, c, v = synth.edge_case("dense_small")
     sym = spmv_tpu.from_coo("sym", info.nrows, info.ncols, r[r >= c], c[r >= c],
                             v[r >= c])
@@ -180,12 +183,21 @@ def test_unported_formats_say_so():
         "SymmetricMatrix"
     assert spmv_tpu_torch.api.NOT_PORTED == ()
     assert sorted(spmv_tpu_torch.FORMATS) == sorted(spmv_tpu.api.FORMATS)
+    ref = RefTiled("csr", info.nrows, info.ncols, r, c, v, slab_rows=128,
+                   panel_cols=128)
+    tiled = spmv_tpu_torch.from_reference(ref, device="cpu")
+    assert isinstance(tiled, spmv_tpu_torch.TiledSpmv)
+    assert (tiled.DR, tiled.DC, tiled.n_tiles) == (ref.DR, ref.DC, ref.n_tiles)
+    x = np.random.default_rng(4).standard_normal(info.ncols).astype(np.float32)
+    rep = kernel_check(golden_spmv(info.nrows, r, c, v, x), tiled.matvec(x).numpy(),
+                       row_scale(info.nrows, r, c, v, x), max_row(info.nrows, r))
+    assert rep.ok, str(rep)
 
-    class TiledSpmv:  # the name of a JAX container the port has no counterpart of
+    class RingShardedSpmv:  # a JAX container that needs a mesh, not triplets
         pass
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        spmv_tpu_torch.from_reference(TiledSpmv(), device="cpu")
+        spmv_tpu_torch.from_reference(RingShardedSpmv(), device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
         spmv_tpu_torch.from_coo("nope", info.nrows, info.ncols, r, c, v,
                                 device="cpu")

@@ -1355,3 +1355,76 @@ def test_bench_on_the_card_times_by_graph_against_the_cold_roofline(cuda, tmp_pa
         assert d["ms_per_spmv"] > 0 and d["cold_ms_per_spmv"] > 0
         assert 0 < d["roofline_pct"] <= 105
         assert d["hbm_bw_gbps"] > 0
+
+
+TILED_CASES = {  # a grid on a band matrix, and the default rule under a lowered bound
+    "grid_1024": dict(slab_rows=1024, panel_cols=1024),
+    "default_bound": dict(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+@pytest.mark.parametrize("fmt", ["csr", "sell"])
+def test_tiled_matches_plain_versions_and_graph_is_eager(cuda, monkeypatch, fmt, case):
+    """``TiledSpmv`` csr and sell on the card against the same container on
+    the CPU (its tiles' plain versions), within the fp32 bound; a CUDA graph
+    of its ``matvec`` replayed into NaN gives the eager bits; ``spmm`` at R
+    = 3 is each column's ``matvec`` within the bound."""
+    from spmv_tpu_torch import TiledSpmv, spmm
+    from spmv_tpu_torch.formats import base
+
+    monkeypatch.setattr(base, "plan_entry_limit", lambda tile, slice_rows=1: 20_000)
+    info, r, c, v = synth.synthetic_cant(n=6000, avg_nnz_per_row=9, bandwidth=50, seed=2)
+    kw = TILED_CASES[case]
+    a = TiledSpmv(fmt, info.nrows, info.ncols, r, c, v, device=cuda, **kw)
+    ref = TiledSpmv(fmt, info.nrows, info.ncols, r, c, v, device="cpu", **kw)
+    assert a.DR > 1 and (a.DR, a.DC, a.n_tiles) == (ref.DR, ref.DC, ref.n_tiles)
+    xh = np.random.default_rng(5).standard_normal(info.ncols).astype(np.float32)
+    x = torch.from_numpy(xh).to(cuda)
+    scale = row_scale(info.nrows, r, c, v.astype(np.float32), xh)
+    k = int(np.bincount(r, minlength=info.nrows).max())
+    bound = KERNEL_TOL_ABS + fp32_rel_tol(k) * scale
+    y = a.matvec(x)
+    assert (np.abs(y.cpu().numpy().astype(np.float64) - ref.matvec(xh).numpy()) <= 2 * bound).all()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a.matvec(x)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        out = a.matvec(x)
+    out.fill_(float("nan"))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, y)
+    X = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (info.ncols, 3)).astype(np.float32)).to(cuda)
+    Y = spmm(a, X).cpu().numpy()
+    for j in range(3):
+        sj = row_scale(info.nrows, r, c, v.astype(np.float32), X[:, j].cpu().numpy())
+        yj = a.matvec(X[:, j].contiguous()).cpu().numpy()
+        assert (np.abs(Y[:, j] - yj) <= 2 * (KERNEL_TOL_ABS + fp32_rel_tol(k) * sj)).all()
+
+
+def test_run_bench_on_a_routed_matrix(cuda, monkeypatch, tmp_path, capsys):
+    """``run --format csr --bench --json`` on a matrix past a lowered plan
+    bound: the CLI runs a ``TiledSpmv``, checks it, and times it by graph
+    replay on the card."""
+    import json
+
+    from spmv_tpu_torch import cli
+    from spmv_tpu_torch.formats import base
+    from spmv_tpu_torch.io import mmio
+
+    monkeypatch.setattr(base, "plan_entry_limit", lambda tile, slice_rows=1: 20_000)
+    info, r, c, v = synth.synthetic_cant(n=6000, avg_nnz_per_row=9, bandwidth=50, seed=2)
+    path, out = tmp_path / "m.mtx", tmp_path / "run.json"
+    mmio.write_coo(str(path), info.nrows, info.ncols, r, c, v)
+    assert cli.main(["run", "--format", "csr", "--matrix", str(path), "--bench",
+                     "--json", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "tiled:" in text and "result is ok" in text
+    d = json.loads(out.read_text())
+    assert d["timing"] == "graph" and d["card"] and d["ms_per_spmv"] > 0
+    assert d["nnz"] == r.size
