@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spmv_tpu_torch import trace
 from spmv_tpu_torch.big import TiledSpmv, fits_single_plan
 from spmv_tpu_torch.device import X_to_device
 from spmv_tpu_torch.dist.sharded import Sharded
@@ -62,10 +63,17 @@ def _format_class(format: str):
 
 def from_coo(format: str, nrows: int, ncols: int, rows, cols, vals, *, device,
              **kwargs):
-    """Convert COO triplets to the named format's container on ``device``."""
+    """Convert COO triplets to the named format's container on ``device``.
+    Where ``trace`` is armed, the call is a ``plan.from_coo`` span with the
+    triplets' count (``nnz``) and the plans' device bytes."""
     cls = _format_class(format)
-    return cls.from_coo(nrows, ncols, np.asarray(rows), np.asarray(cols),
-                        np.asarray(vals), device=device, **kwargs)
+    rows = np.asarray(rows)
+    with trace.maybe("plan.from_coo", nnz=rows.size) as span:
+        a = cls.from_coo(nrows, ncols, rows, np.asarray(cols), np.asarray(vals),
+                         device=device, **kwargs)
+        if span is not None:
+            span.counts["bytes"] = a.stream_bytes
+    return a
 
 
 def route(format: str, nrows: int, ncols: int, rows, cols, vals, *, device,

@@ -268,8 +268,12 @@ def cmd_run(args) -> int:
 
 def _profiled(directory: str, device: torch.device):
     """``--profile DIR``: a ``torch.profiler`` chrome trace of the block,
-    written to ``DIR/trace.json`` for viewing; no number is taken from it
-    (on the card's machine it drops kernel records, PERF.md)."""
+    written to ``DIR/trace.json`` for viewing. The profiler arms the port's
+    span recorder (``trace``), so the trace also holds the port's spans as
+    ranges of their names: ``plan.from_coo`` over ``plan.host`` and
+    ``plan.upload``, and each ``spmv.wrapper`` call. No number is taken
+    from it: on the card's machine the profiler has dropped kernel records
+    in some sessions (PERF.md), so the bench times by CUDA-graph replay."""
     if not directory:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile

@@ -15,6 +15,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from spmv_tpu_torch import trace
 from spmv_tpu_torch.formats.base import CsrPlan, PanelPlan
 
 __all__ = ["DevCsr", "DevPanel", "FUSED_STREAM_BYTES_MAX", "x_to_device",
@@ -61,6 +62,7 @@ class DevCsr:
                 self.ntiles, dtype=torch.int64, device=self.vals.device))
 
     @classmethod
+    @trace.traced("plan.upload")
     def from_plan(cls, plan: CsrPlan, device) -> "DevCsr":
         device = torch.device(device)
         return cls(ptr=_put(plan.ptr, device), cols=_put(plan.cols, device),
@@ -121,6 +123,7 @@ class DevPanel:
                 (2 * self.ntiles, 32), dtype=torch.int64, device=self.vals.device))
 
     @classmethod
+    @trace.traced("plan.upload")
     def from_plan(cls, plan: PanelPlan, device) -> "DevPanel":
         device = torch.device(device)
         return cls(slice_ptr=_put(plan.slice_ptr, device, np.int32),

@@ -65,6 +65,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from spmv_tpu_torch import cache as _cache
+from spmv_tpu_torch import trace
 
 __all__ = ["CsrPlan", "TILE_NNZ", "ROW_STAGE", "build_csr_plan", "csr_ptr",
            "check_rows", "cdiv", "row_spans", "PanelPlan", "SLICE_ROWS", "TILE_COLS",
@@ -189,6 +190,7 @@ def csr_ptr(rows_sorted: np.ndarray, nrows: int) -> np.ndarray:
     return ptr
 
 
+@trace.traced("plan.host")
 def build_csr_plan(nrows: int, ncols: int, ptr, cols, vals, *,
                    tile: int = TILE_NNZ, dtype=np.float32) -> CsrPlan:
     """Plan from CSR arrays (rows already in order; duplicate entries stay
@@ -289,6 +291,7 @@ class PanelPlan:
         return int(self.widths.max()) if self.widths.size else 0
 
 
+@trace.traced("plan.host")
 def build_panel_plan(nrows: int, ncols: int, rows, cols, vals, *,
                      tile: int = TILE_COLS, dtype=np.float32) -> PanelPlan:
     """Sliced-ELLPACK plan from triplets already in row order (duplicates

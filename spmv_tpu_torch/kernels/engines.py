@@ -27,13 +27,17 @@ Routing: a wrapper given CPU tensors runs its plain version (``*_reference``,
 which the CPU tests use); given CUDA tensors it launches its kernel or
 raises. There is no fallback from one to the other. Each launch adds one
 to ``LAUNCHES[kernel]``, so a run can show that it went through the
-kernels.
+kernels. The dispatch wrappers the containers call (``segmented_spmv``,
+``segmented_spmv_multi``, and the panel and fp64-grade ones, ``wrapper``)
+are ``spmv.wrapper`` spans of ``trace`` while it is armed, with the
+launches each made.
 """
 
 from __future__ import annotations
 
 import torch
 
+from spmv_tpu_torch import trace
 from spmv_tpu_torch.device import DevCsr
 from spmv_tpu_torch.formats.base import TILE_NNZ
 
@@ -68,6 +72,16 @@ class KernelError(RuntimeError):
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launched() -> dict:
+    return {"launches": sum(LAUNCHES.values())}
+
+
+# A dispatch wrapper that a container's matvec or matmat calls: each call
+# while ``trace`` is armed is an ``spmv.wrapper`` span with its launches
+# (a wrapper called inside another is part of it).
+wrapper = trace.traced("spmv.wrapper", tally=_launched)
 
 
 def _on_cuda(dev, *tensors: torch.Tensor, dtype: torch.dtype = torch.float32) -> bool:
@@ -321,6 +335,7 @@ segmented_spmv_multi_partials_reference = segmented_spmv_partials_reference
 carry_fixup_multi_reference = carry_fixup_reference
 
 
+@wrapper
 def segmented_spmv_multi(dev: DevCsr, X: torch.Tensor) -> torch.Tensor:
     """Y = A·X for X of shape (ncols, R), 2 ≤ R ≤ MULTI_RHS_MAX: one pass
     over the plan (K8), then the carries (K9)."""
@@ -387,6 +402,7 @@ def segmented_spmv_fused_reference(dev: DevCsr, x: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------- dispatch
 
 
+@wrapper
 def segmented_spmv(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
     """y = A·x: K3 for small plans (``dev.fused``), else K1 then K2."""
     if dev.fused:

@@ -40,7 +40,7 @@ import torch
 from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.kernels.engines import (_seg_fixup, _seg_tiles,
                                             carry_fixup_reference,
-                                            segmented_spmv_partials_reference)
+                                            segmented_spmv_partials_reference, wrapper)
 from spmv_tpu_torch.kernels.panel import (_epilogue, _panel_fixup, _panel_tiles,
                                           inverse_permute_reference,
                                           panel_fixup_reference,
@@ -78,6 +78,7 @@ def carry_fixup_x2(dev: DevCsr, y: torch.Tensor, carry: torch.Tensor) -> torch.T
     return _seg_fixup("carry_fixup_x2", _F64, dev, y, carry)
 
 
+@wrapper
 def segmented_spmv_x2(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
     """y = A·x in float64 over a float64 CSR plan: K12, then K13."""
     y, carry = segmented_spmv_x2_partials(dev, x)
@@ -106,6 +107,7 @@ def panel_spmv_x2(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
     return panel_fixup_x2(dev, y, part)
 
 
+@wrapper
 def panel_and_spill_spmv_x2(dev: DevPanel, dev_spill: DevCsr | None,
                             x: torch.Tensor) -> torch.Tensor:
     """y = panel part + spill part in float64 (HYB's and the split ELL's
@@ -136,6 +138,7 @@ def inverse_permute_x2(invperm: torch.Tensor | None, y_sorted: torch.Tensor, nro
                      spill)
 
 
+@wrapper
 def sorted_panel_and_spill_spmv_x2(dev: DevPanel, dev_spill: DevCsr | None,
                                    invperm: torch.Tensor, x: torch.Tensor,
                                    nrows: int) -> torch.Tensor:

@@ -53,7 +53,8 @@ from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import SLICE_ROWS, TILE_COLS
 from spmv_tpu_torch.kernels.engines import (MULTI_RHS_MAX, _check_X, _check_x,
                                             _launch, _lead, _on_cuda,
-                                            segmented_spmv, segmented_spmv_multi)
+                                            segmented_spmv, segmented_spmv_multi,
+                                            wrapper)
 
 __all__ = ["panel_spmv", "panel_spmv_partials", "panel_fixup",
            "panel_spmv_fused", "inverse_permute", "panel_and_spill_spmv",
@@ -280,6 +281,7 @@ def panel_spmv(dev: DevPanel, x: torch.Tensor) -> torch.Tensor:
     return panel_fixup(dev, y, part)
 
 
+@wrapper
 def panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
                          x: torch.Tensor) -> torch.Tensor:
     """y = panel part + spill part, two plans over the same rows: the
@@ -335,6 +337,7 @@ def panel_spmv_multi(dev: DevPanel, X: torch.Tensor) -> torch.Tensor:
     return panel_fixup_multi(dev, Y, part)
 
 
+@wrapper
 def panel_and_spill_spmm(dev: DevPanel, dev_spill: DevCsr | None,
                          X: torch.Tensor) -> torch.Tensor:
     """Y = panel part + spill part for X of shape (ncols, R): one
@@ -453,6 +456,7 @@ def inverse_permute_reference(invperm: torch.Tensor | None, y_sorted: torch.Tens
 # ---------------------------------------------------------------- sorted SELL
 
 
+@wrapper
 def sorted_panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
                                 invperm: torch.Tensor, x: torch.Tensor,
                                 nrows: int) -> torch.Tensor:
@@ -466,6 +470,7 @@ def sorted_panel_and_spill_spmv(dev: DevPanel, dev_spill: DevCsr | None,
     return inverse_permute(invperm, y, nrows, dev=dev, part=part, spill=spill)
 
 
+@wrapper
 def sorted_panel_and_spill_spmm(dev: DevPanel, dev_spill: DevCsr | None,
                                 invperm: torch.Tensor, X: torch.Tensor,
                                 nrows: int) -> torch.Tensor:

@@ -37,6 +37,13 @@ its ``padded_matvec`` reads as a double-single one, and return a wrong x
 without an error; the port's ``X2Matrix`` computes in float64, which
 these float32 loops would drop.
 
+Each public solve is a span of ``trace`` where the recorder is armed
+(``solve.cg``, ``solve.bicgstab``, ``solve.power_iteration``), with its
+graph capture, replays and host reads as spans inside it, and its
+iterations, SpMVs, replays, host reads and mode as counts. A solve
+decides once, at its start, whether it is traced; an untraced one takes
+the loops below unchanged.
+
 The sharded containers (``dist.RowShardedSpmv``, ``dist.ColShardedSpmv``
 in float32) solve too, as JAX's solvers take them through
 ``_matvec_traced``: their ``matvec`` takes the whole x and returns the
@@ -53,12 +60,15 @@ forms raise JAX's ``NotImplementedError``; ``RingShardedSpmv`` and
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import math
 
 import numpy as np
 import torch
 
+from spmv_tpu_torch import trace
 from spmv_tpu_torch.dist.sharded import ColShardedSpmv, RowShardedSpmv, Sharded
 
 __all__ = ["cg", "bicgstab", "power_iteration", "GRAPH_CHUNK"]
@@ -122,8 +132,57 @@ def _tol2(b: torch.Tensor, tol: float) -> torch.Tensor:
     return float(np.float32(tol) ** 2) * torch.clamp(torch.dot(b, b), min=_EPS)
 
 
+class _Traced:
+    """A traced solve, as the context of its root span: the SpMVs one loop
+    body makes, and whether the host has read a value of the solve since
+    its last graph launch (the loops issue nothing else between a read and
+    a replay)."""
+
+    def __init__(self, name: str, body_spmvs: int):
+        self._span, self.body_spmvs, self.read = trace.span(name), body_spmvs, False
+
+    def __enter__(self) -> "_Traced":
+        self.root = self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._span.__exit__(*exc)
+
+    def host(self, cast, t: torch.Tensor):
+        """``cast(t)``, a host read of a device value, as a span."""
+        with trace.span("solve.read"):
+            v = cast(t)
+        self.read = True
+        return v
+
+    def replay(self, launch) -> None:
+        with trace.span("solve.replay", after_read=int(self.read)):
+            launch()
+        self.read = False
+
+    def loop(self, mode: str, replays: int, host_reads: int, bodies: int) -> None:
+        self.root.counts.update(mode=mode, replays=replays, host_reads=host_reads,
+                                spmvs=bodies * self.body_spmvs)
+
+    def finish(self, iterations: int, outside: int) -> None:
+        """The solve's counts once it has run: ``outside``, its SpMVs
+        outside the loop (cg's r0, power iteration's Rayleigh quotient)."""
+        self.root.counts["iterations"] = iterations
+        self.root.counts["spmvs"] += outside
+
+
+def _host(tr: _Traced | None, cast, v: torch.Tensor):
+    return cast(v) if tr is None else tr.host(cast, v)
+
+
+def _solve(name: str, body_spmvs: int):
+    """The solve's ``_Traced`` where armed; else a context that gives
+    None."""
+    return _Traced(name, body_spmvs) if trace.armed() else contextlib.nullcontext()
+
+
 def _run(a, solver: str, step, active, state: tuple, consts: tuple,
-         graph: bool, count: int | None = None) -> tuple:
+         graph: bool, count: int | None = None, tr: _Traced | None = None) -> tuple:
     """Iterate ``state = step(*state, *consts)`` while ``active(*state,
     *consts)``, or ``count`` times for a loop of a fixed count; returns the
     final state. Eagerly (the host reads ``active`` before each iteration),
@@ -132,23 +191,36 @@ def _run(a, solver: str, step, active, state: tuple, consts: tuple,
     loop and keeps it on the container (``a._graph_loops``), and every
     later one loads its own state and constants into the loop's tensors
     and replays it. A one-shot solve so never pays a capture, which costs
-    more than the eager loop it would replace."""
+    more than the eager loop it would replace. ``tr``, a traced solve,
+    gets the loop's spans and counts."""
     loops = a.__dict__.setdefault("_graph_loops", {}) if graph else {}
     if count != 0 and solver in loops:
-        loop = loops[solver]
+        loop, mode = loops[solver], "replay"
         if loop is None:
-            loop = loops[solver] = _GraphLoop(step, active, state, consts)
+            capture = trace.span("solve.capture", bodies=GRAPH_CHUNK) if tr else None
+            with capture or contextlib.nullcontext():
+                loop = loops[solver] = _GraphLoop(step, active, state, consts)
+            mode = "capture"
         else:
             loop.load(state, consts)
-        return loop.run(count)
+        state = loop.run(count, tr)
+        if tr is not None:
+            tr.loop(mode, loop.replays, loop.host_reads, loop.replays * loop.chunk)
+        return state
     if graph:
         loops[solver] = None  # seen once: the next such solve captures
     if count is not None:
         for _ in range(count):
             state = step(*state, *consts)
-        return state
-    while bool(active(*state, *consts)):
-        state = step(*state, *consts)
+        steps, reads = count, 0
+    else:
+        steps = 0
+        while _host(tr, bool, active(*state, *consts)):
+            state = step(*state, *consts)
+            steps += 1
+        reads = steps + 1
+    if tr is not None:
+        tr.loop("eager", 0, reads, steps)
     return state
 
 
@@ -209,22 +281,26 @@ class _GraphLoop:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.replay = self.graph.replay
 
-    def run(self, count: int | None = None) -> tuple:
+    def run(self, count: int | None = None, tr: _Traced | None = None) -> tuple:
         """Replay until the flag reads false (one host read before the
         first replay and one after each), or, for a loop of a fixed
-        ``count``, ``ceil(count / chunk)`` times with no host read."""
+        ``count``, ``ceil(count / chunk)`` times with no host read. In a
+        traced solve ``tr`` each replay and each host read is a span."""
+        launch, read = self.replay, bool
+        if tr is not None:
+            launch, read = functools.partial(tr.replay, launch), functools.partial(tr.host, read)
         if count is None:
             self.replays, self.host_reads = 0, 1
-            going = bool(self.active(*self.state, *self.consts))
+            going = read(self.active(*self.state, *self.consts))
             while going:
-                self.replay()
+                launch()
                 self.replays += 1
                 self.host_reads += 1
-                going = bool(self.flag)
+                going = read(self.flag)
         else:
             self.replays, self.host_reads = math.ceil(count / self.chunk), 0
             for _ in range(self.replays):
-                self.replay()
+                launch()
         return self.state
 
 
@@ -246,28 +322,32 @@ def cg(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
     if a.nrows != a.ncols:
         raise ValueError("cg requires a square matrix")
     mv, device, graphable = _operator(a)
-    b = _vector(b, a.nrows, device, "b")
-    x0 = torch.zeros_like(b) if x0 is None else _vector(x0, a.nrows, device, "x0")
-    r0 = b - mv(x0)
+    with _solve("solve.cg", 1) as tr:
+        b = _vector(b, a.nrows, device, "b")
+        x0 = torch.zeros_like(b) if x0 is None else _vector(x0, a.nrows, device, "x0")
+        r0 = b - mv(x0)
 
-    def active(x, r, p, rs, k, tol2, kmax):
-        return (rs > tol2) & (k < kmax)
+        def active(x, r, p, rs, k, tol2, kmax):
+            return (rs > tol2) & (k < kmax)
 
-    def step(x, r, p, rs, k, tol2, kmax):
-        ap = mv(p)
-        alpha = rs / torch.dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = torch.dot(r, r)
-        p = r + (rs_new / rs) * p
-        return x, r, p, rs_new, k + 1
+        def step(x, r, p, rs, k, tol2, kmax):
+            ap = mv(p)
+            alpha = rs / torch.dot(p, ap)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rs_new = torch.dot(r, r)
+            p = r + (rs_new / rs) * p
+            return x, r, p, rs_new, k + 1
 
-    state = (x0, r0, r0, torch.dot(r0, r0),
-             torch.zeros((), dtype=torch.int32, device=device))
-    x, _, _, rs, k = _run(a, "cg", step, active, state,
-                          (_tol2(b, tol), _count(maxiter, device)),
-                          _uses_graph(graphable, _graph))
-    return x.clone(), int(k), float(torch.sqrt(rs))
+        state = (x0, r0, r0, torch.dot(r0, r0),
+                 torch.zeros((), dtype=torch.int32, device=device))
+        x, _, _, rs, k = _run(a, "cg", step, active, state,
+                              (_tol2(b, tol), _count(maxiter, device)),
+                              _uses_graph(graphable, _graph), tr=tr)
+        k, res = _host(tr, int, k), _host(tr, float, torch.sqrt(rs))
+        if tr is not None:
+            tr.finish(k, outside=1)  # r0
+    return x.clone(), k, res
 
 
 def bicgstab(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
@@ -278,33 +358,37 @@ def bicgstab(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
     if a.nrows != a.ncols:
         raise ValueError("bicgstab requires a square matrix")
     mv, device, graphable = _operator(a)
-    b = _vector(b, a.nrows, device, "b")
-    x0 = torch.zeros_like(b) if x0 is None else _vector(x0, a.nrows, device, "x0")
-    r0 = b - mv(x0)
+    with _solve("solve.bicgstab", 2) as tr:
+        b = _vector(b, a.nrows, device, "b")
+        x0 = torch.zeros_like(b) if x0 is None else _vector(x0, a.nrows, device, "x0")
+        r0 = b - mv(x0)
 
-    def active(x, r, p, rho, rs, k, rhat, tol2, kmax):
-        return (rs > tol2) & (k < kmax)
+        def active(x, r, p, rho, rs, k, rhat, tol2, kmax):
+            return (rs > tol2) & (k < kmax)
 
-    def step(x, r, p, rho, rs, k, rhat, tol2, kmax):  # rhat: the fixed shadow residual
-        v = mv(p)
-        alpha = rho / (torch.dot(rhat, v) + _EPS)
-        h = x + alpha * p
-        s = r - alpha * v
-        t = mv(s)
-        omega = torch.dot(t, s) / (torch.dot(t, t) + _EPS)
-        x = h + omega * s
-        r = s - omega * t
-        rho_new = torch.dot(rhat, r)
-        beta = (rho_new / (rho + _EPS)) * (alpha / (omega + _EPS))
-        p = r + beta * (p - omega * v)
-        return x, r, p, rho_new, torch.dot(r, r), k + 1
+        def step(x, r, p, rho, rs, k, rhat, tol2, kmax):  # rhat: the fixed shadow residual
+            v = mv(p)
+            alpha = rho / (torch.dot(rhat, v) + _EPS)
+            h = x + alpha * p
+            s = r - alpha * v
+            t = mv(s)
+            omega = torch.dot(t, s) / (torch.dot(t, t) + _EPS)
+            x = h + omega * s
+            r = s - omega * t
+            rho_new = torch.dot(rhat, r)
+            beta = (rho_new / (rho + _EPS)) * (alpha / (omega + _EPS))
+            p = r + beta * (p - omega * v)
+            return x, r, p, rho_new, torch.dot(r, r), k + 1
 
-    rs0 = torch.dot(r0, r0)
-    state = (x0, r0, r0, rs0, rs0, torch.zeros((), dtype=torch.int32, device=device))
-    x, _, _, _, rs, k = _run(a, "bicgstab", step, active, state,
-                             (r0, _tol2(b, tol), _count(maxiter, device)),
-                             _uses_graph(graphable, _graph))
-    return x.clone(), int(k), float(torch.sqrt(rs))
+        rs0 = torch.dot(r0, r0)
+        state = (x0, r0, r0, rs0, rs0, torch.zeros((), dtype=torch.int32, device=device))
+        x, _, _, _, rs, k = _run(a, "bicgstab", step, active, state,
+                                 (r0, _tol2(b, tol), _count(maxiter, device)),
+                                 _uses_graph(graphable, _graph), tr=tr)
+        k, res = _host(tr, int, k), _host(tr, float, torch.sqrt(rs))
+        if tr is not None:
+            tr.finish(k, outside=1)  # r0
+    return x.clone(), k, res
 
 
 def power_iteration(a, *, iters: int = 100, seed: int = 0, _graph: bool = True):
@@ -317,17 +401,21 @@ def power_iteration(a, *, iters: int = 100, seed: int = 0, _graph: bool = True):
     if a.nrows != a.ncols:
         raise ValueError("power_iteration requires a square matrix")
     mv, device, graphable = _operator(a)
-    gen = torch.Generator(device).manual_seed(seed)
-    v0 = torch.randn(a.ncols, generator=gen, device=device, dtype=torch.float32)
+    with _solve("solve.power_iteration", 1) as tr:
+        gen = torch.Generator(device).manual_seed(seed)
+        v0 = torch.randn(a.ncols, generator=gen, device=device, dtype=torch.float32)
 
-    def active(v, k, kmax):
-        return k < kmax
+        def active(v, k, kmax):
+            return k < kmax
 
-    def step(v, k, kmax):
-        w = mv(v)
-        return w * torch.rsqrt(torch.dot(w, w) + _EPS), k + 1
+        def step(v, k, kmax):
+            w = mv(v)
+            return w * torch.rsqrt(torch.dot(w, w) + _EPS), k + 1
 
-    state = (v0, torch.zeros((), dtype=torch.int32, device=device))
-    v = _run(a, "power_iteration", step, active, state, (_count(iters, device),),
-             _uses_graph(graphable, _graph), count=iters)[0].clone()
-    return float(torch.dot(v, mv(v))), v
+        state = (v0, torch.zeros((), dtype=torch.int32, device=device))
+        v = _run(a, "power_iteration", step, active, state, (_count(iters, device),),
+                 _uses_graph(graphable, _graph), count=iters, tr=tr)[0].clone()
+        lam = _host(tr, float, torch.dot(v, mv(v)))
+        if tr is not None:
+            tr.finish(iters, outside=1)  # the Rayleigh quotient
+    return lam, v

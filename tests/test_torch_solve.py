@@ -10,8 +10,8 @@ eigenvalue lies within 1e-3 relative of JAX's (the start vectors differ:
 ``jax.random`` bits cannot be reproduced).
 
 The CUDA graph loop needs a card (``test_torch_gpu.py``); here its chunked,
-masked iteration runs on the CPU without a graph (``CpuLoop``) and must
-give the eager loop's bits."""
+masked iteration runs on the CPU without a graph (``CpuLoop``, in
+``_torch_loops.py``) and must give the eager loop's bits."""
 
 import math
 
@@ -23,6 +23,8 @@ import spmv_tpu
 import spmv_tpu_torch
 from spmv_tpu import solve as ref_solve
 from spmv_tpu_torch import solve
+
+from _torch_loops import cpu_graph  # noqa: F401  (the fixture, with CpuLoop)
 
 FORMATS = ["csr", "coo", "cmrs", "ell", "sell", "hyb", "sym"]
 
@@ -226,22 +228,6 @@ def test_maxiter_stops_the_loop():
                                      tol=1e-12, maxiter=7)
     assert k == k_jax == 7
     assert res == pytest.approx(res_jax, rel=1e-3)
-
-
-class CpuLoop(solve._GraphLoop):
-    """The graph loop's chunked, masked iteration without a graph: each
-    "replay" runs ``chunk`` masked copies of the body on the CPU."""
-
-    def _capture(self):
-        def replay():
-            self.flag = self._chunk()
-        self.replay = replay
-
-
-@pytest.fixture
-def cpu_graph(monkeypatch):
-    monkeypatch.setattr(solve, "_GraphLoop", CpuLoop)
-    monkeypatch.setattr(solve, "_uses_graph", lambda device, graph: graph)
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 8, 64])
