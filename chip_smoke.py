@@ -453,7 +453,8 @@ def fmt_ms(ms: float | None) -> str:
 def library_csr(dev) -> torch.Tensor:
     """The plan's matrix as ``torch.sparse_csr_tensor`` (cuSPARSE): the
     yardstick of ``library_ms``, timed here and used nowhere in the port."""
-    return torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals, (dev.nrows, dev.ncols))
+    return torch.sparse_csr_tensor(dev.ptr, dev.source_cols(), dev.vals,
+                                   (dev.nrows, dev.ncols))
 
 
 def slot_rows(dev) -> np.ndarray:
@@ -528,6 +529,7 @@ def fixup_of_nan_carry(launcher: str, dev, x, fixup, want: torch.Tensor) -> None
     wrapper: a slot the fix-up reads and the tile kernel leaves unwritten
     stays NaN, so y must equal the wrappers' ``want`` bit for bit."""
     from spmv_tpu_torch.kernels import _build
+    from spmv_tpu_torch.kernels.engines import plan_x
 
     if not dev.nnz:  # the wrapper launches nothing
         return
@@ -535,6 +537,7 @@ def fixup_of_nan_carry(launcher: str, dev, x, fixup, want: torch.Tensor) -> None
     y = torch.zeros((dev.nrows, *tail), dtype=want.dtype, device=want.device)
     carry = torch.full((2 * dev.ntiles, *tail), float("nan"), dtype=want.dtype,
                        device=want.device)
+    x = plan_x(dev, x)  # the wrapper's gather on a relabelled plan
     rc = getattr(_build.library().lib, launcher)(
         dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
         dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), carry.data_ptr(),
@@ -659,10 +662,12 @@ def fused_mode(dev, x, vec: int, nan: bool = True) -> torch.Tensor:
     outside its wrapper and its count, into a NaN-filled y (``nan``), so a
     row it leaves unwritten stays NaN; else into an unfilled one."""
     from spmv_tpu_torch.kernels import _build
+    from spmv_tpu_torch.kernels.engines import plan_x
 
     y = (torch.full if nan else torch.empty)(
         (dev.nrows,), *((float("nan"),) if nan else ()), dtype=torch.float32,
         device=x.device)
+    x = plan_x(dev, x)  # the wrapper's gather on a relabelled plan
     rc = _build.library().lib.csr_spmv_fused(
         dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
         dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), dev.fused_words.data_ptr(),

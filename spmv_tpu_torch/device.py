@@ -6,10 +6,18 @@ compute y window targets, all for the TPU's DMA and VMEM limits; on Hopper
 a plan is the CSR arrays or the sliced-ELLPACK panel of ``formats.base``
 with its tile schedule, held as int32 tensors and float32 values (float64
 for the fp64-grade mode, ``x2.X2Matrix``) on an explicit ``torch.device``.
+
+A CSR plan whose columns are skewed and not banded is uploaded with its
+columns relabelled hottest-first (``DevCsr.relabeled``, the rule in
+``DevCsr.from_plan``): the engines gather x into that order before the
+tile kernel runs (``kernels.engines.plan_x``), so the hot part of x lies
+in a few cache lines.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -28,15 +36,33 @@ __all__ = ["DevCsr", "DevPanel", "FUSED_STREAM_BYTES_MAX", "x_to_device",
 # PERF.md records the H100 times at the shapes ``chip_smoke.py`` runs.
 FUSED_STREAM_BYTES_MAX = 4 * 1024 * 1024
 
+# The column relabel's rule (``DevCsr.from_plan``), on a plan that runs K1
+# + K2: relabel where the hottest ``RELABEL_TOP_COLS`` of the used columns
+# hold at least ``RELABEL_TOP_SHARE_MIN`` of the nonzeros (skew) and fewer
+# than ``RELABEL_NEAR_SHARE_MAX`` of them lie within ``RELABEL_NEAR_COLS``
+# columns of their row (no band: a banded plan's x gather is local as it
+# is, and a relabel would scatter it). On an H100 the Graph500 Kronecker
+# graph at scale 22 reads 45.7% and 1.6% and runs K1 + K2 and the gather
+# 14.6% faster relabelled; HPCG's stencil reads 1.0% and 100% (PERF.md).
+RELABEL_TOP_COLS = 0.01
+RELABEL_TOP_SHARE_MIN = 0.25
+RELABEL_NEAR_COLS = 32768
+RELABEL_NEAR_SHARE_MAX = 0.5
+# nonzeros per step of ``column_shares``' row search: 4 Mi steps keep its
+# scratch near 50 MB on any plan
+_SCAN_NNZ = 1 << 22
+
 
 def _put(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
 def _tensor_bytes(plan) -> int:
-    """Exact bytes of a device plan's tensors."""
+    """Exact bytes of a device plan's tensors, ``col_order`` left out: a
+    relabelled plan streams what the same plan without the relabel does."""
     return sum(t.numel() * t.element_size()
-               for t in (getattr(plan, f.name) for f in fields(plan))
+               for t in (getattr(plan, f.name) for f in fields(plan)
+                         if f.name != "col_order")
                if isinstance(t, torch.Tensor))
 
 
@@ -51,6 +77,9 @@ class DevCsr:
     ncols: int
     tile: int
     max_row_nnz: int
+    # (nused,) int32 or None: a relabelled plan's source column of each
+    # label, hottest first; ``cols`` then holds the labels (``relabeled``)
+    col_order: torch.Tensor | None = None
 
     def __post_init__(self):
         # K3's published partials (``kernels.engines.segmented_spmv_fused``):
@@ -62,15 +91,73 @@ class DevCsr:
                 self.ntiles, dtype=torch.int64, device=self.vals.device))
 
     @classmethod
-    @trace.traced("plan.upload")
     def from_plan(cls, plan: CsrPlan, device) -> "DevCsr":
-        device = torch.device(device)
-        return cls(ptr=_put(plan.ptr, device), cols=_put(plan.cols, device),
-                   vals=_put(plan.vals, device),
-                   tile_row0=_put(plan.tile_row0, device),
-                   carry_rows=_put(plan.carry_rows, device),
-                   nrows=plan.nrows, ncols=plan.ncols, tile=plan.tile,
-                   max_row_nnz=plan.max_row_nnz)
+        """The plan on ``device``, its columns relabelled where the rule
+        above holds: on a plan that runs K1 + K2 (not ``fused``), the
+        readings of ``column_shares``. The ``plan.upload`` span counts
+        ``relabeled`` (0 or 1) and, where the rule was read, both
+        readings."""
+        with trace.maybe("plan.upload") as s:
+            device = torch.device(device)
+            dev = cls(ptr=_put(plan.ptr, device), cols=_put(plan.cols, device),
+                      vals=_put(plan.vals, device),
+                      tile_row0=_put(plan.tile_row0, device),
+                      carry_rows=_put(plan.carry_rows, device),
+                      nrows=plan.nrows, ncols=plan.ncols, tile=plan.tile,
+                      max_row_nnz=plan.max_row_nnz)
+            relabel = False
+            if not dev.fused and dev.nnz:
+                top, near = dev.column_shares()
+                relabel = top >= RELABEL_TOP_SHARE_MIN and near < RELABEL_NEAR_SHARE_MAX
+                if s is not None:
+                    s.counts.update(top_share=top, near_share=near)
+            if relabel:
+                dev = dev.relabeled()
+            if s is not None:
+                s.counts["relabeled"] = int(relabel)
+            return dev
+
+    def source_cols(self) -> torch.Tensor:
+        """The columns in the matrix's own labels: ``cols``, or on a
+        relabelled plan ``col_order[cols]``."""
+        if self.col_order is None:
+            return self.cols
+        return self.col_order.index_select(0, self.cols)
+
+    def column_shares(self) -> tuple[float, float]:
+        """The relabel rule's readings, shares of the nonzeros, on the
+        plan's device: ``top``, those in the hottest ``RELABEL_TOP_COLS``
+        of the used columns; ``near``, those within ``RELABEL_NEAR_COLS``
+        columns of their row."""
+        cols = self.source_cols()
+        counts = torch.bincount(cols, minlength=self.ncols)
+        k = max(1, math.ceil(RELABEL_TOP_COLS * int(torch.count_nonzero(counts))))
+        top = int(torch.topk(counts, k, sorted=False).values.sum())
+        near = torch.zeros((), dtype=torch.int64, device=self.device)
+        for e0 in range(0, self.nnz, _SCAN_NNZ):  # in steps, to bound the scratch
+            e = torch.arange(e0, min(e0 + _SCAN_NNZ, self.nnz), dtype=torch.int32,
+                             device=self.device)
+            rows = torch.searchsorted(self.ptr, e, right=True, out_int32=True) - 1
+            near += torch.count_nonzero((cols[e0:e0 + e.numel()] - rows).abs()
+                                        <= RELABEL_NEAR_COLS)
+        return top / self.nnz, int(near) / self.nnz
+
+    def relabeled(self) -> "DevCsr":
+        """The same plan with its columns numbered hottest-first:
+        ``col_order[j]`` is the source column of label j, the used columns
+        by descending count, ties in source order (a stable sort), empty
+        columns left out. No row's nonzeros are reordered, so K1 multiplies
+        the same value by the same x entry in the same order: y, the carries
+        and K2's sums are the plan's own, bit for bit."""
+        if self.col_order is not None:
+            raise ValueError("the plan's columns are relabelled already")
+        counts = torch.bincount(self.cols, minlength=self.ncols)
+        used = int(torch.count_nonzero(counts))
+        order = torch.sort(counts, descending=True, stable=True).indices[:used]
+        label = torch.empty(self.ncols, dtype=torch.int32, device=self.device)
+        label[order] = torch.arange(used, dtype=torch.int32, device=self.device)
+        return dataclasses.replace(self, cols=label.index_select(0, self.cols),
+                                   col_order=order.to(torch.int32))
 
     @property
     def device(self) -> torch.device:

@@ -31,6 +31,11 @@ kernels. The dispatch wrappers the containers call (``segmented_spmv``,
 ``segmented_spmv_multi``, and the panel and fp64-grade ones, ``wrapper``)
 are ``spmv.wrapper`` spans of ``trace`` while it is armed, with the
 launches each made.
+
+On a plan whose columns are relabelled (``DevCsr.col_order``, set by
+``DevCsr.from_plan``'s rule), every function here that reads x (or X) at
+the plan's columns, kernel or plain version, first gathers it into the
+plan's order (``plan_x``): callers pass x in the matrix's own labels.
 """
 
 from __future__ import annotations
@@ -47,8 +52,8 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
            "segmented_spmv_multi", "segmented_spmv_multi_partials",
            "carry_fixup_multi", "segmented_spmv_multi_partials_reference",
            "carry_fixup_multi_reference", "MULTI_RHS_MAX", "carry_slot_rows",
-           "tile_outputs", "LAUNCHES", "reset_launches", "fused_lanes", "row_lanes",
-           "ROWS_MAX_STEPS", "KernelError"]
+           "tile_outputs", "LAUNCHES", "GATHERS", "reset_launches", "plan_x",
+           "fused_lanes", "row_lanes", "ROWS_MAX_STEPS", "KernelError"]
 
 # Launch counts per kernel, this engine's, the panel engine's
 # (``kernels.panel``) and the fp64-grade ones (``kernels.engines_x2``); the
@@ -58,6 +63,11 @@ LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0,
             "panel_spmv_tiles": 0, "panel_spmv_fused": 0, "inverse_permute": 0,
             "seg_spmm_tiles": 0, "carry_fixup_multi": 0, "panel_spmm_tiles": 0,
             "seg_spmv_tiles_x2": 0, "carry_fixup_x2": 0, "panel_spmv_tiles_x2": 0}
+
+# Gathers of x (or X's rows) into a relabelled plan's column order
+# (``plan_x``), on either device; not a kernel of the port, so not a key of
+# LAUNCHES.
+GATHERS = {"x_gathers": 0}
 
 # The widest X the multi-RHS kernels take (K8 and K10 are built for R = 2..8;
 # ``spmv_tpu/kernels/engines.py:74``). ``api.spmm`` runs one ``matvec`` per
@@ -70,18 +80,30 @@ class KernelError(RuntimeError):
 
 
 def reset_launches() -> None:
+    """Set LAUNCHES and GATHERS to 0."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    GATHERS["x_gathers"] = 0
 
 
 def _launched() -> dict:
-    return {"launches": sum(LAUNCHES.values())}
+    return {"launches": sum(LAUNCHES.values()), **GATHERS}
 
 
 # A dispatch wrapper that a container's matvec or matmat calls: each call
 # while ``trace`` is armed is an ``spmv.wrapper`` span with its launches
-# (a wrapper called inside another is part of it).
+# and x gathers (a wrapper called inside another is part of it).
 wrapper = trace.traced("spmv.wrapper", tally=_launched)
+
+
+def plan_x(dev, x: torch.Tensor) -> torch.Tensor:
+    """x (or an (ncols, R) X) in the plan's column order: ``x`` itself, or
+    on a relabelled plan its rows gathered through ``dev.col_order``, one
+    ``index_select`` counted in GATHERS."""
+    if dev.col_order is None:
+        return x
+    GATHERS["x_gathers"] += 1
+    return x.index_select(0, dev.col_order)
 
 
 def _on_cuda(dev, *tensors: torch.Tensor, dtype: torch.dtype = torch.float32) -> bool:
@@ -179,8 +201,8 @@ def _launch_seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Ten
     tail = tuple(x.shape[1:])
     y, carry = tile_outputs(dev, dtype, tail)
     if dev.nnz:  # a zero-sized grid is refused: nothing to launch
-        _launch(kernel, dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0, x, y,
-                carry, dev.nnz, dev.ntiles, dev.tile, *tail)
+        _launch(kernel, dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0,
+                plan_x(dev, x), y, carry, dev.nnz, dev.ntiles, dev.tile, *tail)
     return y, carry
 
 
@@ -238,7 +260,7 @@ def segmented_spmv_partials_reference(dev: DevCsr, x: torch.Tensor):
     head = torch.ones(dev.nnz, dtype=torch.bool, device=dv)
     head[1:] = (row[1:] != row[:-1]) | (tile[1:] != tile[:-1])
     seg = torch.cumsum(head, 0) - 1
-    prod = _lead(dev.vals, x) * x[dev.cols.long()]
+    prod = _lead(dev.vals, x) * plan_x(dev, x)[dev.cols.long()]
     sums = torch.zeros((int(head.sum()), *tail), dtype=dt, device=dv)
     sums.index_add_(0, seg, prod)
     srow, stile = row[head], tile[head]
@@ -387,8 +409,9 @@ def segmented_spmv_fused(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
     if dev.nnz == 0:  # nothing to launch: y is all zeros
         return torch.zeros(dev.nrows, dtype=torch.float32, device=dev.device)
     y = torch.empty(dev.nrows, dtype=torch.float32, device=dev.device)
-    _launch("csr_spmv_fused", dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0, x, y,
-            dev.fused_words, dev.nnz, dev.ntiles, dev.nrows, dev.tile, fused_lanes(dev))
+    _launch("csr_spmv_fused", dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0,
+            plan_x(dev, x), y, dev.fused_words, dev.nnz, dev.ntiles, dev.nrows, dev.tile,
+            fused_lanes(dev))
     return y
 
 

@@ -30,6 +30,12 @@ Routing, as in ``kernels.engines``: CPU tensors run the plain version,
 CUDA tensors launch the kernel or raise, and each launch adds one to
 ``engines.LAUNCHES`` under its own key (``LAUNCH_KEYS``: one per tile and
 per stage cut), which this module adds to that table.
+
+On a relabelled plan (``DevCsr.col_order``) the wrappers that read x at
+the plan's columns gather it first (``engines.plan_x``), as K1's does;
+the stage cuts that compute x̃ from the loaded column (``nogather``,
+``dma``) and ``cols16`` work in the plan's labels; callers of ``noseg``
+pass ``plan_x(dev, x)`` with ``dev.cols``.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from spmv_tpu_torch.device import DevCsr, DevPanel
 from spmv_tpu_torch.formats.base import TILE_NNZ, build_csr_plan, cdiv
 from spmv_tpu_torch.kernels.engines import (LAUNCHES, _check_x, _launch, _on_cuda,
                                             segmented_spmv_partials_reference,
-                                            carry_fixup_reference, tile_outputs)
+                                            carry_fixup_reference, plan_x, tile_outputs)
 from spmv_tpu_torch.kernels.panel import (_launch_panel_tiles,
                                           panel_spmv_partials_reference)
 
@@ -145,8 +151,8 @@ def segmented_spmv_partials_u16(dev: DevCsr, c16: torch.Tensor, x: torch.Tensor)
     y, carry = tile_outputs(dev, dtype)
     if dev.nnz:
         name = "seg_spmv_tiles_u16" + _suffix(dtype)
-        _launch(name, dev, dev.ptr, c16, dev.vals, dev.tile_row0, x, y, carry,
-                dev.nnz, dev.ntiles, dev.tile)
+        _launch(name, dev, dev.ptr, c16, dev.vals, dev.tile_row0, plan_x(dev, x), y,
+                carry, dev.nnz, dev.ntiles, dev.tile)
     return y, carry
 
 
@@ -162,10 +168,12 @@ def segmented_spmv_partials_u16_reference(dev: DevCsr, c16: torch.Tensor,
 
 def retile(dev: DevCsr, tile: int) -> DevCsr:
     """The same matrix's plan at ``tile`` nonzeros per tile
-    (``build_csr_plan(tile=...)``), on the plan's device."""
+    (``build_csr_plan(tile=...)``, from the matrix's own column labels), on
+    the plan's device."""
     vals = dev.vals.cpu().numpy()
     plan = build_csr_plan(dev.nrows, dev.ncols, dev.ptr.cpu().numpy(),
-                          dev.cols.cpu().numpy(), vals, tile=tile, dtype=vals.dtype)
+                          dev.source_cols().cpu().numpy(), vals, tile=tile,
+                          dtype=vals.dtype)
     return DevCsr.from_plan(plan, dev.device)
 
 
@@ -180,7 +188,7 @@ def segmented_spmv_partials_at(dev: DevCsr, x: torch.Tensor):
     y, carry = tile_outputs(dev, torch.float32)
     if dev.nnz:
         _launch("seg_spmv_tiles_at", dev, dev.ptr, dev.cols, dev.vals,
-                dev.tile_row0, x, y, carry, dev.nnz, dev.ntiles, dev.tile,
+                dev.tile_row0, plan_x(dev, x), y, carry, dev.nnz, dev.ntiles, dev.tile,
                 key=f"seg_spmv_tiles_t{dev.tile}")
     return y, carry
 
@@ -222,7 +230,8 @@ def xtilde(ncols: int, dtype: torch.dtype, device) -> torch.Tensor:
 def ablate_nogather(dev: DevCsr):
     """K1 (float32 plan) or K12 (float64 plan) without the x gather: each
     product is ``v·x̃(c)`` with x̃ computed from the loaded column.
-    ``(y, carry)``, bit for bit K1's on ``xtilde``."""
+    ``(y, carry)``, bit for bit K1's on ``xtilde`` (on a relabelled plan,
+    plain K1's on the x̃ of its labels)."""
     dtype = _plan_dtype(dev)
     if not _on_cuda(dev, dtype=dtype):
         return ablate_nogather_reference(dev)
@@ -238,9 +247,10 @@ def ablate_nogather(dev: DevCsr):
 
 
 def ablate_nogather_reference(dev: DevCsr):
-    """Plain K1 on ``xtilde``."""
+    """Plain K1 on ``xtilde`` of the plan's own column labels."""
     return segmented_spmv_partials_reference(
-        dev, xtilde(dev.ncols, dev.vals.dtype, dev.device))
+        dataclasses.replace(dev, col_order=None),
+        xtilde(dev.ncols, dev.vals.dtype, dev.device))
 
 
 def _check_stream(vals: torch.Tensor, cols: torch.Tensor) -> torch.dtype:
@@ -324,7 +334,7 @@ def ablate_x32(dev: DevCsr, x32: torch.Tensor):
     y, carry = tile_outputs(dev, torch.float64)
     if dev.nnz:
         _launch("seg_ablate_x2", dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0,
-                x32, y, carry, None, dev.nnz, dev.ntiles, _MODES["x32"],
+                plan_x(dev, x32), y, carry, None, dev.nnz, dev.ntiles, _MODES["x32"],
                 key="seg_ablate_x2_x32")
     return y, carry
 
@@ -375,7 +385,7 @@ def segmented_spmv_fold(dev: DevCsr, x: torch.Tensor) -> torch.Tensor:
         if dev.device not in _ARRIVED:
             _ARRIVED[dev.device] = torch.zeros(1, dtype=torch.int32, device=dev.device)
         _launch("seg_spmv_tiles_fold", dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0,
-                x, y, carry, dev.carry_rows, _ARRIVED[dev.device], dev.nnz,
+                plan_x(dev, x), y, carry, dev.carry_rows, _ARRIVED[dev.device], dev.nnz,
                 dev.ntiles, dev.ncarry, dev.tile)
     return y
 

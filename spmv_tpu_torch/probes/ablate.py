@@ -48,6 +48,7 @@ def members(trip, device, matrix: str):
     info, rows, cols, vals = trip
     dev = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals, device=device).dev
     x = vector(info.ncols, F32, device)
+    xp = E.plan_x(dev, x)  # x in the plan's column order, for the stream probe
     flops = 2 * dev.nnz
 
     def fix(out):
@@ -73,9 +74,9 @@ def members(trip, device, matrix: str):
         Member("nogather", lambda: KP.ablate_nogather(dev),
                seg_tiles_bytes(dev, x_itemsize=0), flops, F32,
                spmv_check(trip, KP.xtilde(info.ncols, F32, device), fixup=fix)),
-        Member("noseg", lambda: KP.ablate_noseg(dev.vals, dev.cols, x),
-               stream_bytes(dev.vals, dev.cols, x), flops, F32,
-               tile_sums_check(dev.vals, dev.cols, x)),
+        Member("noseg", lambda: KP.ablate_noseg(dev.vals, dev.cols, xp),
+               stream_bytes(dev.vals, dev.cols, xp), flops, F32,
+               tile_sums_check(dev.vals, dev.cols, xp)),
         Member("zero", zero_fill, dev.nrows * 4, 0, F32, zeros_check),
         *ceiling_members(dev.vals, dev.cols, device),
     ]

@@ -93,7 +93,7 @@ def _library(a, trip, device) -> torch.Tensor:
     for slab in a.tiles:
         for _, c in slab:
             n = c.dev.nnz
-            col[at:at + n].copy_(c.dev.cols)
+            col[at:at + n].copy_(c.dev.source_cols())
             val[at:at + n].copy_(c.dev.vals)
             at += n
     return torch.sparse_csr_tensor(crow.to(device), col, val,

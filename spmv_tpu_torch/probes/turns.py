@@ -358,7 +358,8 @@ def _worker(out_dir: Path, specs: dict) -> dict:
         dev = DevCsr.from_plan(build_csr_plan(
             info.nrows, info.ncols, csr_ptr(r[order], info.nrows), c[order],
             np.asarray(v, np.float64)[order], dtype=np.float32), "cuda")
-        A = torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals, (dev.nrows, dev.ncols))
+        A = torch.sparse_csr_tensor(dev.ptr, dev.source_cols(), dev.vals,
+                                    (dev.nrows, dev.ncols))
         x = vector(info.ncols, np.float32)
         tiles, fixup = kernels["f32"]
         y12 = fixup(dev, *tiles(dev, x))
@@ -410,7 +411,7 @@ def _worker(out_dir: Path, specs: dict) -> dict:
                 vals = v if key == "f32" else _x2_vals(v)
                 dev = DevCsr.from_plan(build_csr_plan(info.nrows, info.ncols, ptr, c, vals,
                                                       dtype=np_dtype), "cuda")
-                A = torch.sparse_csr_tensor(dev.ptr, dev.cols, dev.vals,
+                A = torch.sparse_csr_tensor(dev.ptr, dev.source_cols(), dev.vals,
                                             (dev.nrows, dev.ncols))
                 if engine == "seg":
                     label, d, fns, nnz, tb = name, dev, kernels, dev.nnz, B.seg_tiles_bytes

@@ -48,6 +48,7 @@ def members(trip, device, matrix: str):
                                device=device).dev
     x = vector(info.ncols, F64, device)
     x32 = x.float()
+    xp = E.plan_x(dev, x)  # x in the plan's column order, for the stream probe
     flops = 2 * dev.nnz
 
     def fix(out):
@@ -67,9 +68,9 @@ def members(trip, device, matrix: str):
         Member("nogather", lambda: KP.ablate_nogather(dev),
                seg_tiles_bytes(dev, x_itemsize=0), flops, F64,
                spmv_check(trip, KP.xtilde(info.ncols, F64, device), fixup=fix, x2=True)),
-        Member("noseg", lambda: KP.ablate_noseg(dev.vals, dev.cols, x),
-               stream_bytes(dev.vals, dev.cols, x), flops, F64,
-               tile_sums_check(dev.vals, dev.cols, x)),
+        Member("noseg", lambda: KP.ablate_noseg(dev.vals, dev.cols, xp),
+               stream_bytes(dev.vals, dev.cols, xp), flops, F64,
+               tile_sums_check(dev.vals, dev.cols, xp)),
         Member("f32 noscat", lambda: E.segmented_spmv_partials(dev32, x32),
                seg_tiles_bytes(dev32), flops, F32, spmv_check(trip, x32, fixup=fix32)),
         *ceiling_members(dev.vals, dev.cols, device),

@@ -18,12 +18,13 @@ solve.power_...                                         capture or replay)
 solve.capture      the CUDA graph loop's capture        bodies
 solve.replay       each graph replay                    after_read
 solve.read         each host read of a solve's value
-spmv.wrapper       each engine wrapper call of a        launches
+spmv.wrapper       each engine wrapper call of a        launches, x_gathers
                    container's ``matvec``/``matmat``
 plan.from_coo      ``api.from_coo``                     nnz, bytes
 plan.host          ``build_csr_plan``,
                    ``build_panel_plan``
-plan.upload        ``DevCsr/DevPanel.from_plan``
+plan.upload        ``DevCsr/DevPanel.from_plan``        relabeled, top_share,
+                                                        near_share (CSR plans)
 =================  ===================================  ===========================
 
 Spans are recorded only while the recorder is armed: after ``enable()``

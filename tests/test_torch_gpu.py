@@ -626,6 +626,7 @@ def fixup_of_nan_carry(launcher, dev, x, fixup):
     y = torch.zeros((dev.nrows, *tail), dtype=x.dtype, device=x.device)
     carry = torch.full((2 * dev.ntiles, *tail), float("nan"), dtype=x.dtype,
                        device=x.device)
+    x = E.plan_x(dev, x)  # the wrapper's gather on a relabelled plan
     assert getattr(_build.library().lib, launcher)(
         dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
         dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), carry.data_ptr(),
@@ -700,6 +701,7 @@ def fused_mode(dev, x, vec):
     outside its wrapper, into a NaN-filled y: a row it leaves unwritten
     stays NaN."""
     y = torch.full((dev.nrows,), float("nan"), device=x.device)
+    x = E.plan_x(dev, x)  # the wrapper's gather on a relabelled plan
     assert _build.library().lib.csr_spmv_fused(
         dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
         dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), dev.fused_words.data_ptr(),
@@ -1428,3 +1430,138 @@ def test_run_bench_on_a_routed_matrix(cuda, monkeypatch, tmp_path, capsys):
     d = json.loads(out.read_text())
     assert d["timing"] == "graph" and d["card"] and d["ms_per_spmv"] > 0
     assert d["nnz"] == r.size
+
+
+# ---------------------------------------------------------------- relabelled plans
+
+
+def graph_plans(monkeypatch, device, make=CSRMatrix.from_coo):
+    """A Kronecker graph of 131,072 vertices (509,499 nonzeros), as the
+    container ``make`` builds it without the relabel (the rule kept from
+    firing), then with its columns relabelled by the rule as it is."""
+    from _torch_graphs import kronecker
+    from spmv_tpu_torch import device as D
+
+    n, r, c, v = kronecker(17, 2)
+    top = D.RELABEL_TOP_SHARE_MIN
+    monkeypatch.setattr(D, "RELABEL_TOP_SHARE_MIN", 2.0)
+    a0 = make(n, n, r, c, v, device=device)
+    monkeypatch.setattr(D, "RELABEL_TOP_SHARE_MIN", top)
+    a1 = make(n, n, r, c, v, device=device)
+    assert a0.dev.col_order is None and a1.dev.col_order is not None
+    return a0, a1
+
+
+def test_relabelled_k1_k2_k3_k8_are_the_plain_plans_bits(cuda, monkeypatch):
+    """On the Kronecker graph the rule relabels, K1 (y and every used carry
+    slot), K1 + K2, K3's tile mode, K8 + K9 at R = 2, 4, 8 and K1 into a
+    NaN-filled carry give the bits of the same plan without the relabel;
+    the wrapper gathers x once a call."""
+    a0, a1 = graph_plans(monkeypatch, cuda)
+    d0, d1 = a0.dev, a1.dev
+    assert not d1.fused and d1.stream_bytes == d0.stream_bytes
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(a0.ncols)
+                         .astype(np.float32)).cuda()
+    part0, part1 = E.segmented_spmv_partials(d0, x), E.segmented_spmv_partials(d1, x)
+    assert torch.equal(part0[0], part1[0])
+    assert torch.equal(used(d0, part0[1]), used(d1, part1[1]))
+    E.reset_launches()
+    want = a0.matvec(x)
+    assert torch.equal(a1.matvec(x), want) and E.GATHERS["x_gathers"] == 1
+    assert torch.equal(fixup_of_nan_carry("seg_spmv_tiles", d1, x, E.carry_fixup), want)
+    assert torch.equal(fused_mode(d1, x, 0), want)
+    assert not d1.fused_words.any()
+    for R in (2, 4, 8):
+        X = torch.from_numpy(np.random.default_rng(R).standard_normal(
+            (a0.ncols, R)).astype(np.float32)).cuda()
+        assert torch.equal(a1.matmat(X), a0.matmat(X)), R
+    torch.cuda.synchronize()
+
+
+def test_relabelled_k12_k13_are_the_plain_plans_bits(cuda, monkeypatch):
+    a0, a1 = graph_plans(monkeypatch, cuda, functools.partial(X2Matrix.from_coo, "csr"))
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(a0.ncols)).cuda()
+    assert torch.equal(a1.matvec(x), a0.matvec(x))
+    want = X2.segmented_spmv_x2(a0.dev, x)
+    assert torch.equal(fixup_of_nan_carry("seg_spmv_tiles_x2", a1.dev, x, X2.carry_fixup_x2),
+                       want)
+
+
+def test_relabelled_paths_in_a_cuda_graph_equal_the_eager_run(cuda, monkeypatch):
+    """The gather and K1 + K2 (K8 + K9) captured in a CUDA graph and
+    replayed give the eager run's bits."""
+    _, a1 = graph_plans(monkeypatch, cuda)
+    x = torch.rand(a1.ncols, device=cuda)
+    X = torch.stack([x, -x, 2 * x, x * x], dim=1)
+    for what, (path, xx) in {"matvec": (a1.matvec, x), "matmat": (a1.matmat, X)}.items():
+        eager = path(xx)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # a call before capture, as CUDA graphs ask
+            path(xx)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = path(xx)
+        for _ in range(3):
+            out.fill_(float("nan"))
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), what
+
+
+def test_solvers_on_a_relabelled_plan_keep_the_graph_eager_bits(cuda, monkeypatch):
+    """cg and power iteration on a relabelled plan: the graph loop gives the
+    eager loop's bits, and both give the plain plan's (the rule forced to
+    fire, or not, on the graph's shifted adjacency, whose diagonal moves
+    both readings past the rule's thresholds)."""
+    from _torch_graphs import kronecker, shifted
+    from spmv_tpu_torch import device as D
+    from spmv_tpu_torch import solve
+
+    n, r, c, v = shifted(*kronecker(17, 2))
+    b = np.random.default_rng(8).standard_normal(n).astype(np.float32)
+    runs = []
+    monkeypatch.setattr(D, "RELABEL_NEAR_SHARE_MAX", 2.0)
+    for on in (False, True):
+        monkeypatch.setattr(D, "RELABEL_TOP_SHARE_MIN", 0.0 if on else 2.0)
+        a = CSRMatrix.from_coo(n, n, r, c, v, device=cuda)
+        assert (a.dev.col_order is not None) == on
+        x0, k0, res0 = solve.cg(a, b, tol=1e-6, _graph=False)
+        for _ in range(2):  # eager, then the captured loop
+            x1, k1, res1 = solve.cg(a, b, tol=1e-6)
+            assert torch.equal(x0, x1) and k0 == k1 and res0 == res1
+        assert a._graph_loops["cg"].replays > 0
+        for iters in (1, 37, 37):  # eager, captured, reused
+            lam0, v0 = solve.power_iteration(a, iters=iters, seed=3, _graph=False)
+            lam1, v1 = solve.power_iteration(a, iters=iters, seed=3)
+            assert lam0 == lam1 and torch.equal(v0, v1)
+        runs.append((x1, k1, res1, lam1, v1))
+    (x0, k0, res0, lam0, v0), (x1, k1, res1, lam1, v1) = runs
+    assert torch.equal(x0, x1) and (k0, res0, lam0) == (k1, res1, lam1) and torch.equal(v0, v1)
+
+
+def test_the_rule_and_its_spans_on_the_card(cuda):
+    """The rule read on the card relabels the graph, and its spans count
+    it: ``plan.upload`` relabeled 1 with both readings, one gather a
+    wrapper call; an HPCG-like stencil plan is left alone, no gather."""
+    from _torch_graphs import kronecker, stencil27
+    from spmv_tpu_torch import trace
+
+    n, r, c, v = kronecker(17, 2)
+    trace.clear()
+    trace.enable()
+    try:
+        for (nn, rr, cc, vv), on in (((n, r, c, v), 1), (stencil27(40), 0)):
+            trace.clear()
+            a = CSRMatrix.from_coo(nn, nn, rr, cc, vv, device=cuda)
+            a.matvec(torch.ones(nn, device=cuda))
+            up = [s for s in trace.spans() if s.name == "plan.upload"]
+            w = [s for s in trace.spans() if s.name == "spmv.wrapper"]
+            assert [s.counts["relabeled"] for s in up] == [on]
+            top, near = a.dev.column_shares()
+            assert (up[0].counts["top_share"], up[0].counts["near_share"]) == (top, near)
+            assert [s.counts["x_gathers"] for s in w] == [on]
+    finally:
+        trace.disable()
+        trace.clear()

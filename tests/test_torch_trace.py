@@ -100,7 +100,8 @@ def test_cg_under_the_profiler():
     reads = [s for s in kids if s.name == "solve.read"]
     assert len(reads) == r.counts["host_reads"] + 2  # and int(k), float(res)
     wrappers = [s for s in kids if s.name == "spmv.wrapper"]
-    assert len(wrappers) == k + 1 and all(s.counts == {"launches": 0} for s in wrappers)
+    assert len(wrappers) == k + 1 and all(s.counts == {"launches": 0, "x_gathers": 0}
+                                          for s in wrappers)
     assert all(r.start_ns <= s.start_ns <= s.end_ns <= r.end_ns for s in kids)
 
 
@@ -154,13 +155,15 @@ def test_each_call_is_a_request_of_its_own():
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_one_wrapper_span_a_pass(fmt):
     """A container's matvec is one wrapper span a plan pass (sym's two
-    passes two), never one inside another; launches 0 on the CPU."""
+    passes two), never one inside another; launches 0 on the CPU, and no
+    x gather on a plan that is not relabelled."""
     a = matrix(fmt)
     trace.enable()
     a.matvec(np.ones(a.ncols))
     wrappers = named("spmv.wrapper")
     assert len(wrappers) == (2 if fmt == "sym" else 1)
-    assert all(s.parent is None and s.counts == {"launches": 0} for s in wrappers)
+    assert all(s.parent is None and s.counts == {"launches": 0, "x_gathers": 0}
+               for s in wrappers)
 
 
 def test_the_buffer_keeps_the_newest(monkeypatch):
