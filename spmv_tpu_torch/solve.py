@@ -44,6 +44,17 @@ iterations, SpMVs, replays, host reads and mode as counts. A solve
 decides once, at its start, whether it is traced; an untraced one takes
 the loops below unchanged.
 
+``cg`` also takes a block of right-hand sides, b of shape (n, R) with
+2 ≤ R ≤ ``kernels.engines.MULTI_RHS_MAX`` (the load cases of one operator,
+as PETSc's ``KSPMatSolve`` takes them): R independent CG recurrences, each
+column with its own α, β, stop and iteration count, that share one
+``matmat`` an iteration (K8 + K9 on a CSR plan). Each column's state is
+rewritten through ``torch.where`` on its own mask, so a stopped column
+keeps its bits while the others run, and the loop runs while any column
+is active: eagerly, the host reads that before each iteration; in the
+graph loop (kept under ``"cg_rhs"``, one per container, made afresh for
+another R) the captured chunk ends by writing it to the flag.
+
 The sharded containers (``dist.RowShardedSpmv``, ``dist.ColShardedSpmv``
 in float32) solve too, as JAX's solvers take them through
 ``_matvec_traced``: their ``matvec`` takes the whole x and returns the
@@ -70,6 +81,7 @@ import torch
 
 from spmv_tpu_torch import trace
 from spmv_tpu_torch.dist.sharded import ColShardedSpmv, RowShardedSpmv, Sharded
+from spmv_tpu_torch.kernels.engines import MULTI_RHS_MAX
 
 __all__ = ["cg", "bicgstab", "power_iteration", "GRAPH_CHUNK"]
 
@@ -116,20 +128,38 @@ def _operator(a):
     return a.matvec, device, device.type == "cuda"
 
 
-def _vector(v, n: int, device, what: str) -> torch.Tensor:
+def _float32(v, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
-        t = v.to(device=device, dtype=torch.float32)
-    else:
-        t = torch.from_numpy(np.asarray(v, dtype=np.float32)).to(device)
-    t = t.reshape(-1).contiguous()
+        return v.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.asarray(v, dtype=np.float32)).to(device)
+
+
+def _vector(v, n: int, device, what: str) -> torch.Tensor:
+    t = _float32(v, device).reshape(-1).contiguous()
     if t.numel() != n:
         raise ValueError(f"{what} has {t.numel()} entries, matrix is {n}")
     return t
 
 
+def _columns(v) -> int | None:
+    """R where ``v`` is a block of right-hand sides, of shape (n, R) with R
+    other than 1; None for a vector (an (n, 1) one is flattened)."""
+    shape = tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
+    return shape[1] if len(shape) == 2 and shape[1] != 1 else None
+
+
+def _block(v, n: int, R: int, device, what: str) -> torch.Tensor:
+    t = _float32(v, device)
+    if tuple(t.shape) != (n, R):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, the block is ({n}, {R})")
+    return t.contiguous()
+
+
 def _tol2(b: torch.Tensor, tol: float) -> torch.Tensor:
-    """``tol²·max(b·b, 1e-30)`` in float32, on the device."""
-    return float(np.float32(tol) ** 2) * torch.clamp(torch.dot(b, b), min=_EPS)
+    """``tol²·max(b·b, 1e-30)`` in float32, on the device; per column for
+    a block b."""
+    bb = torch.dot(b, b) if b.dim() == 1 else (b * b).sum(0)
+    return float(np.float32(tol) ** 2) * torch.clamp(bb, min=_EPS)
 
 
 class _Traced:
@@ -164,11 +194,13 @@ class _Traced:
         self.root.counts.update(mode=mode, replays=replays, host_reads=host_reads,
                                 spmvs=bodies * self.body_spmvs)
 
-    def finish(self, iterations: int, outside: int) -> None:
+    def finish(self, iterations: int, outside: int, **counts) -> None:
         """The solve's counts once it has run: ``outside``, its SpMVs
-        outside the loop (cg's r0, power iteration's Rayleigh quotient)."""
+        outside the loop (cg's r0, power iteration's Rayleigh quotient);
+        ``counts``, further counts of the solve's own."""
         self.root.counts["iterations"] = iterations
         self.root.counts["spmvs"] += outside
+        self.root.counts.update(counts)
 
 
 def _host(tr: _Traced | None, cast, v: torch.Tensor):
@@ -182,7 +214,8 @@ def _solve(name: str, body_spmvs: int):
 
 
 def _run(a, solver: str, step, active, state: tuple, consts: tuple,
-         graph: bool, count: int | None = None, tr: _Traced | None = None) -> tuple:
+         graph: bool, count: int | None = None, tr: _Traced | None = None,
+         going=None) -> tuple:
     """Iterate ``state = step(*state, *consts)`` while ``active(*state,
     *consts)``, or ``count`` times for a loop of a fixed count; returns the
     final state. Eagerly (the host reads ``active`` before each iteration),
@@ -192,14 +225,22 @@ def _run(a, solver: str, step, active, state: tuple, consts: tuple,
     later one loads its own state and constants into the loop's tensors
     and replays it. A one-shot solve so never pays a capture, which costs
     more than the eager loop it would replace. ``tr``, a traced solve,
-    gets the loop's spans and counts."""
+    gets the loop's spans and counts.
+
+    ``going``, for a loop over columns: ``active`` gives each column's
+    mask, every iteration rewrites the state where its column is active
+    (as ``_masked`` does), and the loop runs while ``going(*state,
+    *consts)``, any column active. Its graph loop serves one state shape:
+    a solve of another shape takes the seen-once rule afresh."""
     loops = a.__dict__.setdefault("_graph_loops", {}) if graph else {}
+    if going is not None and _shape(loops.get(solver, state[0].shape)) != state[0].shape:
+        del loops[solver]  # made for another shape
     if count != 0 and solver in loops:
         loop, mode = loops[solver], "replay"
-        if loop is None:
+        if not isinstance(loop, _GraphLoop):
             capture = trace.span("solve.capture", bodies=GRAPH_CHUNK) if tr else None
             with capture or contextlib.nullcontext():
-                loop = loops[solver] = _GraphLoop(step, active, state, consts)
+                loop = loops[solver] = _GraphLoop(step, active, state, consts, going)
             mode = "capture"
         else:
             loop.load(state, consts)
@@ -207,16 +248,21 @@ def _run(a, solver: str, step, active, state: tuple, consts: tuple,
         if tr is not None:
             tr.loop(mode, loop.replays, loop.host_reads, loop.replays * loop.chunk)
         return state
-    if graph:
-        loops[solver] = None  # seen once: the next such solve captures
+    if graph:  # seen once: the next such solve captures
+        loops[solver] = None if going is None else state[0].shape
     if count is not None:
         for _ in range(count):
             state = step(*state, *consts)
         steps, reads = count, 0
     else:
         steps = 0
-        while _host(tr, bool, active(*state, *consts)):
-            state = step(*state, *consts)
+        while _host(tr, bool, (going or active)(*state, *consts)):
+            if going is None:
+                state = step(*state, *consts)
+            else:
+                on = active(*state, *consts)
+                state = tuple(torch.where(on, new, s)
+                              for s, new in zip(state, step(*state, *consts)))
             steps += 1
         reads = steps + 1
     if tr is not None:
@@ -236,11 +282,13 @@ def _masked(step, active, state: tuple, consts: tuple) -> None:
 class _GraphLoop:
     """``GRAPH_CHUNK`` masked copies of a loop body over static state and
     constant tensors, captured as one CUDA graph whose replay ends by
-    writing the loop's condition to ``flag``. ``replays`` and
-    ``host_reads`` say what its last run did."""
+    writing the loop's condition to ``flag`` (``going`` where given, for
+    a loop over columns whose ``active`` is a mask per column). ``replays``
+    and ``host_reads`` say what its last run did."""
 
-    def __init__(self, step, active, state: tuple, consts: tuple):
+    def __init__(self, step, active, state: tuple, consts: tuple, going=None):
         self.step, self.active, self.chunk = step, active, GRAPH_CHUNK
+        self.going = going or active
         self.state = tuple(t.clone() for t in state)
         self.consts = tuple(t.clone() for t in consts)
         self.replays = self.host_reads = 0
@@ -253,7 +301,7 @@ class _GraphLoop:
     def _chunk(self) -> torch.Tensor:
         for _ in range(self.chunk):
             _masked(self.step, self.active, self.state, self.consts)
-        return self.active(*self.state, *self.consts)
+        return self.going(*self.state, *self.consts)
 
     def _capture(self) -> None:
         dev = self.state[0].device
@@ -291,7 +339,7 @@ class _GraphLoop:
             launch, read = functools.partial(tr.replay, launch), functools.partial(tr.host, read)
         if count is None:
             self.replays, self.host_reads = 0, 1
-            going = read(self.active(*self.state, *self.consts))
+            going = read(self.going(*self.state, *self.consts))
             while going:
                 launch()
                 self.replays += 1
@@ -302,6 +350,12 @@ class _GraphLoop:
             for _ in range(self.replays):
                 launch()
         return self.state
+
+
+def _shape(held):
+    """The state shape a ``_graph_loops`` entry serves: a loop's, or the
+    shape a seen-once mark names."""
+    return held.state[0].shape if isinstance(held, _GraphLoop) else held
 
 
 def _uses_graph(graphable: bool, graph: bool) -> bool:
@@ -318,9 +372,17 @@ def cg(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
        _graph: bool = True):
     """Conjugate gradients for SPD ``A``: returns (x, iterations, residual),
     x a float32 tensor on the container's device. fp32 state (use a
-    smallish ``tol`` accordingly)."""
+    smallish ``tol`` accordingly).
+
+    For b of shape (n, R), 2 ≤ R ≤ ``MULTI_RHS_MAX``, on an engine
+    container: R recurrences, one per column, through one ``matmat`` an
+    iteration; returns (X, ks, residuals), X of shape (n, R), ks and
+    residuals lists of R ints and floats. ``x0`` is then (n, R) too."""
     if a.nrows != a.ncols:
         raise ValueError("cg requires a square matrix")
+    R = _columns(b)
+    if R is not None:
+        return _cg_block(a, b, R, tol, maxiter, x0, _graph)
     mv, device, graphable = _operator(a)
     with _solve("solve.cg", 1) as tr:
         b = _vector(b, a.nrows, device, "b")
@@ -346,8 +408,52 @@ def cg(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
                               _uses_graph(graphable, _graph), tr=tr)
         k, res = _host(tr, int, k), _host(tr, float, torch.sqrt(rs))
         if tr is not None:
-            tr.finish(k, outside=1)  # r0
+            tr.finish(k, outside=1, rhs=1)  # r0
     return x.clone(), k, res
+
+
+def _cg_block(a, b, R: int, tol: float, maxiter: int, x0, graph: bool):
+    """``cg`` on a block of right-hand sides, b of shape (n, R)."""
+    _, device, graphable = _operator(a)
+    if isinstance(a, Sharded) or not hasattr(a, "matmat"):
+        raise TypeError(
+            f"cg on a block of right-hand sides needs an engine container with "
+            f"matmat (csr/coo/cmrs/ell/sell/hyb/sym); {type(a).__name__} solves "
+            f"one vector at a time")
+    if not 2 <= R <= MULTI_RHS_MAX:
+        raise ValueError(f"cg takes a block of 2 to MULTI_RHS_MAX = {MULTI_RHS_MAX} "
+                         f"right-hand sides, got {R}")
+    mm = a.matmat
+    with _solve("solve.cg", 1) as tr:
+        B = _block(b, a.nrows, R, device, "b")
+        X0 = torch.zeros_like(B) if x0 is None else _block(x0, a.nrows, R, device, "x0")
+        R0 = B - mm(X0)
+
+        def active(x, r, p, rs, k, tol2, kmax):  # a mask per column
+            return (rs > tol2) & (k < kmax)
+
+        def going(*state):
+            return active(*state).any()
+
+        def step(x, r, p, rs, k, tol2, kmax):
+            ap = mm(p)
+            alpha = rs / (p * ap).sum(0)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rs_new = (r * r).sum(0)
+            p = r + (rs_new / rs) * p
+            return x, r, p, rs_new, k + 1
+
+        state = (X0, R0, R0, (R0 * R0).sum(0),
+                 torch.zeros(R, dtype=torch.int32, device=device))
+        x, _, _, rs, k = _run(a, "cg_rhs", step, active, state,
+                              (_tol2(B, tol), _count(maxiter, device)),
+                              _uses_graph(graphable, graph), tr=tr, going=going)
+        ks = _host(tr, torch.Tensor.tolist, k)
+        res = _host(tr, torch.Tensor.tolist, torch.sqrt(rs))
+        if tr is not None:  # the loop ran to the slowest column; r0
+            tr.finish(max(ks), outside=1, rhs=R, column_iterations=sum(ks))
+    return x.clone(), ks, res
 
 
 def bicgstab(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
@@ -357,6 +463,9 @@ def bicgstab(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
     smoothing step)."""
     if a.nrows != a.ncols:
         raise ValueError("bicgstab requires a square matrix")
+    if _columns(b) is not None:
+        raise ValueError(f"bicgstab solves one right-hand side; b has shape "
+                         f"{tuple(np.shape(b))} (cg takes a block)")
     mv, device, graphable = _operator(a)
     with _solve("solve.bicgstab", 2) as tr:
         b = _vector(b, a.nrows, device, "b")

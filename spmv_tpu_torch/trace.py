@@ -14,7 +14,9 @@ span               where                                counts
 =================  ===================================  ===========================
 solve.cg,          ``solve.cg``, ``bicgstab``,          iterations, spmvs, replays,
 solve.bicgstab,    ``power_iteration``                  host_reads, mode (eager,
-solve.power_...                                         capture or replay)
+solve.power_...                                         capture or replay); cg:
+                                                        rhs, and on a block
+                                                        column_iterations
 solve.capture      the CUDA graph loop's capture        bodies
 solve.replay       each graph replay                    after_read
 solve.read         each host read of a solve's value
