@@ -181,14 +181,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    recomputed on the host, a container's first solve the eager loop (by
    rule) and its second the CUDA graph loop's capture, each the eager
    loop's iteration count and x bit for bit, two graph runs that reuse the
-   loop the same bits; ms per iteration eager and graph, the graph's device µs per iteration beside its
-   matvecs' (the counters count a graph at capture, not at replay: the
-   printout derives the replays' launches from an eager iteration's);
+   loop the same bits; ms per iteration eager and graph, the graph's
+   device µs per iteration on a live state (each timed replay starts from
+   the solve's start state) beside its matvecs' (the counters count a
+   graph at capture, not at replay: the printout derives the replays'
+   launches from an eager iteration's); the cg solves must launch each of
+   cg's body kernels (``kernels.cg_body``);
    ``power_iteration`` (100 iterations, sym) within 1e-4 of an fp64 host
    power iteration from the same v0; the sweep of body copies per graph
    (``SOLVE_CHUNKS``) behind ``solve.GRAPH_CHUNK``; and ``solve --format
    csr --solver cg`` through the CLI on the SPD proxy written as a
-   symmetric .mtx, twice through one ``--cache-dir``.
+   symmetric .mtx, twice through one ``--cache-dir``. Then cg's body
+   kernels alone (``check_cg_body``, ``cg_body.LAUNCHES`` from zero) at
+   hpcg-104's n = 1,124,864, R = 1 and 4, against the plain arithmetic,
+   with a frozen column and one that stops midway, and their times beside
+   the plain version's and their bounds.
 8. ``bench`` through ``cli.main``, each run with the counters from zero:
    on cant written with ``write_coo`` (read back by the C++ parser, bit
    for bit the numpy parser's and the synthesized triplets, with both
@@ -213,8 +220,12 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    it; Row x2 csr and sell and Col x2 csr by ``x2_check`` and bit for bit
    the single ``X2Matrix``; ``spmm`` R = 4 (Row csr, sell; Col csr; Ring
    csr, hyb) and Row BSR R = 32 bit for bit the single containers'; cg on
-   Row and Col csr over phase 7's SPD proxy, the single csr's k and x bits
-   (its eager and its graph loop; the sharded ones never capture). Each
+   Row and Col csr over phase 7's SPD proxy (eager: the sharded containers
+   never capture), k and x bit for bit ``solve.cg``'s loop over the single
+   csr's ``matvec`` with the same body, cg's plain body
+   (``cg_body.Body(..., kernels=False)``: the single csr on the card runs
+   the body's kernels, whose dots sum in another order), and the single
+   csr's graph cg its eager bits. Each
    sharded call runs in a window of the counters of its own, its single
    container's reference call in another: each form must launch every
    kernel its single container launches for the same call, only the
@@ -315,6 +326,11 @@ KERNELS = {
     # B12a's nowin cut on the panel tile kernel (K4, K14)
     "panel_ablate_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
     "panel_ablate_x2_nogather": ("probe_spmv.cu", "scripts/probe_ablate.py:152"),
+    # cg's body after its SpMV (phase 7): the JAX body is jnp outside every
+    # pallas_call, so these replace no Pallas kernel
+    "cg_body_pap": ("cg_body.cu", "no Pallas kernel: spmv_tpu/solve.py:92 (jnp.vdot)"),
+    "cg_body_xr": ("cg_body.cu", "no Pallas kernel: spmv_tpu/solve.py:93-95"),
+    "cg_body_p": ("cg_body.cu", "no Pallas kernel: spmv_tpu/solve.py:96"),
 }
 # K7 also replaces the panel path's use of the scatter kernels (its identity
 # mode, the fix-up of ELL, HYB and unsorted SELL panels)
@@ -324,6 +340,11 @@ K7_ALSO = ("spmv_tpu/kernels/engines.py:171 and :537 as the panel path's epilogu
 ABLATE_ALSO = ("scripts/probe_ablate.py:152, scripts/probe_ablate2.py:175, "
                "scripts/probe_ablate3.py:211 and :218")
 PROBE_KERNELS = tuple(k for k, (src, _) in KERNELS.items() if src == "probe_spmv.cu")
+# cg's body kernels, counted in ``cg_body.LAUNCHES``; the rest in
+# ``engines.LAUNCHES``
+CG_BODY = ("cg_body_pap", "cg_body_xr", "cg_body_p")
+ENGINE_KERNELS = tuple(k for k in KERNELS if k not in CG_BODY)
+CG_BODY_N = 1_124_864  # HPCG's 104³ grid, the rows of both cg cells
 # kernels that no single PyTorch call computes alone: the fix-ups, and the
 # stage cuts that reduce per tile
 NO_LIBRARY = {
@@ -333,6 +354,8 @@ NO_LIBRARY = {
     **dict.fromkeys(("seg_ablate_noseg", "seg_ablate_dma", "seg_ablate_x2_noseg",
                      "seg_ablate_x2_dma"),
                     "none: no single call sums a stream per 1024-nonzero tile"),
+    **dict.fromkeys(CG_BODY, "none: the plain version is the library's calls (torch.dot "
+                             "or column sums, elementwise ops, torch.where)"),
     "inverse_permute": "none for K7 with the partials (the sorted path's mode, and "
                        "the identity mode of the unsorted panels): no single call sums "
                        "the split slices; the gather-only mode's yardstick, "
@@ -2057,37 +2080,51 @@ def launched() -> dict:
 
 def recording_loops():
     """A ``solve._GraphLoop`` that keeps each loop it makes (the list
-    ``made``) and its capture's host seconds (``capture_s``), so the graph
-    can be replayed alone after the solve."""
+    ``made``), its capture's host seconds (``capture_s``) and the start
+    state and constants of its last solve (``start``), so the graph can be
+    replayed alone after the solve, from a live state."""
     from spmv_tpu_torch import solve
 
     class Recorded(solve._GraphLoop):
         made: list = []
 
         def _capture(self):
+            self.start = (tuple(t.clone() for t in self.state),
+                          tuple(t.clone() for t in self.consts))
             t0 = time.perf_counter()
             super()._capture()
             torch.cuda.synchronize()
             self.capture_s = time.perf_counter() - t0
             Recorded.made.append(self)
 
+        def load(self, state, consts):
+            self.start = (tuple(t.clone() for t in state),
+                          tuple(t.clone() for t in consts))
+            super().load(state, consts)
+
     return Recorded
 
 
 def loop_device_us(loop, replays: int = 5) -> float:
-    """µs per iteration of a captured loop on the device: CUDA events
-    around ``replays`` back-to-back replays (no host read between them),
-    over ``replays × chunk`` iterations. The state is frozen by then, and
-    each masked body does its full work all the same."""
-    loop.replay()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(replays):
+    """µs per iteration of a captured loop on the device, on a live state:
+    before each of ``replays`` replays the loop's tensors are loaded with
+    its last solve's start state (``recording_loops``' ``start``), and
+    CUDA events around each replay alone (no host read, the copies outside
+    them) time its first ``chunk`` iterations; their sum over ``replays ×
+    chunk`` (bodies past the solve's last iteration, where a chunk holds
+    more, run frozen). A frozen state would read less for cg, whose body
+    (``kernels.cg_body``) writes nothing once its columns have stopped."""
+    events = []
+    for _ in range(replays + 1):  # the first one a warm-up
+        loop.load(*loop.start)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         loop.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) * 1e3 / (replays * loop.chunk)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events[1:]) * 1e3 / (replays * loop.chunk)
 
 
 def check_solver(label: str, fn, a, trip, b: np.ndarray, card: str,
@@ -2156,8 +2193,8 @@ def check_solver(label: str, fn, a, trip, b: np.ndarray, card: str,
           f"{reused_s * 1e3 / k_g:.4f} when it reuses it; whole solve eager "
           f"{eager_s * 1e3:.2f} ms (first {first_s * 1e3:.2f}), graph "
           f"{capture_run_s * 1e3:.2f} and {reused_s * 1e3:.2f} ms  [{card}]")
-    print(f"    device µs per iteration (back-to-back replays of the captured "
-          f"graph): {dev_us:.2f}, against {mvs} × matvec {mv_us:.2f} = "
+    print(f"    device µs per iteration (replays of the captured graph, each "
+          f"from the solve's start state): {dev_us:.2f}, against {mvs} × matvec {mv_us:.2f} = "
           f"{mvs * mv_us:.2f} µs of SpMV; {loop.replays} replays, "
           f"{loop.host_reads} host reads per solve  [{card}]")
     print(f"    launches: eager run {eager_launches} (the first matvec and "
@@ -2215,6 +2252,181 @@ def chunk_sweep(label: str, a, b: np.ndarray, card: str, chunks, tol: float = 1e
     finally:
         solve.GRAPH_CHUNK = kept
     a.__dict__.pop("_graph_loops", None)
+    return out
+
+
+def check_cg_body(card: str) -> dict:
+    """Phase 7, cg's body kernels (``kernels.cg_body``) alone at hpcg-104's
+    n = 1,124,864 on a diagonal SPD operator (ap = d·p, d in [1, 27]), with
+    ``cg_body.LAUNCHES`` from zero. Eight bodies each at R = 1 (a running
+    vector, one that stops midway on its iteration bound, one frozen by
+    its tolerance) and at R = 4 (columns frozen, stopping midway on the
+    bound, stopping on a loose tolerance, running), each body held to the
+    plain arithmetic: the entry mask ``rs > tol2 & k < kmax``; x, r and p
+    its bits for the kernels' alpha and beta; beta = rs_new / rs exactly;
+    alpha and rs within 1e-5 relative of ``torch.dot`` and the column sums
+    (only the reduction order differs); k + 1 where on; a frozen column's
+    bits kept; a second run of the same body the same bits. Then each
+    kernel's time at R = 1 and 4 on a live state (every column on), beside
+    its plain PyTorch piece, and the whole body beside ``body_reference``:
+    call ms per call and device ms by CUDA-graph replay, each from the
+    same start state; the bytes and operations of each kernel's bound.
+    Returns the times by R, the launches and the largest relative errors
+    of alpha (pap) and rs (xr)."""
+    from spmv_tpu_torch.kernels import cg_body
+    from spmv_tpu_torch.kernels.engines import _launch
+    from spmv_tpu_torch.probes.timing import graph_ms
+
+    n, dev = CG_BODY_N, torch.device("cuda", torch.cuda.current_device())
+    for key in cg_body.LAUNCHES:
+        cg_body.LAUNCHES[key] = 0
+    gen = torch.Generator(dev).manual_seed(91)
+    d = 1 + 26 * torch.rand(n, 1, generator=gen, device=dev)
+    kmax = torch.tensor(1000, dtype=torch.int64, device=dev)
+    errs = dict.fromkeys(CG_BODY, 0.0)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def start(R, tol_share, k0):
+        """x0 = 0, r = p = b; tol2 = tol_share · rs0 and k = k0 per column."""
+        b = torch.randn((n,) if R == 1 else (n, R), generator=gen, device=dev)
+        rs = torch.dot(b, b) if R == 1 else (b * b).sum(0)
+        tol2 = torch.tensor(tol_share, device=dev).view(rs.shape) * rs
+        k = torch.tensor(k0, dtype=torch.int32, device=dev).view(rs.shape)
+        return (torch.zeros_like(b), b.clone(), b.clone(), rs, k), tol2
+
+    def spmv(p):
+        return (d * p.view(n, -1)).view(p.shape)
+
+    near = int(kmax) - 3  # stops after three bodies
+    cases = {"R=1 running": (1, [0.0], [0]), "R=1 stopping": (1, [0.0], [near]),
+             "R=1 frozen": (1, [2.0], [0]),
+             "R=4": (4, [2.0, 0.0, 0.25, 0.0], [0, near, 0, 0])}
+    for label, (R, share, k0) in cases.items():
+        state, tol2 = start(R, share, k0)
+        body = cg_body.Body(state[0].shape, dev)
+        dot = torch.dot if R == 1 else (lambda u, v: (u * v).sum(0))
+        for it in range(8):
+            x, r, p, rs, k = (t.clone() for t in state)
+            ap = spmv(p)
+            body(*state[:3], ap, *state[3:], tol2, kmax)
+            on = (rs > tol2) & (k < kmax)
+            if not torch.equal(body.mask.view(on.shape).bool(), on):
+                raise SystemExit(f"cg body {label}, body {it}: mask {body.mask} is not "
+                                 f"the entry state's {on}")
+            alpha, beta = body.alpha.view(rs.shape), body.beta.view(rs.shape)
+            rw = torch.where(on, r - alpha * ap, r)
+            want = (torch.where(on, x + alpha * p, x), rw,
+                    torch.where(on, rw + beta * p, p))
+            for name, got, w in zip("xrp", state[:3], want):
+                if not torch.equal(bits(got), bits(w)):
+                    raise SystemExit(f"cg body {label}, body {it}: {name} is not the plain "
+                                     f"arithmetic's bits for the kernels' alpha and beta")
+            live = on.view(-1)
+            if bool(live.any()):
+                a_plain = (rs / dot(p, ap)).view(-1)[live]
+                rs_plain = dot(rw, rw).view(-1)[live]
+                rel_a = float(((alpha.view(-1)[live] - a_plain) / a_plain).abs().max())
+                rel_rs = float(((state[3].view(-1)[live] - rs_plain) / rs_plain).abs().max())
+                if not (rel_a < 1e-5 and rel_rs < 1e-5):
+                    raise SystemExit(f"cg body {label}, body {it}: alpha {rel_a:.2e}, rs "
+                                     f"{rel_rs:.2e} relative to the plain dots (over 1e-5)")
+                errs["cg_body_pap"] = max(errs["cg_body_pap"], rel_a)
+                errs["cg_body_xr"] = max(errs["cg_body_xr"], rel_rs)
+            if not (torch.equal(bits(torch.where(on, state[3] / rs, beta)), bits(beta))
+                    and torch.equal(bits(torch.where(on, state[3], rs)), bits(state[3]))
+                    and torch.equal(state[4], k + on.int())):
+                raise SystemExit(f"cg body {label}, body {it}: beta, rs or k is not the "
+                                 f"recurrence's where on, or a frozen column moved")
+            again = tuple(t.clone() for t in (x, r, p, rs, k))
+            cg_body.Body(x.shape, dev)(*again[:3], ap, *again[3:], tol2, kmax)
+            if not all(torch.equal(bits(g), bits(w)) for g, w in zip(again, state)):
+                raise SystemExit(f"cg body {label}, body {it}: a second run differs")
+        ks = state[4].view(-1).tolist()
+        want_k = {"R=1 running": [8], "R=1 stopping": [near + 3], "R=1 frozen": [0]}
+        if (ks != want_k[label] if R == 1 else
+                not (ks[0] == 0 and ks[1] == near + 3 and 0 < ks[2] <= 8 and ks[3] == 8)):
+            raise SystemExit(f"cg body {label}: iteration counts {ks}")
+        print(f"  cg body {label} at n = {n}: 8 bodies the plain arithmetic's bits for "
+              f"the kernels' alpha and beta, the mask the entry state's, a second run "
+              f"the same bits; k {ks}")
+    checked = dict(cg_body.LAUNCHES)
+
+    out = {}
+    for R in (1, 4):
+        start_state, _ = start(R, [0.0] * R, [0] * R)
+        tol2 = torch.zeros(start_state[3].shape, device=dev)
+        kmax_t = torch.tensor(2**31 - 1, dtype=torch.int64, device=dev)
+        x, r, p, rs, k = (t.clone() for t in start_state)
+        ap = spmv(p)
+        body = cg_body.Body(x.shape, dev)
+        dot = torch.dot if R == 1 else (lambda u, v: (u * v).sum(0))
+        plain = {}
+
+        def reload():
+            for t, t0 in zip((x, r, p, rs, k), start_state):
+                t.copy_(t0)
+            body(x, r, p, ap, rs, k, tol2, kmax_t)  # the scratch: mask, alpha, beta
+            for t, t0 in zip((x, r, p, rs, k), start_state):
+                t.copy_(t0)
+            plain["on"] = (rs > tol2) & (k < kmax_t)
+            plain["alpha"], plain["beta"] = body.alpha.view(rs.shape), body.beta.view(rs.shape)
+
+        def pap_plain():
+            plain["on"] = (rs > tol2) & (k < kmax_t)
+            plain["alpha"] = rs / dot(p, ap)
+
+        def xr_plain():
+            on, alpha = plain["on"], plain["alpha"]
+            r_new = r - alpha * ap
+            torch.where(on, x + alpha * p, x, out=x)
+            rs_new = dot(r_new, r_new)
+            plain["beta"] = rs_new / rs
+            torch.where(on, r_new, r, out=r)
+            torch.where(on, rs_new, rs, out=rs)
+            torch.where(on, k + 1, k, out=k)
+
+        def p_plain():
+            torch.where(plain["on"], r + plain["beta"] * p, p, out=p)
+
+        B = cg_body.BLOCKS
+        fns = {  # as cg_body.Body launches them
+            "cg_body_pap": (lambda: _launch(
+                "cg_body_pap", x, p, ap, rs, k, tol2, kmax_t, body.partials, body.ticket,
+                body.mask, body.alpha, n, R, B, counts=cg_body.LAUNCHES), pap_plain),
+            "cg_body_xr": (lambda: _launch(
+                "cg_body_xr", x, x, r, p, ap, rs, k, body.mask, body.alpha, body.beta,
+                body.partials, body.ticket, n, R, B, counts=cg_body.LAUNCHES), xr_plain),
+            "cg_body_p": (lambda: _launch(
+                "cg_body_p", x, r, p, body.mask, body.beta, n, R, B,
+                counts=cg_body.LAUNCHES), p_plain),
+            "body": (lambda: body(x, r, p, ap, rs, k, tol2, kmax_t),
+                     lambda: cg_body.body_reference(x, r, p, ap, rs, k, tol2, kmax_t))}
+        f = n * R * 4
+        t = {"bytes": {"cg_body_pap": 2 * f, "cg_body_xr": 6 * f, "cg_body_p": 3 * f,
+                       "body": 11 * f},
+             "flops": {"cg_body_pap": 2 * n * R, "cg_body_xr": 6 * n * R,
+                       "cg_body_p": 2 * n * R, "body": 10 * n * R}}
+        for key, (fn, fn_plain) in fns.items():
+            reload()
+            call = time_ms(fn)
+            reload()
+            dms = graph_device_ms(key, fn) if key in KERNELS else graph_ms(fn)
+            reload()
+            plain_call = time_ms(fn_plain)
+            reload()
+            t[key], t[f"{key}_plain"] = (call, dms), (plain_call, graph_ms(fn_plain))
+            bound = bound_fields(key, t)
+            print(f"    cg body R={R} {key:12s} call {call:.4f} ms | device {dms * 1e3:.2f} "
+                  f"µs against its bound {bound['bound_ms'] * 1e3:.2f} µs "
+                  f"({t['bytes'][key]} B); plain call {plain_call:.4f} ms | device "
+                  f"{t[f'{key}_plain'][1] * 1e3:.2f} µs  [{card}]")
+        out[f"R={R}"] = t
+    out["launches"] = {key: cg_body.LAUNCHES[key] for key in CG_BODY}
+    print(f"  cg body launches: {checked} in the checks, {out['launches']} with the "
+          f"timing (a graph's calls count once, at capture)")
+    out["errs"] = errs
     return out
 
 
@@ -2743,19 +2955,30 @@ def phase_dist(cant, card: str) -> dict:
           "the fp64 oracle per column, two calls bitwise equal, the single "
           "container's bits")
 
-    # cg on the SPD proxy of phase 7: sharded (eager, by design) against the
-    # single container's eager loop and its graph loop
+    # cg on the SPD proxy of phase 7: sharded (eager, by design) against
+    # solve.cg's loop over the single container's matvec with the body the
+    # sharded containers run (cg_body's plain version; the single container
+    # on the card runs the body's kernels, and its graph loop must give its
+    # eager loop's bits)
     keep = rows >= cols
     tri = (rows[keep], cols[keep], vals[keep])
     stri = (tri[0], tri[1], spd_shift(*tri, n, triangle=True))
     strip = (dataclasses.replace(info, nnz=0), *expand(*stri))
     s_csr = build("csr", strip)
     b = np.random.default_rng(73).standard_normal(n).astype(np.float32)
-    want, kernels = window(lambda: solve.cg(s_csr, b, _graph=False))
+    eager, kernels = window(lambda: solve.cg(s_csr, b, _graph=False))
     graphs = [solve.cg(s_csr, b) for _ in range(2)]  # the eager first, then the graph
     for x_, k_, res_ in graphs:
-        if not (k_ == want[1] and res_ == want[2] and torch.equal(x_, want[0])):
+        if not (k_ == eager[1] and res_ == eager[2] and torch.equal(x_, eager[0])):
             raise SystemExit("phase 9: the single csr's graph cg is not its eager bits")
+    bt = torch.from_numpy(b).to(s_csr.dev.device)
+    r0 = bt - s_csr.matvec(torch.zeros_like(bt))
+    x_p, _, _, rs_p, k_p = solve._cg_loop(  # cg's vector path with the plain body
+        s_csr, "cg", s_csr.matvec,
+        (torch.zeros_like(bt), r0, r0, torch.dot(r0, r0),
+         torch.zeros((), dtype=torch.int32, device=bt.device)),
+        (solve._tol2(bt, 1e-5), solve._count(1000, bt.device)), False, False, None)
+    want = (x_p, int(k_p), float(torch.sqrt(rs_p)))
     for cls in (RowShardedSpmv, ColShardedSpmv):
         sh = cls("csr", n, n, *strip[1:], mesh)
         label = f"cg on {cls.__name__}"
@@ -2765,14 +2988,16 @@ def phase_dist(cant, card: str) -> dict:
         ran.update(got)
         own[label] = got
         if not (k_s == want[1] and res_s == want[2] and torch.equal(x_s, want[0])):
-            raise SystemExit(f"phase 9: {label} ({k_s} iterations) is not "
-                             f"the single csr's bits ({want[1]} iterations)")
+            raise SystemExit(f"phase 9: {label} ({k_s} iterations) is not the single "
+                             f"csr's bits with the plain body ({want[1]} iterations)")
         if hasattr(sh, "_graph_loops"):
             raise SystemExit(f"phase 9: {label} captured a graph")
     rel = fp64_residual(strip, want[0], b)
     print(f"  cg on row and col csr (SPD proxy): {want[1]} iterations, fp64 relative "
-          f"residual {rel:.3e}, the single csr's k and x bits (its eager loop and its "
-          f"graph loop); no graph captured on a sharded container")
+          f"residual {rel:.3e}, k and x bit for bit cg over the single csr with the "
+          f"same plain body; no graph captured on a sharded container; the single "
+          f"csr's cg on the body's kernels {eager[1]} iterations, graph = eager bits, "
+          f"fp64 relative residual {fp64_residual(strip, eager[0], b):.3e}")
     missing = [k for k in DIST_LAUNCHES if ran[k] < 1]
     if missing:
         raise SystemExit(f"phase 9's sharded calls did not launch {missing}: {dict(ran)}")
@@ -3189,7 +3414,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import spmv_tpu_torch
     from spmv_tpu_torch import cli, synth
-    from spmv_tpu_torch.kernels import _build
+    from spmv_tpu_torch.kernels import _build, cg_body
     from spmv_tpu_torch.kernels import engines as E
     from spmv_tpu_torch.kernels import probes as KP
     from spmv_tpu_torch.kernels import panel as P
@@ -3403,7 +3628,7 @@ def main() -> int:
         before = dict(E.LAUNCHES)
         if cli.main(["run", "--format", fmt, *cant_args]) != 0:
             raise SystemExit(f"run --format {fmt} on cant failed")
-        panel_runs[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+        panel_runs[fmt] = {k: E.LAUNCHES[k] - before[k] for k in ENGINE_KERNELS}
     for fmt in ("sell", "hyb"):
         if cli.run_spmv(fmt, *pl_big, device="cuda") != 0:
             raise SystemExit(f"run --format {fmt} on pl_big failed")
@@ -3413,7 +3638,7 @@ def main() -> int:
         before = dict(E.LAUNCHES)
         y = build(fmt, pl, split=False).matvec(xh)
         check_oracle(f"pl-32768 {fmt}_pure", pl, y, xh)
-        pure_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+        pure_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in ENGINE_KERNELS}
         print(f"{fmt}_pure on pl-32768: result is ok; launches "
               f"{ {k: n for k, n in pure_launches[fmt].items() if n} }")
     if cli.run_spmv("sell", *entry, x_mode="random", seed=1, device="cuda") != 0:
@@ -3424,7 +3649,7 @@ def main() -> int:
     x16 = np.random.default_rng(8).standard_normal(16384).astype(np.float32)
     pl16 = build("sell", pl_n[16384], split=False)
     check_oracle("pl-16384 sell_pure", pl_n[16384], pl16.matvec(x16), x16)
-    pure_launches["sell pl-16384"] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+    pure_launches["sell pl-16384"] = {k: E.LAUNCHES[k] - before[k] for k in ENGINE_KERNELS}
     print(f"sell_pure on pl-16384 (panel {pl16.dev.stream_bytes} B, K6 mode "
           f"{P.fused_mode(pl16.dev)}): result is ok; launches "
           f"{ {k: n for k, n in pure_launches['sell pl-16384'].items() if n} }")
@@ -3437,14 +3662,14 @@ def main() -> int:
         before = dict(E.LAUNCHES)
         if cli.main(["run", "--format", fmt, "--rhs", "4", *cant_args]) != 0:
             raise SystemExit(f"run --format {fmt} --rhs 4 on cant failed")
-        rhs_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+        rhs_launches[fmt] = {k: E.LAUNCHES[k] - before[k] for k in ENGINE_KERNELS}
     # bench.py's ell_pure at R = 4: K10 + K7 on an unsorted panel (cant's
     # ell and hyb spill everything, and its sell is sorted)
     before = dict(E.LAUNCHES)
     Xp = np.random.default_rng(4).standard_normal((pl[0].ncols, 4)).astype(np.float32)
     check_oracle_columns("pl-32768 ell_pure R=4", pl,
                          spmv_tpu_torch.spmm(build("ell", pl, split=False), Xp), Xp)
-    rhs_launches["ell_pure pl-32768"] = {k: E.LAUNCHES[k] - before[k] for k in KERNELS}
+    rhs_launches["ell_pure pl-32768"] = {k: E.LAUNCHES[k] - before[k] for k in ENGINE_KERNELS}
     torch.cuda.synchronize()
     multi_launches = dict(E.LAUNCHES)
     if cli.main(["run", "--format", "bsr", "--rhs", "32", *cant_args]) != 0:
@@ -3566,10 +3791,10 @@ def main() -> int:
         raise SystemExit(f"a panel fix-up kernel is still counted: {left}")
     print(f"  unsorted panel runs launch their tile kernel, the spill's kernels and "
           f"K7 (identity), no panel_fixup kernel: {', '.join(unsorted_runs)}")
-    x2_total = {k: sum(r.get(k, 0) for r in x2_launches.values()) for k in KERNELS}
-    hyb_total = {k: sum(r.get(k, 0) for r in hyb_launches.values()) for k in KERNELS}
+    x2_total = {k: sum(r.get(k, 0) for r in x2_launches.values()) for k in ENGINE_KERNELS}
+    hyb_total = {k: sum(r.get(k, 0) for r in hyb_launches.values()) for k in ENGINE_KERNELS}
     launches = {k: seg_launches[k] + panel_launches[k] + multi_launches[k]
-                + x2_total[k] + hyb_total[k] for k in KERNELS}
+                + x2_total[k] + hyb_total[k] for k in ENGINE_KERNELS}
     print(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. times
@@ -3780,15 +4005,23 @@ def main() -> int:
     # 7. sym and the solvers at cant, with the counters from zero
     print("phase 7: sym and solvers")
     E.reset_launches()
+    for k in CG_BODY:
+        cg_body.LAUNCHES[k] = 0
     solved = phase_solvers(cant, card)
+    solved_body = {k: cg_body.LAUNCHES[k] for k in CG_BODY}
     missing = [k for k in ("seg_spmv_tiles", "carry_fixup", "seg_spmm_tiles",
                            "carry_fixup_multi") if solved["launches"].get(k, 0) < 1]
+    missing += [k for k in CG_BODY if solved_body[k] < 1]
     if missing:
         raise SystemExit(f"phase 7 did not launch {missing}")
     for k, m in solved["launches"].items():
         launches[k] += m
     print(f"  phase 7 launches (sym matvec and spmm, the eager solves): "
-          f"{solved['launches']}")
+          f"{solved['launches']}; cg's body kernels in the solves {solved_body}")
+    print(f"  cg's body kernels alone at hpcg-104's n = {CG_BODY_N}:")
+    bodied = check_cg_body(card)
+    launches.update(bodied["launches"])
+    errs.update(bodied["errs"])
     print(f"  phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # 8. bench through the CLI, the counters from zero around each run
@@ -3851,6 +4084,9 @@ def main() -> int:
                  (tq, f"synthetic_cant n={CANT_N} "
                       f"{'sell' if k.startswith('panel') else 'csr'} probes")
                  if k in PROBE_KERNELS else
+                 (bodied["R=4"], f"hpcg-104's n = {CG_BODY_N}, R = 4, every column on, "
+                                 f"ap = d·p (d in [1, 27])")
+                 if k in CG_BODY else
                  (tp, f"synthetic_cant n={CANT_N} sell"))
         row = {"name": k, "route": "cuda", "source": CSRC + src,
                "replaces": replaces, "launches": launches[k],
@@ -3862,6 +4098,22 @@ def main() -> int:
         row.update(library_fields(k, {**lib_f32, **lib_f64}.get(k, t)))
         if k.startswith("seg_ablate_") and "_x2_" not in k:
             row["also_replaces"] = ABLATE_ALSO
+        if k in CG_BODY:  # x, r and p are compared bit for bit
+            row["max_abs_err"] = None
+            row["max_rel_err"] = errs[k]
+            row["err_of"] = {"cg_body_pap": "alpha", "cg_body_xr": "rs",
+                             "cg_body_p": "none: p bit for bit"}[k]
+            row["plain_device_ms"] = t[f"{k}_plain"][1]
+            t1 = bodied["R=1"]
+            row["R=1"] = {"ms": t1[k][0], "device_ms": t1[k][1],
+                          "plain_ms": t1[f"{k}_plain"][0],
+                          "plain_device_ms": t1[f"{k}_plain"][1], **bound_fields(k, t1)}
+            if k == "cg_body_pap":  # the three kernels as one body
+                row["whole_body"] = {
+                    f"R={R}": {"device_ms": tb_["body"][1],
+                               "plain_device_ms": tb_["body_plain"][1],
+                               **bound_fields("body", tb_)}
+                    for R, tb_ in ((1, t1), (4, t))}
         if k in FIXUPS:
             row["launch_floor_ms"] = floor
         if k == "inverse_permute":  # timed with K4's partials; the other modes too
@@ -3935,6 +4187,11 @@ def main() -> int:
               f"{row['bound_ms'] * 1e3:.3f} µs (by {row['bound_by']}), plain "
               f"{row['plain_ms']:.4f}, library {lib} ({row['library_call']}); "
               f"{row['launches']} launches  [{card}]")
+        if "R=1" in row:
+            w = row["R=1"]
+            print(f"  {row['name']:24s} R = 1: {w['ms']:.4f} | {fmt_ms(w['device_ms'])} "
+                  f"against its bound {w['bound_ms'] * 1e3:.3f} µs, plain "
+                  f"{w['plain_ms']:.4f} | {fmt_ms(w['plain_device_ms'])}  [{card}]")
         for where in ("pl_big", "pl_wide", "big_cell"):
             if where in row:
                 w = row[where]

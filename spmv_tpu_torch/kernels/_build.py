@@ -81,6 +81,15 @@ SIGNATURES = {
     "inverse_permute_x2": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # fp64 (0 or 1), rhs: K4's, K14's or K10's resident blocks per SM
     "panel_tiles_occupancy": (_I, _I),
+    # cg_body.cu
+    # P, AP, rs, k, tol2, kmax, partials, ticket, mask, alpha, n, rhs,
+    # blocks, stream
+    "cg_body_pap": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # X, R, P, AP, rs, k, mask, alpha, beta, partials, ticket, n, rhs,
+    # blocks, stream
+    "cg_body_xr": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # R, P, mask, beta, n, rhs, blocks, stream
+    "cg_body_p": (_P, _P, _P, _P, _I, _I, _I, _P),
     # probe_spmv.cu
     # K1 and K12 with uint16 columns, and K1 at another tile: the arguments
     # of seg_spmv_tiles; K2 at another tile: those of carry_fixup

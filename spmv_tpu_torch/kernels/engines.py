@@ -151,10 +151,11 @@ def _lead(vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return vals.view(-1, *([1] * (x.dim() - 1)))
 
 
-def _launch(name: str, dev, *args, key: str | None = None) -> None:
+def _launch(name: str, dev, *args, key: str | None = None,
+            counts: dict = LAUNCHES) -> None:
     """Call launcher ``name`` on the current stream of the plan's device;
     tensors pass as their data pointers, None as a null pointer. The launch
-    counts under ``key`` (default ``name``)."""
+    counts in ``counts`` under ``key`` (default ``name``)."""
     from spmv_tpu_torch.kernels import _build
 
     lib = _build.library().lib
@@ -164,7 +165,7 @@ def _launch(name: str, dev, *args, key: str | None = None) -> None:
         rc = getattr(lib, name)(*cargs, stream)
     if rc != 0:
         raise KernelError(f"{name}: CUDA error {rc}")
-    LAUNCHES[key or name] += 1
+    counts[key or name] += 1
 
 
 # ---------------------------------------------------------------- K1 + K2

@@ -9,14 +9,23 @@ values and numerics: float32 state, the stopping rule
 ``matvec`` (csr, coo, cmrs, ell, sell, hyb, sym), so the loop runs the
 format's kernels; the dot products and vector updates are PyTorch calls
 (``torch.dot``, elementwise tensor arithmetic), as ``jnp.vdot`` lies
-outside every Pallas kernel.
+outside every Pallas kernel. cg's body after its SpMV is
+``kernels.cg_body.Body``, which updates the state in place and masks each
+column itself, for one vector and for a block alike, in the eager loop
+and the graph loop: on an engine container on the card three kernels of
+the port's own (p·Ap, then x, r and r·r, then p), elsewhere (the CPU, the
+sharded containers) the same arithmetic as PyTorch calls. The kernels
+give x, r and p the PyTorch body's bits for the same alpha and beta;
+their dots sum in an order of their own, fixed, so graph and eager agree
+bit for bit.
 
 JAX runs each loop as one device program (``lax.while_loop``). The port's
 counterpart, on a CUDA container, is a CUDA graph of ``GRAPH_CHUNK``
 copies of the iteration body, replayed: each copy computes ``active``
 (the loop's condition) on the device and updates the state through
-``torch.where`` on it, so once the loop's condition fails the state stays
-frozen bit for bit, and the host reads one flag per replay. A
+``torch.where`` on it (cg's body computes it and masks its own
+writes), so once the loop's condition fails the state stays frozen bit
+for bit, and the host reads one flag per replay. A
 container's first solve of a kind (cg, bicgstab, power_iteration) runs
 the eager loop, since a capture costs more than a one-shot solve saves;
 the second captures the graph and keeps it on the container
@@ -40,7 +49,9 @@ these float32 loops would drop.
 Each public solve is a span of ``trace`` where the recorder is armed
 (``solve.cg``, ``solve.bicgstab``, ``solve.power_iteration``), with its
 graph capture, replays and host reads as spans inside it, and its
-iterations, SpMVs, replays, host reads and mode as counts. A solve
+iterations, SpMVs, replays, host reads and mode as counts (``solve.cg``
+also ``fused_bodies``, the bodies ``cg_body``'s kernels ran, 0 where
+its PyTorch version ran). A solve
 decides once, at its start, whether it is traced; an untraced one takes
 the loops below unchanged.
 
@@ -48,9 +59,9 @@ the loops below unchanged.
 2 ≤ R ≤ ``kernels.engines.MULTI_RHS_MAX`` (the load cases of one operator,
 as PETSc's ``KSPMatSolve`` takes them): R independent CG recurrences, each
 column with its own α, β, stop and iteration count, that share one
-``matmat`` an iteration (K8 + K9 on a CSR plan). Each column's state is
-rewritten through ``torch.where`` on its own mask, so a stopped column
-keeps its bits while the others run, and the loop runs while any column
+``matmat`` an iteration (K8 + K9 on a CSR plan). The body writes each
+column only under its own mask, so a stopped column keeps its bits
+while the others run, and the loop runs while any column
 is active: eagerly, the host reads that before each iteration; in the
 graph loop (kept under ``"cg_rhs"``, one per container, made afresh for
 another R) the captured chunk ends by writing it to the flag.
@@ -63,7 +74,10 @@ vectors and computes the same dots, the same k and the same x. They run
 the eager loop and never capture: their ``matvec`` holds collectives,
 which a gloo group cannot run inside a CUDA graph and which would tie a
 captured NCCL call to one communicator. The choice is made by type
-(``_operator``), never by a capture that fails. Their fp64-grade and BSR
+(``_operator``), never by a capture that fails. cg runs their body as
+PyTorch calls (``cg_body``'s plain version), so on the card their k and x
+are cg's over the same ``matvec`` with that body, not the bits of the
+single container, whose body there runs the kernels. Their fp64-grade and BSR
 forms raise JAX's ``NotImplementedError``; ``RingShardedSpmv`` and
 ``ChunkedRowSpmv``, which JAX's solvers cannot compose either, its
 ``TypeError``.
@@ -81,6 +95,7 @@ import torch
 
 from spmv_tpu_torch import trace
 from spmv_tpu_torch.dist.sharded import ColShardedSpmv, RowShardedSpmv, Sharded
+from spmv_tpu_torch.kernels import cg_body
 from spmv_tpu_torch.kernels.engines import MULTI_RHS_MAX
 
 __all__ = ["cg", "bicgstab", "power_iteration", "GRAPH_CHUNK"]
@@ -191,6 +206,7 @@ class _Traced:
         self.read = False
 
     def loop(self, mode: str, replays: int, host_reads: int, bodies: int) -> None:
+        self.bodies = bodies
         self.root.counts.update(mode=mode, replays=replays, host_reads=host_reads,
                                 spmvs=bodies * self.body_spmvs)
 
@@ -215,7 +231,7 @@ def _solve(name: str, body_spmvs: int):
 
 def _run(a, solver: str, step, active, state: tuple, consts: tuple,
          graph: bool, count: int | None = None, tr: _Traced | None = None,
-         going=None) -> tuple:
+         going=None, in_place: bool = False) -> tuple:
     """Iterate ``state = step(*state, *consts)`` while ``active(*state,
     *consts)``, or ``count`` times for a loop of a fixed count; returns the
     final state. Eagerly (the host reads ``active`` before each iteration),
@@ -227,11 +243,16 @@ def _run(a, solver: str, step, active, state: tuple, consts: tuple,
     more than the eager loop it would replace. ``tr``, a traced solve,
     gets the loop's spans and counts.
 
-    ``going``, for a loop over columns: ``active`` gives each column's
-    mask, every iteration rewrites the state where its column is active
-    (as ``_masked`` does), and the loop runs while ``going(*state,
-    *consts)``, any column active. Its graph loop serves one state shape:
-    a solve of another shape takes the seen-once rule afresh."""
+    ``in_place``, for a body that updates the state's tensors in place and
+    applies the loop's mask itself (cg's): ``step`` returns the state it
+    was given, the graph loop applies no ``torch.where``, and the eager
+    loop runs on copies of the state, which may alias (cg's r0 is also its
+    p0) or be the caller's.
+
+    ``going``, for such a body over columns, whose ``active`` gives each
+    column's mask: the loop runs while ``going(*state, *consts)``, any
+    column active. Its graph loop serves one state shape: a solve of
+    another shape takes the seen-once rule afresh."""
     loops = a.__dict__.setdefault("_graph_loops", {}) if graph else {}
     if going is not None and _shape(loops.get(solver, state[0].shape)) != state[0].shape:
         del loops[solver]  # made for another shape
@@ -240,7 +261,8 @@ def _run(a, solver: str, step, active, state: tuple, consts: tuple,
         if not isinstance(loop, _GraphLoop):
             capture = trace.span("solve.capture", bodies=GRAPH_CHUNK) if tr else None
             with capture or contextlib.nullcontext():
-                loop = loops[solver] = _GraphLoop(step, active, state, consts, going)
+                loop = loops[solver] = _GraphLoop(step, active, state, consts, going,
+                                                  in_place)
             mode = "capture"
         else:
             loop.load(state, consts)
@@ -256,13 +278,10 @@ def _run(a, solver: str, step, active, state: tuple, consts: tuple,
         steps, reads = count, 0
     else:
         steps = 0
+        if in_place:
+            state = tuple(t.clone() for t in state)
         while _host(tr, bool, (going or active)(*state, *consts)):
-            if going is None:
-                state = step(*state, *consts)
-            else:
-                on = active(*state, *consts)
-                state = tuple(torch.where(on, new, s)
-                              for s, new in zip(state, step(*state, *consts)))
+            state = step(*state, *consts)
             steps += 1
         reads = steps + 1
     if tr is not None:
@@ -270,10 +289,14 @@ def _run(a, solver: str, step, active, state: tuple, consts: tuple,
     return state
 
 
-def _masked(step, active, state: tuple, consts: tuple) -> None:
+def _masked(step, active, state: tuple, consts: tuple, in_place: bool = False) -> None:
     """One iteration in place, where ``active``: the state is rewritten
     through ``torch.where`` on the device's flag, so an inactive state
-    keeps its bits and nothing is read on the host."""
+    keeps its bits and nothing is read on the host. A body that masks
+    itself (``in_place``) runs as it is."""
+    if in_place:
+        step(*state, *consts)
+        return
     on = active(*state, *consts)
     for s, new in zip(state, step(*state, *consts)):
         torch.where(on, new, s, out=s)
@@ -283,11 +306,14 @@ class _GraphLoop:
     """``GRAPH_CHUNK`` masked copies of a loop body over static state and
     constant tensors, captured as one CUDA graph whose replay ends by
     writing the loop's condition to ``flag`` (``going`` where given, for
-    a loop over columns whose ``active`` is a mask per column). ``replays``
-    and ``host_reads`` say what its last run did."""
+    a loop over columns whose ``active`` is a mask per column; ``in_place``
+    for a body that masks itself, as ``_run`` takes it). ``replays`` and
+    ``host_reads`` say what its last run did."""
 
-    def __init__(self, step, active, state: tuple, consts: tuple, going=None):
+    def __init__(self, step, active, state: tuple, consts: tuple, going=None,
+                 in_place: bool = False):
         self.step, self.active, self.chunk = step, active, GRAPH_CHUNK
+        self.in_place = in_place
         self.going = going or active
         self.state = tuple(t.clone() for t in state)
         self.consts = tuple(t.clone() for t in consts)
@@ -300,7 +326,7 @@ class _GraphLoop:
 
     def _chunk(self) -> torch.Tensor:
         for _ in range(self.chunk):
-            _masked(self.step, self.active, self.state, self.consts)
+            _masked(self.step, self.active, self.state, self.consts, self.in_place)
         return self.going(*self.state, *self.consts)
 
     def _capture(self) -> None:
@@ -310,7 +336,8 @@ class _GraphLoop:
         side.wait_stream(torch.cuda.current_stream(dev))
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            _masked(self.step, self.active, scratch, self.consts)  # a warm-up body
+            _masked(self.step, self.active, scratch, self.consts,
+                    self.in_place)  # a warm-up body
             # not ``torch.cuda.graph``, which also synchronizes and empties
             # the caching allocator first: in a process that holds many
             # blocks that costs more than the capture itself. No garbage
@@ -388,24 +415,11 @@ def cg(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
         b = _vector(b, a.nrows, device, "b")
         x0 = torch.zeros_like(b) if x0 is None else _vector(x0, a.nrows, device, "x0")
         r0 = b - mv(x0)
-
-        def active(x, r, p, rs, k, tol2, kmax):
-            return (rs > tol2) & (k < kmax)
-
-        def step(x, r, p, rs, k, tol2, kmax):
-            ap = mv(p)
-            alpha = rs / torch.dot(p, ap)
-            x = x + alpha * p
-            r = r - alpha * ap
-            rs_new = torch.dot(r, r)
-            p = r + (rs_new / rs) * p
-            return x, r, p, rs_new, k + 1
-
         state = (x0, r0, r0, torch.dot(r0, r0),
                  torch.zeros((), dtype=torch.int32, device=device))
-        x, _, _, rs, k = _run(a, "cg", step, active, state,
-                              (_tol2(b, tol), _count(maxiter, device)),
-                              _uses_graph(graphable, _graph), tr=tr)
+        x, _, _, rs, k = _cg_loop(a, "cg", mv, state,
+                                  (_tol2(b, tol), _count(maxiter, device)),
+                                  graphable, _graph, tr)
         k, res = _host(tr, int, k), _host(tr, float, torch.sqrt(rs))
         if tr is not None:
             tr.finish(k, outside=1, rhs=1)  # r0
@@ -428,32 +442,48 @@ def _cg_block(a, b, R: int, tol: float, maxiter: int, x0, graph: bool):
         B = _block(b, a.nrows, R, device, "b")
         X0 = torch.zeros_like(B) if x0 is None else _block(x0, a.nrows, R, device, "x0")
         R0 = B - mm(X0)
-
-        def active(x, r, p, rs, k, tol2, kmax):  # a mask per column
-            return (rs > tol2) & (k < kmax)
-
-        def going(*state):
-            return active(*state).any()
-
-        def step(x, r, p, rs, k, tol2, kmax):
-            ap = mm(p)
-            alpha = rs / (p * ap).sum(0)
-            x = x + alpha * p
-            r = r - alpha * ap
-            rs_new = (r * r).sum(0)
-            p = r + (rs_new / rs) * p
-            return x, r, p, rs_new, k + 1
-
         state = (X0, R0, R0, (R0 * R0).sum(0),
                  torch.zeros(R, dtype=torch.int32, device=device))
-        x, _, _, rs, k = _run(a, "cg_rhs", step, active, state,
-                              (_tol2(B, tol), _count(maxiter, device)),
-                              _uses_graph(graphable, graph), tr=tr, going=going)
+        x, _, _, rs, k = _cg_loop(a, "cg_rhs", mm, state,
+                                  (_tol2(B, tol), _count(maxiter, device)),
+                                  graphable, graph, tr)
         ks = _host(tr, torch.Tensor.tolist, k)
         res = _host(tr, torch.Tensor.tolist, torch.sqrt(rs))
         if tr is not None:  # the loop ran to the slowest column; r0
             tr.finish(max(ks), outside=1, rhs=R, column_iterations=sum(ks))
     return x.clone(), ks, res
+
+
+def _cg_active(x, r, p, rs, k, tol2, kmax):
+    """cg's condition on its state: a flag, or a mask per column."""
+    return (rs > tol2) & (k < kmax)
+
+
+def _cg_going(*state):
+    return _cg_active(*state).any()
+
+
+def _cg_loop(a, solver: str, mv, state: tuple, consts: tuple, graphable: bool,
+             graph: bool, tr: _Traced | None) -> tuple:
+    """cg's iterations from ``state`` = (x, r, p, rs, k) with ``consts`` =
+    (tol2, kmax), ``mv`` its SpMV (``matmat`` for an (n, R) block, whose
+    loop runs while any column is active). The body after the SpMV is
+    ``cg_body.Body``, in place and masked per column: its kernels where
+    ``graphable`` (an engine container on the card), else its PyTorch
+    version. The traced solve counts the bodies the kernels ran
+    (``fused_bodies``)."""
+    body = cg_body.Body(state[0].shape, state[0].device, kernels=graphable)
+
+    def step(x, r, p, rs, k, tol2, kmax):
+        body(x, r, p, mv(p), rs, k, tol2, kmax)
+        return x, r, p, rs, k
+
+    state = _run(a, solver, step, _cg_active, state, consts,
+                 _uses_graph(graphable, graph), tr=tr,
+                 going=_cg_going if state[0].dim() == 2 else None, in_place=True)
+    if tr is not None:
+        tr.root.counts["fused_bodies"] = tr.bodies if body.kernels else 0
+    return state
 
 
 def bicgstab(a, b, *, tol: float = 1e-5, maxiter: int = 1000, x0=None,
