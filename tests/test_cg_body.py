@@ -33,8 +33,8 @@ TOL = 1e-6
 
 
 def parent_step(mv, x, r, p, rs, k, tol2, kmax):
-    """The body ``solve.cg`` and ``_cg_block`` ran before the fused body,
-    as written there."""
+    """The body ``solve.cg`` ran before the fused body, for a vector and
+    for a block, as written there."""
     ap = mv(p)
     if x.dim() == 1:
         alpha = rs / torch.dot(p, ap)
@@ -51,8 +51,8 @@ def parent_step(mv, x, r, p, rs, k, tol2, kmax):
 
 
 def parent_masked(mv, state, consts):
-    """``_masked`` as it ran that body: each state tensor rewritten through
-    ``torch.where`` on the mask of the entry state."""
+    """The solver loop's mask as it ran that body: each state tensor
+    rewritten through ``torch.where`` on the mask of the entry state."""
     x, r, p, rs, k = state
     tol2, kmax = consts
     on = (rs > tol2) & (k < kmax)
@@ -156,7 +156,7 @@ def test_the_cpu_runs_the_pytorch_body_and_counts_no_fused_one(R):
     B = block(n, R)
     before = dict(cg_body.LAUNCHES)
     out, s = traced(lambda: solve.cg(a, B[:, 0] if R == 1 else B, tol=TOL))
-    assert s.counts["fused_bodies"] == 0 and s.counts["iterations"] > 0
+    assert s.counts["iterations"] > 0 and "fused_bodies" not in s.counts
     assert cg_body.LAUNCHES == before
 
 
@@ -198,6 +198,7 @@ def test_the_in_place_loop_gives_the_pytorch_loops_bits(cpu_graph, monkeypatch, 
     x0 = torch.from_numpy(X0).reshape(b.shape)
     kept = x0.clone()
     want = parent_cg(a, b, x0, TOL)
+    launched = dict(cg_body.LAUNCHES)
     for mode, graph in (("eager", False), ("eager", True), ("capture", True),
                         ("replay", True)):
         (x, k, res), s = traced(lambda: solve.cg(a, b, x0=x0, tol=TOL, _graph=graph))
@@ -206,9 +207,9 @@ def test_the_in_place_loop_gives_the_pytorch_loops_bits(cpu_graph, monkeypatch, 
         loop = getattr(a, "_graph_loops", {}).get("cg" if R == 1 else "cg_rhs")
         bodies = (max(k) if R > 1 else k) if mode == "eager" else loop.replays * chunk
         assert s.counts["spmvs"] == bodies + 1  # and r0's
-        assert s.counts["fused_bodies"] == 0
+        assert cg_body.LAUNCHES == launched
         assert torch.equal(x0, kept)
-    assert isinstance(loop, solve._GraphLoop) and loop.in_place
+    assert isinstance(loop, solve._GraphLoop) and loop.state[0].shape == b.shape
 
 
 @pytest.mark.parametrize("kernels", [False, True])
@@ -304,10 +305,11 @@ def test_the_kernels_are_the_plain_body_on_the_card(cuda, R, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("R", [1, 4])
 def test_the_solve_on_the_card_counts_fused_bodies_and_keeps_its_launches(cuda, R):
-    """Eagerly, at capture and at replay: ``fused_bodies`` is the bodies
-    run, each body three launches of ``cg_body`` (the capture's warm-up
-    body and chunk among them), and ``engines.LAUNCHES`` counts one SpMV's
-    kernels per body and r0's, as before the fused body; graph = eager."""
+    """Eagerly, at capture and at replay: each body run from the host is
+    three launches of ``cg_body``, one of each kernel (the capture's
+    warm-up body and chunk among them; a replay launches none from the
+    host), and ``engines.LAUNCHES`` counts one SpMV's kernels per body and
+    r0's, as before the fused body; graph = eager."""
     n, r, c, v = stencil(16)
     a = container("csr", n, r, c, v, device=cuda)
     B = torch.from_numpy(block(n, max(R, 2), seed=5)).to(cuda)
@@ -326,14 +328,13 @@ def test_the_solve_on_the_card_counts_fused_bodies_and_keeps_its_launches(cuda, 
         kmax = k if R == 1 else max(k)
         loop = a._graph_loops.get("cg" if R == 1 else "cg_rhs")
         assert s.counts["mode"] == mode
+        assert "fused_bodies" not in s.counts
         if mode == "eager":
-            assert s.counts["fused_bodies"] == kmax
             assert spent == (kmax + 1) * per and set(fused.values()) == {kmax}
         elif mode == "capture":
-            assert s.counts["fused_bodies"] == loop.replays * loop.chunk
             assert spent == (solve.GRAPH_CHUNK + 2) * per
             assert set(fused.values()) == {solve.GRAPH_CHUNK + 1}
         else:
-            assert s.counts["fused_bodies"] == loop.replays * loop.chunk
-            assert loop.replays == math.ceil(kmax / loop.chunk) and loop.in_place
+            assert loop.replays == math.ceil(kmax / loop.chunk)
+            assert loop.state[0].shape == b.shape
             assert spent == per and set(fused.values()) == {0}

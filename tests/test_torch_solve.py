@@ -22,9 +22,9 @@ import torch
 import spmv_tpu
 import spmv_tpu_torch
 from spmv_tpu import solve as ref_solve
-from spmv_tpu_torch import solve
+from spmv_tpu_torch import solve, trace
 
-from _torch_loops import cpu_graph  # noqa: F401  (the fixture, with CpuLoop)
+from _torch_loops import CpuLoop, cpu_graph  # noqa: F401  (the fixture, with CpuLoop)
 
 FORMATS = ["csr", "coo", "cmrs", "ell", "sell", "hyb", "sym"]
 
@@ -245,7 +245,7 @@ def test_chunked_masked_loop_gives_the_eager_bits(cpu_graph, monkeypatch, which,
     x0, k0, res0 = fn(a, b, tol=1e-6, _graph=False)
     assert not hasattr(a, "_graph_loops")  # the private eager loop marks nothing
     first = fn(a, b, tol=1e-6)
-    assert a._graph_loops == {which: None}  # seen, not captured
+    assert a._graph_loops == {which: (n,)}  # seen, not captured: its shape
     assert torch.equal(x0, first[0]) and first[1:] == (k0, res0)
     x1, k1, res1 = fn(a, b, tol=1e-6)
     assert torch.equal(x0, x1) and k0 == k1 and res0 == res1
@@ -306,3 +306,113 @@ def test_the_cpu_never_takes_the_graph_loop(monkeypatch):
     solve.cg(a, np.ones(n))
     solve.bicgstab(a, np.ones(n))
     solve.power_iteration(a, iters=3)
+
+
+GRAPH_MODES = ["eager", 1, 8]  # _graph=False, or cpu_graph at that chunk
+
+
+def graph_mode(request, monkeypatch, mode) -> bool:
+    """The ``_graph`` argument for ``mode``, with ``cpu_graph`` and
+    ``GRAPH_CHUNK`` set where it is a chunk."""
+    if mode == "eager":
+        return False
+    request.getfixturevalue("cpu_graph")
+    monkeypatch.setattr(solve, "GRAPH_CHUNK", mode)
+    return True
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_bicgstab_and_power_iteration_leave_the_callers_tensors(request, monkeypatch,
+                                                                mode):
+    """Their loop bodies write the state in place: the caller's b and x0
+    (float32 tensors, which the solve takes without a copy) and an x or v
+    returned before stay as they were, eagerly, at capture and at
+    replay."""
+    graph = graph_mode(request, monkeypatch, mode)
+    n, r, c, v, _ = nonsymmetric()
+    a = build("csr", n, r, c, v)
+    rng = np.random.default_rng(4)
+    b, x0 = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)) for _ in range(2))
+    kept = b.clone(), x0.clone()
+    out = []
+    for _ in range(3):  # eager, capture, replay
+        x, k, _ = solve.bicgstab(a, b, x0=x0, tol=1e-6, _graph=graph)
+        _, vec = solve.power_iteration(a, iters=11, _graph=graph)
+        out.append((x, x.clone(), vec, vec.clone()))
+        assert k > 0 and torch.equal(b, kept[0]) and torch.equal(x0, kept[1])
+    for x, x_then, vec, v_then in out:
+        assert torch.equal(x, x_then) and torch.equal(vec, v_then)
+
+
+def parent_bicgstab(a, b, tol, maxiter=1000):
+    """bicgstab's eager loop as it ran before every body wrote in place:
+    the functional step, its result taken as the new state, from r0 as r, p
+    and the shadow residual and rs0 as rho and rs."""
+    b = torch.as_tensor(b, dtype=torch.float32)
+    r0 = b - a.matvec(torch.zeros_like(b))
+    x, r, p, rho, rs, k = torch.zeros_like(b), r0, r0, r0 @ r0, r0 @ r0, 0
+    tol2 = float(np.float32(tol) ** 2) * torch.clamp(b @ b, min=1e-30)
+    while bool(rs > tol2) and k < maxiter:
+        v = a.matvec(p)
+        alpha = rho / (torch.dot(r0, v) + 1e-30)
+        h = x + alpha * p
+        s = r - alpha * v
+        t = a.matvec(s)
+        omega = torch.dot(t, s) / (torch.dot(t, t) + 1e-30)
+        x = h + omega * s
+        r = s - omega * t
+        rho_new = torch.dot(r0, r)
+        beta = (rho_new / (rho + 1e-30)) * (alpha / (omega + 1e-30))
+        p = r + beta * (p - omega * v)
+        rho, rs, k = rho_new, torch.dot(r, r), k + 1
+    return x, k, float(torch.sqrt(rs))
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_bicgstab_writes_its_aliased_start_state_apart(request, monkeypatch, mode):
+    """bicgstab starts from one tensor as r, p and the shadow residual and
+    one as rho and rs; its in-place body writes them apart, so x, k and
+    the residual are the functional loop's bits, eagerly, at capture and
+    at replay."""
+    graph = graph_mode(request, monkeypatch, mode)
+    n, r, c, v, _ = nonsymmetric()
+    a = build("csr", n, r, c, v)
+    b = np.random.default_rng(5).standard_normal(n).astype(np.float32)
+    x_want, k_want, res_want = parent_bicgstab(a, b, 1e-6)
+    for _ in range(3):  # eager, capture, replay
+        x, k, res = solve.bicgstab(a, b, tol=1e-6, _graph=graph)
+        assert torch.equal(x, x_want) and (k, res) == (k_want, res_want)
+    assert k > 1
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("which", ["cg", "bicgstab", "power_iteration"])
+def test_a_vector_key_seen_once_holds_its_shape_and_the_next_solve_captures(
+        cpu_graph, monkeypatch, which, chunk):
+    """A container's first solve of a kind leaves its state's shape under
+    the solver's key; the second captures the loop, which knows that
+    shape, and the third replays it."""
+    monkeypatch.setattr(solve, "GRAPH_CHUNK", chunk)
+    n, r, c, v, _ = nonsymmetric() if which == "bicgstab" else laplacian(m=10)
+    a = build("csr", n, r, c, v)
+    b = np.random.default_rng(7).standard_normal(n)
+    modes = []
+    try:
+        for _ in range(3):
+            trace.clear()
+            trace.enable()
+            if which == "power_iteration":
+                solve.power_iteration(a, iters=13)
+            else:
+                getattr(solve, which)(a, b, tol=1e-6)
+            trace.disable()
+            modes.append(trace.spans()[-1].counts["mode"])
+            if len(modes) == 1:
+                assert a._graph_loops == {which: (n,)}
+                assert isinstance(a._graph_loops[which], torch.Size)
+    finally:
+        trace.disable()
+        trace.clear()
+    assert modes == ["eager", "capture", "replay"]
+    loop = a._graph_loops[which]
+    assert isinstance(loop, CpuLoop) and loop.shape == (n,) and loop.chunk == chunk

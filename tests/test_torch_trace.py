@@ -94,7 +94,7 @@ def test_cg_under_the_profiler():
     r = root("solve.cg")
     assert r.parent is None
     assert r.counts == {"mode": "eager", "replays": 0, "host_reads": k + 1,
-                        "spmvs": k + 1, "iterations": k, "rhs": 1, "fused_bodies": 0}
+                        "spmvs": k + 1, "iterations": k, "rhs": 1}
     kids = children(r)
     assert kids and all(s.parent == r.id for s in kids)
     reads = [s for s in kids if s.name == "solve.read"]
