@@ -92,13 +92,27 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    bound of its plain version. CUDA-graph replays of K4 + K7, K10 + K7,
    K14 + K7, the sorted path with a spill, K8 + K9, ``ell_pure``'s K4 + K7
    and K10 + K7 and cant's forced HYB (K4 + K1 + K2 + K7) give the eager
-   bits.
+   bits. K1's hot-head kernel on the Graph500 Kronecker graph at scale 20
+   (edgefactor 16: 31,400,150 nonzeros over 30,665 tiles, 29 times the
+   grid's 1,056 tile groups on an H100, 646,465 used columns against its
+   20,480-label head, which holds 62.0% of the nonzeros),
+   which the rule relabels, and on the graph at scale 12 (3,339 used
+   columns, fewer than its head; relabelled by ``DevCsr.relabeled``, since
+   the rule leaves a graph so small alone): the wrapper, with the launch
+   counters from zero, launches it twice in two calls and K1 never, with
+   the same bits both times; y and the used carries bit for bit K1's on
+   the same plan (its launcher, into a NaN-filled carry) and K1's on the
+   plan without the relabel, and within the bound of the plain version;
+   its launcher into a NaN-filled carry, then K2, gives K1 + K2's y; the
+   container's ``matvec`` gives that y and passes the fp64 oracle, eagerly
+   and in 3 CUDA-graph replays.
 3. The main path, one run per slice with the launch counters from zero:
    ``python -m spmv_tpu_torch run --format {csr,coo,cmrs}`` (in process)
    on ``databases/cant.mtx``, synthesized at bench.py's n = 62,464 when the
    file is absent, then CSR on the two power-law matrices, the 512-row
    matrix of ``__graft_entry__.entry()`` and bench.py's 32k-row power-law
-   matrix (a 3.7 MB plan: K3's tiles); then ``run --format
+   matrix (a 3.7 MB plan: K3's tiles) and the Kronecker graph at scale 20
+   (relabelled: K1's hot-head kernel, and K1 never); then ``run --format
    {ell,sell,hyb}`` on cant, SELL and HYB at ``pl_big`` (``bench.py:211-215``),
    bench.py's pure-panel ``ell_pure``/``sell_pure`` builds of the 32k
    power-law matrix, SELL on the 512-row matrix, and ``sell_pure`` of the
@@ -148,6 +162,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    K7's identity mode alone beside its bound, the tile kernel alone and
    the public call, on pl-32768's ``ell_pure`` (f32, R = 4, fp64) and the
    forced HYB of pl-32768 and cant (cant at R = 4 and fp64 too);
+   K1's hot-head kernel on the relabelled Kronecker graph at scale 20, its
+   launcher alone beside K1's on the same plan and gathered x, the wrapper's
+   path (the gather, the kernel, K2) beside the gather, K1 and K2;
    K6's sweep (the panels above): K6 as it picks and in each mode through
    its launcher, K4 + K7, cuSPARSE on the same matrix's CSR plan and the
    bound of the mode K6 picks; and the launch floor (a one-block kernel that does
@@ -273,7 +290,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    line with the kernels (each with ``bound_ms``, from the bytes and
    operations of this run's inputs at the H100's published peaks, and
    ``library_ms`` or why there is none; K1 and K12 also at ``pl_big``, K1
-   at ``pl_wide`` and at the big cell; K6's row at the 16,384-row power-law
+   at ``pl_wide`` and at the big cell; the hot-head kernel's at the scale-20
+   Kronecker graph, with K1 and both paths there; K6's row at the 16,384-row power-law
    ``sell_pure`` panel, the plan the main path sends it, with its sweep);
    then the result line.
 """
@@ -295,6 +313,9 @@ CSRC = "spmv_tpu_torch/kernels/csrc/"
 # kernel → (source, the TPU kernel it replaces)
 KERNELS = {
     "seg_spmv_tiles": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:414"),
+    # K1 on a relabelled float32 plan (the hub-first labels: no TPU kernel
+    # stages x's head, so it replaces K1's kernel)
+    "seg_spmv_tiles_hot": ("seg_hot.cu", "spmv_tpu/kernels/engines.py:414"),
     "carry_fixup": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:171"),
     "csr_spmv_fused": ("seg_spmv.cu", "spmv_tpu/kernels/engines.py:430"),
     "panel_spmv_tiles": ("panel_spmv.cu", "spmv_tpu/kernels/engines.py:269"),
@@ -374,6 +395,11 @@ F32_TILES = ("seg_spmv_tiles", "csr_spmv_fused", "panel_spmv_tiles",
              "panel_spmv_fused", "seg_spmm_tiles", "panel_spmm_tiles")
 FORMATS6 = ("csr", "coo", "cmrs", "ell", "sell", "hyb")
 CANT_N = 62_464  # bench.py:84-85
+# the Kronecker graphs of K1's hot-head kernel (tests/_torch_graphs.py, the
+# Graph500 generator): edgefactor 16 at scale 20 (the main path's shape:
+# relabelled by the rule, more used columns than the head) and 12 (fewer)
+KRON_EDGES = 16
+KRON_AT = "Graph500 Kronecker graph scale=20 edgefactor=16 seed=0 csr, relabelled"
 # the panel K6's row is timed on: the whole SELL panel of bench.py's
 # power-law generator at 16,384 rows (3.6 MB), the largest skewed panel of
 # 4 MB or less that the main path sends K6
@@ -546,8 +572,8 @@ def within_carry(name: str, dev, got: torch.Tensor, want: torch.Tensor,
 
 
 def fixup_of_nan_carry(launcher: str, dev, x, fixup, want: torch.Tensor) -> None:
-    """Calls the tile launcher ``launcher`` (K1, K12, K8 with x an (ncols, R)
-    X) itself, outside its wrapper and its count, into a zero-filled y and
+    """Calls the tile launcher ``launcher`` (K1, K1's hot-head kernel, K12,
+    K8 with x an (ncols, R) X) itself, outside its wrapper and its count, into a zero-filled y and
     a NaN-filled carry, then the fix-up ``fixup`` (K2, K13, K9) through its
     wrapper: a slot the fix-up reads and the tile kernel leaves unwritten
     stays NaN, so y must equal the wrappers' ``want`` bit for bit."""
@@ -561,6 +587,8 @@ def fixup_of_nan_carry(launcher: str, dev, x, fixup, want: torch.Tensor) -> None
     carry = torch.full((2 * dev.ntiles, *tail), float("nan"), dtype=want.dtype,
                        device=want.device)
     x = plan_x(dev, x)  # the wrapper's gather on a relabelled plan
+    if launcher == "seg_spmv_tiles_hot":  # the entries of x after the tile
+        tail = (x.numel(),)
     rc = getattr(_build.library().lib, launcher)(
         dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
         dev.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), carry.data_ptr(),
@@ -935,6 +963,143 @@ def check_kernels(label: str, trip, seed: int) -> dict:
           f"eagerly and in 3 CUDA-graph replays; K3's tiles, into a NaN-filled y, K1 + "
           f"K2's y bit for bit, its published words left 0")
     return {"seg_spmv_tiles": e1, "carry_fixup": e2, "csr_spmv_fused": e3}
+
+
+def kron_graph(scale: int):
+    """The Kronecker graph at ``scale`` (edgefactor ``KRON_EDGES``) as a
+    triplet, float32 weights in (0, 1]."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_graphs import kronecker
+
+    from spmv_tpu_torch.io.mmio import MMInfo
+
+    n, rows, cols, vals = kronecker(scale, KRON_EDGES)
+    return MMInfo("matrix", "coordinate", "real", "general", n, n, rows.size), rows, cols, vals
+
+
+def check_hot(label: str, trip, seed: int) -> dict:
+    """Phase 2, K1's hot-head kernel on a Kronecker graph, relabelled by
+    the rule (or by ``DevCsr.relabeled`` where it leaves the graph alone):
+    the wrapper's launches and bits against K1's on the same plan and on
+    the plan without the relabel, the plain version, K2 after a NaN-filled
+    carry, and the container's matvec eagerly, in graph replays and
+    against the fp64 oracle. Returns the max abs error against the plain
+    version."""
+    from spmv_tpu_torch import CSRMatrix
+    from spmv_tpu_torch.kernels import _build
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.oracle import fp32_rel_tol, row_scale
+
+    info, rows, cols, vals = trip
+    a = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals, device="cuda")
+    by_rule = a.dev.col_order is not None
+    plain = dataclasses.replace(a.dev, cols=a.dev.source_cols(), col_order=None)
+    dev = a.dev if by_rule else plain.relabeled()
+    a = dataclasses.replace(a, dev=dev)
+    xh = np.random.default_rng(seed).standard_normal(info.ncols).astype(np.float32)
+    x = torch.from_numpy(xh).cuda()
+    scale = row_scale(info.nrows, rows, cols, vals.astype(np.float32), xh)
+    tol = fp32_rel_tol(dev.max_row_nnz)
+
+    E.reset_launches()
+    yh, ch = same_bits("seg_spmv_tiles_hot", lambda: E.segmented_spmv_partials(dev, x), dev)
+    torch.cuda.synchronize()
+    if E.LAUNCHES["seg_spmv_tiles_hot"] != 2 or E.LAUNCHES["seg_spmv_tiles"]:
+        raise SystemExit(f"phase 2: {label}'s two wrapper calls launched "
+                         f"{ {k: n for k, n in E.LAUNCHES.items() if n} }, not the "
+                         f"hot-head kernel twice and K1 never")
+    # K1 itself on the same plan and gathered x, into a NaN-filled carry
+    y1 = torch.zeros(dev.nrows, device="cuda")
+    c1 = torch.full((2 * dev.ntiles,), float("nan"), device="cuda")
+    xp = E.plan_x(dev, x)
+    rc = _build.library().lib.seg_spmv_tiles(
+        dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_row0.data_ptr(), xp.data_ptr(), y1.data_ptr(), c1.data_ptr(), dev.nnz,
+        dev.ntiles, dev.tile, torch.cuda.current_stream().cuda_stream)
+    y0, c0 = E.segmented_spmv_partials(plain, x)  # K1 without the relabel
+    torch.cuda.synchronize()
+    for what, y, c in (("K1 on the same plan", y1, c1), ("K1 without the relabel", y0, c0)):
+        if rc or not (torch.equal(yh, y)
+                      and torch.equal(used_slots(dev, ch), used_slots(dev, c))):
+            raise AssertionError(f"{label}: the hot-head kernel is not {what} bit for bit")
+    yr, cr = E.segmented_spmv_partials_reference(dev, x)
+    e = max(within(f"{label} seg_spmv_tiles_hot y", yh, yr, scale, tol),
+            within_carry(f"{label} seg_spmv_tiles_hot carry", dev, ch, cr, scale, tol))
+    want = E.carry_fixup(plain, y0.clone(), c0)
+    if not torch.equal(E.carry_fixup(dev, yh.clone(), ch), want):
+        raise AssertionError(f"{label}: the hot-head kernel + K2 is not K1 + K2's y")
+    fixup_of_nan_carry("seg_spmv_tiles_hot", dev, x, E.carry_fixup, want)
+    if not torch.equal(a.matvec(x), want):
+        raise AssertionError(f"{label}: the container's matvec is not K1 + K2's y")
+    graph_equals_eager(f"{label} the hot-head kernel + K2", lambda: a.matvec(x))
+    check_oracle(f"{label} hot-head K1 + K2", trip, want, xh)
+    nused, hot = dev.col_order.numel(), E.hot_cols()
+    share = float(np.sort(np.bincount(cols))[::-1][:hot].sum()) / max(rows.size, 1)
+    grid = min(-(-dev.ntiles // 4), _build.library().lib.seg_spmv_tiles_hot_resident(
+        torch.cuda.current_device()))
+    print(f"  {label}: {info.nrows}x{info.ncols} nnz {rows.size} tiles {dev.ntiles} "
+          f"(grid {grid} blocks of 4 tile groups), used columns {nused} against the head's {hot} "
+          f"labels ({share:.1%} of the nonzeros), relabelled "
+          f"{'by the rule' if by_rule else 'by DevCsr.relabeled'}: the wrapper "
+          f"launched the hot-head kernel twice and K1 never, the same bits; y and "
+          f"the used carries K1's on the same plan and without the relabel bit for "
+          f"bit; max |kernel - plain| {e:.3e}; K2 after it into a NaN-filled carry "
+          f"gives K1 + K2's y; matvec that y, in 3 CUDA-graph replays too, and "
+          f"passes the fp64 oracle")
+    return {"seg_spmv_tiles_hot": e}
+
+
+def time_hot(label: str, trip, card: str) -> dict:
+    """Phase 5, K1's hot-head kernel on the relabelled Kronecker graph: its
+    launcher and K1's on the same plan and gathered x, the wrapper's path
+    (the gather, the kernel, K2) and the same with K1, the plain version
+    and the library yardstick; its bytes (the gathered x: one entry a used
+    column) and operations under ``bytes`` and ``flops``."""
+    from spmv_tpu_torch import CSRMatrix
+    from spmv_tpu_torch.kernels import _build
+    from spmv_tpu_torch.kernels import engines as E
+    from spmv_tpu_torch.probes import bounds as B
+
+    info, rows, cols, vals = trip
+    dev = CSRMatrix.from_coo(info.nrows, info.ncols, rows, cols, vals, device="cuda").dev
+    if dev.col_order is None:
+        raise SystemExit(f"phase 5: the rule left {label} alone")
+    lib = _build.library().lib
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        info.ncols).astype(np.float32)).cuda()
+    xp = E.plan_x(dev, x)
+    y, carry = E.tile_outputs(dev, torch.float32)
+    head = (dev.ptr, dev.cols, dev.vals, dev.tile_row0, xp, y, carry)
+
+    def launch(name, *tail):
+        lib_fn = getattr(lib, name)
+        args = [t.data_ptr() for t in head]
+        return lambda: lib_fn(*args, dev.nnz, dev.ntiles, dev.tile, *tail,
+                              torch.cuda.current_stream().cuda_stream)
+
+    def k1_path():
+        xg = E.plan_x(dev, x)
+        lib.seg_spmv_tiles(*(t.data_ptr() for t in head[:4]), xg.data_ptr(), y.data_ptr(),
+                           carry.data_ptr(), dev.nnz, dev.ntiles, dev.tile,
+                           torch.cuda.current_stream().cuda_stream)
+        return E.carry_fixup(dev, y, carry)
+
+    A = library_csr(dev)
+    fns = {"seg_spmv_tiles_hot": launch("seg_spmv_tiles_hot", xp.numel()),
+           "path K1 relabelled": launch("seg_spmv_tiles"),
+           "path gather+hot+K2": lambda: E.carry_fixup(
+               dev, *E.segmented_spmv_partials(dev, x)),
+           "path gather+K1+K2": k1_path,
+           "seg_spmv_tiles_hot_plain": lambda: E.segmented_spmv_partials_reference(dev, x),
+           "library csr@x": lambda: A @ x}
+    print(f"  {label}: {info.nrows} rows, nnz {dev.nnz}, plan {dev.stream_bytes} B, "
+          f"tiles {dev.ntiles}, used columns {xp.numel()}, head {E.hot_cols()} "
+          f"labels  [{card}]")
+    t = timed(label, fns, card, dev.nnz, dev.stream_bytes)
+    t["bytes"] = {"seg_spmv_tiles_hot": B.seg_tiles_bytes(dev)
+                  - (dev.ncols - xp.numel()) * xp.element_size()}
+    t["flops"] = {"seg_spmv_tiles_hot": 2 * dev.nnz}
+    return t
 
 
 def build(fmt: str, trip, **kwargs):
@@ -3356,6 +3521,10 @@ LIBRARY_CALLS = {
     **dict.fromkeys(("seg_spmv_tiles", "csr_spmv_fused"), (
         "library csr@x", "torch.sparse_csr_tensor(ptr, cols, vals) @ x (cuSPARSE), "
         "float32: the y of K1 + K2 and of K3")),
+    "seg_spmv_tiles_hot": (
+        "library csr@x", "torch.sparse_csr_tensor(ptr, source columns, vals) @ x "
+        "(cuSPARSE), float32, on the relabelled plan's matrix: the y of the gather, "
+        "the kernel and K2"),
     **dict.fromkeys(("panel_spmv_tiles", "panel_spmv_fused"), (
         "library csr@x", "torch.sparse_csr_tensor @ x (cuSPARSE) on the same "
         "matrix's CSR plan, float32: the y of K4 + K7 and of K6")),
@@ -3504,6 +3673,10 @@ def main() -> int:
     keep_max(check_kernels("pl_wide-524288", pl_wide, seed=5))
     for name, shape in tile_shapes.items():
         keep_max(check_kernels(name, shape, seed=7))
+    # K1's hot-head kernel: the relabelled Kronecker graphs
+    kron = kron_graph(20)
+    for label, trip, seed in (("kron-20", kron, 40), ("kron-12", kron_graph(12), 41)):
+        keep_max(check_hot(label, trip, seed))
     keep_max(check_panel("pl-32768", pl, seed=6, split=False))
     keep_max(check_panel("pl-32768", pl, seed=6, fmt="ell", split=False))
     keep_max(check_panel("pl-32768", pl, seed=6))
@@ -3613,6 +3786,11 @@ def main() -> int:
         raise SystemExit("run on pl-32768 failed")
     if E.LAUNCHES["csr_spmv_fused"] == before:
         raise SystemExit("the pl-32768 run (a 3.7 MB plan) did not launch K3")
+    before = dict(E.LAUNCHES)
+    if cli.run_spmv("csr", *kron, device="cuda") != 0:
+        raise SystemExit("run on the Kronecker graph at scale 20 failed")
+    kron_launches = {k: E.LAUNCHES[k] - before[k] for k in ENGINE_KERNELS
+                     if E.LAUNCHES[k] > before[k]}
     torch.cuda.synchronize()
     seg_launches = dict(E.LAUNCHES)
 
@@ -3718,6 +3896,10 @@ def main() -> int:
         raise SystemExit("the cant-scale runs did not launch K1 and K2")
     if seg_launches["csr_spmv_fused"] < 1:
         raise SystemExit("the 512-row run did not launch K3")
+    print(f"  the Kronecker graph at scale 20 (relabelled), launches: {kron_launches}")
+    if kron_launches.get("seg_spmv_tiles_hot", 0) < 1 or "seg_spmv_tiles" in kron_launches:
+        raise SystemExit("the Kronecker run did not launch K1's hot-head kernel in K1's "
+                         f"place: {kron_launches}")
     missing = [k for k in PANEL if panel_launches[k] < 1]
     if missing:
         raise SystemExit(f"the panel path did not launch {missing}")
@@ -3947,6 +4129,15 @@ def main() -> int:
           f"{bound_fields('carry_fixup_multi', tm)['bound_ms'] * 1e3:.3f} and the floor "
           f"{floor * 1e3:.2f}  [{card}]")
     tu = time_unsorted(pl, cant, card, floor)
+    print(f"K1's hot-head kernel on the relabelled Kronecker graph at scale 20, "
+          f"device µs (CUDA-graph replay)  [{card}]")
+    thot = time_hot("kron-20", kron, card)
+    print(f"  kron-20 seg_spmv_tiles_hot {thot['seg_spmv_tiles_hot'][1] * 1e3:8.2f} against "
+          f"its bound {bound_fields('seg_spmv_tiles_hot', thot)['bound_ms'] * 1e3:.3f}, K1 "
+          f"on the same plan {thot['path K1 relabelled'][1] * 1e3:8.2f}; the gather, it "
+          f"and K2 {thot['path gather+hot+K2'][1] * 1e3:8.2f} against the gather, K1 and "
+          f"K2 {thot['path gather+K1+K2'][1] * 1e3:8.2f}; cuSPARSE "
+          f"{thot['library csr@x'][1] * 1e3:8.2f}  [{card}]")
     print(f"f32x2 against f32 matvec per format at cant, ms per call | "
           f"device  [{card}]")
     xh64 = np.random.default_rng(3).standard_normal(cant[0].ncols)
@@ -4081,6 +4272,7 @@ def main() -> int:
                  (bodied["R=4"], f"hpcg-104's n = {CG_BODY_N}, R = 4, every column on, "
                                  f"ap = d·p (d in [1, 27])")
                  if k in CG_BODY else
+                 (thot, KRON_AT) if k == "seg_spmv_tiles_hot" else
                  (tp, f"synthetic_cant n={CANT_N} sell"))
         row = {"name": k, "route": "cuda", "source": CSRC + src,
                "replaces": replaces, "launches": launches[k],
@@ -4110,6 +4302,9 @@ def main() -> int:
                     for R, tb_ in ((1, t1), (4, t))}
         if k in FIXUPS:
             row["launch_floor_ms"] = floor
+        if k == "seg_spmv_tiles_hot":  # K1 and both paths on the same plan
+            row["same_plan"] = {key: t[key][1] for key in (
+                "path K1 relabelled", "path gather+hot+K2", "path gather+K1+K2")}
         if k == "inverse_permute":  # timed with K4's partials; the other modes too
             row["also_replaces"] = K7_ALSO
             # the identity mode: the grid over the split slices' rows on

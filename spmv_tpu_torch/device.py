@@ -27,7 +27,7 @@ from spmv_tpu_torch import trace
 from spmv_tpu_torch.formats.base import CsrPlan, PanelPlan
 
 __all__ = ["DevCsr", "DevPanel", "FUSED_STREAM_BYTES_MAX", "x_to_device",
-           "y_to_numpy", "X_to_device", "Y_to_numpy"]
+           "y_to_numpy", "X_to_device", "Y_to_numpy", "hot_head_counts"]
 
 # Plans of at most this many bytes run the one-dispatch kernel (K3
 # ``csr_spmv_fused``, K6 ``panel_spmv_fused``); larger plans run the
@@ -66,6 +66,15 @@ def _tensor_bytes(plan) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def hot_head_counts(hottest: torch.Tensor, used: int, nnz: int, cols: int) -> dict:
+    """A relabelled plan's ``plan.upload`` counts of K1's hot head, from its
+    columns' counts sorted hottest first: ``hot_cols``, the first ``cols``
+    labels or the ``used`` columns where fewer, and ``hot_share``, the share
+    of the ``nnz`` nonzeros whose label is below it."""
+    hot = min(cols, used)
+    return {"hot_cols": hot, "hot_share": int(hottest[:hot].sum()) / max(nnz, 1)}
+
+
 @dataclass(frozen=True)
 class DevCsr:
     ptr: torch.Tensor  # (nrows+1,) int32
@@ -95,8 +104,9 @@ class DevCsr:
         """The plan on ``device``, its columns relabelled where the rule
         above holds: on a plan that runs K1 + K2 (not ``fused``), the
         readings of ``column_shares``. The ``plan.upload`` span counts
-        ``relabeled`` (0 or 1) and, where the rule was read, both
-        readings."""
+        ``relabeled`` (0 or 1), where the rule was read both readings, and
+        on a relabelled float32 plan on the card the hot head's
+        ``hot_cols`` and ``hot_share`` (``relabeled``)."""
         with trace.maybe("plan.upload") as s:
             device = torch.device(device)
             dev = cls(ptr=_put(plan.ptr, device), cols=_put(plan.cols, device),
@@ -148,12 +158,23 @@ class DevCsr:
         by descending count, ties in source order (a stable sort), empty
         columns left out. No row's nonzeros are reordered, so K1 multiplies
         the same value by the same x entry in the same order: y, the carries
-        and K2's sums are the plan's own, bit for bit."""
+        and K2's sums are the plan's own, bit for bit. On the card, for a
+        float32 plan inside a recording ``plan.upload`` span, it counts
+        there ``hot_head_counts`` of the labels whose x K1's hot-head
+        kernel reads from shared memory (``engines.hot_cols``)."""
         if self.col_order is not None:
             raise ValueError("the plan's columns are relabelled already")
         counts = torch.bincount(self.cols, minlength=self.ncols)
         used = int(torch.count_nonzero(counts))
-        order = torch.sort(counts, descending=True, stable=True).indices[:used]
+        hottest = torch.sort(counts, descending=True, stable=True)
+        s = trace.current()
+        if (s is not None and s.name == "plan.upload" and self.device.type == "cuda"
+                and self.vals.dtype == torch.float32):
+            from spmv_tpu_torch.kernels.engines import hot_cols  # it imports this module
+
+            s.counts.update(hot_head_counts(hottest.values, used, self.nnz, hot_cols()))
+        order = hottest.indices[:used]
+        del hottest  # the sorted counts, before the larger tensors below
         label = torch.empty(self.ncols, dtype=torch.int32, device=self.device)
         label[order] = torch.arange(used, dtype=torch.int32, device=self.device)
         return dataclasses.replace(self, cols=label.index_select(0, self.cols),

@@ -57,6 +57,14 @@ SIGNATURES = {
     "carry_fixup_x2": (_P, _P, _P, _P, _I, _I, _P),
     # fp64 (0 or 1), rhs: K1's, K12's or K8's resident blocks per SM
     "seg_tiles_occupancy": (_I, _I),
+    # seg_hot.cu
+    # K1 on a relabelled plan, x's hot head staged: K1's arguments, then the
+    # entries of x (its used columns) before the stream
+    "seg_spmv_tiles_hot": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # device: the hot-head kernel's grid cap there
+    "seg_spmv_tiles_hot_resident": (_I,),
+    # the labels whose x it stages (kHotCols)
+    "seg_spmv_tiles_hot_cols": (),
     # panel_spmv.cu
     # slice_ptr, cols, vals, tile_slice0, tile_own0, x, y, part, ncolumns,
     # ntiles, tile, nrows, stream

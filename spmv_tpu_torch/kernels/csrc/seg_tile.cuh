@@ -1,6 +1,7 @@
 // The segmented tile kernel and its fix-up, shared by seg_spmv.cu (K1, K2,
-// K8, K9, K12, K13) and probe_spmv.cu (the probes' instantiations of the same
-// code: 16-bit columns, other tile sizes, a synthesized or float32 x).
+// K8, K9, K12, K13), seg_hot.cu (K1's hot-head kernel) and probe_spmv.cu
+// (the probes' instantiations of the same code: 16-bit columns, other tile
+// sizes, a synthesized or float32 x).
 //
 // seg_tiles_block<T, ColT, kBlockThreads, kX, XT, R> is the body of K1's
 // kernel (seg_spmv_tiles_kernel, R = 1) and of K8's (seg_spmm_tiles_kernel,
@@ -17,14 +18,22 @@
 //                 warp-totals stage of the scan is not compiled.
 //   kX, XT        how x(c) is read: gathered from an XT array (XT = T in
 //                 production, float under double values for the probe of
-//                 the 8-byte gather), or synthesized from the column in
+//                 the 8-byte gather), synthesized from the column in
 //                 registers, x(c) = (c & 1023)·2⁻¹⁰ (the probe without the
-//                 gather; it still loads every column).
+//                 gather; it still loads every column), or for the labels
+//                 of x's head that the block staged in shared memory read
+//                 there (a HotHead, seg_tile_body's last argument: K1's
+//                 hot-head kernel, seg_hot.cu; float only).
 //   R             right-hand sides: 1 (a vector x and y: K1, K12, the
 //                 probes) or 2..8 (K8: row-major X (ncols, R), Y (nrows,
 //                 R) and carries (2·ntiles, R); float, gathered, int32
 //                 columns only). Every value the thread carries is R wide;
 //                 the row tracking is shared by the R columns.
+//   kGroups       tile groups per block (a parameter of seg_tile_body, 1
+//                 but in the hot-head kernel): a block of kGroups ·
+//                 kBlockThreads threads runs kGroups tiles at once, each
+//                 group on its own named barrier and its own copy of the
+//                 block's shared arrays.
 //
 // Every instantiation sums each row in the same order as K1, so a probe
 // variant gives K1's bits on the same x, and column j of K8 gives K1's
@@ -53,6 +62,47 @@ constexpr int kFixupThreads = 256;
 // How a tile kernel gets x(c).
 constexpr int kXGather = 0;  // x[c], read from the XT array
 constexpr int kXSynth = 1;   // (c & 1023)·2⁻¹⁰, no x read at all
+constexpr int kXHot = 2;     // c < the head's kCols: the staged head; else x[c]
+
+// The head of a float x that a kernel staged in its shared memory, for
+// kXHot: x[0, min(kCols, nx)) at `x`. Every column c of the plan is below
+// nx, so c < kCols reads a staged entry. The other modes take NoHead.
+template <int kCols>
+struct HotHead {
+  static constexpr int kLabels = kCols;
+  const float* x;
+};
+struct NoHead {};
+
+// A thread's index in its tile group (unsigned, as threadIdx.x is), the
+// group's index in the block, and the group's barrier: the block's own
+// (barrier 0) for one group, else named barrier 1 + group over the group's
+// kBlockThreads threads.
+template <int kBlockThreads, int kGroups>
+__device__ __forceinline__ unsigned group_tid() {
+  if constexpr (kGroups == 1) {
+    return threadIdx.x;
+  } else {
+    return threadIdx.x % kBlockThreads;
+  }
+}
+template <int kBlockThreads, int kGroups>
+__device__ __forceinline__ int group_of() {
+  if constexpr (kGroups == 1) {
+    return 0;
+  } else {
+    return static_cast<int>(threadIdx.x) / kBlockThreads;
+  }
+}
+template <int kBlockThreads, int kGroups>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (kGroups == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + group_of<kBlockThreads, kGroups>()),
+                 "r"(kBlockThreads) : "memory");
+  }
+}
 
 // Inclusive segmented scan across a warp, driven by head flags. Keys (rows)
 // are nondecreasing along the lanes, and lanes with no nonzeros (key -1)
@@ -110,10 +160,14 @@ __device__ __forceinline__ void load_cols4(const uint16_t* __restrict__ p, int (
 }
 
 // x(c) as the tile kernel multiplies it.
-template <int kX, typename T, typename XT>
-__device__ __forceinline__ T x_at(const XT* __restrict__ x, int c) {
+template <int kX, typename T, typename XT, typename Head = NoHead>
+__device__ __forceinline__ T x_at(const XT* __restrict__ x, int c, Head head = {}) {
   if constexpr (kX == kXSynth) {
     return static_cast<T>(c & 1023) * static_cast<T>(0.0009765625);
+  } else if constexpr (kX == kXHot) {
+    static_assert(std::is_same_v<T, float> && std::is_same_v<XT, float>,
+                  "the hot head is float x");
+    return c < Head::kLabels ? head.x[c] : __ldg(x + c);
   } else {
     return static_cast<T>(__ldg(x + c));
   }
@@ -121,11 +175,11 @@ __device__ __forceinline__ T x_at(const XT* __restrict__ x, int c) {
 
 // What a tile kernel multiplies column c's products by: x(c) for R = 1,
 // X's row c for R > 1 (load_x_row: float X, wide loads where `vec`).
-template <int kX, int R, typename T, typename XT>
+template <int kX, int R, typename T, typename XT, typename Head = NoHead>
 __device__ __forceinline__ void x_row_at(const XT* __restrict__ x, int c, bool vec,
-                                         T (&xr)[R]) {
+                                         T (&xr)[R], Head head = {}) {
   if constexpr (R == 1) {
-    xr[0] = x_at<kX, T>(x, c);
+    xr[0] = x_at<kX, T>(x, c, head);
   } else {
     load_x_row<R>(x, c, vec, xr);
   }
@@ -206,7 +260,7 @@ struct CarryOut {
 // holds this thread's values; xrow(k, xr) gives x(c) of its k-th nonzero
 // (X's row for R > 1) as the runs reach it; `out` takes the sums.
 template <typename T, int kBlockThreads, int R, typename Offsets, typename XRow,
-          typename Out>
+          typename Out, int kGroups = 1>
 __device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
                                           int ts, int te, int e0, int e_end,
                                           const T (&v)[kTileItems], XRow xrow,
@@ -283,15 +337,18 @@ __device__ __forceinline__ void tile_rows(Offsets off, int lo, int hi, int t,
     // One barrier: each warp's last lane posts (key, totals), then every
     // warp scans the kWarps totals itself, in the order one warp would,
     // and takes the sums over the warps before it by a shuffle.
-    __shared__ int s_key[kWarps];
-    __shared__ T s_val[kWarps][R];
-    const int warp = threadIdx.x / kWarp;
+    // (each tile group's own slots)
+    __shared__ int s_keys[kGroups * kWarps];
+    __shared__ T s_vals[kGroups * kWarps][R];
+    int* s_key = s_keys + group_of<kBlockThreads, kGroups>() * kWarps;
+    T (*s_val)[R] = s_vals + group_of<kBlockThreads, kGroups>() * kWarps;
+    const int warp = group_tid<kBlockThreads, kGroups>() / kWarp;
     if (lane == kWarp - 1) {
       s_key[warp] = key;
 #pragma unroll
       for (int j = 0; j < R; ++j) s_val[warp][j] = incl[j];
     }
-    __syncthreads();
+    group_sync<kBlockThreads, kGroups>();
     const int wk = lane < kWarps ? s_key[lane] : -1;
     T wv[R];
 #pragma unroll
@@ -399,13 +456,13 @@ __host__ __device__ constexpr int row_stage_cap() {
 // K1, K8 and K12; K3's FusedOut); seg_tiles_block runs it on tile
 // blockIdx.x into y and carry.
 template <typename T, typename ColT, int kBlockThreads, int kX, typename XT, int R,
-          typename Out>
+          typename Out, int kGroups = 1, typename Head = NoHead>
 __device__ __forceinline__ void seg_tile_body(const int* __restrict__ ptr,
                                               const ColT* __restrict__ cols,
                                               const T* __restrict__ vals,
                                               const int* __restrict__ tile_row0,
                                               const XT* __restrict__ x, const Out& out,
-                                              int nnz, int t) {
+                                              int nnz, int t, Head head = {}) {
   constexpr int kTileNnz = kBlockThreads * kTileItems;
   constexpr int kWarps = kBlockThreads / kWarp;
   constexpr int kStage = row_stage_cap<kBlockThreads>();
@@ -414,11 +471,14 @@ __device__ __forceinline__ void seg_tile_body(const int* __restrict__ ptr,
   static_assert(R == 1 || (std::is_same_v<T, float> && std::is_same_v<XT, float> &&
                            kX == kXGather),
                 "R > 1 gathers rows of a float X");
-  __shared__ int s_ptr[kStage];
+  __shared__ int s_ptrs[kGroups * kStage];  // each tile group's own stage
+  int* s_ptr = s_ptrs + group_of<kBlockThreads, kGroups>() * kStage;
 
   const int ts = t * kTileNnz;
   const int te = min(ts + kTileNnz, nnz);
-  const int e0 = ts + threadIdx.x * kTileItems;
+  // (written out, not group_tid: so that with one group K1, K3, K8 and K12
+  // compile to the same instructions as without the groups)
+  const int e0 = ts + (kGroups == 1 ? threadIdx.x : threadIdx.x % kBlockThreads) * kTileItems;
   const int e_end = min(e0 + kTileItems, te);  // one past this thread's last
 
   // The stream (and at R = 1 the x gather) first, so that no load waits on
@@ -447,7 +507,7 @@ __device__ __forceinline__ void seg_tile_body(const int* __restrict__ ptr,
 #pragma unroll
       for (int k = 0; k < kTileItems; ++k) {
         if (e0 + k < e_end) {
-          x_row_at<kX, R>(x, c[k], vec, xv[k]);
+          x_row_at<kX, R>(x, c[k], vec, xv[k], head);
         } else {
 #pragma unroll
           for (int j = 0; j < R; ++j) xv[k][j] = T(0);
@@ -469,7 +529,7 @@ __device__ __forceinline__ void seg_tile_body(const int* __restrict__ ptr,
 #pragma unroll
       for (int j = 0; j < R; ++j) xr[j] = xv[k][j];
     } else {
-      x_row_at<kX, R>(x, c[k], vec, xr);
+      x_row_at<kX, R>(x, c[k], vec, xr, head);
     }
   };
 
@@ -477,19 +537,19 @@ __device__ __forceinline__ void seg_tile_body(const int* __restrict__ ptr,
   const int r1 = __ldg(tile_row0 + t + 1);
   const int span = r1 - r0 + 2;        // offsets ptr[r0 .. r1 + 1]
   if (span <= kStage) {  // the same for the whole block
-    for (int i = threadIdx.x; i < span; i += kBlockThreads) {
+    for (int i = group_tid<kBlockThreads, kGroups>(); i < span; i += kBlockThreads) {
       s_ptr[i] = __ldg(ptr + r0 + i);
     }
     if constexpr (kWarps > 1) {
-      __syncthreads();
+      group_sync<kBlockThreads, kGroups>();
     } else {
       __syncwarp();  // one warp (tile 128): a warp barrier is the block's
     }
-    tile_rows<T, kBlockThreads, R>(StagedOffsets{s_ptr, r0}, r0, r1, t, ts, te, e0,
-                                   e_end, v, xrow, out);
+    tile_rows<T, kBlockThreads, R, StagedOffsets, decltype(xrow), Out, kGroups>(
+        StagedOffsets{s_ptr, r0}, r0, r1, t, ts, te, e0, e_end, v, xrow, out);
   } else {
-    tile_rows<T, kBlockThreads, R>(GlobalOffsets{ptr}, r0, r1, t, ts, te, e0,
-                                   e_end, v, xrow, out);
+    tile_rows<T, kBlockThreads, R, GlobalOffsets, decltype(xrow), Out, kGroups>(
+        GlobalOffsets{ptr}, r0, r1, t, ts, te, e0, e_end, v, xrow, out);
   }
 }
 

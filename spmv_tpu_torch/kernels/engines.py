@@ -35,7 +35,11 @@ launches each made.
 On a plan whose columns are relabelled (``DevCsr.col_order``, set by
 ``DevCsr.from_plan``'s rule), every function here that reads x (or X) at
 the plan's columns, kernel or plain version, first gathers it into the
-plan's order (``plan_x``): callers pass x in the matrix's own labels.
+plan's order (``plan_x``): callers pass x in the matrix's own labels. K1's
+launch on such a plan in float32 runs K1's hot-head kernel
+(``seg_spmv_tiles_hot``, ``hot_head``), which reads the hottest
+``hot_cols()`` labels' x from shared memory and gives K1's y and carries
+bit for bit.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
            "carry_fixup_multi", "segmented_spmv_multi_partials_reference",
            "carry_fixup_multi_reference", "MULTI_RHS_MAX", "carry_slot_rows",
            "tile_outputs", "LAUNCHES", "GATHERS", "reset_launches", "plan_x",
-           "fused_lanes", "row_lanes", "ROWS_MAX_STEPS", "KernelError"]
+           "fused_lanes", "row_lanes", "ROWS_MAX_STEPS", "KernelError", "hot_head",
+           "hot_cols"]
 
 # Launch counts per kernel, this engine's, the panel engine's
 # (``kernels.panel``) and the fp64-grade ones (``kernels.engines_x2``); the
@@ -62,7 +67,8 @@ __all__ = ["segmented_spmv", "segmented_spmv_partials", "carry_fixup",
 LAUNCHES = {"seg_spmv_tiles": 0, "carry_fixup": 0, "csr_spmv_fused": 0,
             "panel_spmv_tiles": 0, "panel_spmv_fused": 0, "inverse_permute": 0,
             "seg_spmm_tiles": 0, "carry_fixup_multi": 0, "panel_spmm_tiles": 0,
-            "seg_spmv_tiles_x2": 0, "carry_fixup_x2": 0, "panel_spmv_tiles_x2": 0}
+            "seg_spmv_tiles_x2": 0, "carry_fixup_x2": 0, "panel_spmv_tiles_x2": 0,
+            "seg_spmv_tiles_hot": 0}
 
 # Gathers of x (or X's rows) into a relabelled plan's column order
 # (``plan_x``), on either device; not a kernel of the port, so not a key of
@@ -190,10 +196,29 @@ def tile_outputs(dev: DevCsr, dtype: torch.dtype, tail=()):
     return y, carry
 
 
+def hot_head(dev: DevCsr, x: torch.Tensor) -> bool:
+    """Whether a launch of the tile kernel on ``dev`` with ``x`` runs K1's
+    hot-head kernel in K1's place: a relabelled float32 plan and a vector
+    x. K12 (float64), K8 (an (ncols, R) X) and every plan that is not
+    relabelled keep their kernels."""
+    return (dev.col_order is not None and dev.vals.dtype == torch.float32
+            and x.dim() == 1)
+
+
+def hot_cols() -> int:
+    """The labels whose x K1's hot-head kernel reads from shared memory
+    (``kHotCols``, derived in ``csrc/seg_hot.cu``), from the built
+    library."""
+    from spmv_tpu_torch.kernels import _build
+
+    return _build.library().lib.seg_spmv_tiles_hot_cols()
+
+
 def _launch_seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Tensor):
     """The launch of K1, K12 or K8 (the tile kernel at R columns: x an
     (ncols, R) X, y and the carries R wide, R passed after the tile), into
-    ``tile_outputs``."""
+    ``tile_outputs``; K1's hot-head kernel where ``hot_head`` says so (the
+    entries of x passed after the tile)."""
     if dev.tile != TILE_NNZ:
         raise ValueError(f"the CUDA kernel takes tile={TILE_NNZ}, plan has {dev.tile}")
     for t in (dev.cols, dev.vals):  # 4 nonzeros per step, in 16-byte loads
@@ -202,8 +227,11 @@ def _launch_seg_tiles(kernel: str, dtype: torch.dtype, dev: DevCsr, x: torch.Ten
     tail = tuple(x.shape[1:])
     y, carry = tile_outputs(dev, dtype, tail)
     if dev.nnz:  # a zero-sized grid is refused: nothing to launch
+        xp = plan_x(dev, x)
+        if hot_head(dev, x):
+            kernel, tail = "seg_spmv_tiles_hot", (xp.numel(),)
         _launch(kernel, dev, dev.ptr, dev.cols, dev.vals, dev.tile_row0,
-                plan_x(dev, x), y, carry, dev.nnz, dev.ntiles, dev.tile, *tail)
+                xp, y, carry, dev.nnz, dev.ntiles, dev.tile, *tail)
     return y, carry
 
 
@@ -226,10 +254,11 @@ def segmented_spmv_partials(dev: DevCsr, x: torch.Tensor):
     """K1: ``(y, carry)``. y holds every row that lies wholly inside one
     tile (and 0 for empty rows); ``carry`` (2 slots per tile, see
     ``formats.base``) holds the partials of the rows that cross a tile
-    boundary, for ``carry_fixup``. On the card a slot that no split row
-    uses (``carry_slot_rows`` -1) holds whatever the memory held: the
-    kernel does not write it and nothing reads it. The plain version
-    leaves such slots 0."""
+    boundary, for ``carry_fixup``. On a relabelled plan the card runs K1's
+    hot-head kernel, with K1's bits (``hot_head``). On the card a slot
+    that no split row uses (``carry_slot_rows`` -1) holds whatever the
+    memory held: the kernel does not write it and nothing reads it. The
+    plain version leaves such slots 0."""
     return _seg_tiles("seg_spmv_tiles", torch.float32, dev, x)
 
 

@@ -26,7 +26,9 @@ plan.from_coo      ``api.from_coo``                     nnz, bytes
 plan.host          ``build_csr_plan``,
                    ``build_panel_plan``
 plan.upload        ``DevCsr/DevPanel.from_plan``        relabeled, top_share,
-                                                        near_share (CSR plans)
+                                                        near_share (CSR plans);
+                                                        hot_cols, hot_share
+                                                        (relabelled plans)
 =================  ===================================  ===========================
 
 Spans are recorded only while the recorder is armed: after ``enable()``

@@ -132,9 +132,11 @@ def test_each_launch_counts_once(cuda):
     dev, x, _ = setup("band_1024", cuda)
     a, xp, _ = setup_panel("power_law_32768", cuda)
     assert a.sorted_rows
+    hot = dev.relabeled()  # K1's hot-head kernel in K1's place
     E.reset_launches()
     y, carry = E.segmented_spmv_partials(dev, x)
     E.carry_fixup(dev, y, carry)
+    E.segmented_spmv_partials(hot, x)
     E.segmented_spmv_fused(dev, x)
     E.segmented_spmv_partials_reference(dev, x)
     E.segmented_spmv_fused_reference(dev, x)
@@ -178,7 +180,8 @@ def test_each_launch_counts_once(cuda):
     # panel has split slices (panel_fixup, panel_spmv_multi, panel_spmv_x2)
     k7 = 1 + 2 * bool(a.dev.nsplit) + bool(pdev64.nsplit)
     assert E.LAUNCHES == {k: 1 for k in (
-        "seg_spmv_tiles", "carry_fixup", "csr_spmv_fused", "panel_spmv_tiles",
+        "seg_spmv_tiles", "seg_spmv_tiles_hot", "carry_fixup", "csr_spmv_fused",
+        "panel_spmv_tiles",
         "panel_spmv_fused", "seg_spmm_tiles", "carry_fixup_multi", "panel_spmm_tiles",
         "seg_spmv_tiles_x2", "carry_fixup_x2", "panel_spmv_tiles_x2",
         "seg_spmv_tiles_u16", "seg_spmv_tiles_u16_x2",
@@ -1562,6 +1565,185 @@ def test_the_rule_and_its_spans_on_the_card(cuda):
             top, near = a.dev.column_shares()
             assert (up[0].counts["top_share"], up[0].counts["near_share"]) == (top, near)
             assert [s.counts["x_gathers"] for s in w] == [on]
+    finally:
+        trace.disable()
+        trace.clear()
+
+
+# ---------------------------------------------------------------- K1's hot head
+
+
+def _hot_shapes():
+    """Triplets ``(nrows, ncols, rows, cols, vals)`` in (row, col) order for
+    K1's hot-head kernel: Kronecker graphs with fewer used columns than
+    its head (``engines.hot_cols()``; scales 10 and 12: 794 and 3,339) and more (16 and
+    18: 46,780 and 173,943), on 12 and 95 tiles, fewer than the grid's tile
+    groups (1,056 on an H100), and on 1,777 and 7,434, 7 times as many;
+    the tile shapes: hub rows over 6 and 22 or more tiles (``wide_hub``:
+    22,545 used columns on 28 tiles), runs of empty rows (tiles over the
+    row-offset stage's cap) and a tile of one-nonzero rows. Every one ends
+    in a short tile; the graphs have empty rows too."""
+    from _torch_graphs import kronecker
+
+    def graph(scale, edgefactor):
+        n, r, c, v = kronecker(scale, edgefactor)
+        return n, n, r, c, v
+
+    def shape(make):
+        info, r, c, v = make()
+        order = np.lexsort((c, r))
+        return info.nrows, info.ncols, r[order], c[order], np.asarray(v, np.float32)[order]
+
+    return {"kron10": lambda: graph(10, 8), "kron12": lambda: graph(12, 16),
+            "kron16": lambda: graph(16, 16), "kron18": lambda: graph(18, 16),
+            **{n: functools.partial(shape, m) for n, m in TILE_SHAPES.items()}}
+
+
+HOT_SHAPES = _hot_shapes()
+
+
+def hot_plan(name, device):
+    """The shape's float32 plan, and the same plan relabelled."""
+    nrows, ncols, r, c, v = HOT_SHAPES[name]()
+    dev = DevCsr.from_plan(build_csr_plan(nrows, ncols, csr_ptr(r, nrows), c, v), device)
+    if dev.col_order is not None:  # the rule fired: the plan without it
+        dev = dataclasses.replace(dev, cols=dev.source_cols(), col_order=None)
+    return dev, dev.relabeled()
+
+
+def k1_launch(launcher, dev, x, *after_tile):
+    """A tile launcher itself on a plan, x gathered into its order, into a
+    zero-filled y and a NaN-filled carry: ``(y, carry)``."""
+    y = torch.zeros(dev.nrows, device=x.device)
+    carry = torch.full((2 * dev.ntiles,), float("nan"), device=x.device)
+    xp = E.plan_x(dev, x)
+    args = [a(xp) if callable(a) else a for a in after_tile]
+    assert getattr(_build.library().lib, launcher)(
+        dev.ptr.data_ptr(), dev.cols.data_ptr(), dev.vals.data_ptr(),
+        dev.tile_row0.data_ptr(), xp.data_ptr(), y.data_ptr(), carry.data_ptr(),
+        dev.nnz, dev.ntiles, dev.tile, *args,
+        torch.cuda.current_stream().cuda_stream) == 0
+    return y, carry
+
+
+@pytest.mark.parametrize("name", sorted(HOT_SHAPES))
+def test_the_hot_head_kernel_is_k1_bit_for_bit(cuda, name):
+    """On every relabelled plan K1's hot-head kernel gives K1's y and used
+    carries on the same plan (and on the plan without the relabel), into
+    NaN-filled carries, and K2 after it K1 + K2's y; the wrapper launches
+    it in K1's place, once a call."""
+    d0, d1 = hot_plan(name, cuda)
+    assert d1.col_order is not None and d1.nnz
+    nused = d1.col_order.numel()
+    if name == "kron12":
+        assert nused < E.hot_cols()
+    if name in ("kron16", "kron18"):
+        assert nused > E.hot_cols()
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(d0.ncols)
+                         .astype(np.float32)).cuda()
+    k1 = k1_launch("seg_spmv_tiles", d1, x)
+    hot = k1_launch("seg_spmv_tiles_hot", d1, x, lambda xp: xp.numel())
+    plain = E.segmented_spmv_partials(d0, x)
+    assert torch.equal(hot[0], k1[0]) and torch.equal(hot[0], plain[0])
+    assert torch.equal(used(d1, hot[1]), used(d1, k1[1]))
+    assert torch.equal(used(d1, hot[1]), used(d0, plain[1]))
+    want = E.carry_fixup(d0, *plain)
+    assert torch.equal(E.carry_fixup(d1, hot[0].clone(), hot[1]), want)
+    E.reset_launches()
+    part = E.segmented_spmv_partials(d1, x)
+    assert same_partials(d1, part, hot)
+    assert E.LAUNCHES["seg_spmv_tiles_hot"] == 1 and E.LAUNCHES["seg_spmv_tiles"] == 0
+    assert torch.equal(E.carry_fixup(d1, *part), want)
+    torch.cuda.synchronize()
+
+
+def test_the_hot_head_kernel_refuses_what_k1_refuses(cuda):
+    d0, d1 = hot_plan("kron10", cuda)
+    x = E.plan_x(d1, torch.ones(d1.ncols, device=cuda))
+    y, carry = E.tile_outputs(d1, torch.float32)
+    lib = _build.library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    base = [d1.ptr.data_ptr(), d1.cols.data_ptr(), d1.vals.data_ptr(),
+            d1.tile_row0.data_ptr(), x.data_ptr(), y.data_ptr(), carry.data_ptr()]
+    for nnz, ntiles, tile, nx in ((d1.nnz, d1.ntiles, 512, x.numel()),
+                                  (d1.nnz, d1.ntiles + 1, d1.tile, x.numel()),
+                                  (d1.nnz, d1.ntiles, d1.tile, 0)):
+        assert lib.seg_spmv_tiles_hot(*base, nnz, ntiles, tile, nx, stream) != 0
+    assert lib.seg_spmv_tiles_hot_resident(torch.cuda.current_device()) >= \
+        torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("kind", ["csr", "coo", "cmrs"])
+def test_matvec_on_a_relabelled_plan_runs_the_hot_head(cuda, monkeypatch, kind):
+    """csr, coo and cmrs on the graph the rule relabels: ``matvec`` gives the
+    plan's bits without the relabel, each call launches the hot-head kernel
+    once and K1 never; in a CUDA graph too."""
+    from spmv_tpu_torch import from_coo
+
+    make = functools.partial(from_coo, kind)
+    a0, a1 = graph_plans(monkeypatch, cuda, make)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(a0.ncols)
+                         .astype(np.float32)).cuda()
+    want = a0.matvec(x)
+    E.reset_launches()
+    for calls in (1, 2, 3):
+        assert torch.equal(a1.matvec(x), want)
+        assert E.LAUNCHES["seg_spmv_tiles_hot"] == calls
+        assert E.LAUNCHES["seg_spmv_tiles"] == 0
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = a1.matvec(x)
+    out.fill_(float("nan"))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("name", ["kron12", "graph17", "stencil"])
+def test_plan_upload_counts_the_hot_head_on_the_card(cuda, name):
+    """On the card a relabelled float32 plan's ``plan.upload`` counts the
+    hot head the kernel stages: ``hot_cols``, the library's head
+    (``engines.hot_cols()``) or the used columns where fewer, and
+    ``hot_share``, the share of the nonzeros whose label is below it, as
+    numpy counts them from the triplets. The Kronecker graph at scale 17
+    (50,803 used columns) is relabelled by the rule, at scale 12 (3,339)
+    inside a span opened here, since the rule leaves a graph so small
+    alone; the scale-17 graph in float64 and HPCG's stencil count
+    neither."""
+    from _torch_graphs import kronecker, stencil27
+    from spmv_tpu_torch import trace
+
+    n, r, c, v = (stencil27(40) if name == "stencil" else kronecker(17, 2)
+                  if name == "graph17" else HOT_SHAPES[name]()[1:])
+    counts = np.sort(np.bincount(c, minlength=n))[::-1]
+    used = int(np.count_nonzero(counts))
+    assert (used < E.hot_cols()) == (name == "kron12")
+    trace.clear()
+    trace.enable()
+    try:
+        if name == "kron12":
+            d0 = DevCsr.from_plan(build_csr_plan(n, n, csr_ptr(r, n), c, v), cuda)
+            assert d0.col_order is None
+            trace.clear()
+            with trace.maybe("plan.upload"):
+                d0.relabeled()
+        else:
+            CSRMatrix.from_coo(n, n, r, c, v, device=cuda)
+        (up,) = [s for s in trace.spans() if s.name == "plan.upload"]
+        if name == "stencil":
+            assert up.counts["relabeled"] == 0
+            assert not {"hot_cols", "hot_share"} & set(up.counts)
+            return
+        hot = min(E.hot_cols(), used)
+        assert up.counts["hot_cols"] == hot
+        assert up.counts["hot_share"] == int(counts[:hot].sum()) / r.size
+        if name == "graph17":
+            assert up.counts["relabeled"] == 1
+            trace.clear()
+            a = X2Matrix.from_coo("csr", n, n, r, c, v, device=cuda)
+            (up,) = [s for s in trace.spans() if s.name == "plan.upload"]
+            assert up.counts["relabeled"] == 1 and a.dev.col_order is not None
+            assert not {"hot_cols", "hot_share"} & set(up.counts)
     finally:
         trace.disable()
         trace.clear()

@@ -318,3 +318,67 @@ def test_a_wrapper_span_counts_the_gathers_of_its_plans(monkeypatch, armed, kind
     assert [s.counts["relabeled"] for s in csr_uploads] == [1] * len(dev_csrs(a))
     assert [s.counts["x_gathers"] for s in named("spmv.wrapper")] == (
         [1, 1] if kind == "sym" else [1])
+
+
+# ---------------------------------------------------------------- K1's hot head
+
+
+@pytest.mark.parametrize("case", ["kronecker", "stencil"])
+def test_plan_upload_on_the_cpu_counts_no_hot_head(armed, case):
+    """No hot-head kernel runs on the CPU, so ``plan.upload`` counts no hot
+    head there: not on the Kronecker graph, which the rule relabels, nor
+    on HPCG's stencil, which it leaves alone (the card's counts are in
+    ``test_torch_gpu.py``)."""
+    n, r, c, v = stencil27(28) if case == "stencil" else graph17()
+    a = csr(n, r, c, v)
+    (up,) = named("plan.upload")
+    assert up.counts["relabeled"] == (case == "kronecker")
+    assert (a.dev.col_order is not None) == (case == "kronecker")
+    assert not {"hot_cols", "hot_share"} & set(up.counts)
+
+
+@pytest.mark.parametrize("cols", [1, 4096, "used", "more"])
+def test_hot_head_counts_are_numpys(cols):
+    """``hot_head_counts`` over the relabel's counts of the Kronecker graph,
+    sorted hottest first: the first ``cols`` labels, or every used column
+    where fewer, and the share of the nonzeros they hold, as numpy counts
+    them from the triplets."""
+    n, r, c, v = graph17()
+    counts = np.sort(np.bincount(c, minlength=n))[::-1]
+    used = int(np.count_nonzero(counts))
+    cols = {"used": used, "more": used + 7}.get(cols, cols)
+    hottest = torch.sort(torch.bincount(torch.from_numpy(c), minlength=n),
+                         descending=True, stable=True).values
+    got = device.hot_head_counts(hottest, used, r.size, cols)
+    hot = min(cols, used)
+    assert got == {"hot_cols": hot, "hot_share": int(counts[:hot].sum()) / r.size}
+    assert (got["hot_share"] == 1.0) == (cols >= used)
+
+
+def test_the_launch_runs_the_hot_head_on_relabelled_float32_vectors(monkeypatch):
+    """K1's launch runs the hot-head kernel exactly on a relabelled float32
+    plan with a vector x, x gathered into label order and its entries
+    passed after the tile; K1 on a plan not relabelled, K8 (an (ncols, R)
+    X) and K12 (float64) keep their kernels."""
+    launched = []
+    monkeypatch.setattr(E, "_launch", lambda name, dev, *args: launched.append((name, args)))
+    f0, f1 = (a.dev for a in both(monkeypatch, "csr"))
+    g0, g1 = (a.dev for a in both(monkeypatch, "x2_csr"))
+    x = x_of(f0.ncols)
+    X = torch.stack([x, -x], dim=1)
+    cases = [("seg_spmv_tiles", torch.float32, f1, x, "seg_spmv_tiles_hot"),
+             ("seg_spmv_tiles", torch.float32, f0, x, "seg_spmv_tiles"),
+             ("seg_spmm_tiles", torch.float32, f1, X, "seg_spmm_tiles"),
+             ("seg_spmm_tiles", torch.float32, f0, X, "seg_spmm_tiles"),
+             ("seg_spmv_tiles_x2", torch.float64, g1, x.double(), "seg_spmv_tiles_x2"),
+             ("seg_spmv_tiles_x2", torch.float64, g0, x.double(), "seg_spmv_tiles_x2")]
+    for kernel, dtype, dev, xx, want in cases:
+        launched.clear()
+        E._launch_seg_tiles(kernel, dtype, dev, xx)
+        ((name, args),) = launched
+        assert name == want and E.hot_head(dev, xx) == (want == "seg_spmv_tiles_hot")
+        assert torch.equal(args[4], E.plan_x(dev, xx))
+        if want == "seg_spmv_tiles_hot":
+            assert args[-1] == dev.col_order.numel() == args[4].numel()
+        else:
+            assert len(args) == 10 + (xx.dim() - 1)
