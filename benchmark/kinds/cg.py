@@ -1,6 +1,8 @@
 """cg: a solve to tolerance, ``solve.cg(a, b, tol=tol, maxiter=maxiter)``
-from x0 = 0, ``b`` standard normal from the job's seed, made on the device
-by a ``torch.Generator`` before the call.
+from x0 = 0, ``b`` standard normal from the job's seed in the
+configuration's dtype (``prepare``), made on the device by a
+``torch.Generator`` before the call. Whether the port's cg takes the
+float64 configuration's container is the port's to say.
 
 A solve that stops at ``maxiter`` has failed. ``cg_resid`` is the worst
 relative residual ‖b − A·x‖ / ‖b‖ of the program's x over the checked
@@ -15,21 +17,25 @@ import torch
 
 from benchmark.reference import plain
 
-__all__ = ["NUMBERS", "prepare", "inputs", "call", "ok", "spmvs", "iterations",
+__all__ = ["NUMBERS", "DTYPE", "prepare", "inputs", "call", "ok", "spmvs", "iterations",
            "weight", "numbers", "control"]
 
 NUMBERS = ("cg_resid",)
 
+# b's type: ``prepare`` sets it from the configuration; each load of this
+# module (``benchmark.spec.kind``) starts from float32.
+DTYPE = torch.float32
+
 
 def prepare(config: dict) -> None:
-    if config["dtype"] != "float32":
-        raise ValueError(f"the port's cg runs float32, not {config['dtype']}")
+    global DTYPE
+    DTYPE = getattr(torch, config["dtype"])
 
 
 def inputs(seed: int, n: int, gen: torch.Generator) -> dict:
     gen.manual_seed(seed)
     return {"seed": seed, "b": torch.randn(n, generator=gen, device=gen.device,
-                                           dtype=torch.float32)}
+                                           dtype=DTYPE)}
 
 
 def call(a, inp: dict, traffic: dict) -> dict:

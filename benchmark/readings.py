@@ -8,10 +8,11 @@ port's container, the warm-up), runs the cell's jobs for ``--seconds`` at
 the cell's load, and reads the compared numbers of the kept answers: the
 program's readings, whose largest is the lower reading. For each of
 ``--control-seeds`` it puts the plain reference in the program's place,
-computed in bfloat16 (values and vectors stored in bfloat16, products and
-sums in float32, the precision below the configuration's float32), on as
-many jobs as a run keeps, and reads the same numbers: the control, whose
-smallest is the upper reading. The benchmark's own runs never run this.
+computed in the precision below the configuration's dtype (``CONTROL``:
+bfloat16 below float32, values and vectors stored in bfloat16, products
+and sums in float32; float32 below float64), on as many jobs as a run
+keeps, and reads the same numbers: the control, whose smallest is the
+upper reading. The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ from benchmark.matrices import build, seed_streams
 from benchmark.reference import plain
 from benchmark.session import WARMUP, JobSeeds, open_session
 
-__all__ = ["program_readings", "control_readings", "control_jobs"]
+__all__ = ["CONTROL", "program_readings", "control_readings", "control_jobs"]
+
+# a configuration's dtype -> the control's, the nearest precision below it
+CONTROL = {"float32": torch.bfloat16, "float64": torch.float32}
 
 
 def program_readings(cell, seed: int, seconds: float, device) -> dict:
@@ -45,12 +49,13 @@ def program_readings(cell, seed: int, seconds: float, device) -> dict:
 
 def control_jobs(cell, kind, matrix, seed: int, device) -> list:
     """The first ``sample`` jobs that a run of ``seed`` would send after its
-    warm-up, answered by the plain reference in bfloat16."""
+    warm-up, answered by the plain reference in the precision below the
+    matrix's (``CONTROL``)."""
     seeds = JobSeeds(seed_streams(seed)["jobs"])
     for _ in range(WARMUP):
         next(seeds)
     op = plain.Operator(matrix.nrows, matrix.rows, matrix.cols, matrix.vals,
-                        dtype=torch.bfloat16, device=device)
+                        dtype=CONTROL[matrix.dtype], device=device)
     gen = torch.Generator(torch.device(device))
     kept = []
     for _ in range(int(cell.traffic["sample"])):
@@ -61,6 +66,7 @@ def control_jobs(cell, kind, matrix, seed: int, device) -> list:
 
 def control_readings(cell, seed: int, device) -> dict:
     kind = spec.kind(cell.root, cell.traffic["job"])
+    kind.prepare(cell.config)
     matrix = build(cell.config, seed, device, cell.root)
     kept = control_jobs(cell, kind, matrix, seed, device)
     out = check.numbers(matrix, kept, kind, cell.traffic, device)

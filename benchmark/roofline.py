@@ -2,10 +2,12 @@
 card's published peak, and the time of the container's ``matvec`` by CUDA
 events around a CUDA graph of back-to-back calls.
 
-The bytes depend on the matrix alone, whatever format or kernel serves the
-call: 4 B per value and 4 B per column index for each nonzero, 4 B per row
-pointer (nrows + 1), x read once and y written once, in float32. The timing
-is ``spmv_tpu_torch/probes/timing.py``'s capture and replay, copied so that
+The bytes depend on the matrix and its configuration's dtype alone,
+whatever format or kernel serves the call: a value and a 4 B column index
+for each nonzero, 4 B per row pointer (nrows + 1), x read once and y
+written once, values, x and y at the dtype's width (``VALUE_BYTES``: 4 B
+for float32, 8 B for float64). The timing is
+``spmv_tpu_torch/probes/timing.py``'s capture and replay, copied so that
 the yardstick does not move with the port.
 """
 
@@ -15,15 +17,20 @@ import statistics
 
 import torch
 
-__all__ = ["PEAK_BYTES_PER_S", "least_csr_bytes", "graph_seconds", "roofline_pct"]
+__all__ = ["PEAK_BYTES_PER_S", "VALUE_BYTES", "least_csr_bytes", "graph_seconds",
+           "roofline_pct"]
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3 (at the 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 
+# a configuration's dtype -> the bytes of one value, x or y entry
+VALUE_BYTES = {"float32": 4, "float64": 8}
 
-def least_csr_bytes(nrows: int, ncols: int, nnz: int) -> int:
-    """float32 values and x and y, int32 columns and row pointers."""
-    return nnz * 8 + (nrows + 1) * 4 + ncols * 4 + nrows * 4
+
+def least_csr_bytes(nrows: int, ncols: int, nnz: int, value_bytes: int = 4) -> int:
+    """Values, x and y of ``value_bytes`` each (the configuration's width,
+    ``VALUE_BYTES``), int32 columns and row pointers."""
+    return nnz * (value_bytes + 4) + (nrows + 1) * 4 + (ncols + nrows) * value_bytes
 
 
 def _capture(fn, calls: int) -> torch.cuda.CUDAGraph:

@@ -8,7 +8,8 @@ for ``--seconds`` (the window). After the window it judges a sample of the
 answers against the plain float64 reference (``benchmark/check.py``).
 With ``--trace 1`` it also profiles ``TRACE_SECONDS`` of jobs and times
 the container's ``matvec`` alone, and reports the cell's per-layer metrics in
-place of its end-to-end ones.
+place of its end-to-end ones. The configuration's ``dtype`` picks the
+container (``benchmark/session.py``) and the type of that ``matvec``'s x.
 
 Notes go to standard error, ending with each compared number beside its
 limit. The last line of standard output is one JSON object: ``correct``,
@@ -30,7 +31,7 @@ import json  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 
-__all__ = ["main", "run_cell", "forbidden_modules", "FORBIDDEN"]
+__all__ = ["main", "run_cell", "matvec_x", "forbidden_modules", "FORBIDDEN"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "spmv_tpu")
 TRACE_SECONDS = 1.0  # the profiled stretch of jobs in a traced run
@@ -80,6 +81,15 @@ def _delta(before: dict, after: dict) -> int:
     return sum(after[k] - before.get(k, 0) for k in after)
 
 
+def matvec_x(session, device):
+    """A standard normal x for the container's ``matvec`` alone, in the
+    configuration's dtype, so that an ``X2Matrix``'s call casts nothing."""
+    import torch
+
+    return torch.randn(session.matrix.ncols, device=device,
+                       dtype=getattr(torch, session.matrix.dtype))
+
+
 def _stretch(session, seconds: float):
     """Profile ``seconds`` of jobs; the stretch's readings and its check of
     the recorded kernels against the launch counters and the replays."""
@@ -89,7 +99,7 @@ def _stretch(session, seconds: float):
     from benchmark.trace import Stretch, profiled
 
     solver = session.jobs.name  # the key of the container's graph loop
-    x = torch.randn(session.matrix.ncols, device="cuda")
+    x = matvec_x(session, "cuda")
     before = _launches()
     session.a.matvec(x)
     torch.cuda.synchronize()
@@ -169,7 +179,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              f"expected {stretch.kernels_expected} ("
              f"{'every one recorded' if stretch.complete else 'NOT every one recorded'})")
         note(f"[trace] events recorded: {stretch.kinds}")
-        x = torch.randn(session.matrix.ncols, device=device)
+        x = matvec_x(session, device)
         ctx.matvec_s = graph_seconds(lambda: session.a.matvec(x))
         note(f"[trace] matvec alone {ctx.matvec_s * 1e6:.3f} us (CUDA graph of 20 calls)")
 

@@ -40,7 +40,7 @@ class JobSeeds:
 @dataclass
 class Session:
     matrix: Matrix
-    a: object  # the port's container
+    a: object  # the port's container: X2Matrix for a float64 configuration
     jobs: Jobs
     seeds: JobSeeds
     streams: dict
@@ -63,10 +63,13 @@ def _sync(device) -> None:
 
 
 def open_session(cell, seed: int, device) -> Session:
-    """Build the cell's matrix for ``seed``, convert it with the port's
-    ``from_coo`` and warm its jobs up (``WARMUP`` jobs). The device's
-    memory peak is counted from the conversion on: the benchmark's own
-    making of the matrix is not the program's."""
+    """Build the cell's matrix for ``seed``, convert it to the port's
+    container that the configuration's ``dtype`` picks (``from_coo``'s for
+    float32, ``X2Matrix.from_coo``'s fp64 plans for float64, from the same
+    host triplets; either build is the span ``from_coo``) and warm its jobs
+    up (``WARMUP`` jobs). The device's memory peak is counted from the
+    conversion on: the benchmark's own making of the matrix is not the
+    program's."""
     t = time.perf_counter()
     import spmv_tpu_torch
 
@@ -80,8 +83,10 @@ def open_session(cell, seed: int, device) -> Session:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    a = spmv_tpu_torch.from_coo(matrix.format, matrix.nrows, matrix.ncols,
-                                matrix.rows, matrix.cols, matrix.vals, device=device)
+    convert = (spmv_tpu_torch.X2Matrix.from_coo if matrix.dtype == "float64"
+               else spmv_tpu_torch.from_coo)
+    a = convert(matrix.format, matrix.nrows, matrix.ncols, matrix.rows, matrix.cols,
+                matrix.vals, device=device)
     _sync(device)
     spans["from_coo"] = time.perf_counter() - t
     streams = seed_streams(seed)

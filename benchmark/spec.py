@@ -8,6 +8,12 @@ the configuration names its matrix's generator,
 ``benchmark/limits/<workload>.json``; a metric's reader is
 ``benchmark/metrics/<metric>.py``. A later cell adds files and entries and
 edits none of these.
+
+A configuration's ``dtype`` is one of ``DTYPES``. It picks the port's
+container (``benchmark/session.py``: ``from_coo``'s for float32, the
+fp64-grade ``X2Matrix`` for float64), the type of the inputs that the job
+kinds draw and of the traced ``matvec``'s x, and the width at which the
+rooflines count values, x and y (``benchmark/roofline.py``).
 """
 
 from __future__ import annotations
@@ -17,9 +23,10 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["ROOT", "Cell", "load_cell", "metric_reader", "kind", "generator"]
+__all__ = ["ROOT", "DTYPES", "Cell", "load_cell", "metric_reader", "kind", "generator"]
 
 ROOT = Path(__file__).resolve().parents[1]
+DTYPES = ("float32", "float64")
 
 
 @dataclass
@@ -39,7 +46,8 @@ def _reports(metric: dict, cell: str) -> bool:
 
 def load_cell(workload: str, root: Path | str = ROOT) -> Cell:
     """The cell named ``workload`` and everything it names, under ``root``
-    (the directory of ``BENCHMARK.json``)."""
+    (the directory of ``BENCHMARK.json``). A configuration whose ``dtype``
+    is not one of ``DTYPES`` is refused here, before any card is touched."""
     root = Path(root)
     spec = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
@@ -48,7 +56,11 @@ def load_cell(workload: str, root: Path | str = ROOT) -> Cell:
                          f"choose from {sorted(cells)}")
     w = cells[workload]
     configs = {c["name"]: c for c in spec["configs"]}
-    config = json.loads((root / configs[w["config"]]["file"]).read_text())
+    file = configs[w["config"]]["file"]
+    config = json.loads((root / file).read_text())
+    if config["dtype"] not in DTYPES:
+        raise ValueError(f"{file}: dtype {config['dtype']!r}; the benchmark runs "
+                         f"{' or '.join(map(repr, DTYPES))}")
     bench = root / "benchmark"
     traffic = json.loads((bench / "traffic" / f"{w['traffic']}.json").read_text())
     limits = json.loads((bench / "limits" / f"{workload}.json").read_text())

@@ -67,14 +67,15 @@ def _unchanged(monkeypatch):
 
 def _altered(monkeypatch):
     """One entry of each answer altered where the solver returns it: x's
-    middle entry by 1, v's by 0.01 (v has norm 1)."""
+    middle entry by 1 (a block X's, in its storage's order), v's by 0.01
+    (v has norm 1)."""
     from spmv_tpu_torch import solve
 
     real_cg, real_power = solve.cg, solve.power_iteration
 
     def cg(a, b, **kw):
         x, k, res = real_cg(a, b, **kw)
-        x[x.numel() // 2] += 1.0
+        x.view(-1)[x.numel() // 2] += 1.0
         return x, k, res
 
     def power_iteration(a, **kw):
